@@ -1,0 +1,321 @@
+// Shared device code of the Loki decode kernels (fused_decode.cu,
+// gather_attention.cu): float conversion, warp reductions, the score ->
+// select phase and the exact attention phase over a list of KV blocks.
+//
+// Layout (the JAX package's model-native one, contiguous caches):
+//   q_hat  (B, Hkv, G, W)   grouped PCA-basis queries, W = stored key width
+//   k_hat  (B, S, Hkv, W)   key cache in the PCA basis
+//   v      (B, S, Hkv, D)   value cache
+// One CUDA block of THREADS threads runs one (b, kv-head) pair; a loop inside
+// the block takes the place of the TPU's sequential grid. Every staged value
+// is float32 in shared memory, whatever the cache dtype (fp32 or bf16).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace loki {
+
+constexpr float NEG_INF = -1e30f;
+constexpr int THREADS = 256;
+constexpr int NWARPS = THREADS / 32;
+constexpr int MAXG = 16;          // query heads per KV group
+constexpr int MAXDIM = 256;       // key / value width (gemma-7b: 256)
+constexpr int PER_LANE = MAXDIM / 32;
+constexpr int TOK_UNROLL = 4;     // key rows in flight per warp (attention)
+constexpr int V_UNROLL = 8;       // value rows in flight per thread
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// four consecutive elements; the caller guarantees 16 B (fp32) or 8 B
+// (bf16) alignment
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 c = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  o[0] = a.x; o[1] = a.y; o[2] = c.x; o[3] = c.y;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// qs[g*W + w] = q[g*W + w] * scale for this (b, h)'s (G, W) query tile
+template <typename TQ>
+__device__ void load_query(const TQ* __restrict__ q, float* qs, int n,
+                           float scale) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) qs[i] = to_f(q[i]) * scale;
+}
+
+// Phases 1-2 of the TPU kernel's _score_and_select.
+//
+// Phase 1 streams the leading-d slice of every live block's keys. A warp
+// takes one block, each lane one token at a time, and reads the token's d
+// contiguous features itself (d = 32 fp32 is one 128 B line). The score of
+// a token is the max over the G heads of q̂[:d]·k̂[:d]; positions outside
+// cur_len (or the sliding window) are NEG_INF, and the local window's live
+// positions get +1e4. Only the block maximum survives, in scores[nb].
+// Streaming stops at the last live block, ceil(cur_len / bs): dead blocks
+// are all NEG_INF and can never be selected.
+//
+// Phase 2: warp 0 runs k_blocks rounds of argmax-and-suppress over
+// scores[] (ties to the lower index, lax.top_k's order) and writes the
+// winners to sel[], or -1 once no block with a finite maximum is left.
+template <typename TK>
+__device__ void score_and_select(const TK* __restrict__ k, const float* qs,
+                                 float* scores, int* sel, int b, int h,
+                                 int ln, int S, int Hkv, int G, int W, int d,
+                                 int bs, int nb, int kb, int local_window,
+                                 int sliding_window, bool vec) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int j = tid; j < nb; j += blockDim.x) scores[j] = NEG_INF;
+  const int lo = sliding_window > 0 ? max(ln - sliding_window, 0) / bs : 0;
+  const int hi = min(nb, (ln + bs - 1) / bs);
+  __syncthreads();
+
+  for (int j = lo + warp; j < hi; j += NWARPS) {
+    float best = NEG_INF;
+    for (int i = lane; i < bs; i += 32) {
+      const int pos = j * bs + i;
+      bool live = pos < ln;
+      if (sliding_window > 0) live = live && pos >= ln - sliding_window;
+      if (!live) continue;
+      const TK* row = k + ((size_t)(b * S + pos) * Hkv + h) * W;
+      float acc[MAXG];
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
+      if (vec) {
+        for (int f = 0; f < d; f += 4) {
+          float kv[4];
+          load4(row + f, kv);
+#pragma unroll
+          for (int g = 0; g < MAXG; ++g) {
+            if (g < G) {
+              const float* qg = qs + g * W + f;
+              acc[g] = fmaf(qg[0], kv[0], acc[g]);
+              acc[g] = fmaf(qg[1], kv[1], acc[g]);
+              acc[g] = fmaf(qg[2], kv[2], acc[g]);
+              acc[g] = fmaf(qg[3], kv[3], acc[g]);
+            }
+          }
+        }
+      } else {
+        for (int f = 0; f < d; ++f) {
+          const float kv = to_f(row[f]);
+#pragma unroll
+          for (int g = 0; g < MAXG; ++g)
+            if (g < G) acc[g] = fmaf(qs[g * W + f], kv, acc[g]);
+        }
+      }
+      float s = NEG_INF;
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+        if (g < G) s = fmaxf(s, acc[g]);
+      // max(a + c, b + c) == max(a, b) + c under monotone rounding, so the
+      // boost after the group max equals the TPU kernel's boost before it
+      if (local_window > 0 && pos >= ln - local_window) s += 1e4f;
+      best = fmaxf(best, s);
+    }
+    best = warp_max(best);
+    if (lane == 0) scores[j] = best;
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    bool exhausted = false;
+    for (int t = 0; t < kb; ++t) {
+      float bv = NEG_INF;
+      int bi = 0x7fffffff;
+      if (!exhausted) {
+        for (int j = lane; j < nb; j += 32) {
+          const float v = scores[j];
+          if (v > bv || (v == bv && j < bi)) { bv = v; bi = j; }
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+          const float ov = __shfl_xor_sync(FULL, bv, o);
+          const int oi = __shfl_xor_sync(FULL, bi, o);
+          if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+        }
+      }
+      const bool valid = !exhausted && bv > NEG_INF * 0.5f;
+      if (lane == 0) {
+        sel[t] = valid ? bi : -1;
+        if (valid) scores[bi] = NEG_INF;
+      }
+      exhausted = !valid;
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
+// Exact attention over the blocks listed in sel[0..n) (-1 entries skipped;
+// they contribute exactly nothing in the TPU kernels too), folded into a
+// (G,)-wide online softmax with the TPU kernels' m_safe / alpha guards.
+//
+// Per block: a warp takes TOK_UNROLL tokens and its lanes read each token's
+// W key features (coalesced), giving the G scores by warp sums; a warp per head
+// then updates the running max and sum and turns the scores into weights;
+// finally thread (split, col) accumulates weight * v[token][col] for the
+// tokens i = split (mod nsplit) into registers, G accumulators each. The
+// nsplit partial sums meet in shared memory at the end.
+//
+// Shared scratch: sc[G*bs], m_s[G], l_s[G], alpha_s[G], red[nsplit*G*D].
+template <typename TK, typename TQ>
+__device__ void attend_blocks(const TK* __restrict__ k,
+                              const TK* __restrict__ v, const float* qs,
+                              const int* sel, int n, float* sc, float* m_s,
+                              float* l_s, float* alpha_s, float* red,
+                              TQ* __restrict__ out, int b, int h, int ln,
+                              int S, int Hkv, int G, int W, int D, int bs,
+                              int sliding_window) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nsplit = blockDim.x / D;
+  const int col = tid % D, split = tid / D;
+  const bool owns = split < nsplit;
+  for (int g = tid; g < G; g += blockDim.x) {
+    m_s[g] = NEG_INF;
+    l_s[g] = 0.f;
+  }
+  float acc[MAXG];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
+  __syncthreads();
+
+  for (int t = 0; t < n; ++t) {
+    const int blk = sel[t];
+    if (blk < 0) continue;            // the same value in every thread
+
+    // TOK_UNROLL tokens per warp at a time: their loads are all in flight
+    // before the first reduction waits on one
+    for (int i0 = warp * TOK_UNROLL; i0 < bs; i0 += NWARPS * TOK_UNROLL) {
+      float kr[TOK_UNROLL][PER_LANE];
+      bool live[TOK_UNROLL];
+#pragma unroll
+      for (int u = 0; u < TOK_UNROLL; ++u) {
+        const int i = i0 + u, pos = blk * bs + i;
+        live[u] = i < bs && pos < ln &&
+                  (sliding_window <= 0 || pos >= ln - sliding_window);
+        const TK* row = k + ((size_t)(b * S + pos) * Hkv + h) * W;
+#pragma unroll
+        for (int m = 0; m < PER_LANE; ++m) {
+          const int f = lane + 32 * m;
+          kr[u][m] = (live[u] && f < W) ? to_f(row[f]) : 0.f;
+        }
+      }
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int u = 0; u < TOK_UNROLL; ++u) {
+          float p = 0.f;
+#pragma unroll
+          for (int m = 0; m < PER_LANE; ++m) {
+            const int f = lane + 32 * m;
+            if (f < W) p = fmaf(qs[g * W + f], kr[u][m], p);
+          }
+          p = warp_sum(p);
+          if (lane == 0 && i0 + u < bs)
+            sc[g * bs + i0 + u] = live[u] ? p : NEG_INF;
+        }
+      }
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += NWARPS) {
+      float bm = NEG_INF;
+      for (int i = lane; i < bs; i += 32) bm = fmaxf(bm, sc[g * bs + i]);
+      bm = warp_max(bm);
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, bm);
+      // guard: a selected block with no live position and an empty
+      // accumulator must not produce exp(NEG_INF - NEG_INF)
+      const float m_safe = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
+      const float alpha =
+          m_prev > NEG_INF * 0.5f ? expf(fminf(m_prev - m_safe, 0.f)) : 0.f;
+      float sum = 0.f;
+      for (int i = lane; i < bs; i += 32) {
+        const float s = sc[g * bs + i];
+        const float p = s > NEG_INF * 0.5f ? expf(s - m_safe) : 0.f;
+        sc[g * bs + i] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        m_s[g] = m_new;
+        l_s[g] = l_s[g] * alpha + sum;
+        alpha_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+    if (owns) {
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+        if (g < G) acc[g] *= alpha_s[g];
+      // positions past cur_len have p == 0: stop there; V_UNROLL rows
+      // per thread are loaded before any is used
+      const int n_live = max(0, min(bs, ln - blk * bs));
+      const TK* vb = v + ((size_t)(b * S + blk * bs) * Hkv + h) * D + col;
+      for (int i0 = split; i0 < n_live; i0 += nsplit * V_UNROLL) {
+        float vv[V_UNROLL];
+#pragma unroll
+        for (int u = 0; u < V_UNROLL; ++u) {
+          const int i = i0 + u * nsplit;
+          vv[u] = i < n_live ? to_f(vb[(size_t)i * Hkv * D]) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < V_UNROLL; ++u) {
+          const int i = i0 + u * nsplit;
+          if (i < n_live) {
+#pragma unroll
+            for (int g = 0; g < MAXG; ++g)
+              if (g < G) acc[g] = fmaf(sc[g * bs + i], vv[u], acc[g]);
+          }
+        }
+      }
+    }
+    __syncthreads();                  // sc is rewritten by the next block
+  }
+
+  if (owns) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g)
+      if (g < G) red[(split * G + g) * D + col] = acc[g];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < G * D; idx += blockDim.x) {
+    const int g = idx / D, c = idx % D;
+    float a = 0.f;
+    for (int sp = 0; sp < nsplit; ++sp) a += red[(sp * G + g) * D + c];
+    store_f(out + idx, a / fmaxf(l_s[g], 1e-30f));
+  }
+}
+
+// Dynamic shared memory above 48 KB needs the opt-in attribute.
+template <typename Kern>
+inline cudaError_t allow_smem(Kern kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace loki

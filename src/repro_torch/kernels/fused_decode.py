@@ -1,0 +1,178 @@
+"""Fused GQA-batched Loki decode: CUDA kernels and plain versions.
+
+Counterparts of ``repro.kernels.fused_decode.fused_loki_decode`` and
+``select_blocks`` (the CUDA source is ``csrc/fused_decode.cu``). For each
+(batch, kv-head) pair:
+
+  1. score: q̂[:d]·k̂[:d] for every live token of every query head of the
+     group; a block's score is the maximum over its tokens and the G heads.
+     Positions past cur_len (or before the sliding window) are NEG_INF; the
+     local window's live positions get +1e4 so they always win.
+  2. select: ``k_blocks`` rounds of argmax-and-suppress over the block
+     scores, ties to the lower index (``lax.top_k``'s order); ``-1`` once
+     no block with a finite score is left.
+  3. attend (fused only): exact softmax attention over the winning blocks.
+
+  q_hat    (B, Hkv, G, W)   PCA-basis queries, W = stored key width <= D
+  k_hat    (B, S, Hkv, W)   key cache in the PCA basis
+  v        (B, S, Hkv, D)
+  cur_len  (B,)             >= 1 per row (the decode invariant; unchecked)
+
+Default scales differ as in the JAX package: ``D**-0.5`` for the fused
+kernel, ``W**-0.5`` for select_blocks. The wrappers launch the kernels for
+CUDA tensors and run the plain versions for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.loki import topk_lower_index
+from repro_torch.kernels import _build
+from repro_torch.kernels.gather_attention import (NEG_INF,
+                                                  attend_blocks_plain,
+                                                  contiguous_only)
+
+
+def block_scores_plain(q_hat, k_hat, cur_len, *, d, block_size, scale,
+                       local_window=0, sliding_window=0):
+    """Phase 1: the (B,Hkv,nb) float32 block scores selection runs on."""
+    b, s_len, n_kv, _ = k_hat.shape
+    bs = block_size
+    nb = s_len // bs
+    s = torch.einsum("bhgd,bshd->bhgs", q_hat[..., :d].float() * scale,
+                     k_hat[..., :d].float()).amax(2)     # (B,Hkv,S)
+    pos = torch.arange(s_len, device=s.device)
+    cur = cur_len.to(s.device).long()[:, None, None]
+    live = pos < cur
+    if sliding_window:
+        live &= pos >= cur - sliding_window
+    s = torch.where(live, s, NEG_INF)
+    if local_window:
+        s = torch.where(live & (pos >= cur - local_window), s + 1e4, s)
+    return s.reshape(b, n_kv, nb, bs).amax(-1)
+
+
+def select_blocks_plain(q_hat, k_hat, cur_len, *, d, k_blocks, block_size,
+                        scale, local_window=0, sliding_window=0):
+    """Plain torch version of phases 1-2 -> (B,Hkv,kb) int32 with ``-1``
+    sentinels. A stable descending sort cut to kb is argmax-and-suppress
+    with ties to the lower index."""
+    blk = block_scores_plain(q_hat, k_hat, cur_len, d=d,
+                             block_size=block_size, scale=scale,
+                             local_window=local_window,
+                             sliding_window=sliding_window)
+    taken, idx = topk_lower_index(blk, k_blocks)
+    return torch.where(taken > NEG_INF / 2, idx, -1).to(torch.int32)
+
+
+def fused_loki_decode_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
+                            block_size, scale, local_window=0,
+                            sliding_window=0):
+    """Plain torch version of the fused kernel -> (B,Hkv,G,D)."""
+    sel = select_blocks_plain(q_hat, k_hat, cur_len, d=d, k_blocks=k_blocks,
+                              block_size=block_size, scale=scale,
+                              local_window=local_window,
+                              sliding_window=sliding_window)
+    return attend_blocks_plain(q_hat, k_hat, v, sel, cur_len,
+                               block_size=block_size, scale=scale,
+                               sliding_window=sliding_window)
+
+
+_FN: dict = {}
+# pointers, then int arguments, of each launcher in csrc/fused_decode.cu
+_ARITY = {"loki_fused_decode": (5, 11), "loki_select_blocks": (4, 10)}
+
+
+def _lib(name):
+    fn = _FN.get(name)
+    if fn is None:
+        n_ptrs, n_ints = _ARITY[name]
+        fn = getattr(_build.load("fused_decode"), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN[name] = fn
+    return fn
+
+
+def _shape(q_hat, k_hat, block_size, k_blocks):
+    b, n_kv, g, kdim = q_hat.shape
+    if k_hat.shape[-1] != kdim:
+        raise ValueError("q_hat/k_hat latent widths must match")
+    s_len = k_hat.shape[1]
+    if s_len % block_size:
+        raise ValueError("cache length must be a multiple of block_size")
+    return b, n_kv, g, kdim, s_len, min(k_blocks, s_len // block_size)
+
+
+def fused_loki_decode(q_hat, k_hat, v, cur_len, *, d: int, k_blocks: int,
+                      block_size: int = 128, scale=None,
+                      local_window: int = 0, sliding_window: int = 0,
+                      page_table=None, page_size: int = 0,
+                      k_scale=None, v_scale=None):
+    """Single-pass Loki decode. (B,Hkv,G,W),(B,S,Hkv,W),(B,S,Hkv,D),(B,)
+    -> (B,Hkv,G,D) in q_hat's dtype."""
+    contiguous_only(page_table, k_scale, v_scale)
+    b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
+                                               k_blocks)
+    dim = v.shape[-1]
+    scale = float(scale if scale is not None else dim ** -0.5)
+    if not q_hat.is_cuda:
+        return fused_loki_decode_plain(
+            q_hat, k_hat, v, cur_len, d=d, k_blocks=k_blocks,
+            block_size=block_size, scale=scale, local_window=local_window,
+            sliding_window=sliding_window)
+    if k_hat.dtype != v.dtype:
+        raise TypeError("k_hat and v must share a dtype")
+    out = torch.empty((b, n_kv, g, dim), dtype=q_hat.dtype,
+                      device=q_hat.device)
+    cur_len = cur_len.to(torch.int32)
+    ptrs = _build.cuda_args("fused_loki_decode", q_hat=q_hat, k_hat=k_hat,
+                            v=v, cur_len=cur_len, out=out)
+    fn = _lib("loki_fused_decode")
+    rc = fn(*ptrs, _build.dtype_code(q_hat, "q_hat"),
+            _build.dtype_code(k_hat, "k_hat"), b, s_len, n_kv, g, kdim, dim,
+            d, block_size, k_blocks, scale, local_window, sliding_window,
+            _build.stream_of(q_hat))
+    _build.check(rc, "fused_loki_decode")
+    fused_loki_decode.launches += 1
+    return out
+
+
+fused_loki_decode.launches = 0
+
+
+def select_blocks(q_hat, k_hat, cur_len, *, d: int, k_blocks: int,
+                  block_size: int = 128, scale=None, local_window: int = 0,
+                  sliding_window: int = 0, page_table=None,
+                  page_size: int = 0, k_scale=None):
+    """Fused score+select: (B,Hkv,G,W),(B,S,Hkv,W),(B,) -> (B,Hkv,kb)
+    int32 block indices, group-shared, ``-1`` for exhausted entries."""
+    contiguous_only(page_table, k_scale, None)
+    b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
+                                               k_blocks)
+    scale = float(scale if scale is not None else kdim ** -0.5)
+    if not q_hat.is_cuda:
+        return select_blocks_plain(
+            q_hat, k_hat, cur_len, d=d, k_blocks=k_blocks,
+            block_size=block_size, scale=scale, local_window=local_window,
+            sliding_window=sliding_window)
+    out = torch.empty((b, n_kv, k_blocks), dtype=torch.int32,
+                      device=q_hat.device)
+    cur_len = cur_len.to(torch.int32)
+    ptrs = _build.cuda_args("select_blocks", q_hat=q_hat, k_hat=k_hat,
+                            cur_len=cur_len, out=out)
+    fn = _lib("loki_select_blocks")
+    rc = fn(*ptrs, _build.dtype_code(q_hat, "q_hat"),
+            _build.dtype_code(k_hat, "k_hat"), b, s_len, n_kv, g, kdim, d,
+            block_size, k_blocks, scale, local_window, sliding_window,
+            _build.stream_of(q_hat))
+    _build.check(rc, "select_blocks")
+    select_blocks.launches += 1
+    return out
+
+
+select_blocks.launches = 0

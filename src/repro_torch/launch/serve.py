@@ -1,0 +1,169 @@
+"""Serving launcher of the port (counterpart of ``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine dense \
+        --policy loki_block --requests 4 --max-new 16 [--device cpu]
+
+Builds the dense slot engine with the selected attention policy,
+calibrates the PCA transforms for the Loki policies on synthetic batches,
+and reports throughput over a synthetic request stream. Runs on the card
+unless ``--device cpu`` is given.
+
+Every knob lives in :class:`ServeConfig`; the flags are thin aliases.
+This slice serves ``kind="dense"`` only: ``kind="paged"`` raises, and so
+does ``warm_steps > 0`` (the port has no training yet). ``--full`` selects
+the published width (the JAX launcher's ``--smoke`` cannot be turned off).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import pca as PCA
+from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.models import lm
+from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.lifecycle import summarize
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSection:
+    """What runs: model, attention policy, kernel backend, batch shape."""
+    arch: str = "qwen2.5-3b"
+    smoke: bool = True
+    kind: str = "dense"            # dense (paged: the next slice)
+    policy: str = "loki"
+    k_f: float = 0.25
+    d_f: float = 0.25
+    backend: str = "auto"          # auto | pallas | xla
+    n_slots: int = 4
+    smax: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    engine: EngineSection = dataclasses.field(default_factory=EngineSection)
+    admission: str = "strict"      # strict | lenient
+    requests: int = 6
+    max_new: int = 16
+    warm_steps: int = 0
+    seed: int = 0
+    device: str = "cuda"
+
+    @classmethod
+    def from_args(cls, a: argparse.Namespace) -> "ServeConfig":
+        return cls(
+            engine=EngineSection(
+                arch=a.arch, smoke=not a.full, kind=a.engine,
+                policy=a.policy, k_f=a.k_f, d_f=a.d_f, backend=a.backend,
+                n_slots=a.n_slots, smax=a.smax),
+            admission=a.admission, requests=a.requests, max_new=a.max_new,
+            warm_steps=a.warm_steps, seed=a.seed, device=a.device)
+
+    def resolve_model(self) -> ModelConfig:
+        cfg = (get_smoke_config if self.engine.smoke
+               else get_config)(self.engine.arch)
+        if self.engine.policy != "full":
+            cfg = cfg.with_policy(self.engine.policy, k_f=self.engine.k_f,
+                                  d_f=self.engine.d_f)
+        return cfg
+
+    def check(self) -> None:
+        """Refuse what this slice does not carry, before any work."""
+        if self.engine.kind != "dense":
+            raise NotImplementedError(
+                f"engine kind {self.engine.kind!r} is not ported yet "
+                "(ROADMAP queue 1 item 5: paged main path)")
+        if self.warm_steps:
+            raise NotImplementedError(
+                "warm_steps > 0 needs training, not ported yet (ROADMAP "
+                "queue 1 item 10)")
+
+    def build_engine(self, params, cfg: ModelConfig) -> ServingEngine:
+        self.check()
+        return ServingEngine(params, cfg, n_slots=self.engine.n_slots,
+                             smax=self.engine.smax,
+                             backend=self.engine.backend,
+                             admission=self.admission, device=self.device)
+
+
+def calibrated_params(cfg: ModelConfig, data: SyntheticLM, *, seed: int,
+                      device):
+    """Random weights from ``seed`` with PCA projections calibrated on two
+    synthetic batches and installed, as the JAX launcher does."""
+    params = lm.init(cfg, seed=seed, device=device)
+    if cfg.attn_policy() in ("loki", "loki_block"):
+        batches = [data.batch_at(1000 + i)["tokens"] for i in range(2)]
+        calib = PCA.calibrate_model(params, cfg, batches)
+        params = PCA.install_projections(params, calib, "pre")
+    return params
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--full", action="store_true",
+                    help="published width instead of the smoke config")
+    ap.add_argument("--policy", default="loki",
+                    choices=["full", "loki", "loki_block"])
+    ap.add_argument("--k-f", type=float, default=0.25)
+    ap.add_argument("--d-f", type=float, default=0.25)
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "pallas", "xla"],
+                    help="decode kernel backend for loki_block (auto = the "
+                         "CUDA kernels on the card)")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--n-slots", type=int, default=4)
+    ap.add_argument("--smax", type=int, default=128)
+    ap.add_argument("--engine", default="dense", choices=["dense", "paged"])
+    ap.add_argument("--admission", default="strict",
+                    choices=["strict", "lenient"])
+    ap.add_argument("--warm-steps", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None):
+    sc = ServeConfig.from_args(build_parser().parse_args(argv))
+    sc.check()
+    device = resolve_device(sc.device)
+    cfg = sc.resolve_model()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=96,
+                                  global_batch=8, seed=7, n_states=32,
+                                  temperature=0.22))
+    params = calibrated_params(cfg, data, seed=sc.seed, device=device)
+    eng = sc.build_engine(params, cfg)
+    reqs = [Request(rid=i,
+                    prompt=data.batch_at(4000 + i)["tokens"][0, :24 + 4 * i],
+                    max_new=sc.max_new)
+            for i in range(sc.requests)]
+    for r in reqs:
+        eng.submit(r)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.drain()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.out) for r in reqs)
+    print(f"policy={cfg.attn_policy()} device={device} served {len(reqs)} "
+          f"requests ({toks} tokens) in {eng.ticks} ticks, {dt:.2f}s -> "
+          f"{toks / dt:.1f} tok/s, {1e3 * dt / max(eng.ticks, 1):.1f} "
+          "ms/tick")
+    print(f"lifecycle: {summarize(reqs)}")
+    for r in reqs[:2]:
+        print(f"  req{r.rid}: {r.out[:10]}")
+    return reqs
+
+
+if __name__ == "__main__":
+    main()
