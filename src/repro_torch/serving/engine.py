@@ -122,7 +122,9 @@ class ServingEngine:
         self.cache = lm.init_cache(cfg, n_slots, smax, torch.float32,
                                    device=self.device)
         # positions / last tokens live on the host: per-slot bookkeeping
-        # stays in numpy and crosses to the device once per step
+        # stays in numpy and crosses to the device once per step. On the
+        # CPU torch.as_tensor aliases these arrays; the step runs eagerly,
+        # so it is done before tick() updates them in place
         self.pos = np.zeros((n_slots,), np.int32)
         self.live = np.zeros((n_slots,), bool)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
