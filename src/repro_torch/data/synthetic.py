@@ -14,7 +14,7 @@ Properties the framework relies on:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator
 
 import numpy as np
 

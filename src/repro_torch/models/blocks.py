@@ -39,6 +39,25 @@ def check_policy(cfg: ModelConfig) -> None:
                                   "(ROADMAP queue 1)")
 
 
+def init_attention(gen, cfg: ModelConfig, *, dtype, device, n_layers):
+    """Projections, qkv biases (zero) and the per-KV-head PCA basis
+    (identity until calibrated, float32), stacked over ``n_layers``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    kw = dict(dtype=dtype, device=device, n_layers=n_layers)
+    p = {"wq": L._init(gen, (d, cfg.q_dim), **kw),
+         "wk": L._init(gen, (d, cfg.kv_dim), **kw),
+         "wv": L._init(gen, (d, cfg.kv_dim), **kw),
+         "wo": L._init(gen, (cfg.q_dim, d), **kw),
+         "pca": torch.eye(hd, dtype=torch.float32, device=device).expand(
+             n_layers, cfg.n_kv_heads, hd, hd).contiguous()}
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                            ("bv", cfg.kv_dim)):
+            p[name] = torch.zeros((n_layers, width), dtype=dtype,
+                                  device=device)
+    return p
+
+
 def _qkv(p, x, cfg: ModelConfig):
     """x (B,S,E) -> q (B,S,H,D), k/v (B,S,Hkv,D)."""
     hd = cfg.resolved_head_dim

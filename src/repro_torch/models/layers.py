@@ -26,7 +26,38 @@ def dot(x, w):
     return torch.matmul(x, w)
 
 
+# ---------------------------------------------------------------- init
+# Per-layer leaves are stacked on a leading L axis (``n_layers``), the JAX
+# tree's layout; ``n_layers=None`` makes an unstacked leaf.
+
+def _init(gen, shape, *, dtype, device, scale=None, n_layers=None):
+    """normal(0, scale), scale 1/sqrt(fan_in) unless given, drawn in
+    float32 from ``gen`` one layer at a time and cast to ``dtype`` (a
+    float32 draw of a whole stack would double a full-width model's peak
+    memory)."""
+    scale = scale if scale is not None else shape[0] ** -0.5
+
+    def one():
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * scale).to(dtype)
+    if n_layers is None:
+        return one()
+    out = torch.empty((n_layers,) + tuple(shape), dtype=dtype, device=device)
+    for i in range(n_layers):
+        out[i] = one()
+    return out
+
+
 # ---------------------------------------------------------------- norms
+
+def init_norm(cfg: ModelConfig, *, device, n_layers=None):
+    lead = () if n_layers is None else (n_layers,)
+    f32 = dict(dtype=torch.float32, device=device)
+    p = {"scale": torch.ones(lead + (cfg.d_model,), **f32)}
+    if cfg.norm == "ln":
+        p["bias"] = torch.zeros(lead + (cfg.d_model,), **f32)
+    return p
+
 
 def norm_apply(p, x, eps=1e-6):
     dt = x.dtype
@@ -42,6 +73,15 @@ def norm_apply(p, x, eps=1e-6):
 
 
 # ---------------------------------------------------------------- MLPs
+
+def init_mlp(gen, cfg: ModelConfig, *, dtype, device, n_layers):
+    """Gated (swiglu/geglu) or plain (sq_relu/gelu) MLP params."""
+    d, f = cfg.d_model, cfg.d_ff
+    gated = cfg.mlp in ("swiglu", "geglu")
+    kw = dict(dtype=dtype, device=device, n_layers=n_layers)
+    return {"w_in": _init(gen, (d, 2 * f if gated else f), **kw),
+            "w_out": _init(gen, (f, d), **kw)}
+
 
 def mlp_apply(p, x, cfg: ModelConfig):
     f = p["w_out"].shape[0]
@@ -60,6 +100,12 @@ def mlp_apply(p, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------- embeddings
+
+def init_embed(gen, cfg: ModelConfig, *, dtype, device):
+    # 1/sqrt(d) keeps tied-unembed logits O(1) at init
+    return {"table": _init(gen, (cfg.vocab, cfg.d_model), dtype=dtype,
+                           device=device, scale=cfg.d_model ** -0.5)}
+
 
 def embed_apply(p, tokens, cfg: ModelConfig):
     return p["table"][tokens.long()]

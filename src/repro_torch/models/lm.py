@@ -74,47 +74,17 @@ def init(cfg: ModelConfig, *, seed: int = 0,
     check_family(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
-    dt = L.torch_dtype(cfg.dtype)
-    n, d, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
-    f32 = dict(dtype=torch.float32, device=dev)
-
-    def normal(shape, scale):
-        return (torch.randn(shape, generator=gen, **f32) * scale).to(dt)
-
-    def stacked(shape):
-        # one layer at a time: the float32 draw of a whole stack would
-        # double the peak memory of a full-width model
-        out = torch.empty((n,) + shape, dtype=dt, device=dev)
-        for i in range(n):
-            out[i] = normal(shape, shape[0] ** -0.5)
-        return out
-
-    def norm():
-        p = {"scale": torch.ones((n, d), **f32)}
-        if cfg.norm == "ln":
-            p["bias"] = torch.zeros((n, d), **f32)
-        return p
-
-    gated = cfg.mlp in ("swiglu", "geglu")
-    attn = {"wq": stacked((d, cfg.q_dim)), "wk": stacked((d, cfg.kv_dim)),
-            "wv": stacked((d, cfg.kv_dim)), "wo": stacked((cfg.q_dim, d)),
-            "pca": torch.eye(hd, **f32).expand(
-                n, cfg.n_kv_heads, hd, hd).contiguous()}
-    if cfg.qkv_bias:
-        for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
-                            ("bv", cfg.kv_dim)):
-            attn[name] = torch.zeros((n, width), dtype=dt, device=dev)
-    final = {"scale": torch.ones((d,), **f32)}
-    if cfg.norm == "ln":
-        final["bias"] = torch.zeros((d,), **f32)
+    kw = dict(dtype=L.torch_dtype(cfg.dtype), device=dev)
+    n = cfg.n_layers
     return {
-        "embed": {"table": normal((cfg.vocab, d), d ** -0.5)},
+        "embed": L.init_embed(gen, cfg, **kw),
         "layers": {
-            "ln1": norm(), "attn": attn, "ln2": norm(),
-            "mlp": {"w_in": stacked((d, 2 * cfg.d_ff if gated else cfg.d_ff)),
-                    "w_out": stacked((cfg.d_ff, d))},
+            "ln1": L.init_norm(cfg, device=dev, n_layers=n),
+            "attn": B.init_attention(gen, cfg, n_layers=n, **kw),
+            "ln2": L.init_norm(cfg, device=dev, n_layers=n),
+            "mlp": L.init_mlp(gen, cfg, n_layers=n, **kw),
         },
-        "final_norm": final,
+        "final_norm": L.init_norm(cfg, device=dev),
     }
 
 
