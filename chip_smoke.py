@@ -617,7 +617,7 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels,
                    "serve": results.get("serve"),
                    "profile": results.get("profile")}, fh, indent=1)
-    log(f"card: {card}")
+    log(card)                   # as nvidia-smi prints it: name, limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
