@@ -2,7 +2,6 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --only kernels # build + kernel checks only
-    python3 chip_smoke.py --layers 8     # cut the model's depth (printed)
 
 Phases, each of which fails the run on any error:
   1. build   the CUDA sources in src/repro_torch/csrc with nvcc (sm_90a);
@@ -10,20 +9,25 @@ Phases, each of which fails the run on any error:
              block_sparse_attention_grouped against their plain torch
              versions at llama2-7b and qwen2.5-3b decode shapes (plus a
              sliding-window, a head_dim-256 and a short-cur_len case, fp32
-             and bf16 caches), and time each at the main-path shape;
-  3. serve   llama2-7b at full width through the dense engine with the
-             loki_block policy: 4 long prompts, 16 new tokens each, the
-             launch counters proving every layer of every tick ran the
-             planned kernel; then one decode step through the fused
-             kernel, the two-kernel pair and the plain path on one cache
-             (bf16, reported; fp32, asserted), a torch.profiler breakdown
-             of one decode step, and greedy agreement with the plain path.
+             and bf16 caches), time each at the main-path shape, and check
+             that a CUDA shape no kernel plan takes raises;
+  3. serve   the main path: llama2-7b at full width through the dense
+             engine with the loki_block policy, 4 long prompts, 16 new
+             tokens each, the launch counters proving every layer of every
+             tick ran the planned kernel and no other;
+  4. step    the decode-step path: one decode step of all four slots
+             through the fused kernel, each layer's call repeated through
+             ops.loki_decode_two_kernel on the same inputs (its own launch
+             counts), and the step's logits held against the plain
+             per-head path; then a torch.profiler breakdown of one decode
+             step and greedy agreement of a whole run with the plain path.
 The second-to-last line is a JSON object listing the kernels; the last is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -270,6 +274,28 @@ def check_kernels(results):
             results["main"] = dict(case=case, sel=sel_p, errs=errs)
 
 
+def check_no_fallback():
+    """A CUDA tensor never reaches a plain path: a decode shape no kernel
+    plan takes (here G = 32 query heads per KV head, above the kernels'
+    16) raises instead."""
+    from repro_torch.configs.base import LokiConfig
+    from repro_torch.core import dispatch
+
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    f = dict(device=DEV, generator=gen)
+    q = torch.randn((1, 32, 128), **f)
+    k, v = torch.randn((2, 1, 256, 1, 128), **f)
+    proj = torch.eye(128, device=DEV)[None]
+    cur = torch.tensor([200], dtype=torch.int32, device=DEV)
+    try:
+        dispatch.loki_block_decode(q, k, v, cur, proj,
+                                   LokiConfig(enabled=True, backend="auto"))
+    except NotImplementedError as e:
+        log(f"kernels: no plan at G = 32 on the card raises: {e}")
+        return
+    raise AssertionError("a CUDA decode with no kernel plan did not raise")
+
+
 def time_kernels(results):
     """Kernel, plain version and SDPA yardstick at the main-path shape."""
     from repro_torch.kernels import fused_decode as F
@@ -334,7 +360,7 @@ def prompts(vocab: int, lengths, seed: int):
     return [toks[i, :n] for i, n in enumerate(lengths)]
 
 
-def serve(results, n_layers, *, smoke=False, smax=4096,
+def serve(results, *, smoke=False, smax=4096,
           lengths=(1500, 2000, 2500, 3000)):
     """The main path. ``smoke``/``smax``/``lengths`` shrink it for a CPU
     rehearsal of this script (``DEV = "cpu"``); the run uses defaults."""
@@ -343,7 +369,6 @@ def serve(results, n_layers, *, smoke=False, smax=4096,
     from repro_torch.launch.serve import (EngineSection, ServeConfig,
                                           calibrated_params)
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
-    from repro_torch.models import lm
     from repro_torch.serving.engine import Request
     from repro_torch.serving.lifecycle import is_terminal
 
@@ -351,9 +376,6 @@ def serve(results, n_layers, *, smoke=False, smax=4096,
         arch="llama2-7b", smoke=smoke, kind="dense", policy="loki_block",
         backend="auto", n_slots=4, smax=smax), warm_steps=0, device=DEV)
     cfg = sc.resolve_model()
-    if n_layers and n_layers != cfg.n_layers:
-        log(f"serve: depth cut from {cfg.n_layers} to {n_layers} layers")
-        cfg = cfg.replace(n_layers=n_layers)
     t0 = time.perf_counter()
     calib_data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=96,
                                         global_batch=8, seed=7, n_states=32,
@@ -391,9 +413,11 @@ def serve(results, n_layers, *, smoke=False, smax=4096,
             tick_ms.append(1e3 * (time.perf_counter() - t_tick))
         return eng, reqs, tick_ms, time.perf_counter() - t_all
 
-    # ---- the main path: counters read right after
+    # ---- the main path: counts set to 0 just before, read just after
     K.reset_launch_counts()
     eng, reqs, tick_ms, wall = run_engine("auto")
+    counts = K.launch_counts()
+    # ---- end of the main path
     ticks = eng.ticks
     bad = [r.rid for r in reqs if str(r.status) != "done"]
     if bad:
@@ -405,22 +429,6 @@ def serve(results, n_layers, *, smoke=False, smax=4096,
     del eng
     if DEV == "cuda":
         torch.cuda.empty_cache()
-    # one decode step of all four slots through the fused kernel, the
-    # two-kernel pair and the plain path, on one cache. In bf16 the paths
-    # round at different points (the plain path rounds q*scale to bf16, the
-    # kernels scale in fp32) and a random-weight 32-layer residual stack
-    # amplifies such differences, so that comparison is reported. The
-    # asserted one runs the same model in fp32, where the paths differ
-    # only by summation order (~1e-6 relative per attention output); the
-    # bound 1e-3 leaves a 30x amplification through the layers ample room.
-    step = decode_step_variants(params, cfg, toks, sc.engine.smax, plan)
-    cfg32 = cfg.replace(dtype="float32")
-    params32 = lm.cast_params(params, cfg32)
-    step.update(decode_step_variants(params32, cfg32, toks, sc.engine.smax,
-                                     plan, bound=1e-3))
-    del params32
-    counts = K.launch_counts()
-    # ---- end of the main path
     toks_out = sum(len(r.out) for r in reqs)
     decode_ms = statistics.median(tick_ms[1:])
     log(f"serve: {len(reqs)} requests, prompts {lengths}, {toks_out} tokens "
@@ -428,18 +436,16 @@ def serve(results, n_layers, *, smoke=False, smax=4096,
         f"{toks_out / wall:.1f} tok/s; first tick (4 prefills + decode) "
         f"{tick_ms[0]:.1f} ms, decode tick median {decode_ms:.2f} ms -> "
         f"{4e3 / decode_ms:.1f} tok/s at 4 slots")
-    log(f"serve: launches {counts}")
-    want = ticks * cfg.n_layers + 2 * cfg.n_layers
-    if plan.variant == "fused" and counts["fused_loki_decode"] != want:
-        raise AssertionError(f"fused_loki_decode launched "
-                             f"{counts['fused_loki_decode']} times, expected "
-                             f"{want} (ticks x layers + two steps)")
-    for name in ("select_blocks", "block_sparse_attention_grouped"):
-        if counts[name] < cfg.n_layers:
-            raise AssertionError(f"{name} launched {counts[name]} times")
-    if any(n == 0 for n in counts.values()):
-        raise AssertionError(f"a kernel of the path never ran: {counts}")
+    log(f"serve: main-path launches {counts}")
+    planned = (("fused_loki_decode",) if plan.variant == "fused" else
+               ("select_blocks", "block_sparse_attention_grouped"))
+    want = {n: ticks * cfg.n_layers if n in planned else 0 for n in counts}
+    if counts != want:
+        raise AssertionError(f"main-path launches {counts}, expected {want} "
+                             f"({ticks} ticks x {cfg.n_layers} layers of the "
+                             f"{plan.variant} plan)")
 
+    step = decode_step_check(params, cfg, toks, sc.engine.smax)
     results["profile"] = profile_decode(params, cfg, toks, sc.engine.smax)
 
     # greedy agreement with the plain per-head path over the same run
@@ -449,7 +455,8 @@ def serve(results, n_layers, *, smoke=False, smax=4096,
     log(f"serve: greedy tokens equal to backend=xla in {same}/{toks_out} "
         "(reported, not asserted)")
     del eng_x
-    results["launches"] = counts
+    results["launches"] = {"serve": counts,
+                           "decode_step": step.pop("launches")}
     results["serve"] = dict(ticks=ticks, decode_tick_ms=decode_ms,
                             tok_per_s=toks_out / wall, **step)
 
@@ -512,58 +519,100 @@ def profile_decode(params, cfg, toks, smax, steps=3):
                      for ms, n, key in rows[:12]])
 
 
-def decode_step_variants(params, cfg, toks, smax, plan, bound=None):
-    """Prefill the four prompts into one cache, then take the same decode
-    step three ways — fused plan, two-kernel plan, plain per-head path —
-    and compare the logits (asserted against ``bound`` when given)."""
-    from repro_torch.kernels import tuning
+@contextlib.contextmanager
+def recording(module, name):
+    """Record (args, kwargs, output) of every call of ``module.name`` made
+    inside the block, passing each call through unchanged."""
+    real, calls = getattr(module, name), []
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+# Relative L2 bound on one bf16 decode step's logits, fused kernel against
+# the plain per-head path; set from the chip reading in PERF.md.
+BF16_LOGITS_BOUND = None
+
+
+def decode_step_check(params, cfg, toks, smax):
+    """The decode-step path. Prefill the four prompts into one cache, take
+    one decode step through the planned fused kernel while recording each
+    layer's call, and hold ops.loki_decode_two_kernel on each recorded
+    call's inputs against its output; the counts are set to 0 just before
+    and read just after. Then take the same step through the plain
+    per-head path and compare the logits."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops
     from repro_torch.models import lm
 
     cache, token, pos = prefilled_cache(params, cfg, toks, smax)
-    hd = cfg.resolved_head_dim
-    key = (smax, hd, cfg.n_heads // cfg.n_kv_heads, cfg.loki.block_size)
 
-    def step(backend, pin=None):
+    def step(backend):
         c = cfg.replace(loki=dataclasses.replace(cfg.loki, backend=backend))
-        if pin:
-            tuning.TUNED[key] = (pin, plan.block_size)
-        try:
-            logits, _ = lm.decode_step(params, c, cache, token, pos)
-        finally:
-            tuning.TUNED.pop(key, None)
+        logits, _ = lm.decode_step(params, c, cache, token, pos)
         sync()
         return logits.float()
 
-    # each step rewrites the same new K/V rows with the same values, so
-    # the three read identical caches
-    fused = step("pallas", "fused")
-    two = step("pallas", "two_kernel")
+    # ---- the decode-step path: counts set to 0 just before, read just after
+    K.reset_launch_counts()
+    with recording(ops, "loki_decode_fused") as calls:
+        fused = step("pallas")
+    if len(calls) != cfg.n_layers:
+        raise AssertionError(f"fused kernel called {len(calls)} times in a "
+                             f"{cfg.n_layers}-layer step")
+    two_err = 0.0
+    for layer, (args, kwargs, out) in enumerate(calls):
+        # the same q̂ and the same cache rows: the two-kernel pair selects
+        # the same blocks and attends in the same order
+        two = ops.loki_decode_two_kernel(*args, **kwargs)
+        atol, rtol = tolerance(out.dtype)
+        torch.testing.assert_close(
+            two.float(), out.float(), atol=atol, rtol=rtol,
+            msg=lambda m: f"layer {layer}: two_kernel vs fused: {m}")
+        two_err = max(two_err, float((two.float() - out.float()).abs().max()))
+    sync()
+    counts = K.launch_counts()
+    # ---- end of the decode-step path
+    del calls
+    log(f"step: decode-step path launches {counts}; two_kernel vs fused "
+        f"on each layer's inputs max|err| {two_err:.3e}")
+    if any(n != cfg.n_layers for n in counts.values()):
+        raise AssertionError(f"decode-step launches {counts}, expected "
+                             f"{cfg.n_layers} of each kernel")
+
+    # the step's own K/V rows are rewritten from its own layer inputs, so
+    # each step reads the prefilled rows plus rows it wrote itself
     plain = step("xla")
     del cache
     if DEV == "cuda":
         torch.cuda.empty_cache()
-    for name, x in (("fused", fused), ("two_kernel", two), ("xla", plain)):
+    for name, x in (("fused", fused), ("xla", plain)):
         if not torch.isfinite(x).all() or x.shape != (len(toks), cfg.vocab):
             raise AssertionError(f"{name} logits bad: {tuple(x.shape)}")
-    rel = lambda a, b: float((a - b).norm() / b.norm())
-    r_two, r_plain = rel(two, fused), rel(fused, plain)
+    rel = float((fused - plain).norm() / plain.norm())
     same = int((fused.argmax(-1) == plain.argmax(-1)).sum())
-    log(f"serve: one decode step in {cfg.dtype}, logits rel-L2: two_kernel "
-        f"vs fused {r_two:.3e}, fused vs xla {r_plain:.3e} "
-        f"({'bound %g' % bound if bound else 'reported, not asserted'}); "
+    bound = BF16_LOGITS_BOUND if cfg.dtype == "bfloat16" else None
+    log(f"step: one decode step in {cfg.dtype}, logits rel-L2 fused vs xla "
+        f"{rel:.3e} ({'bound %g' % bound if bound else 'reported'}); "
         f"argmax equal {same}/{len(toks)}")
-    if bound is not None and max(r_two, r_plain) > bound:
+    if bound is not None and rel > bound:
         raise AssertionError(f"decode-step logits disagree beyond {bound}")
-    return {f"{cfg.dtype}_rel_two_vs_fused": r_two,
-            f"{cfg.dtype}_rel_fused_vs_xla": r_plain}
+    return {"launches": counts, "two_vs_fused_max_abs_err": two_err,
+            f"{cfg.dtype}_rel_fused_vs_xla": rel}
 
 
 # --------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["kernels"], default=None)
-    ap.add_argument("--layers", type=int, default=0,
-                    help="cut the served model to this many layers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -585,9 +634,10 @@ def main() -> int:
 
     results = {}
     check_kernels(results)
+    check_no_fallback()
     time_kernels(results)
     if args.only != "kernels":
-        serve(results, args.layers)
+        serve(results)
     launches = results.get("launches", {})
 
     sources = {
@@ -602,9 +652,14 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in sources.items():
         t = results["timing"][name]
+        # each kernel's count comes from the path that runs it: the main
+        # path's plan, else the decode-step path's two-kernel pair
+        path = ("serve" if launches.get("serve", {}).get(name)
+                else "decode_step")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches.get(name, 0),
+            "replaces": replaces, "path": path,
+            "launches": launches.get(path, {}).get(name, 0),
             "max_abs_err": results["main"]["errs"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -615,7 +670,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "kernels": kernels,
-                   "serve": results.get("serve"),
+                   "launches": launches, "serve": results.get("serve"),
                    "profile": results.get("profile")}, fh, indent=1)
     log(card)                   # as nvidia-smi prints it: name, limit
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,10 @@ Shapes (conventions used throughout the package):
 
 Score products take their inputs in float32: a bf16 × bf16 product is exact
 in float32, so this equals the JAX code's bf16 matmul with float32
-accumulation (``preferred_element_type=jnp.float32``).
+accumulation (``preferred_element_type=jnp.float32``). Decode scores scale
+the query in float32, as the CUDA kernels (and the TPU kernels) do; the JAX
+code's plain path scales a bf16 query in bf16 first. The two agree exactly
+in float32 and differ by that one rounding in bf16.
 """
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ def decode_scores(q, k_cache, *, d_slice=None, logit_scale=None):
     if d_slice is not None and d_slice < d:
         qg = qg[..., :d_slice]
         k_cache = k_cache[..., :d_slice]
-    return torch.einsum("bhgd,bshd->bhgs", (qg * scale).float(),
+    return torch.einsum("bhgd,bshd->bhgs", qg.float() * scale,
                         k_cache.float())
 
 
@@ -135,8 +138,8 @@ def attend_selected(q, k_sel, v_sel, valid, *, logit_scale=None):
     b, h, d = q.shape
     n_kv = k_sel.shape[1]
     scale = logit_scale if logit_scale is not None else d ** -0.5
-    qg = q.reshape(b, n_kv, h // n_kv, d) * scale
-    scores = torch.einsum("bhgd,bhgkd->bhgk", qg.float(), k_sel.float())
+    qg = q.reshape(b, n_kv, h // n_kv, d).float() * scale
+    scores = torch.einsum("bhgd,bhgkd->bhgk", qg, k_sel.float())
     scores = torch.where(valid, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v_sel.dtype)
     out = torch.einsum("bhgk,bhgkd->bhgd", w, v_sel)

@@ -12,9 +12,11 @@ step, which implementation of block-granular Loki runs:
                      JAX package's interpret mode does.
   backend="auto"   — "pallas" for CUDA tensors, "xla" on the CPU.
 
-Shapes no kernel plan covers fall back to torch *with the kernels' group-
-shared selection*, so a backend choice is numerically consistent across
-shapes. Contiguous caches only in this slice.
+On CPU tensors, shapes no kernel plan covers fall back to torch *with the
+kernels' group-shared selection*, so a backend choice is numerically
+consistent across shapes. CUDA tensors have no fallback: a shape no kernel
+takes, or a disabled kernel backend, raises. Contiguous caches only in this
+slice.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ from repro_torch.kernels import ops, tuning
 BACKENDS = ("auto", "pallas", "xla")
 
 # Backends disabled at runtime after a failure: every later
-# ``resolve_backend`` then routes to the plain path. Only an explicit
-# ``disable_backend`` call sets it; process-wide on purpose.
+# ``resolve_backend`` then routes CPU tensors to the plain path and raises
+# for CUDA tensors. Only an explicit ``disable_backend`` call sets it;
+# process-wide on purpose.
 _DISABLED: dict = {}          # backend -> reason
 
 
@@ -54,13 +57,19 @@ def backend_disabled(backend: str) -> Optional[str]:
 
 def resolve_backend(backend: str, device_type: str = "cpu") -> str:
     """'auto' | 'pallas' | 'xla' -> the concrete backend for tensors on
-    ``device_type``, skipping backends disabled by an earlier failure (the
-    plain path is never disabled — it is the floor of the ladder)."""
+    ``device_type``. On the CPU a backend disabled by an earlier failure
+    steps down to the plain path (never disabled — the floor of the
+    ladder); on CUDA the kernel backend has no plain stand-in, so a
+    disabled one raises."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown loki backend {backend!r}; have {BACKENDS}")
     if backend == "auto":
         backend = "pallas" if device_type == "cuda" else "xla"
     if backend == "pallas" and "pallas" in _DISABLED:
+        if device_type == "cuda":
+            raise RuntimeError(f"loki backend 'pallas' is disabled "
+                               f"({_DISABLED['pallas']}); CUDA tensors have "
+                               "no plain fallback")
         return "xla"
     return backend
 
@@ -116,8 +125,15 @@ def loki_block_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
         return loki.loki_decode_block(q_rope, k_hat_cache, v_cache, cur_len,
                                       proj, cfg, **fb_args)
     if plan is None:
-        # no kernel takes the shape: torch fallback, keeping the kernels'
-        # group-shared selection when the block decomposition exists
+        if q_rope.is_cuda:
+            raise NotImplementedError(
+                f"no CUDA kernel plan for loki_block decode at smax={smax}, "
+                f"head_dim={dim}, G={g}, d={d}: the kernels take G <= "
+                f"{tuning.MAX_G}, head_dim <= {tuning.MAX_DIM}, smax a "
+                "multiple of 8 and a score row within shared memory "
+                "(split-KV form: ROADMAP queue 2 item 1)")
+        # no kernel takes the shape: torch fallback on the CPU, keeping the
+        # kernels' group-shared selection when the block decomposition exists
         if smax % cfg.block_size == 0:
             return loki.loki_decode_block(q_rope, k_hat_cache, v_cache,
                                           cur_len, proj, cfg,

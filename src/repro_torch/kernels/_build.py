@@ -6,9 +6,6 @@ hash covers the source, every ``csrc/*.cuh`` header and the flags, so an
 edited source rebuilds and an unchanged one is reused. ``build_all`` starts
 one nvcc per source together. Nothing builds at import time: the first
 CUDA launch of a kernel builds its library.
-
-The build directory defaults to ``build/repro_torch`` at the repository
-root; ``REPRO_TORCH_BUILD_DIR`` overrides it.
 """
 from __future__ import annotations
 
@@ -22,18 +19,12 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_decode", "gather_attention")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-
-
-def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 
 def nvcc() -> str:
@@ -59,7 +50,7 @@ def _digest(name: str) -> str:
 
 
 def lib_path(name: str) -> Path:
-    return build_dir() / f"{name}-{_digest(name)}.so"
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
 def _start(name: str):

@@ -4,7 +4,7 @@
 plan: which variant runs (single-pass ``fused`` or the ``two_kernel`` pair
 select_blocks + block_sparse_attention_grouped) and at what block size.
 ``None`` means no kernel takes the shape; the dispatcher then falls back to
-the plain torch path.
+the plain torch path on CPU tensors and raises on CUDA tensors.
 
 The budget is the kernels' real dynamic shared memory (csrc/*.cu: every
 staged value is float32, so the cache dtype does not enter) against the

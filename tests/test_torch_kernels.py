@@ -198,7 +198,11 @@ def test_resolve_backend_and_disable_ladder():
     dispatch.disable_backend("pallas", "test")
     try:
         assert dispatch.backend_disabled("pallas") == "test"
-        assert dispatch.resolve_backend("pallas", "cuda") == "xla"
+        # the CPU steps down to the plain path; CUDA has no fallback
+        assert dispatch.resolve_backend("pallas", "cpu") == "xla"
+        for backend in ("pallas", "auto"):
+            with pytest.raises(RuntimeError, match="disabled"):
+                dispatch.resolve_backend(backend, "cuda")
     finally:
         dispatch.enable_backend("pallas")
     assert dispatch.backend_disabled("pallas") is None
