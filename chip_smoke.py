@@ -538,8 +538,12 @@ def recording(module, name):
 
 
 # Relative L2 bound on one bf16 decode step's logits, fused kernel against
-# the plain per-head path; set from the chip reading in PERF.md.
-BF16_LOGITS_BOUND = None
+# the plain per-head path. The two compute the same function up to float32
+# summation order (1.07e-6 apart in float32), but in bf16 every layer
+# rounds its attention output and residual stream to 8 mantissa bits, and
+# the 32-layer random-weight stack grows the rare one-ulp differences: the
+# H100 reading was 3.07e-2 (PERF.md). The bound leaves ~3x room for that.
+BF16_LOGITS_BOUND = 0.1
 
 
 def decode_step_check(params, cfg, toks, smax):
@@ -550,13 +554,16 @@ def decode_step_check(params, cfg, toks, smax):
     and read just after. Then take the same step through the plain
     per-head path and compare the logits."""
     from repro_torch import kernels as K
+    from repro_torch.core import loki
+    from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import ops
     from repro_torch.models import lm
 
     cache, token, pos = prefilled_cache(params, cfg, toks, smax)
 
-    def step(backend):
-        c = cfg.replace(loki=dataclasses.replace(cfg.loki, backend=backend))
+    def step(backend, **loki_kw):
+        c = cfg.replace(loki=dataclasses.replace(cfg.loki, backend=backend,
+                                                 **loki_kw))
         logits, _ = lm.decode_step(params, c, cache, token, pos)
         sync()
         return logits.float()
@@ -581,7 +588,6 @@ def decode_step_check(params, cfg, toks, smax):
     sync()
     counts = K.launch_counts()
     # ---- end of the decode-step path
-    del calls
     log(f"step: decode-step path launches {counts}; two_kernel vs fused "
         f"on each layer's inputs max|err| {two_err:.3e}")
     if any(n != cfg.n_layers for n in counts.values()):
@@ -590,23 +596,60 @@ def decode_step_check(params, cfg, toks, smax):
 
     # the step's own K/V rows are rewritten from its own layer inputs, so
     # each step reads the prefilled rows plus rows it wrote itself
-    plain = step("xla")
+    with recording(loki, "loki_decode_block") as plain_calls:
+        plain = step("xla")
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    # where a bf16 gap comes from, layer by layer: the kernel against its
+    # plain version on the kernel's own recorded inputs (rows whose block
+    # maxima nearly tie left out), and the fused step's attention output
+    # against the plain step's, each on its own layer inputs
+    same_in, across, n_ties = [], [], 0
+    for (args, kwargs, out), (_, _, p_out) in zip(calls, plain_calls):
+        q, k, v, cur = args
+        kw = dict(kwargs, scale=kwargs["scale"] or v.shape[-1] ** -0.5)
+        want = F.fused_loki_decode_plain(q, k, v, cur, **kw)
+        rows = ~near_tie_rows(F.block_scores_plain(
+            q, k, cur, d=kw["d"], block_size=kw["block_size"],
+            scale=kw["scale"], local_window=kw["local_window"],
+            sliding_window=kw["sliding_window"]), kw["k_blocks"])
+        n_ties += int((~rows).sum())
+        atol, rtol = tolerance(out.dtype)
+        torch.testing.assert_close(
+            out.float()[rows], want.float()[rows], atol=atol, rtol=rtol,
+            msg=lambda m: f"layer {len(same_in)}: fused vs plain: {m}")
+        same_in.append(rel(out[rows], want[rows]))
+        across.append(rel(out.reshape(p_out.shape), p_out))
+    del calls, plain_calls
+    log(f"step: fused kernel vs its plain version on each layer's inputs: "
+        f"rel-L2 max {max(same_in):.3e} over {len(same_in)} layers "
+        f"(near-tie rows left out {n_ties})")
+    log("step: attention output rel-L2, fused step vs xla step, by layer: "
+        + ", ".join(f"{i}: {across[i]:.3e}" for i in
+                    sorted({0, 1, 3, 7, 15, len(across) - 1})
+                    if i < len(across)))
+    # a negative control: the plain path without the recency window is a
+    # different function, so its gap should stand well above the bound
+    other = step("xla", local_window=0)
     del cache
     if DEV == "cuda":
         torch.cuda.empty_cache()
     for name, x in (("fused", fused), ("xla", plain)):
         if not torch.isfinite(x).all() or x.shape != (len(toks), cfg.vocab):
             raise AssertionError(f"{name} logits bad: {tuple(x.shape)}")
-    rel = float((fused - plain).norm() / plain.norm())
+    gap, control = rel(fused, plain), rel(other, plain)
     same = int((fused.argmax(-1) == plain.argmax(-1)).sum())
     bound = BF16_LOGITS_BOUND if cfg.dtype == "bfloat16" else None
     log(f"step: one decode step in {cfg.dtype}, logits rel-L2 fused vs xla "
-        f"{rel:.3e} ({'bound %g' % bound if bound else 'reported'}); "
-        f"argmax equal {same}/{len(toks)}")
-    if bound is not None and rel > bound:
+        f"{gap:.3e} ({'bound %g' % bound if bound else 'reported'}); "
+        f"argmax equal {same}/{len(toks)}; xla without the recency window "
+        f"vs xla {control:.3e} (a different function, reported)")
+    if bound is not None and gap > bound:
         raise AssertionError(f"decode-step logits disagree beyond {bound}")
     return {"launches": counts, "two_vs_fused_max_abs_err": two_err,
-            f"{cfg.dtype}_rel_fused_vs_xla": rel}
+            "layer_rel_kernel_vs_plain_max": max(same_in),
+            "layer_rel_fused_vs_xla_step": across,
+            f"{cfg.dtype}_rel_fused_vs_xla": gap,
+            f"{cfg.dtype}_rel_no_recency_vs_xla": control}
 
 
 # --------------------------------------------------------------------- main

@@ -208,6 +208,24 @@ def test_resolve_backend_and_disable_ladder():
     assert dispatch.backend_disabled("pallas") is None
 
 
+@pytest.mark.parametrize("g,smax", [(32, 128), (1, 100)])
+def test_cuda_decode_without_plan_raises(g, smax, monkeypatch):
+    """A shape no kernel plan takes (G > 16; smax no block size divides)
+    falls back to torch on CPU tensors but raises for CUDA tensors. The
+    tensors here pose as CUDA ones: the raise comes before any device op
+    (chip_smoke.py checks it with real CUDA tensors)."""
+    rng = np.random.RandomState(0)
+    q = rng.randn(1, g, 16).astype(np.float32)
+    k = rng.randn(1, smax, 1, 16).astype(np.float32)
+    proj = np.eye(16, dtype=np.float32)[None]
+    args = _t(q, k, k, np.array([50], np.int32), proj)
+    cfg = LokiConfig(enabled=True, block_size=16, backend="pallas")
+    assert dispatch.loki_block_decode(*args, cfg).shape == (1, g, 16)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    with pytest.raises(NotImplementedError, match="no CUDA kernel plan"):
+        dispatch.loki_block_decode(*args, cfg)
+
+
 def test_plan_decode_budget():
     # the main path: llama2-7b, smax 4096, G = 1
     assert tuning.plan_decode(4096, 128, 1, 32, 128) == \
