@@ -542,8 +542,10 @@ def recording(module, name):
 # summation order (1.07e-6 apart in float32), but in bf16 every layer
 # rounds its attention output and residual stream to 8 mantissa bits, and
 # the 32-layer random-weight stack grows the rare one-ulp differences: the
-# H100 reading was 3.07e-2 (PERF.md). The bound leaves ~3x room for that.
-BF16_LOGITS_BOUND = 0.1
+# H100 reading was 3.07e-2, the same in two runs (PERF.md). The bound is
+# twice that; the same plain path without its recency window, a different
+# function, read 1.29e-1.
+BF16_LOGITS_BOUND = 0.06
 
 
 def decode_step_check(params, cfg, toks, smax):
@@ -602,7 +604,8 @@ def decode_step_check(params, cfg, toks, smax):
     # where a bf16 gap comes from, layer by layer: the kernel against its
     # plain version on the kernel's own recorded inputs (rows whose block
     # maxima nearly tie left out), and the fused step's attention output
-    # against the plain step's, each on its own layer inputs
+    # against the plain step's, each on its own layer inputs, the plain
+    # one rounded to the activation dtype as attn_decode rounds it
     same_in, across, n_ties = [], [], 0
     for (args, kwargs, out), (_, _, p_out) in zip(calls, plain_calls):
         q, k, v, cur = args
@@ -618,7 +621,7 @@ def decode_step_check(params, cfg, toks, smax):
             out.float()[rows], want.float()[rows], atol=atol, rtol=rtol,
             msg=lambda m: f"layer {len(same_in)}: fused vs plain: {m}")
         same_in.append(rel(out[rows], want[rows]))
-        across.append(rel(out.reshape(p_out.shape), p_out))
+        across.append(rel(out.reshape(p_out.shape), p_out.to(out.dtype)))
     del calls, plain_calls
     log(f"step: fused kernel vs its plain version on each layer's inputs: "
         f"rel-L2 max {max(same_in):.3e} over {len(same_in)} layers "
