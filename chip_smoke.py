@@ -4,23 +4,35 @@
     python3 chip_smoke.py --only kernels # build + kernel checks only
 
 Phases, each of which fails the run on any error:
-  1. build   the CUDA sources in src/repro_torch/csrc with nvcc (sm_90a);
-  2. kernels hold fused_loki_decode, select_blocks and
-             block_sparse_attention_grouped against their plain torch
-             versions at llama2-7b and qwen2.5-3b decode shapes (plus a
+  1. build   the CUDA sources in src/repro_torch/csrc with nvcc (sm_90a),
+             one nvcc per source, all started together;
+  2. kernels hold the five kernels (fused_loki_decode, select_blocks,
+             block_sparse_attention_grouped, paged_full_decode,
+             fused_exact_topk_decode) against their plain torch versions
+             at llama2-7b and qwen2.5-3b decode shapes (plus a
              sliding-window, a head_dim-256 and a short-cur_len case, fp32
-             and bf16 caches), time each at the main-path shape, and check
-             that a CUDA shape no kernel plan takes raises;
-  3. serve   the main path: llama2-7b at full width through the dense
-             engine with the loki_block policy, 4 long prompts, 16 new
-             tokens each, the launch counters proving every layer of every
-             tick ran the planned kernel and no other;
+             and bf16 caches); hold each kernel's paged form bit for bit
+             against its contiguous form on the same logical data
+             (shuffled page tables with a trash-page row); check that
+             CUDA shapes no kernel plan takes raise; time each kernel,
+             contiguous and paged, at the main-path shape;
+  3. dense   llama2-7b at full width through the dense engine with
+             loki_block (4 long prompts, 16 new tokens each), then full
+             and exact_topk through it, the launch counters of each run
+             proving every layer of every tick ran the planned kernel and
+             no other;
   4. step    the decode-step path: one decode step of all four slots
              through the fused kernel, each layer's call repeated through
              ops.loki_decode_two_kernel on the same inputs (its own launch
              counts), and the step's logits held against the plain
              per-head path; then a torch.profiler breakdown of one decode
-             step and greedy agreement of a whole run with the plain path.
+             step and greedy agreement of a whole run with the plain path;
+  5. paged   the main path: the paged engine serves the same four prompts
+             at full width (fp32 pool, 128-token pages, 512-token prefill
+             chunks) once each with loki_block (in a pool too small for
+             all four, so it must preempt), full and exact_topk, counted
+             per run; decode tick time, device idle share and host syncs
+             per tick of each.
 The second-to-last line is a JSON object listing the kernels; the last is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
@@ -101,6 +113,11 @@ def time_ms(fn, reps: int = 20) -> float:
 
 # ----------------------------------------------------------------- kernels
 
+KERNELS = ("fused_loki_decode", "select_blocks",
+           "block_sparse_attention_grouped", "paged_full_decode",
+           "fused_exact_topk_decode")
+
+
 def make_case(name, *, B, Hkv, G, D, S, bs, d, kb, lw, sw, cur, kv_dtype,
               q_dtype, seed):
     gen = torch.Generator(device=DEV).manual_seed(seed)
@@ -119,7 +136,7 @@ def kernel_cases():
                  sw=0, cur=[3000, 2500, 1800, 3100])
     qwen = dict(llama, Hkv=2, G=8)
     return [
-        # the main path: bf16 queries over the dense engine's fp32 cache
+        # the main path: bf16 queries over the engines' fp32 caches
         make_case("llama2-7b q:bf16 kv:fp32", **llama, kv_dtype=f32,
                   q_dtype=bf16, seed=1),
         make_case("llama2-7b q:bf16 kv:bf16", **llama, kv_dtype=bf16,
@@ -163,6 +180,220 @@ def near_tie_rows(blk, kb):
     return tie.any(-1)
 
 
+def kernel_kw(case, exact=False):
+    """The fused kernels' keyword arguments of a case; ``exact``: the
+    exact-top-k kernel's (no d, no recency window)."""
+    kw = dict(k_blocks=case["kb"], block_size=case["bs"],
+              sliding_window=case["sw"], scale=case["v"].shape[-1] ** -0.5)
+    if not exact:
+        kw.update(d=case["d"], local_window=case["lw"])
+    return kw
+
+
+def check_selection(case, q, k, cur, *, d, lw):
+    """select_blocks against its plain version at (d, local window):
+    indices equal on every row without a near-tie. Returns (plain
+    selection, rows that agree, near-tie rows)."""
+    from repro_torch.kernels import fused_decode as F
+    kw = dict(kernel_kw(case), d=d, local_window=lw)
+    ties = near_tie_rows(F.block_scores_plain(
+        q, k, cur, d=d, block_size=case["bs"], scale=kw["scale"],
+        local_window=lw, sliding_window=case["sw"]), case["kb"])
+    sel_k = F.select_blocks(q, k, cur, **kw)
+    sel_p = F.select_blocks_plain(q, k, cur, **kw)
+    sync()
+    diff = (sel_k != sel_p).any(-1)
+    if (diff & ~ties).any():
+        raise AssertionError(f"{case['name']}: select_blocks (d={d}) indices "
+                             f"differ in {int((diff & ~ties).sum())} rows "
+                             "with no near-tie")
+    return sel_k, sel_p, ~diff, ties
+
+
+def check_kernels(results):
+    """Each of the five kernels against its plain version on every case."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+
+    for case in kernel_cases():
+        q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
+        W = k.shape[-1]
+        kw, ex_kw = kernel_kw(case), kernel_kw(case, exact=True)
+        att_kw = dict(block_size=case["bs"], scale=kw["scale"],
+                      sliding_window=case["sw"])
+        # select_blocks at the fused kernel's scale, so all three share
+        # one selection; at d = W without the recency window it is the
+        # exact-top-k kernel's selection
+        sel_k, sel_p, agree, ties = check_selection(case, q, k, cur,
+                                                    d=case["d"],
+                                                    lw=case["lw"])
+        _, sel_x, agree_x, ties_x = check_selection(case, q, k, cur, d=W,
+                                                    lw=0)
+        runs = {
+            "fused_loki_decode": (F.fused_loki_decode(q, k, v, cur, **kw),
+                                  F.fused_loki_decode_plain(q, k, v, cur,
+                                                            **kw), agree),
+            "block_sparse_attention_grouped": (
+                GA.block_sparse_attention_grouped(q, k, v, sel_p, cur,
+                                                  **att_kw),
+                GA.attend_blocks_plain(q, k, v, sel_p, cur, **att_kw), None),
+            "paged_full_decode": (
+                GA.paged_full_decode(q, k, v, cur, **att_kw),
+                GA.full_decode_plain(q, k, v, cur, scale=kw["scale"],
+                                     sliding_window=case["sw"]), None),
+            "fused_exact_topk_decode": (
+                F.fused_exact_topk_decode(q, k, v, cur, **ex_kw),
+                F.fused_exact_topk_decode_plain(q, k, v, cur, **ex_kw),
+                agree_x),
+        }
+        sync()
+        atol, rtol = tolerance(q.dtype)
+        errs = {}
+        for kname, (got, want, rows) in runs.items():
+            g32, w32 = got.float(), want.float()
+            if rows is not None:
+                g32, w32 = g32[rows], w32[rows]
+            if not torch.isfinite(g32).all():
+                raise AssertionError(f"{case['name']}: {kname} non-finite")
+            torch.testing.assert_close(g32, w32, atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{case['name']}: "
+                                       f"{kname}: {m}")
+            errs[kname] = float((g32 - w32).abs().max()) if g32.numel() \
+                else 0.0
+        errs["select_blocks"] = float(
+            (sel_k - sel_p).abs()[agree].max()) if agree.any() else 0.0
+        log(f"kernels: {case['name']}: indices equal in "
+            f"{int(agree.sum())}/{agree.numel()} rows at d={case['d']} "
+            f"(near-ties {int(ties.sum())}) and {int(agree_x.sum())}/"
+            f"{agree_x.numel()} at d={W} (near-ties {int(ties_x.sum())}), "
+            f"-1 sentinels {int((sel_p < 0).sum())}; max|err| "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (atol {atol}, rtol {rtol})")
+        if "main" not in results:
+            results["main"] = dict(case=case, sel=sel_p, sel_exact=sel_x,
+                                   errs=errs)
+
+
+def paged_copy(case, ps, seed):
+    """The case's caches scattered into a pool through a shuffled page
+    table, plus one idle batch row whose all-zero table row reads the
+    trash page 0 (cur_len 1), as idle slots do in the paged engine.
+    Returns (q, cur, table, pool k, pool v, logical k, logical v): the
+    logical caches are what the table reads, gathered."""
+    from repro_torch.serving.paged_cache import gather_logical
+    q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
+    B, S = k.shape[:2]
+    mp = S // ps
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.zeros((B + 1, mp), dtype=torch.int32)
+    table[:B] = (torch.randperm(B * mp, generator=gen) + 1).view(B, mp)
+    table = table.to(DEV)
+    n_pages = B * mp + 1
+    pools = []
+    for x in (k, v):
+        pool = torch.randn((n_pages * ps,) + x.shape[2:], device=DEV).to(
+            x.dtype)                             # the trash page: garbage
+        rows = (table[:B, :, None].long() * ps
+                + torch.arange(ps, device=DEV)).reshape(-1)
+        pool[rows] = x.reshape((B * S,) + x.shape[2:])
+        pools.append(pool)
+    q2 = torch.cat([q, q[:1]])
+    cur2 = torch.cat([cur, torch.ones(1, dtype=cur.dtype, device=DEV)])
+    return (q2, cur2, table, *pools,
+            gather_logical(pools[0], table, ps),
+            gather_logical(pools[1], table, ps))
+
+
+def paged_calls(case, q, cur, table, ps, k, v, sel):
+    """The five kernels on (q, cur) over caches k, v: contiguous when
+    ``table`` is None, else the pools through ``table``."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+    pg = dict(page_table=table, page_size=ps) if table is not None else {}
+    kw, ex_kw = kernel_kw(case), kernel_kw(case, exact=True)
+    att_kw = dict(block_size=case["bs"], scale=kw["scale"],
+                  sliding_window=case["sw"], **pg)
+    return {
+        "fused_loki_decode": lambda: F.fused_loki_decode(q, k, v, cur, **kw,
+                                                         **pg),
+        "select_blocks": lambda: F.select_blocks(q, k, cur, **kw, **pg),
+        "block_sparse_attention_grouped": lambda:
+            GA.block_sparse_attention_grouped(q, k, v, sel, cur, **att_kw),
+        "paged_full_decode": lambda: GA.paged_full_decode(q, k, v, cur,
+                                                          **att_kw),
+        "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode(
+            q, k, v, cur, **ex_kw, **pg),
+    }
+
+
+def check_paged(results):
+    """#1-#5 paged against contiguous on the same logical data, asserted
+    bit-identical: the paged form differs only in where a block's rows
+    are read from. Shuffled tables with a trash-page row, pages of one and
+    of two kernel blocks."""
+    from repro_torch.kernels import fused_decode as F
+    cases = kernel_cases()
+    for case, ps in ((cases[0], 128), (cases[0], 256), (cases[4], 128),
+                     (cases[5], 256), (cases[7], 128)):
+        q, cur, table, pk, pv, lk, lv = paged_copy(case, ps, seed=ps)
+        sel = F.select_blocks(q, lk, cur, **kernel_kw(case))
+        paged = paged_calls(case, q, cur, table, ps, pk, pv, sel)
+        contig = paged_calls(case, q, cur, None, ps, lk, lv, sel)
+        for name in KERNELS:
+            a, b = paged[name](), contig[name]()
+            sync()
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{case['name']} page_size {ps}: {name} paged differs "
+                    "from contiguous on the same logical data (max |d| "
+                    f"{float((a.float() - b.float()).abs().max()):.3e})")
+        log(f"kernels: paged == contiguous bit for bit, all five kernels, "
+            f"{case['name']}, page_size {ps} (shuffled table, trash row)")
+        if "paged" not in results:
+            results["paged"] = (q, cur, table, pk, pv, sel)
+        del pk, pv, lk, lv
+
+
+def check_no_fallback():
+    """A CUDA tensor never reaches a plain path: a decode shape no kernel
+    plan takes (G = 32 query heads per KV head, above the kernels' 16),
+    for loki_block and for full, and a paged call whose page (64 tokens)
+    the plan's block (128) does not divide, raise instead."""
+    from repro_torch.configs.base import LokiConfig
+    from repro_torch.core import dispatch
+
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    f = dict(device=DEV, generator=gen)
+    q = torch.randn((1, 32, 128), **f)
+    k, v = torch.randn((2, 1, 256, 1, 128), **f)
+    proj = torch.eye(128, device=DEV)[None]
+    cur = torch.tensor([200], dtype=torch.int32, device=DEV)
+    pool = torch.randn((5 * 64, 1, 128), **f)
+    table = torch.arange(1, 5, dtype=torch.int32, device=DEV)[None]
+    cfg = LokiConfig(enabled=True, backend="auto")
+    calls = {
+        "loki_block, G = 32": lambda: dispatch.loki_block_decode(
+            q, k, v, cur, proj, cfg),
+        "full, G = 32": lambda: dispatch.full_paged_decode(
+            q, k, v, cur, backend="auto"),
+        "loki_block, page 64 / block 128": lambda: dispatch.loki_block_decode(
+            q[:, :1], pool, pool, cur, proj, cfg, page_table=table,
+            page_size=64),
+        "exact_topk, page 64 / block 128":
+            lambda: dispatch.exact_topk_paged_decode(
+                q[:, :1], pool, pool, cur, cfg, page_table=table,
+                page_size=64),
+    }
+    for what, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            log(f"kernels: no plan on the card raises ({what}): {e}")
+            continue
+        raise AssertionError(f"a CUDA decode with no kernel plan did not "
+                             f"raise ({what})")
+
+
 def live_work(case, sel):
     """Tokens the scoring pass must read and winner tokens the attention
     pass must read, for this run's data."""
@@ -179,8 +410,8 @@ def live_work(case, sel):
     return scored, int(ok.sum())
 
 
-def bounds(case, sel):
-    """bound_ms of the three kernels (bytes each input read once, each
+def bounds(case, sel, sel_exact):
+    """bound_ms of the five kernels (bytes each input read once, each
     output written once; float32 operations at 67 TFLOP/s)."""
     q, k, v = case["q"], case["k"], case["v"]
     B, Hkv, G, W = q.shape
@@ -188,6 +419,7 @@ def bounds(case, sel):
     d, kb = case["d"], case["kb"]
     ksz, qsz = k.element_size(), q.element_size()
     scored, won = live_work(case, sel)
+    _, won_x = live_work(case, sel_exact)
     q_b, out_b, len_b = q.numel() * qsz, B * Hkv * G * D * qsz, 4 * B
     idx_b = 4 * B * Hkv * kb
     score_b = scored * d * ksz
@@ -206,123 +438,46 @@ def bounds(case, sel):
         "select_blocks": bound(q_b + score_b + len_b + idx_b, score_ops),
         "block_sparse_attention_grouped": bound(
             q_b + win_full_b + idx_b + len_b + out_b, attn_ops),
+        # every live K and V row once
+        "paged_full_decode": bound(q_b + scored * (W + D) * ksz + len_b
+                                   + out_b, 2 * scored * G * (W + D)),
+        # every live K row at full width, then the winners' V rows
+        "fused_exact_topk_decode": bound(
+            q_b + scored * W * ksz + won_x * D * ksz + len_b + out_b,
+            2 * scored * G * W + 2 * won_x * G * (W + D)),
     }
-
-
-def check_kernels(results):
-    from repro_torch.kernels import fused_decode as F
-    from repro_torch.kernels import gather_attention as GA
-
-    for case in kernel_cases():
-        q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
-        dim = v.shape[-1]
-        kw = dict(d=case["d"], k_blocks=case["kb"], block_size=case["bs"],
-                  local_window=case["lw"], sliding_window=case["sw"])
-        scale = dim ** -0.5
-        blk = F.block_scores_plain(q, k, cur, d=case["d"],
-                                   block_size=case["bs"], scale=scale,
-                                   local_window=case["lw"],
-                                   sliding_window=case["sw"])
-        ties = near_tie_rows(blk, case["kb"])
-        # select_blocks at the fused kernel's scale, so all three share
-        # one selection
-        sel_k = F.select_blocks(q, k, cur, scale=scale, **kw)
-        sel_p = F.select_blocks_plain(q, k, cur, scale=scale, **kw)
-        sync()
-        diff_rows = (sel_k != sel_p).any(-1)
-        bad = diff_rows & ~ties
-        if bad.any():
-            raise AssertionError(f"{case['name']}: select_blocks indices "
-                                 f"differ in {int(bad.sum())} rows with no "
-                                 "near-tie")
-        agree = ~diff_rows
-        out_k = F.fused_loki_decode(q, k, v, cur, scale=scale, **kw)
-        out_p = F.fused_loki_decode_plain(q, k, v, cur, scale=scale, **kw)
-        att_k = GA.block_sparse_attention_grouped(
-            q, k, v, sel_p, cur, block_size=case["bs"], scale=scale,
-            sliding_window=case["sw"])
-        att_p = GA.attend_blocks_plain(q, k, v, sel_p, cur,
-                                       block_size=case["bs"], scale=scale,
-                                       sliding_window=case["sw"])
-        sync()
-        atol, rtol = tolerance(q.dtype)
-        errs = {}
-        for kname, got, want, rows in (
-                ("fused_loki_decode", out_k, out_p, agree),
-                ("block_sparse_attention_grouped", att_k, att_p, None)):
-            g32, w32 = got.float(), want.float()
-            if rows is not None:
-                g32, w32 = g32[rows], w32[rows]
-            if not torch.isfinite(g32).all():
-                raise AssertionError(f"{case['name']}: {kname} non-finite")
-            torch.testing.assert_close(g32, w32, atol=atol, rtol=rtol,
-                                       msg=lambda m: f"{case['name']}: "
-                                       f"{kname}: {m}")
-            errs[kname] = float((g32 - w32).abs().max()) if g32.numel() \
-                else 0.0
-        errs["select_blocks"] = float(
-            (sel_k - sel_p).abs()[agree].max()) if agree.any() else 0.0
-        n_sent = int((sel_p < 0).sum())
-        log(f"kernels: {case['name']}: indices equal in "
-            f"{int(agree.sum())}/{agree.numel()} rows (near-ties reported "
-            f"{int(ties.sum())}, differing {int(diff_rows.sum())}), "
-            f"-1 sentinels {n_sent}, max|err| fused "
-            f"{errs['fused_loki_decode']:.3e} attention "
-            f"{errs['block_sparse_attention_grouped']:.3e} "
-            f"(atol {atol}, rtol {rtol})")
-        if "main" not in results:
-            results["main"] = dict(case=case, sel=sel_p, errs=errs)
-
-
-def check_no_fallback():
-    """A CUDA tensor never reaches a plain path: a decode shape no kernel
-    plan takes (here G = 32 query heads per KV head, above the kernels'
-    16) raises instead."""
-    from repro_torch.configs.base import LokiConfig
-    from repro_torch.core import dispatch
-
-    gen = torch.Generator(device=DEV).manual_seed(9)
-    f = dict(device=DEV, generator=gen)
-    q = torch.randn((1, 32, 128), **f)
-    k, v = torch.randn((2, 1, 256, 1, 128), **f)
-    proj = torch.eye(128, device=DEV)[None]
-    cur = torch.tensor([200], dtype=torch.int32, device=DEV)
-    try:
-        dispatch.loki_block_decode(q, k, v, cur, proj,
-                                   LokiConfig(enabled=True, backend="auto"))
-    except NotImplementedError as e:
-        log(f"kernels: no plan at G = 32 on the card raises: {e}")
-        return
-    raise AssertionError("a CUDA decode with no kernel plan did not raise")
 
 
 def time_kernels(results):
-    """Kernel, plain version and SDPA yardstick at the main-path shape."""
+    """Each kernel contiguous and paged, its plain version and, for the
+    full decode, the one PyTorch call that computes the same function, at
+    the main-path shape."""
     from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import gather_attention as GA
 
-    case, sel = results["main"]["case"], results["main"]["sel"]
+    main = results["main"]
+    case, sel = main["case"], main["sel"]
     q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
-    scale = v.shape[-1] ** -0.5
-    kw = dict(d=case["d"], k_blocks=case["kb"], block_size=case["bs"],
-              local_window=case["lw"], sliding_window=case["sw"])
-    att_kw = dict(block_size=case["bs"], scale=scale,
+    kw, ex_kw = kernel_kw(case), kernel_kw(case, exact=True)
+    att_kw = dict(block_size=case["bs"], scale=kw["scale"],
                   sliding_window=case["sw"])
-    runs = {
-        "fused_loki_decode": (
-            lambda: F.fused_loki_decode(q, k, v, cur, scale=scale, **kw),
-            lambda: F.fused_loki_decode_plain(q, k, v, cur, scale=scale,
-                                              **kw)),
-        "select_blocks": (
-            lambda: F.select_blocks(q, k, cur, scale=scale, **kw),
-            lambda: F.select_blocks_plain(q, k, cur, scale=scale, **kw)),
-        "block_sparse_attention_grouped": (
-            lambda: GA.block_sparse_attention_grouped(q, k, v, sel, cur,
-                                                      **att_kw),
-            lambda: GA.attend_blocks_plain(q, k, v, sel, cur, **att_kw)),
+    kern = paged_calls(case, q, cur, None, 0, k, v, sel)
+    pq, pcur, ptable, pk, pv, psel = results["paged"]
+    paged = paged_calls(case, pq, pcur, ptable, 128, pk, pv, psel)
+    plain = {
+        "fused_loki_decode": lambda: F.fused_loki_decode_plain(
+            q, k, v, cur, **kw),
+        "select_blocks": lambda: F.select_blocks_plain(q, k, cur, **kw),
+        "block_sparse_attention_grouped": lambda: GA.attend_blocks_plain(
+            q, k, v, sel, cur, **att_kw),
+        "paged_full_decode": lambda: GA.full_decode_plain(
+            q, k, v, cur, scale=kw["scale"]),
+        "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode_plain(
+            q, k, v, cur, **ex_kw),
     }
-    # the paper's yardstick, NOT the same function: full attention of the
-    # same queries over the same live cache, one library call
+    # full attention of the same queries over the same live cache, one
+    # library call: the same function as paged_full_decode, and the
+    # paper's yardstick (not the same function) for the sparse kernels
     B, Hkv, G, D = q.shape
     qs = q.reshape(B, Hkv * G, 1, D).to(k.dtype)
     kt = k.transpose(1, 2).contiguous()
@@ -333,23 +488,36 @@ def time_kernels(results):
     pos = torch.arange(k.shape[1], device=DEV)
     mask = (pos[None, :] < cur[:, None].long())[:, None, None, :]
     sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kt, vt, attn_mask=mask, scale=scale))
-    bnd = bounds(case, sel)
+        qs, kt, vt, attn_mask=mask, scale=kw["scale"]))
+    bnd = bounds(case, sel, main["sel_exact"])
     timing = {}
-    for name, (kern, plain) in runs.items():
-        ms, plain_ms = time_ms(kern), time_ms(plain, reps=5)
-        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[name][0],
-                            bound_by=bnd[name][1])
-        log(f"timing: {name} at {case['name']}: {ms:.4f} ms (bound "
-            f"{bnd[name][0]:.4f} ms by {bnd[name][1]}, plain {plain_ms:.4f} "
-            "ms)")
-    log(f"timing: full attention over the same live cache "
-        f"(scaled_dot_product_attention, not the same function): "
-        f"{sdpa_ms:.4f} ms")
+    for name in KERNELS:
+        ms, paged_ms = time_ms(kern[name]), time_ms(paged[name])
+        plain_ms = time_ms(plain[name], reps=5)
+        timing[name] = dict(ms=ms, paged_ms=paged_ms, plain_ms=plain_ms,
+                            bound_ms=bnd[name][0], bound_by=bnd[name][1])
+        log(f"timing: {name} at {case['name']}: {ms:.4f} ms contiguous, "
+            f"{paged_ms:.4f} ms paged (page 128, one more idle row), bound "
+            f"{bnd[name][0]:.4f} ms by {bnd[name][1]}, plain "
+            f"{plain_ms:.4f} ms")
+    log(f"timing: scaled_dot_product_attention over the same live cache "
+        f"(library call of paged_full_decode's function): {sdpa_ms:.4f} ms")
     results["timing"], results["sdpa_ms"] = timing, sdpa_ms
+    del results["paged"]
 
 
 # -------------------------------------------------------------------- serve
+
+# Prompt lengths of the dense engine's loki_block path and decode step.
+LENGTHS = (1500, 2000, 2500, 3000)
+# Prompt lengths of the paged path (and of the dense runs that give its
+# greedy reference). Each prompt's 16 decode positions cross a 128-token
+# page boundary, so the paged engine's oldest requests grow by a page
+# while decoding and, in a tight pool, preempt the youngest; LENGTHS never
+# cross one in 16 steps, and FIFO then never preempts.
+PAGED_LENGTHS = (1530, 2040, 2550, 3060)
+MAX_NEW = 16
+
 
 def prompts(vocab: int, lengths, seed: int):
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
@@ -360,10 +528,53 @@ def prompts(vocab: int, lengths, seed: int):
     return [toks[i, :n] for i, n in enumerate(lengths)]
 
 
-def serve(results, *, smoke=False, smax=4096,
-          lengths=(1500, 2000, 2500, 3000)):
-    """The main path. ``smoke``/``smax``/``lengths`` shrink it for a CPU
-    rehearsal of this script (``DEV = "cpu"``); the run uses defaults."""
+def policy_cfg(cfg, policy):
+    """``cfg`` (loki_block, k_f = d_f = 0.25) under another policy, with
+    the same block size and k_f."""
+    return cfg if policy == "loki_block" else cfg.with_policy(policy)
+
+
+def planned_kernels(cfg, smax: int, policy: str):
+    """The kernels the planner picks for one decode step of ``policy``."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import tuning
+    hd = cfg.resolved_head_dim
+    g = cfg.n_heads // cfg.n_kv_heads
+    bs = cfg.loki.block_size
+    if policy == "full":
+        plan = tuning.plan_full_decode(smax, hd, g, hd, bs)
+        return plan, ("paged_full_decode",)
+    if policy == "exact_topk":
+        plan = tuning.plan_decode(smax, hd, g, hd, bs)
+        fused = "fused_exact_topk_decode"
+    else:
+        plan, _ = dispatch.decode_plan(cfg.loki, smax, hd, g, hd, 4)
+        fused = "fused_loki_decode"
+    if plan is None:
+        raise AssertionError(f"no kernel plan for {policy} at smax {smax}")
+    return plan, ((fused,) if plan.variant == "fused" else
+                  ("select_blocks", "block_sparse_attention_grouped"))
+
+
+def check_launches(path, counts, planned, steps, n_layers):
+    want = {n: steps * n_layers if n in planned else 0 for n in counts}
+    if counts != want:
+        raise AssertionError(f"{path} launches {counts}, expected {want} "
+                             f"({steps} decode steps x {n_layers} layers "
+                             f"of {planned})")
+
+
+def serve(results, *, smoke=False, smax=4096, lengths=LENGTHS,
+          paged_lengths=PAGED_LENGTHS):
+    """The dense engine's path: loki_block at full width, counted on its
+    own, the decode-step path and greedy agreement with the plain path;
+    then the paged prompts through the dense engine with each of
+    loki_block, full and exact_topk (full and exact_topk on the
+    contiguous kernels, counted per run), whose greedy tokens the paged
+    runs are compared with. ``smoke``/``smax``/``lengths`` shrink it for
+    a CPU rehearsal of this script (``DEV = "cpu"``); the run uses
+    defaults. Returns (params, cfg, paged prompts, greedy tokens by
+    policy) for the paged path."""
     from repro_torch import kernels as K
     from repro_torch.core import dispatch
     from repro_torch.launch.serve import (EngineSection, ServeConfig,
@@ -387,18 +598,15 @@ def serve(results, *, smoke=False, smax=4096,
         f"{time.perf_counter() - t0:.1f} s")
     lengths = list(lengths)
     toks = prompts(cfg.vocab, lengths, seed=11)
-    hd = cfg.resolved_head_dim
-    g = cfg.n_heads // cfg.n_kv_heads
-    plan, d = dispatch.decode_plan(cfg.loki, sc.engine.smax, hd, g, hd, 4)
-    log(f"serve: planner picked {plan} at smax {sc.engine.smax} (d={d})")
-    if plan is None:
-        raise AssertionError("no kernel plan at the main-path shape")
+    plan, planned = planned_kernels(cfg, sc.engine.smax, "loki_block")
+    log(f"serve: planner picked {plan} at smax {sc.engine.smax}")
 
-    def run_engine(backend):
+    def run_engine(backend, policy="loki_block", toks=toks):
         eng = ServeConfig(engine=dataclasses.replace(sc.engine,
                                                      backend=backend),
-                          device=DEV).build_engine(params, cfg)
-        reqs = [Request(rid=i, prompt=t, max_new=16)
+                          device=DEV).build_engine(
+                              params, policy_cfg(cfg, policy))
+        reqs = [Request(rid=i, prompt=t, max_new=MAX_NEW)
                 for i, t in enumerate(toks)]
         for r in reqs:
             eng.submit(r)
@@ -411,24 +619,24 @@ def serve(results, *, smoke=False, smax=4096,
             eng.tick()
             sync()
             tick_ms.append(1e3 * (time.perf_counter() - t_tick))
-        return eng, reqs, tick_ms, time.perf_counter() - t_all
+        bad = [r.rid for r in reqs if str(r.status) != "done"]
+        if bad:
+            raise AssertionError(f"{policy} requests not DONE: {bad}")
+        ticks = eng.ticks
+        del eng
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        return ticks, reqs, tick_ms, time.perf_counter() - t_all
 
-    # ---- the main path: counts set to 0 just before, read just after
+    # ---- the dense path: counts set to 0 just before, read just after
     K.reset_launch_counts()
-    eng, reqs, tick_ms, wall = run_engine("auto")
+    ticks, reqs, tick_ms, wall = run_engine("auto")
     counts = K.launch_counts()
-    # ---- end of the main path
-    ticks = eng.ticks
-    bad = [r.rid for r in reqs if str(r.status) != "done"]
-    if bad:
-        raise AssertionError(f"requests not DONE: {bad}")
+    # ---- end of the dense path
     for be in ("pallas", "xla"):
         if dispatch.backend_disabled(be):
             raise AssertionError(f"backend {be} disabled: "
                                  f"{dispatch.backend_disabled(be)}")
-    del eng
-    if DEV == "cuda":
-        torch.cuda.empty_cache()
     toks_out = sum(len(r.out) for r in reqs)
     decode_ms = statistics.median(tick_ms[1:])
     log(f"serve: {len(reqs)} requests, prompts {lengths}, {toks_out} tokens "
@@ -436,29 +644,179 @@ def serve(results, *, smoke=False, smax=4096,
         f"{toks_out / wall:.1f} tok/s; first tick (4 prefills + decode) "
         f"{tick_ms[0]:.1f} ms, decode tick median {decode_ms:.2f} ms -> "
         f"{4e3 / decode_ms:.1f} tok/s at 4 slots")
-    log(f"serve: main-path launches {counts}")
-    planned = (("fused_loki_decode",) if plan.variant == "fused" else
-               ("select_blocks", "block_sparse_attention_grouped"))
-    want = {n: ticks * cfg.n_layers if n in planned else 0 for n in counts}
-    if counts != want:
-        raise AssertionError(f"main-path launches {counts}, expected {want} "
-                             f"({ticks} ticks x {cfg.n_layers} layers of the "
-                             f"{plan.variant} plan)")
+    log(f"serve: dense-path launches {counts}")
+    check_launches("dense path", counts, planned, ticks, cfg.n_layers)
+    launches = {"dense": counts}
 
     step = decode_step_check(params, cfg, toks, sc.engine.smax)
     results["profile"] = profile_decode(params, cfg, toks, sc.engine.smax)
 
     # greedy agreement with the plain per-head path over the same run
-    eng_x, reqs_x, _, _ = run_engine("xla")
+    _, reqs_x, _, _ = run_engine("xla")
     same = sum(a == b for r, rx in zip(reqs, reqs_x)
                for a, b in zip(r.out, rx.out))
     log(f"serve: greedy tokens equal to backend=xla in {same}/{toks_out} "
         "(reported, not asserted)")
-    del eng_x
-    results["launches"] = {"serve": counts,
-                           "decode_step": step.pop("launches")}
+    launches["decode_step"] = step.pop("launches")
+
+    # the paged path's greedy reference, one dense run per policy
+    paged_toks = prompts(cfg.vocab, list(paged_lengths), seed=11)
+    greedy = {}
+    for policy in ("loki_block", "full", "exact_topk"):
+        _, p_planned = planned_kernels(policy_cfg(cfg, policy),
+                                       sc.engine.smax, policy)
+        K.reset_launch_counts()
+        p_ticks, p_reqs, p_ms, _ = run_engine("auto", policy, paged_toks)
+        p_counts = K.launch_counts()
+        check_launches(f"dense {policy}", p_counts, p_planned, p_ticks,
+                       cfg.n_layers)
+        launches[f"dense_{policy}"] = p_counts
+        greedy[policy] = [r.out for r in p_reqs]
+        log(f"serve: dense engine, {policy}, prompts {list(paged_lengths)}: "
+            f"{p_ticks} ticks, decode tick median "
+            f"{statistics.median(p_ms[1:]):.2f} ms, launches {p_counts}")
+    results["launches"] = launches
     results["serve"] = dict(ticks=ticks, decode_tick_ms=decode_ms,
                             tok_per_s=toks_out / wall, **step)
+    return params, cfg, paged_toks, greedy
+
+
+def tight_pool(lengths, page_size: int, chunk: int) -> int:
+    """Pages (with the trash page) that hold the three oldest prompts and
+    the youngest one's first chunk: the oldest then preempt the youngest
+    when their decode crosses into a new page."""
+    return 1 + sum(-(-(n - 1) // page_size) for n in lengths[:-1]) \
+        + -(-chunk // page_size)
+
+
+def sync_count(fn) -> int:
+    """Calls in ``fn`` that made the host wait for the card, counted by
+    PyTorch's sync debug mode (CUDA only; 0 on the CPU)."""
+    import warnings
+    if DEV != "cuda":
+        fn()
+        return 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def device_busy_ms(fn, steps: int) -> float:
+    """Device time per call of ``fn`` over ``steps`` calls, by
+    torch.profiler (kernels and copies only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(steps):
+            fn()
+        sync()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    return sum(dev_us(e) for e in prof.key_averages()
+               if dev_us(e) > 0 and e.device_type != DeviceType.CPU) \
+        / steps / 1e3
+
+
+def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
+                page_size=128, chunk=512):
+    """The paged path: the paged engine serves the four prompts at full
+    width, once per policy, counted on its own each time. loki_block runs
+    in a pool too small for all four (``tight_pool``) and must preempt."""
+    from repro_torch import kernels as K
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.lifecycle import is_terminal
+    from repro_torch.serving.scheduler import PagedServingEngine
+
+    lengths = [len(t) for t in toks]
+    out = {}
+    for policy in ("loki_block", "full", "exact_topk"):
+        pcfg = policy_cfg(cfg, policy)
+        plan, planned = planned_kernels(pcfg, smax, policy)
+        n_pages = (tight_pool(lengths, page_size, chunk)
+                   if policy == "loki_block" else None)
+        eng = PagedServingEngine(params, pcfg, n_slots=4, smax=smax,
+                                 page_size=page_size, n_pages=n_pages,
+                                 prefill_chunk=chunk, backend="auto",
+                                 device=DEV)
+        reqs = [Request(rid=i, prompt=t, max_new=MAX_NEW)
+                for i, t in enumerate(toks)]
+        for r in reqs:
+            eng.submit(r)
+        decode_ms, busy, syncs = [], [], {}
+        # ---- the paged path: counts set to 0 just before, read just after
+        K.reset_launch_counts()
+        t_all = time.perf_counter()
+        while not all(is_terminal(r) for r in reqs):
+            if eng.ticks > 400:
+                raise AssertionError(f"paged {policy} did not finish in "
+                                     "400 ticks")
+            chunks, steps = eng.n_prefill_chunks, eng.n_decode_steps
+            decode_only = not eng._queue and not eng._prefill_at
+            if decode_only and "decode" not in syncs:
+                syncs["decode"] = sync_count(eng.tick)
+            elif chunks and not decode_only and "prefill" not in syncs:
+                syncs["prefill"] = sync_count(eng.tick)
+            elif decode_only and len(decode_ms) >= 3 and len(busy) < 2:
+                busy.append(device_busy_ms(eng.tick, 1))
+            else:
+                t_tick = time.perf_counter()
+                eng.tick()
+                sync()
+                if eng.n_prefill_chunks == chunks \
+                        and eng.n_decode_steps > steps:
+                    decode_ms.append(1e3 * (time.perf_counter() - t_tick))
+        sync()
+        wall = time.perf_counter() - t_all
+        counts = K.launch_counts()
+        # ---- end of the paged path
+        st = eng.stats()
+        del eng
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        bad = [r.rid for r in reqs if str(r.status) != "done"]
+        if bad:
+            raise AssertionError(f"paged {policy}: requests not DONE: {bad}")
+        check_launches(f"paged {policy}", counts, planned,
+                       st["n_decode_steps"], cfg.n_layers)
+        if policy == "loki_block" and st["n_preempted"] < 1:
+            raise AssertionError(f"paged loki_block in a {n_pages}-page pool "
+                                 "did not preempt")
+        toks_out = sum(len(r.out) for r in reqs)
+        same = sum(a == b for r, ref in zip(reqs, greedy[policy])
+                   for a, b in zip(r.out, ref))
+        tick = statistics.median(decode_ms) if decode_ms else float("nan")
+        busy_ms = statistics.median(busy) if busy else float("nan")
+        out[policy] = dict(
+            plan=str(plan), n_pages=n_pages or 1 + 4 * (smax // page_size),
+            ticks=st["ticks"], decode_steps=st["n_decode_steps"],
+            prefill_chunks=st["n_prefill_chunks"],
+            n_preempted=st["n_preempted"], wall_s=wall,
+            tok_per_s=toks_out / wall, decode_tick_ms=tick,
+            decode_tok_per_s=4e3 / tick, device_busy_ms=busy_ms,
+            idle_share=max(0.0, 1 - busy_ms / tick),
+            host_syncs_per_tick=syncs, launches=counts,
+            greedy_equal_dense=same, tokens=toks_out)
+        log(f"paged: {policy}: {st['ticks']} ticks ({st['n_decode_steps']} "
+            f"decode steps, {st['n_prefill_chunks']} prefill chunks of "
+            f"{chunk}), pool {out[policy]['n_pages']} pages, preempted "
+            f"{st['n_preempted']}; {toks_out} tokens in {wall:.2f} s -> "
+            f"{toks_out / wall:.1f} tok/s; decode tick median {tick:.2f} ms "
+            f"-> {4e3 / tick:.1f} tok/s at 4 slots; device busy "
+            f"{busy_ms:.2f} ms per decode tick -> idle share "
+            f"{out[policy]['idle_share']:.3f}; host syncs per tick {syncs}")
+        log(f"paged: {policy}: launches {counts}; greedy tokens equal to "
+            f"the dense engine's in {same}/{toks_out} (reported, not "
+            "asserted: chunked and one-shot prefill round differently)")
+        results.setdefault("launches", {})[f"paged_{policy}"] = counts
+    results["paged_serve"] = out
 
 
 def prefilled_cache(params, cfg, toks, smax):
@@ -592,9 +950,9 @@ def decode_step_check(params, cfg, toks, smax):
     # ---- end of the decode-step path
     log(f"step: decode-step path launches {counts}; two_kernel vs fused "
         f"on each layer's inputs max|err| {two_err:.3e}")
-    if any(n != cfg.n_layers for n in counts.values()):
-        raise AssertionError(f"decode-step launches {counts}, expected "
-                             f"{cfg.n_layers} of each kernel")
+    check_launches("decode-step path", counts,
+                   ("fused_loki_decode", "select_blocks",
+                    "block_sparse_attention_grouped"), 1, cfg.n_layers)
 
     # the step's own K/V rows are rewritten from its own layer inputs, so
     # each step reads the prefilled rows plus rows it wrote itself
@@ -609,7 +967,9 @@ def decode_step_check(params, cfg, toks, smax):
     same_in, across, n_ties = [], [], 0
     for (args, kwargs, out), (_, _, p_out) in zip(calls, plain_calls):
         q, k, v, cur = args
-        kw = dict(kwargs, scale=kwargs["scale"] or v.shape[-1] ** -0.5)
+        kw = {n: x for n, x in kwargs.items()
+              if n not in ("page_table", "page_size")}
+        kw["scale"] = kwargs["scale"] or v.shape[-1] ** -0.5
         want = F.fused_loki_decode_plain(q, k, v, cur, **kw)
         rows = ~near_tie_rows(F.block_scores_plain(
             q, k, cur, d=kw["d"], block_size=kw["block_size"],
@@ -656,6 +1016,26 @@ def decode_step_check(params, cfg, toks, smax):
 
 
 # --------------------------------------------------------------------- main
+
+SOURCES = {
+    "fused_loki_decode": ("src/repro_torch/csrc/fused_decode.cu",
+                          "src/repro/kernels/fused_decode.py:248",
+                          "paged_loki_block"),
+    "select_blocks": ("src/repro_torch/csrc/fused_decode.cu",
+                      "src/repro/kernels/fused_decode.py:439",
+                      "decode_step"),
+    "block_sparse_attention_grouped": (
+        "src/repro_torch/csrc/gather_attention.cu",
+        "src/repro/kernels/gather_attention.py:368", "decode_step"),
+    "paged_full_decode": ("src/repro_torch/csrc/gather_attention.cu",
+                          "src/repro/kernels/gather_attention.py:215",
+                          "paged_full"),
+    "fused_exact_topk_decode": ("src/repro_torch/csrc/fused_decode.cu",
+                                "src/repro/kernels/fused_decode.py:328",
+                                "paged_exact_topk"),
+}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["kernels"], default=None)
@@ -680,36 +1060,31 @@ def main() -> int:
 
     results = {}
     check_kernels(results)
+    check_paged(results)
     check_no_fallback()
     time_kernels(results)
+    log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
     if args.only != "kernels":
-        serve(results)
+        params, cfg, toks, greedy = serve(results)
+        log(f"dense paths done at {time.perf_counter() - t_start:.1f} s")
+        serve_paged(results, params, cfg, toks, greedy)
     launches = results.get("launches", {})
 
-    sources = {
-        "fused_loki_decode": ("src/repro_torch/csrc/fused_decode.cu",
-                              "src/repro/kernels/fused_decode.py:248"),
-        "select_blocks": ("src/repro_torch/csrc/fused_decode.cu",
-                          "src/repro/kernels/fused_decode.py:439"),
-        "block_sparse_attention_grouped": (
-            "src/repro_torch/csrc/gather_attention.cu",
-            "src/repro/kernels/gather_attention.py:368"),
-    }
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, path) in SOURCES.items():
         t = results["timing"][name]
-        # each kernel's count comes from the path that runs it: the main
-        # path's plan, else the decode-step path's two-kernel pair
-        path = ("serve" if launches.get("serve", {}).get(name)
-                else "decode_step")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": path,
             "launches": launches.get(path, {}).get(name, 0),
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in launches.items()},
             "max_abs_err": results["main"]["errs"][name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "ms": t["ms"], "paged_ms": t["paged_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": (results["sdpa_ms"] if name == "paged_full_decode"
+                           else None),
             "full_attention_sdpa_ms_not_same_function": results["sdpa_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -717,6 +1092,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "kernels": kernels,
                    "launches": launches, "serve": results.get("serve"),
+                   "paged_serve": results.get("paged_serve"),
                    "profile": results.get("profile")}, fh, indent=1)
     log(card)                   # as nvidia-smi prints it: name, limit
     print(json.dumps({"kernels": kernels}))

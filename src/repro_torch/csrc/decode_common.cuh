@@ -1,11 +1,13 @@
 // Shared device code of the Loki decode kernels (fused_decode.cu,
-// gather_attention.cu): float conversion, warp reductions, the score ->
-// select phase and the exact attention phase over a list of KV blocks.
+// gather_attention.cu): float conversion, warp reductions, the logical
+// block -> cache row map, the score -> select phase and the exact
+// attention phase over a list (or a range) of KV blocks.
 //
-// Layout (the JAX package's model-native one, contiguous caches):
+// Layout (the JAX package's model-native one):
 //   q_hat  (B, Hkv, G, W)   grouped PCA-basis queries, W = stored key width
-//   k_hat  (B, S, Hkv, W)   key cache in the PCA basis
-//   v      (B, S, Hkv, D)   value cache
+//   k_hat  (B, S, Hkv, W)   key cache in the PCA basis, or the paged pool
+//                           (R, Hkv, W) read through a page table
+//   v      (B, S, Hkv, D)   value cache, or the pool (R, Hkv, D)
 // One CUDA block of THREADS threads runs one (b, kv-head) pair; a loop inside
 // the block takes the place of the TPU's sequential grid. Every staged value
 // is float32 in shared memory, whatever the cache dtype (fp32 or bf16).
@@ -67,6 +69,43 @@ __device__ void load_query(const TQ* __restrict__ q, float* qs, int n,
   for (int i = threadIdx.x; i < n; i += blockDim.x) qs[i] = to_f(q[i]) * scale;
 }
 
+// Where logical KV block ``blk`` of batch row ``b`` starts, as a cache row
+// (token) index. A contiguous cache (table == nullptr) holds it at
+// b * S + blk * bs. A paged pool holds it through the page table,
+// table[b, blk / bpp] * page_size + (blk % bpp) * bs with bpp = page_size /
+// bs (JAX fused_decode.py:152-160, gather_attention.py:418-423): pages are a
+// whole number of blocks, so a block never straddles two pages. Both forms
+// run the same kernel body, so paged output is bit-identical to contiguous
+// output on the same logical data. Offsets are 64-bit: a pool of 4,096
+// 128-token pages at llama2-7b's width (R * Hkv * W elements) passes 2^31.
+struct BlockRows {
+  const int* table;   // (B, n_tab) int32 page ids, or nullptr
+  int n_tab;          // pages per table row
+  int bpp;            // kernel blocks per page
+  int S;              // contiguous cache length per batch row
+  int bs;             // tokens per kernel block
+
+  __device__ __forceinline__ int64_t first_row(int b, int blk) const {
+    if (table == nullptr) return (int64_t)b * S + (int64_t)blk * bs;
+    const int page = table[(int64_t)b * n_tab + blk / bpp];
+    return ((int64_t)page * bpp + blk % bpp) * bs;
+  }
+};
+
+// The host-side checks and BlockRows of a launch: S is the logical length,
+// n_tab * page_size when paged. False when a paged launch's blocks would
+// straddle pages or its table does not cover S.
+inline bool rows_ok(const void* table, int n_tab, int page_size, int S,
+                    int bs) {
+  return table == nullptr || (page_size > 0 && page_size % bs == 0 &&
+                              n_tab >= 1 && S == n_tab * page_size);
+}
+inline BlockRows make_rows(const void* table, int n_tab, int page_size,
+                           int S, int bs) {
+  return BlockRows{static_cast<const int*>(table), n_tab,
+                   table ? page_size / bs : 1, S, bs};
+}
+
 // Phases 1-2 of the TPU kernel's _score_and_select.
 //
 // Phase 1 streams the leading-d slice of every live block's keys. A warp
@@ -83,10 +122,11 @@ __device__ void load_query(const TQ* __restrict__ q, float* qs, int n,
 // winners to sel[], or -1 once no block with a finite maximum is left.
 template <typename TK>
 __device__ void score_and_select(const TK* __restrict__ k, const float* qs,
-                                 float* scores, int* sel, int b, int h,
-                                 int ln, int S, int Hkv, int G, int W, int d,
-                                 int bs, int nb, int kb, int local_window,
-                                 int sliding_window, bool vec) {
+                                 float* scores, int* sel,
+                                 const BlockRows& rows, int b, int h, int ln,
+                                 int Hkv, int G, int W, int d, int bs, int nb,
+                                 int kb, int local_window, int sliding_window,
+                                 bool vec) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = tid; j < nb; j += blockDim.x) scores[j] = NEG_INF;
   const int lo = sliding_window > 0 ? max(ln - sliding_window, 0) / bs : 0;
@@ -95,12 +135,13 @@ __device__ void score_and_select(const TK* __restrict__ k, const float* qs,
 
   for (int j = lo + warp; j < hi; j += NWARPS) {
     float best = NEG_INF;
+    const int64_t row0 = rows.first_row(b, j);
     for (int i = lane; i < bs; i += 32) {
       const int pos = j * bs + i;
       bool live = pos < ln;
       if (sliding_window > 0) live = live && pos >= ln - sliding_window;
       if (!live) continue;
-      const TK* row = k + ((size_t)(b * S + pos) * Hkv + h) * W;
+      const TK* row = k + ((row0 + i) * Hkv + h) * (int64_t)W;
       float acc[MAXG];
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
@@ -170,8 +211,9 @@ __device__ void score_and_select(const TK* __restrict__ k, const float* qs,
 }
 
 // Exact attention over the blocks listed in sel[0..n) (-1 entries skipped;
-// they contribute exactly nothing in the TPU kernels too), folded into a
-// (G,)-wide online softmax with the TPU kernels' m_safe / alpha guards.
+// they contribute exactly nothing in the TPU kernels too), or, when sel is
+// nullptr, over the range first .. first + n - 1, folded into a (G,)-wide
+// online softmax with the TPU kernels' m_safe / alpha guards.
 //
 // Per block: a warp takes TOK_UNROLL tokens and its lanes read each token's
 // W key features (coalesced), giving the G scores by warp sums; a warp per head
@@ -184,10 +226,11 @@ __device__ void score_and_select(const TK* __restrict__ k, const float* qs,
 template <typename TK, typename TQ>
 __device__ void attend_blocks(const TK* __restrict__ k,
                               const TK* __restrict__ v, const float* qs,
-                              const int* sel, int n, float* sc, float* m_s,
-                              float* l_s, float* alpha_s, float* red,
-                              TQ* __restrict__ out, int b, int h, int ln,
-                              int S, int Hkv, int G, int W, int D, int bs,
+                              const int* sel, int first, int n, float* sc,
+                              float* m_s, float* l_s, float* alpha_s,
+                              float* red, TQ* __restrict__ out,
+                              const BlockRows& rows, int b, int h, int ln,
+                              int Hkv, int G, int W, int D, int bs,
                               int sliding_window) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nsplit = blockDim.x / D;
@@ -203,8 +246,9 @@ __device__ void attend_blocks(const TK* __restrict__ k,
   __syncthreads();
 
   for (int t = 0; t < n; ++t) {
-    const int blk = sel[t];
+    const int blk = sel != nullptr ? sel[t] : first + t;
     if (blk < 0) continue;            // the same value in every thread
+    const int64_t row0 = rows.first_row(b, blk);
 
     // TOK_UNROLL tokens per warp at a time: their loads are all in flight
     // before the first reduction waits on one
@@ -216,7 +260,7 @@ __device__ void attend_blocks(const TK* __restrict__ k,
         const int i = i0 + u, pos = blk * bs + i;
         live[u] = i < bs && pos < ln &&
                   (sliding_window <= 0 || pos >= ln - sliding_window);
-        const TK* row = k + ((size_t)(b * S + pos) * Hkv + h) * W;
+        const TK* row = k + ((row0 + i) * Hkv + h) * (int64_t)W;
 #pragma unroll
         for (int m = 0; m < PER_LANE; ++m) {
           const int f = lane + 32 * m;
@@ -274,13 +318,13 @@ __device__ void attend_blocks(const TK* __restrict__ k,
       // positions past cur_len have p == 0: stop there; V_UNROLL rows
       // per thread are loaded before any is used
       const int n_live = max(0, min(bs, ln - blk * bs));
-      const TK* vb = v + ((size_t)(b * S + blk * bs) * Hkv + h) * D + col;
+      const TK* vb = v + (row0 * Hkv + h) * (int64_t)D + col;
       for (int i0 = split; i0 < n_live; i0 += nsplit * V_UNROLL) {
         float vv[V_UNROLL];
 #pragma unroll
         for (int u = 0; u < V_UNROLL; ++u) {
           const int i = i0 + u * nsplit;
-          vv[u] = i < n_live ? to_f(vb[(size_t)i * Hkv * D]) : 0.f;
+          vv[u] = i < n_live ? to_f(vb[(int64_t)i * Hkv * D]) : 0.f;
         }
 #pragma unroll
         for (int u = 0; u < V_UNROLL; ++u) {
@@ -308,6 +352,16 @@ __device__ void attend_blocks(const TK* __restrict__ k,
     for (int sp = 0; sp < nsplit; ++sp) a += red[(sp * G + g) * D + c];
     store_f(out + idx, a / fmaxf(l_s[g], 1e-30f));
   }
+}
+
+// Run F<TQ, TK>::run(a) for the launch's (query, cache) dtype pair:
+// 0 = float32, 1 = bfloat16.
+template <template <typename, typename> class F, typename Args>
+cudaError_t by_dtype(int q_bf16, int kv_bf16, const Args& a) {
+  if (q_bf16 && kv_bf16) return F<__nv_bfloat16, __nv_bfloat16>::run(a);
+  if (q_bf16) return F<__nv_bfloat16, float>::run(a);
+  if (kv_bf16) return F<float, __nv_bfloat16>::run(a);
+  return F<float, float>::run(a);
 }
 
 // Dynamic shared memory above 48 KB needs the opt-in attribute.

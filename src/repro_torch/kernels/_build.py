@@ -132,12 +132,29 @@ def dtype_code(t, what: str) -> int:
     return codes[t.dtype]
 
 
+def table_arg(page_table, device):
+    """The page table as the launchers take it: a contiguous int32 tensor
+    on ``device`` and its column count, or (None, 0) for a contiguous
+    cache."""
+    import torch
+    if page_table is None:
+        return None, 0
+    if page_table.ndim != 2:
+        raise ValueError("page_table must be (B, n_pages)")
+    return (page_table.to(device=device, dtype=torch.int32).contiguous(),
+            page_table.shape[1])
+
+
 def cuda_args(kernel: str, **tensors):
     """Check that every tensor lies on one CUDA device, is contiguous and
-    16 B aligned, and return their device pointers in order."""
+    16 B aligned, and return their device pointers in order (a null
+    pointer for a None entry)."""
     dev = next(iter(tensors.values())).device
     ptrs = []
     for name, t in tensors.items():
+        if t is None:
+            ptrs.append(ctypes.c_void_p(None))
+            continue
         if t.device != dev:
             raise ValueError(f"{kernel}: {name} is on {t.device}, "
                              f"expected {dev}")

@@ -1,8 +1,8 @@
 """Fused GQA-batched Loki decode: CUDA kernels and plain versions.
 
-Counterparts of ``repro.kernels.fused_decode.fused_loki_decode`` and
-``select_blocks`` (the CUDA source is ``csrc/fused_decode.cu``). For each
-(batch, kv-head) pair:
+Counterparts of ``repro.kernels.fused_decode.fused_loki_decode``,
+``fused_exact_topk_decode`` and ``select_blocks`` (the CUDA source is
+``csrc/fused_decode.cu``). For each (batch, kv-head) pair:
 
   1. score: q̂[:d]·k̂[:d] for every live token of every query head of the
      group; a block's score is the maximum over its tokens and the G heads.
@@ -18,8 +18,17 @@ Counterparts of ``repro.kernels.fused_decode.fused_loki_decode`` and
   v        (B, S, Hkv, D)
   cur_len  (B,)             >= 1 per row (the decode invariant; unchecked)
 
+``fused_exact_topk_decode`` is the fused pass at d = W without the recency
+boost: selection over exact full-width scores (the ``exact_topk`` policy).
+
+Paged mode: with ``page_table (B, n_tab)`` and ``page_size`` the caches
+are the serving engine's pools (R, Hkv, ·) and the logical length is
+``n_tab * page_size``; the kernels resolve every block through the table,
+the plain versions gather the logical view first. ``page_size`` must be a
+multiple of ``block_size``.
+
 Default scales differ as in the JAX package: ``D**-0.5`` for the fused
-kernel, ``W**-0.5`` for select_blocks. The wrappers launch the kernels for
+kernels, ``W**-0.5`` for select_blocks. The wrappers launch the kernels for
 CUDA tensors and run the plain versions for CPU tensors.
 """
 from __future__ import annotations
@@ -32,7 +41,8 @@ from repro_torch.core.loki import topk_lower_index
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_attention import (NEG_INF,
                                                   attend_blocks_plain,
-                                                  contiguous_only)
+                                                  cache_args, logical)
+from repro_torch.serving.paged_cache import unscaled
 
 
 def block_scores_plain(q_hat, k_hat, cur_len, *, d, block_size, scale,
@@ -80,32 +90,67 @@ def fused_loki_decode_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
                                sliding_window=sliding_window)
 
 
+def _outputs(kernel, q_hat, k_hat, v, cur_len, page_table, dim):
+    """The (B,Hkv,G,D) output and the launch pointers q, k, v, cur_len,
+    table, out of a fused kernel, checked."""
+    if k_hat.dtype != v.dtype:
+        raise TypeError("k_hat and v must share a dtype")
+    b, n_kv, g, _ = q_hat.shape
+    out = torch.empty((b, n_kv, g, dim), dtype=q_hat.dtype,
+                      device=q_hat.device)
+    table, n_tab = _build.table_arg(page_table, q_hat.device)
+    ptrs = _build.cuda_args(kernel, q_hat=q_hat, k_hat=k_hat, v=v,
+                            cur_len=cur_len.to(torch.int32), table=table,
+                            out=out)
+    return out, ptrs, n_tab
+
+
+def fused_exact_topk_decode_plain(q_hat, k_hat, v, cur_len, *, k_blocks,
+                                  block_size, scale, sliding_window=0):
+    """Plain torch version of the exact-top-k kernel: the fused pass with
+    d = W and no recency boost."""
+    return fused_loki_decode_plain(q_hat, k_hat, v, cur_len,
+                                   d=q_hat.shape[-1], k_blocks=k_blocks,
+                                   block_size=block_size, scale=scale,
+                                   local_window=0,
+                                   sliding_window=sliding_window)
+
+
 _FN: dict = {}
 # pointers, then int arguments, of each launcher in csrc/fused_decode.cu
-_ARITY = {"loki_fused_decode": (5, 11), "loki_select_blocks": (4, 10)}
+_ARITY = {"loki_fused_decode": (6, 13, 2),
+          "loki_fused_exact_topk_decode": (6, 12, 1),
+          "loki_select_blocks": (5, 12, 2)}
 
 
 def _lib(name):
     fn = _FN.get(name)
     if fn is None:
-        n_ptrs, n_ints = _ARITY[name]
+        n_ptrs, n_ints, n_tail = _ARITY[name]
         fn = getattr(_build.load("fused_decode"), name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * n_tail
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN[name] = fn
     return fn
 
 
-def _shape(q_hat, k_hat, block_size, k_blocks):
+def _shape(q_hat, k_hat, block_size, k_blocks, page_table, page_size):
     b, n_kv, g, kdim = q_hat.shape
     if k_hat.shape[-1] != kdim:
         raise ValueError("q_hat/k_hat latent widths must match")
-    s_len = k_hat.shape[1]
-    if s_len % block_size:
-        raise ValueError("cache length must be a multiple of block_size")
+    s_len = cache_args(k_hat, block_size, page_table, page_size)
     return b, n_kv, g, kdim, s_len, min(k_blocks, s_len // block_size)
+
+
+def _launch(name, counter, ptrs, q_hat, k_hat, ints, floats_and_tail):
+    fn = _lib(name)
+    rc = fn(*ptrs, _build.dtype_code(q_hat, "q_hat"),
+            _build.dtype_code(k_hat, "k_hat"), *ints, *floats_and_tail,
+            _build.stream_of(q_hat))
+    _build.check(rc, counter.__name__)
+    counter.launches += 1
 
 
 def fused_loki_decode(q_hat, k_hat, v, cur_len, *, d: int, k_blocks: int,
@@ -114,64 +159,88 @@ def fused_loki_decode(q_hat, k_hat, v, cur_len, *, d: int, k_blocks: int,
                       page_table=None, page_size: int = 0,
                       k_scale=None, v_scale=None):
     """Single-pass Loki decode. (B,Hkv,G,W),(B,S,Hkv,W),(B,S,Hkv,D),(B,)
-    -> (B,Hkv,G,D) in q_hat's dtype."""
-    contiguous_only(page_table, k_scale, v_scale)
+    (or pooled (R,Hkv,·) caches with ``page_table``/``page_size``) ->
+    (B,Hkv,G,D) in q_hat's dtype."""
+    unscaled(k_scale, v_scale)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
-                                               k_blocks)
+                                               k_blocks, page_table,
+                                               page_size)
     dim = v.shape[-1]
     scale = float(scale if scale is not None else dim ** -0.5)
     if not q_hat.is_cuda:
         return fused_loki_decode_plain(
-            q_hat, k_hat, v, cur_len, d=d, k_blocks=k_blocks,
-            block_size=block_size, scale=scale, local_window=local_window,
-            sliding_window=sliding_window)
-    if k_hat.dtype != v.dtype:
-        raise TypeError("k_hat and v must share a dtype")
-    out = torch.empty((b, n_kv, g, dim), dtype=q_hat.dtype,
-                      device=q_hat.device)
-    cur_len = cur_len.to(torch.int32)
-    ptrs = _build.cuda_args("fused_loki_decode", q_hat=q_hat, k_hat=k_hat,
-                            v=v, cur_len=cur_len, out=out)
-    fn = _lib("loki_fused_decode")
-    rc = fn(*ptrs, _build.dtype_code(q_hat, "q_hat"),
-            _build.dtype_code(k_hat, "k_hat"), b, s_len, n_kv, g, kdim, dim,
-            d, block_size, k_blocks, scale, local_window, sliding_window,
-            _build.stream_of(q_hat))
-    _build.check(rc, "fused_loki_decode")
-    fused_loki_decode.launches += 1
+            *logical(q_hat, k_hat, v, page_table, page_size), cur_len, d=d,
+            k_blocks=k_blocks, block_size=block_size, scale=scale,
+            local_window=local_window, sliding_window=sliding_window)
+    out, ptrs, n_tab = _outputs("fused_loki_decode", q_hat, k_hat, v,
+                                cur_len, page_table, dim)
+    _launch("loki_fused_decode", fused_loki_decode, ptrs, q_hat, k_hat,
+            (b, s_len, n_kv, g, kdim, dim, d, block_size, k_blocks, n_tab,
+             page_size), (scale, local_window, sliding_window))
     return out
 
 
 fused_loki_decode.launches = 0
 
 
+def fused_exact_topk_decode(q_hat, k_hat, v, cur_len, *, k_blocks: int,
+                            block_size: int = 128, scale=None,
+                            sliding_window: int = 0, page_table=None,
+                            page_size: int = 0, k_scale=None, v_scale=None):
+    """Single-pass exact-top-k decode: exact full-width block scores,
+    group-shared block top-k and attention over the winners in one
+    kernel. Shapes and paging follow ``fused_loki_decode``; no recency
+    boost. -> (B,Hkv,G,D) in q_hat's dtype."""
+    unscaled(k_scale, v_scale)
+    b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
+                                               k_blocks, page_table,
+                                               page_size)
+    dim = v.shape[-1]
+    scale = float(scale if scale is not None else dim ** -0.5)
+    if not q_hat.is_cuda:
+        return fused_exact_topk_decode_plain(
+            *logical(q_hat, k_hat, v, page_table, page_size), cur_len,
+            k_blocks=k_blocks, block_size=block_size, scale=scale,
+            sliding_window=sliding_window)
+    out, ptrs, n_tab = _outputs("fused_exact_topk_decode", q_hat, k_hat, v,
+                                cur_len, page_table, dim)
+    _launch("loki_fused_exact_topk_decode", fused_exact_topk_decode, ptrs,
+            q_hat, k_hat, (b, s_len, n_kv, g, kdim, dim, block_size,
+                           k_blocks, n_tab, page_size),
+            (scale, sliding_window))
+    return out
+
+
+fused_exact_topk_decode.launches = 0
+
+
 def select_blocks(q_hat, k_hat, cur_len, *, d: int, k_blocks: int,
                   block_size: int = 128, scale=None, local_window: int = 0,
                   sliding_window: int = 0, page_table=None,
                   page_size: int = 0, k_scale=None):
-    """Fused score+select: (B,Hkv,G,W),(B,S,Hkv,W),(B,) -> (B,Hkv,kb)
-    int32 block indices, group-shared, ``-1`` for exhausted entries."""
-    contiguous_only(page_table, k_scale, None)
+    """Fused score+select: (B,Hkv,G,W),(B,S,Hkv,W) or pooled,(B,) ->
+    (B,Hkv,kb) int32 logical block indices, group-shared, ``-1`` for
+    exhausted entries."""
+    unscaled(k_scale, None)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
-                                               k_blocks)
+                                               k_blocks, page_table,
+                                               page_size)
     scale = float(scale if scale is not None else kdim ** -0.5)
     if not q_hat.is_cuda:
+        q_hat, k_hat, _ = logical(q_hat, k_hat, None, page_table, page_size)
         return select_blocks_plain(
             q_hat, k_hat, cur_len, d=d, k_blocks=k_blocks,
             block_size=block_size, scale=scale, local_window=local_window,
             sliding_window=sliding_window)
     out = torch.empty((b, n_kv, k_blocks), dtype=torch.int32,
                       device=q_hat.device)
-    cur_len = cur_len.to(torch.int32)
+    table, n_tab = _build.table_arg(page_table, q_hat.device)
     ptrs = _build.cuda_args("select_blocks", q_hat=q_hat, k_hat=k_hat,
-                            cur_len=cur_len, out=out)
-    fn = _lib("loki_select_blocks")
-    rc = fn(*ptrs, _build.dtype_code(q_hat, "q_hat"),
-            _build.dtype_code(k_hat, "k_hat"), b, s_len, n_kv, g, kdim, d,
-            block_size, k_blocks, scale, local_window, sliding_window,
-            _build.stream_of(q_hat))
-    _build.check(rc, "select_blocks")
-    select_blocks.launches += 1
+                            cur_len=cur_len.to(torch.int32), table=table,
+                            out=out)
+    _launch("loki_select_blocks", select_blocks, ptrs, q_hat, k_hat,
+            (b, s_len, n_kv, g, kdim, d, block_size, k_blocks, n_tab,
+             page_size), (scale, local_window, sliding_window))
     return out
 
 

@@ -1,10 +1,13 @@
-"""Plan selection for the CUDA Loki decode kernels.
+"""Plan selection for the CUDA decode kernels.
 
 ``plan_decode`` maps a decode shape ``(S, D, G, d, bs_hint)`` to a kernel
 plan: which variant runs (single-pass ``fused`` or the ``two_kernel`` pair
 select_blocks + block_sparse_attention_grouped) and at what block size.
-``None`` means no kernel takes the shape; the dispatcher then falls back to
-the plain torch path on CPU tensors and raises on CUDA tensors.
+``plan_full_decode`` picks the block size of the streaming full-decode
+kernel. ``None`` means no kernel takes the shape; the dispatcher then falls
+back to the plain torch path on CPU tensors and raises on CUDA tensors. A
+paged call whose page size the plan's block does not divide gets no plan
+either (the dispatcher checks; a block must not straddle two pages).
 
 The budget is the kernels' real dynamic shared memory (csrc/*.cu: every
 staged value is float32, so the cache dtype does not enter) against the
@@ -52,10 +55,40 @@ def fused_smem_bytes(*, nb: int, k_blocks: int, g: int, kdim: int,
                                       dim=dim, bs=bs)
 
 
+def full_smem_bytes(*, g: int, kdim: int, dim: int, bs: int) -> int:
+    """paged_full_decode: the attention phase without a selection list."""
+    return attend_smem_bytes(n_sel=0, g=g, kdim=kdim, dim=dim, bs=bs)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
-    variant: str          # "fused" | "two_kernel"
+    variant: str          # "fused" | "two_kernel" | "stream"
     block_size: int
+
+
+def _block_size(smax: int, block_size: int) -> int:
+    """The config's block size if it divides smax, else the largest
+    candidate that does, else 0."""
+    for cand in dict.fromkeys((block_size,) + _BS_CANDIDATES):
+        if cand > 0 and smax % cand == 0 and smax >= cand:
+            return cand
+    return 0
+
+
+def plan_full_decode(smax: int, dim: int, g: int, kdim: int,
+                     block_size: int,
+                     itemsize: int = 4) -> Optional[KernelPlan]:
+    """Block size of the streaming full-decode kernel, or None for no
+    kernel. It holds one block's scores and the (G,)-wide softmax state,
+    never a score row, so its shared memory does not grow with smax."""
+    del itemsize
+    if g > MAX_G or dim > MAX_DIM or kdim > dim:
+        return None
+    bs = _block_size(smax, block_size)
+    if not bs or full_smem_bytes(g=g, kdim=kdim, dim=dim,
+                                 bs=bs) > SMEM_LIMIT:
+        return None
+    return KernelPlan("stream", bs)
 
 
 def plan_decode(smax: int, dim: int, g: int, d: int, block_size: int,
@@ -75,11 +108,7 @@ def plan_decode(smax: int, dim: int, g: int, d: int, block_size: int,
         if smax % bs == 0:
             return KernelPlan(variant, bs)
 
-    bs = 0
-    for cand in dict.fromkeys((block_size,) + _BS_CANDIDATES):
-        if cand > 0 and smax % cand == 0 and smax >= cand:
-            bs = cand
-            break
+    bs = _block_size(smax, block_size)
     if not bs:
         return None
     nb = smax // bs

@@ -2,22 +2,28 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine dense \
         --policy loki_block --requests 4 --max-new 16 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --policy full --page-size 16 --n-pages 33 --prefill-chunk 32
 
-Builds the dense slot engine with the selected attention policy,
-calibrates the PCA transforms for the Loki policies on synthetic batches,
-and reports throughput over a synthetic request stream. Runs on the card
-unless ``--device cpu`` is given.
+Builds the dense slot engine (``--engine dense``) or the paged engine
+(``--engine paged``: a page pool of ``--n-pages`` pages of
+``--page-size`` tokens, prompts prefilled ``--prefill-chunk`` tokens at a
+time) with the selected attention policy, calibrates the PCA transforms
+for the Loki policies on synthetic batches, and reports throughput over a
+synthetic request stream. Runs on the card unless ``--device cpu`` is
+given.
 
 Every knob lives in :class:`ServeConfig`; the flags are thin aliases.
-This slice serves ``kind="dense"`` only: ``kind="paged"`` raises, and so
-does ``warm_steps > 0`` (the port has no training yet). ``--full`` selects
-the published width (the JAX launcher's ``--smoke`` cannot be turned off).
+``warm_steps > 0`` raises (the port has no training yet). ``--full``
+selects the published width (the JAX launcher's ``--smoke`` cannot be
+turned off).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
@@ -29,6 +35,7 @@ from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.models import lm
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.lifecycle import summarize
+from repro_torch.serving.scheduler import PagedServingEngine
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +43,7 @@ class EngineSection:
     """What runs: model, attention policy, kernel backend, batch shape."""
     arch: str = "qwen2.5-3b"
     smoke: bool = True
-    kind: str = "dense"            # dense (paged: the next slice)
+    kind: str = "dense"            # dense | paged
     policy: str = "loki"
     k_f: float = 0.25
     d_f: float = 0.25
@@ -46,8 +53,19 @@ class EngineSection:
 
 
 @dataclasses.dataclass(frozen=True)
+class PagedSection:
+    """The paged engine's pool and prefill chunking (``kind="paged"``).
+    None page_size = the Loki block size; None n_pages = every slot at
+    its page bound."""
+    page_size: Optional[int] = None
+    n_pages: Optional[int] = None
+    prefill_chunk: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     engine: EngineSection = dataclasses.field(default_factory=EngineSection)
+    paged: PagedSection = dataclasses.field(default_factory=PagedSection)
     admission: str = "strict"      # strict | lenient
     requests: int = 6
     max_new: int = 16
@@ -62,6 +80,8 @@ class ServeConfig:
                 arch=a.arch, smoke=not a.full, kind=a.engine,
                 policy=a.policy, k_f=a.k_f, d_f=a.d_f, backend=a.backend,
                 n_slots=a.n_slots, smax=a.smax),
+            paged=PagedSection(page_size=a.page_size, n_pages=a.n_pages,
+                               prefill_chunk=a.prefill_chunk),
             admission=a.admission, requests=a.requests, max_new=a.max_new,
             warm_steps=a.warm_steps, seed=a.seed, device=a.device)
 
@@ -74,22 +94,26 @@ class ServeConfig:
         return cfg
 
     def check(self) -> None:
-        """Refuse what this slice does not carry, before any work."""
-        if self.engine.kind != "dense":
-            raise NotImplementedError(
-                f"engine kind {self.engine.kind!r} is not ported yet "
-                "(ROADMAP queue 1 item 5: paged main path)")
+        """Refuse what the port does not carry yet, before any work."""
+        if self.engine.kind not in ("dense", "paged"):
+            raise ValueError(f"engine kind {self.engine.kind!r}; use "
+                             "'dense' or 'paged'")
         if self.warm_steps:
             raise NotImplementedError(
                 "warm_steps > 0 needs training, not ported yet (ROADMAP "
                 "queue 1 item 10)")
 
-    def build_engine(self, params, cfg: ModelConfig) -> ServingEngine:
+    def build_engine(self, params, cfg: ModelConfig):
         self.check()
-        return ServingEngine(params, cfg, n_slots=self.engine.n_slots,
-                             smax=self.engine.smax,
-                             backend=self.engine.backend,
-                             admission=self.admission, device=self.device)
+        common = dict(n_slots=self.engine.n_slots, smax=self.engine.smax,
+                      backend=self.engine.backend, admission=self.admission,
+                      device=self.device)
+        if self.engine.kind == "paged":
+            return PagedServingEngine(
+                params, cfg, page_size=self.paged.page_size,
+                n_pages=self.paged.n_pages,
+                prefill_chunk=self.paged.prefill_chunk, **common)
+        return ServingEngine(params, cfg, **common)
 
 
 def calibrated_params(cfg: ModelConfig, data: SyntheticLM, *, seed: int,
@@ -110,7 +134,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true",
                     help="published width instead of the smoke config")
     ap.add_argument("--policy", default="loki",
-                    choices=["full", "loki", "loki_block"])
+                    choices=["full", "exact_topk", "loki", "loki_block"])
     ap.add_argument("--k-f", type=float, default=0.25)
     ap.add_argument("--d-f", type=float, default=0.25)
     ap.add_argument("--backend", default="auto",
@@ -122,6 +146,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-slots", type=int, default=4)
     ap.add_argument("--smax", type=int, default=128)
     ap.add_argument("--engine", default="dense", choices=["dense", "paged"])
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="paged engine: tokens per page (default: the Loki "
+                         "block size)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="paged engine: pool pages incl. the trash page "
+                         "(default: every slot at its page bound)")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="paged engine: prompt tokens per prefill chunk")
     ap.add_argument("--admission", default="strict",
                     choices=["strict", "lenient"])
     ap.add_argument("--warm-steps", type=int, default=0)
@@ -155,11 +187,18 @@ def main(argv=None):
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     toks = sum(len(r.out) for r in reqs)
-    print(f"policy={cfg.attn_policy()} device={device} served {len(reqs)} "
+    print(f"engine={sc.engine.kind} policy={cfg.attn_policy()} "
+          f"device={device} served {len(reqs)} "
           f"requests ({toks} tokens) in {eng.ticks} ticks, {dt:.2f}s -> "
           f"{toks / dt:.1f} tok/s, {1e3 * dt / max(eng.ticks, 1):.1f} "
           "ms/tick")
     print(f"lifecycle: {summarize(reqs)}")
+    if sc.engine.kind == "paged":
+        st = eng.stats()
+        print(f"paged: {eng.pool.n_pages} pages of {eng.page_size}, "
+              f"preempted {st['n_preempted']}, decode steps "
+              f"{st['n_decode_steps']}, prefill chunks "
+              f"{st['n_prefill_chunks']}, host syncs {st['n_host_syncs']}")
     for r in reqs[:2]:
         print(f"  req{r.rid}: {r.out[:10]}")
     return reqs

@@ -1,12 +1,14 @@
 """Attention block: params, train forward, prefill and one-token decode.
 
 Counterpart of the attention half of ``repro.models.blocks`` for the dense
-contiguous cache. ``pos_len`` is the number of tokens already cached (B,):
+family, over the contiguous cache of the slot engine or the paged pool of
+the paged engine. ``pos_len`` is the number of tokens already cached (B,):
 the new token lands at that index and RoPE uses it as its position.
 
-Policies in this slice: ``full`` (plain torch only: its kernel is not
-ported yet), ``loki`` (token top-k, plain torch as in JAX) and
-``loki_block`` (the CUDA kernels through core/dispatch.py).
+Policies: ``full`` and ``exact_topk`` (the CUDA kernels through
+core/dispatch.py, or the plain references on backend="xla"), ``loki``
+(token top-k, plain torch as in JAX) and ``loki_block`` (the CUDA kernels
+through core/dispatch.py).
 """
 from __future__ import annotations
 
@@ -16,11 +18,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
 from repro_torch.core import dispatch, loki
 from repro_torch.models import layers as L
+from repro_torch.serving import paged_cache as PC
 
-#: policies of the JAX package this slice does not carry, with the
+#: the attention policies the port serves
+PORTED_POLICIES = ("full", "exact_topk", "loki", "loki_block")
+
+#: policies of the JAX package the port does not carry yet, with the
 #: ROADMAP item that will
 UNPORTED_POLICIES = {
-    "exact_topk": "ROADMAP queue 1: exact_topk policy (kernel: queue 2 #5)",
     "pcaattn": "ROADMAP queue 1: pcaattn policy",
     "h2o": "ROADMAP queue 1: h2o policy",
 }
@@ -32,8 +37,9 @@ def check_policy(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"policy {policy!r} is not ported yet "
             f"({UNPORTED_POLICIES[policy]})")
-    if policy not in ("full", "loki", "loki_block"):
-        raise ValueError(f"unknown attention policy {policy!r}")
+    if policy not in PORTED_POLICIES:
+        raise ValueError(f"unknown attention policy {policy!r}; the port "
+                         f"serves {PORTED_POLICIES}")
     if policy == "loki" and cfg.loki.n_chunks:
         raise NotImplementedError("loki_decode_chunked is not ported yet "
                                   "(ROADMAP queue 1)")
@@ -111,12 +117,19 @@ def _write_cache(cache_arr, new, pos_len):
         new.to(cache_arr.dtype)
 
 
+def _stores_pca(policy: str) -> bool:
+    """Loki policies keep cache keys in the PCA basis (paper lines 3-4)."""
+    return policy in ("loki", "loki_block")
+
+
 def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
-                sliding_window=None):
+                sliding_window=None, page_table=None, page_size: int = 0):
     """One-token decode with the configured attention policy.
 
     x (B,E); pos_len (B,) tokens already cached; cache {"k","v"} of
-    (B,Smax,Hkv,D), updated in place. Returns y (B,E)."""
+    (B,Smax,Hkv,·), or with ``page_table (B, max_pages)``/``page_size``
+    the paged pools (R,Hkv,·): the new token's K/V scatter through the
+    table to their pool rows. Updated in place. Returns y (B,E)."""
     hd = cfg.resolved_head_dim
     b = x.shape[0]
     q, k, v = _qkv(p, x[:, None, :], cfg)
@@ -132,33 +145,45 @@ def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
     proj = p["pca"]
     cur_len = positions + 1                       # cache incl. new token
     sw = cfg.sliding_window if sliding_window is None else sliding_window
-    if policy in ("loki", "loki_block"):
-        # cache keys live in the PCA basis (paper lines 3-4)
+    if _stores_pca(policy):
         _, k_store = loki.project_qk(q, k, proj)
     else:
         k_store = k
-    _write_cache(cache["k"], k_store, pos_len)
-    _write_cache(cache["v"], v, pos_len)
+    paged = page_table is not None
+    if paged:
+        PC.write_token_rows(cache["k"], k_store, page_table, positions,
+                            page_size)
+        PC.write_token_rows(cache["v"], v, page_table, positions, page_size)
+    else:
+        _write_cache(cache["k"], k_store, pos_len)
+        _write_cache(cache["v"], v, pos_len)
+    pargs = dict(page_table=page_table, page_size=page_size)
 
     if policy == "full":
-        if dispatch.resolve_backend(cfg.loki.backend,
-                                    q.device.type) != "xla":
-            raise NotImplementedError(
-                "full policy on the kernel backend needs paged_full_decode "
-                "(ROADMAP queue 2 #4); use backend='xla'")
-        out = A.decode_full(q, cache["k"], cache["v"], cur_len,
-                            sliding_window=sw, logit_scale=hd ** -0.5)
+        out = dispatch.full_paged_decode(q, cache["k"], cache["v"], cur_len,
+                                         backend=cfg.loki.backend,
+                                         block_size=cfg.loki.block_size,
+                                         sliding_window=sw,
+                                         logit_scale=hd ** -0.5, **pargs)
+    elif policy == "exact_topk":
+        out = dispatch.exact_topk_paged_decode(q, cache["k"], cache["v"],
+                                               cur_len, cfg.loki,
+                                               logit_scale=hd ** -0.5,
+                                               **pargs)
     elif policy == "loki":
-        out = loki.loki_decode(q, cache["k"], cache["v"], cur_len, proj,
-                               cfg.loki, sliding_window=sw)
+        kc, vc = dispatch.gathered(cache["k"], cache["v"], page_table,
+                                    page_size)
+        out = loki.loki_decode(q, kc, vc, cur_len, proj, cfg.loki,
+                               sliding_window=sw)
     elif policy == "loki_block":
         out = dispatch.loki_block_decode(q, cache["k"], cache["v"], cur_len,
-                                         proj, cfg.loki, sliding_window=sw)
+                                         proj, cfg.loki, sliding_window=sw,
+                                         **pargs)
     else:
         check_policy(cfg)
         raise AssertionError(policy)
-    # the plain paths return the cache's dtype (float32 in the dense
-    # engine) where the kernels return the query's: both continue in the
+    # the plain paths return the cache's dtype (float32 in both engines)
+    # where the kernels return the query's: both continue in the
     # activation dtype (a no-op when the model computes in float32)
     return L.dot(out.reshape(b, cfg.q_dim).to(x.dtype), p["wo"])
 
@@ -175,10 +200,73 @@ def attn_prefill(p, cache, x, positions, cfg: ModelConfig):
                              sliding_window=cfg.sliding_window)
     b, s = x.shape[:2]
     y = L.dot(out.reshape(b, s, cfg.q_dim), p["wo"])
-    if cfg.attn_policy() in ("loki", "loki_block"):
+    if _stores_pca(cfg.attn_policy()):
         k_store = torch.einsum("bshd,hde->bshe", k, p["pca"].to(k.dtype))
     else:
         k_store = k
     cache["k"][:, :s] = k_store.to(cache["k"].dtype)
     cache["v"][:, :s] = v.to(cache["v"].dtype)
     return y
+
+
+def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
+                       cfg: ModelConfig, *, table_row, page_size: int):
+    """One chunk of a paged, chunked prefill for a single request.
+
+    x (1,C,E) holds the chunk's embeddings at logical positions
+    ``pos_start .. pos_start+C-1``; only the first ``n_valid`` are real
+    (the scheduler zero-pads the final chunk to a fixed size). The chunk's
+    K/V scatter through ``table_row (max_pages,)`` into the pools in place
+    (pad rows go to the trash page), then the chunk attends causally over
+    [0, pos_start+C) through the logical view. Returns y (1,C,E).
+
+    Exact across chunks: the cached prefix holds keys in the policy's
+    storage basis, so prefix scores are taken in that basis (q̂·k̂ equals
+    q·k for an orthogonal P, Lemma 4.1); the chunk's own columns use the
+    fresh original-basis keys, as the one-shot prefill does."""
+    b, c = x.shape[:2]
+    q, k, v = _qkv(p, x, cfg)
+    positions = pos_start + torch.arange(c, device=x.device)[None]  # (1,C)
+    if cfg.rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    policy = cfg.attn_policy()
+    if policy not in PORTED_POLICIES:
+        raise ValueError(f"policy {policy!r} cannot reconstruct exact "
+                         "prefix attention from its cache; use the dense "
+                         "engine's one-shot prefill")
+    proj = p["pca"]
+    hd = cfg.resolved_head_dim
+    pca_store = _stores_pca(policy)
+    k_store = (torch.einsum("bshd,hde->bshe", k, proj.to(k.dtype))
+               if pca_store else k)
+    PC.write_chunk_rows(cache["k"], k_store[0], table_row, pos_start,
+                        page_size, n_valid=n_valid)
+    PC.write_chunk_rows(cache["v"], v[0], table_row, pos_start, page_size,
+                        n_valid=n_valid)
+    klog = PC.gather_logical(cache["k"], table_row[None], page_size)
+    vlog = PC.gather_logical(cache["v"], table_row[None], page_size)
+    sl = klog.shape[1]
+    scale = hd ** -0.5
+    qg = A._group(q, cfg.n_kv_heads)                       # (1,C,Hkv,G,D)
+    q_pref = (torch.einsum("bchgd,hde->bchge", qg, proj.to(q.dtype))
+              if pca_store else qg)
+    # prefix scores against the cached (storage-basis) keys ...
+    scores = torch.einsum("bchgd,bshd->bhgcs", (q_pref * scale).float(),
+                          klog.float())
+    # ... the chunk's own columns overwritten with fresh original-basis
+    # scores; columns of pad rows past the logical length are dropped
+    s_chunk = torch.einsum("bchgd,bshd->bhgcs", (qg * scale).float(),
+                           k.float())
+    n_keep = max(min(c, sl - pos_start), 0)
+    scores[..., pos_start:pos_start + n_keep] = s_chunk[..., :n_keep]
+
+    kv_pos = torch.arange(sl, device=x.device)
+    mask = kv_pos[None, :] <= positions[0][:, None]        # causal (C, Sl)
+    if cfg.sliding_window:
+        mask &= positions[0][:, None] - kv_pos[None, :] < cfg.sliding_window
+    scores = torch.where(mask[None, None, None], scores, A.NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(vlog.dtype)
+    o = torch.einsum("bhgcs,bshd->bchgd", w, vlog)
+    return L.dot(o.reshape(b, c, cfg.q_dim).to(x.dtype), p["wo"])

@@ -1,12 +1,16 @@
 """Language-model assembly, dense family (counterpart of ``repro.models.lm``).
 
 One parameter tree, the JAX package's layout (per-layer leaves stacked on a
-leading L axis), four entry points:
+leading L axis), and its entry points:
 
   init(cfg, ...)                                   -> params
   forward(params, tokens, cfg)                     -> (logits, aux)
   prefill(params, cfg, tokens, smax)               -> (logits, cache, pos_len)
   decode_step(params, cfg, cache, token, pos_len)  -> (logits, cache)
+  init_paged_cache(cfg, n_pages, page_size)        -> paged cache
+  prefill_chunk(params, cfg, cache, tokens, pos_start, n_valid,
+                page_table, page_size)             -> (logits, cache)
+  decode_step(..., page_table=, page_size=)        -> (logits, cache)
 
 Caches are updated in place where the JAX code donated them. Block
 composition: [attn, mlp]. Other families raise NotImplementedError.
@@ -21,6 +25,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.serving import cache_spec as CS
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -159,21 +164,107 @@ def prefill(params, cfg: ModelConfig, tokens, smax: int, *,
     return logits, cache, pos_len
 
 
-def _layer_decode(p, c, x, pos_len, cfg: ModelConfig):
+def _layer_decode(p, c, x, pos_len, cfg: ModelConfig, *, page_table=None,
+                  page_size: int = 0):
     h = L.norm_apply(p["ln1"], x)
-    x = x + B.attn_decode(p["attn"], c, h, pos_len, cfg)
+    x = x + B.attn_decode(p["attn"], c, h, pos_len, cfg,
+                          page_table=page_table, page_size=page_size)
     h = L.norm_apply(p["ln2"], x)
     return x + L.mlp_apply(p["mlp"], h, cfg)
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, cache, token, pos_len):
+def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
+                page_table=None, page_size: int = 0, live=None,
+                frame_table=None, slot_idx=None):
     """One generation step. token (B,) int; pos_len (B,) tokens cached.
-    Returns (logits (B,V) float32, cache) — the cache updated in place."""
+    Returns (logits (B,V) float32, cache) — the cache updated in place.
+
+    With ``page_table (B, max_pages)``/``page_size`` the cache is the
+    pooled layout of ``init_paged_cache`` and every layer's reads and
+    writes resolve through the table. The reference's ``live`` (StateSlot
+    families), ``slot_idx`` (packed decode), ``frame_table`` (tiered pool)
+    and rank-3 tables (page-table groups) are not ported yet (ROADMAP
+    queue 1 items 7-8) and raise."""
     check_family(cfg)
+    if live is not None or slot_idx is not None or frame_table is not None:
+        raise NotImplementedError(
+            "decode_step: live / slot_idx / frame_table are not ported yet "
+            "(ROADMAP queue 1 items 7-8)")
+    if page_table is not None and page_table.ndim != 2:
+        raise NotImplementedError("page-table groups (rank-3 tables) are "
+                                  "not ported yet (ROADMAP queue 1 item 7)")
     x = L.embed_apply(params["embed"], token, cfg)
     for i in range(cfg.n_layers):
         x = _layer_decode(layer_params(params, i), layer_cache(cache, i), x,
-                          pos_len, cfg)
+                          pos_len, cfg, page_table=page_table,
+                          page_size=page_size)
     x = L.norm_apply(params["final_norm"], x)
     return L.unembed_apply(params["embed"], x, cfg), cache
+
+
+# --------------------------------------------------------------- paged
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     dtype=torch.float32, n_slots: int = 1,
+                     device_pages: Optional[int] = None, device=None):
+    """Paged decode cache: per layer a shared pool
+    (n_pages * page_size, Hkv, W) of K and of V, stacked on a leading L
+    axis, no batch dim; requests map logical positions to pool rows through
+    per-slot page tables. Memory follows the page budget, not
+    n_slots * smax. ``n_slots`` sizes per-slot state, which the dense
+    family has none of. The reference's tiered pool (``device_pages``)
+    is not ported yet (ROADMAP queue 1 item 7)."""
+    check_family(cfg)
+    CS.assert_pageable(cfg)
+    B.check_policy(cfg)
+    if device_pages is not None:
+        raise NotImplementedError("tiered KV pools are not ported yet "
+                                  "(ROADMAP queue 1 item 7)")
+    spec = CS.layer_specs(cfg)[0].attn
+    dev = resolve_device(device)
+    rows = n_pages * page_size
+    lead = (cfg.n_layers, rows, spec.n_kv_heads)
+    return {"layers": {"attn": {
+        "k": torch.zeros(lead + (spec.k_width,), dtype=dtype, device=dev),
+        "v": torch.zeros(lead + (spec.head_dim,), dtype=dtype,
+                         device=dev)}}}
+
+
+@torch.no_grad()
+def prefill_chunk(params, cfg: ModelConfig, cache, tokens, pos_start: int,
+                  n_valid: int, page_table, page_size: int, *, slot=None,
+                  frame_row=None):
+    """One step of a paged, chunked prefill for a single request.
+
+    tokens (1, C): a fixed-size chunk whose first ``n_valid`` entries are
+    real prompt tokens at logical positions ``pos_start ..
+    pos_start+C-1`` (the rest is padding, written to the trash page).
+    page_table (1, max_pages) or (max_pages,). Each layer scatters the
+    chunk's K/V into the pools in place and attends causally over the
+    cached prefix plus the chunk. Returns (logits (1, V) of chunk token
+    ``n_valid - 1``, cache). ``slot`` addresses per-slot state, which the
+    dense family has none of; the tiered pool's ``frame_row`` is not
+    ported yet (ROADMAP queue 1 item 7)."""
+    check_family(cfg)
+    CS.assert_pageable(cfg)
+    if frame_row is not None:
+        raise NotImplementedError("tiered KV pools are not ported yet "
+                                  "(ROADMAP queue 1 item 7)")
+    if page_table.ndim > 2:
+        raise NotImplementedError("page-table groups (rank-3 tables) are "
+                                  "not ported yet (ROADMAP queue 1 item 7)")
+    table_row = page_table[0] if page_table.ndim == 2 else page_table
+    x = L.embed_apply(params["embed"], tokens, cfg)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        h = L.norm_apply(p["ln1"], x)
+        x = x + B.attn_prefill_chunk(p["attn"], layer_cache(cache, i), h,
+                                     pos_start, n_valid, cfg,
+                                     table_row=table_row,
+                                     page_size=page_size)
+        h = L.norm_apply(p["ln2"], x)
+        x = x + L.mlp_apply(p["mlp"], h, cfg)
+    x = L.norm_apply(params["final_norm"], x[:, n_valid - 1:n_valid])
+    logits = L.unembed_apply(params["embed"], x, cfg)[:, 0]
+    return logits, cache

@@ -36,6 +36,8 @@ class Request:
     status: Status = Status.QUEUED
     detail: str = ""
     deadline: Optional[Deadline] = None
+    # times this request lost its slot to preemption (paged engine)
+    n_preempts: int = 0
 
 
 def context_cap(smax: int, gen_tokens: int) -> int:

@@ -126,8 +126,9 @@ def test_sampling_is_seeded():
 
 
 def test_serve_refuses_what_the_slice_lacks():
-    with pytest.raises(NotImplementedError, match="paged"):
-        ServeConfig(engine=EngineSection(kind="paged")).check()
+    ServeConfig(engine=EngineSection(kind="paged")).check()
+    with pytest.raises(ValueError, match="engine kind"):
+        ServeConfig(engine=EngineSection(kind="tiered")).check()
     with pytest.raises(NotImplementedError, match="training"):
         ServeConfig(warm_steps=10).check()
 

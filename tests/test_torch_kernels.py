@@ -3,9 +3,10 @@
 On CPU tensors the port's wrappers run the kernels' plain torch versions
 (the CUDA kernels are held against those same plain versions on the card by
 chip_smoke.py). Here the plain versions meet the JAX kernels in interpret
-mode on the same numpy inputs: block indices must be equal, outputs within
-rtol = atol = 2e-5 — the tolerance tests/test_fused_decode.py uses for two
-float32 implementations that sum in different orders.
+mode on the same numpy inputs, contiguous and paged: block indices must be
+equal, outputs within rtol = atol = 2e-5 — the tolerance
+tests/test_fused_decode.py uses for two float32 implementations that sum
+in different orders.
 """
 import dataclasses
 
@@ -15,13 +16,14 @@ import pytest
 import torch
 
 from repro.configs.base import LokiConfig as JLokiConfig
+from repro.core import baselines as jbaselines
 from repro.core import dispatch as jdispatch
 from repro.core import loki as jloki
 from repro.kernels import fused_decode as jfused
 from repro.kernels import gather_attention as jgather
 from repro.kernels import ops as jops
 from repro_torch.configs.base import LokiConfig
-from repro_torch.core import dispatch, loki
+from repro_torch.core import baselines, dispatch, loki
 from repro_torch.kernels import fused_decode, gather_attention, ops, tuning
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -240,19 +242,26 @@ def test_plan_decode_budget():
 
 
 def test_paged_and_quantized_arguments_raise():
+    """Paged pools are taken now; per-page scales (quantized layouts) are
+    not ported yet, and a page size the block does not divide is refused
+    (a block must not straddle two pages)."""
     q, k, v, cur = _t(*_inputs(1, 1, 1, 32, 16, 16, seed=0, cur=[3]))
     table = torch.zeros((1, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="paged kernels"):
-        fused_decode.fused_loki_decode(q, k, v, cur, d=8, k_blocks=1,
+    pool = k[0]                                  # (R, Hkv, W) = (32, 1, 16)
+    with pytest.raises(ValueError, match="tile pages"):
+        fused_decode.fused_loki_decode(q, pool, v[0], cur, d=8, k_blocks=1,
                                        block_size=16, page_table=table,
-                                       page_size=16)
-    with pytest.raises(NotImplementedError, match="paged kernels"):
+                                       page_size=8)
+    with pytest.raises(NotImplementedError, match="item 6"):
         fused_decode.select_blocks(q, k, cur, d=8, k_blocks=1,
                                    block_size=16, k_scale=torch.ones(2))
-    with pytest.raises(NotImplementedError, match="paged kernels"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         gather_attention.block_sparse_attention_grouped(
             q, k, v, torch.zeros((1, 1, 1), dtype=torch.int32), cur,
             block_size=16, v_scale=torch.ones(2))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        gather_attention.paged_full_decode(q, k, v, cur, block_size=16,
+                                           k_scale=torch.ones(2))
 
 
 def test_cpu_tensors_never_launch():
@@ -263,5 +272,279 @@ def test_cpu_tensors_never_launch():
     q, k, v, cur = _t(*_inputs(1, 2, 2, 64, 16, 16, seed=1, cur=[40]))
     ops.loki_decode_fused(q, k, v, cur, d=8, k_blocks=2, block_size=16)
     ops.loki_decode_two_kernel(q, k, v, cur, d=8, k_blocks=2, block_size=16)
+    ops.full_decode(q, k, v, cur, block_size=16)
+    ops.exact_topk_decode_fused(q, k, v, cur, k_blocks=2, block_size=16)
     assert K.launch_counts() == {"fused_loki_decode": 0, "select_blocks": 0,
-                                 "block_sparse_attention_grouped": 0}
+                                 "block_sparse_attention_grouped": 0,
+                                 "paged_full_decode": 0,
+                                 "fused_exact_topk_decode": 0}
+
+
+# ------------------------------------------------------ paged pools, #4, #5
+
+def _paged(k, v, ps, seed, trash_rows=0):
+    """Scatter contiguous (B,S,Hkv,·) caches into a pool through a shuffled
+    (non-monotone) page table; page 0 stays the trash page. The last
+    ``trash_rows`` batch rows get all-zero table rows, as idle slots do in
+    the paged engine. Returns (pool_k, pool_v, table, logical k, v): the
+    logical caches are what the table reads, trash rows included."""
+    b, s, hkv, _ = k.shape
+    mp = s // ps
+    live = b - trash_rows
+    rng = np.random.RandomState(seed)
+    table = np.zeros((b, mp), np.int32)
+    table[:live] = (rng.permutation(live * mp) + 1).reshape(live, mp)
+    n_pages = live * mp + 1
+    pool_k = rng.randn(n_pages * ps, hkv, k.shape[-1]).astype(np.float32)
+    pool_v = rng.randn(n_pages * ps, hkv, v.shape[-1]).astype(np.float32)
+    for i in range(live):
+        for p in range(mp):
+            rows = slice(table[i, p] * ps, (table[i, p] + 1) * ps)
+            pool_k[rows] = k[i, p * ps:(p + 1) * ps]
+            pool_v[rows] = v[i, p * ps:(p + 1) * ps]
+    rows = (table[:, :, None] * ps + np.arange(ps)).reshape(b, s)
+    return pool_k, pool_v, table, pool_k[rows], pool_v[rows]
+
+
+PAGED = [(16, 16), (16, 32)]                         # (block, page) sizes
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("bs,ps", PAGED)
+def test_paged_loki_kernels_match_jax(g, bs, ps):
+    """#1-#3 in paged mode over a shuffled pool with a trash-page row: the
+    plain versions against the JAX kernels in interpret mode (exact block
+    indices), and against their own contiguous runs on the logical view."""
+    dim, w, s = 32, 32, 128
+    q, k, v, cur = _inputs(3, 2, g, s, w, dim, seed=g + bs + ps,
+                           cur=[113, 40, 1])
+    pk, pv, table, lk, lv = _paged(k, v, ps, seed=g, trash_rows=1)
+    kw = dict(d=8, k_blocks=3, block_size=bs, local_window=8,
+              scale=dim ** -0.5)
+    pkw = dict(kw, page_size=ps)
+    want_idx = np.asarray(jfused.select_blocks(
+        *_j(q, pk, cur), page_table=jnp.asarray(table), **pkw,
+        interpret=True))
+    tq, tpk, tpv, tcur, ttab = _t(q, pk, pv, cur, table)
+    got_idx = fused_decode.select_blocks(tq, tpk, tcur, page_table=ttab,
+                                         **pkw)
+    np.testing.assert_array_equal(got_idx.numpy(), want_idx)
+    np.testing.assert_array_equal(
+        got_idx.numpy(),
+        fused_decode.select_blocks(*_t(q, lk, cur), **kw).numpy())
+    want = np.asarray(jfused.fused_loki_decode(
+        *_j(q, pk, pv, cur), page_table=jnp.asarray(table), **pkw,
+        interpret=True))
+    got = fused_decode.fused_loki_decode(tq, tpk, tpv, tcur,
+                                         page_table=ttab, **pkw).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_array_equal(got, fused_decode.fused_loki_decode(
+        *_t(q, lk, lv, cur), **kw).numpy())
+    att_kw = dict(block_size=bs, scale=dim ** -0.5, page_size=ps)
+    want_att = np.asarray(jgather.block_sparse_attention_grouped(
+        *_j(q, pk, pv, want_idx, cur), page_table=jnp.asarray(table),
+        **att_kw, interpret=True))
+    got_att = gather_attention.block_sparse_attention_grouped(
+        tq, tpk, tpv, got_idx, tcur, page_table=ttab, **att_kw).numpy()
+    np.testing.assert_allclose(got_att, want_att, **TOL)
+
+
+FULL = [(1, 0, False), (4, 0, False), (1, 40, True), (4, 40, True),
+        (4, 0, True)]                                # (G, window, paged)
+
+
+@pytest.mark.parametrize("g,sw,paged", FULL)
+def test_full_decode_matches_jax(g, sw, paged):
+    """#4: the streaming full decode, contiguous and paged, ragged
+    cur_len, a sliding window, G in {1, 4}, W < D in one case."""
+    dim, bs, s = 32, 16, 128
+    w = 16 if g == 4 and sw else dim
+    q, k, v, cur = _inputs(3, 2, g, s, w, dim, seed=g + sw,
+                           cur=[128, 57, 1])
+    kw = dict(block_size=bs, sliding_window=sw,
+              scale=None if w == dim else dim ** -0.5)
+    if paged:
+        pk, pv, table, _, _ = _paged(k, v, 32, seed=g, trash_rows=1)
+        kw.update(page_size=32)
+        jargs = (*_j(q, pk, pv, cur),)
+        targs = (*_t(q, pk, pv, cur),)
+        jkw = dict(kw, page_table=jnp.asarray(table))
+        tkw = dict(kw, page_table=torch.from_numpy(table))
+    else:
+        jargs, targs, jkw, tkw = _j(q, k, v, cur), _t(q, k, v, cur), kw, kw
+    want = np.asarray(jgather.paged_full_decode(*jargs, **jkw,
+                                                interpret=True))
+    got = gather_attention.paged_full_decode(*targs, **tkw).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    jops_want = np.asarray(jops.full_decode(*jargs, **jkw, interpret=True))
+    np.testing.assert_allclose(ops.full_decode(*targs, **tkw).numpy(),
+                               jops_want, **TOL)
+
+
+EXACT = [(1, 0, False), (4, 0, False), (4, 40, False), (1, 0, True),
+         (4, 40, True)]                              # (G, window, paged)
+
+
+@pytest.mark.parametrize("g,sw,paged", EXACT)
+def test_exact_topk_kernel_matches_jax(g, sw, paged):
+    """#5: the fused exact-top-k decode, contiguous and paged, ragged
+    cur_len (a short row leaves -1 sentinels), a sliding window."""
+    dim, bs, s = 32, 16, 128
+    q, k, v, cur = _inputs(3, 2, g, s, dim, dim, seed=5 * g + sw,
+                           cur=[128, 30, 1])
+    kw = dict(k_blocks=4, block_size=bs, sliding_window=sw)
+    if paged:
+        pk, pv, table, lk, lv = _paged(k, v, 32, seed=g, trash_rows=1)
+        jkw = dict(kw, page_table=jnp.asarray(table), page_size=32)
+        tkw = dict(kw, page_table=torch.from_numpy(table), page_size=32)
+        jargs, targs = _j(q, pk, pv, cur), _t(q, pk, pv, cur)
+    else:
+        lk, lv = k, v
+        jargs, targs, jkw, tkw = _j(q, k, v, cur), _t(q, k, v, cur), kw, kw
+    want = np.asarray(jfused.fused_exact_topk_decode(*jargs, **jkw,
+                                                     interpret=True))
+    got = fused_decode.fused_exact_topk_decode(*targs, **tkw).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(
+        ops.exact_topk_decode_fused(*targs, **tkw).numpy(),
+        np.asarray(jops.exact_topk_decode_fused(*jargs, **jkw,
+                                                interpret=True)), **TOL)
+    # the selection it attends: select_blocks at d = W on the logical view
+    sel = fused_decode.select_blocks(*_t(q, lk, cur), d=dim,
+                                     scale=dim ** -0.5, local_window=0,
+                                     **kw).numpy()
+    np.testing.assert_array_equal(sel, np.asarray(jfused.select_blocks(
+        *_j(q, lk, cur), d=dim, scale=dim ** -0.5, local_window=0, **kw,
+        interpret=True)))
+    assert (sel[2] == -1).any()                     # the cur_len-1 row
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("paged", [False, True])
+def test_exact_topk_oracles_match_jax(g, paged):
+    """The block oracle (group-shared and per-head) and the token
+    reference, and the fused kernel against the group-shared oracle."""
+    b, hkv, s, dim, bs = 2, 2, 128, 32, 16
+    rng = np.random.RandomState(g)
+    q = rng.randn(b, hkv * g, dim).astype(np.float32)
+    k = rng.randn(b, s, hkv, dim).astype(np.float32)
+    v = rng.randn(b, s, hkv, dim).astype(np.float32)
+    cur = np.array([s, 45], np.int32)
+    jcfg = JLokiConfig(enabled=True, k_f=0.25, block_size=bs)
+    cfg = LokiConfig(**dataclasses.asdict(jcfg))
+    pargs, jpargs, kc, vc = {}, {}, k, v
+    if paged:
+        kc, vc, table, _, _ = _paged(k, v, 32, seed=g)
+        pargs = dict(page_table=torch.from_numpy(table), page_size=32)
+        jpargs = dict(page_table=jnp.asarray(table), page_size=32)
+    for group_select in (True, False):
+        want = np.asarray(jbaselines.exact_topk_decode_block(
+            *_j(q, kc, vc, cur), jcfg, group_select=group_select,
+            **jpargs))
+        got = baselines.exact_topk_decode_block(
+            *_t(q, kc, vc, cur), cfg, group_select=group_select,
+            **pargs).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+        if group_select:
+            fused = fused_decode.fused_exact_topk_decode(
+                *_t(q.reshape(b, hkv, g, dim), kc, vc, cur), k_blocks=2,
+                block_size=bs, **pargs).numpy()
+            np.testing.assert_allclose(fused.reshape(b, hkv * g, dim),
+                                       want, **TOL)
+    want = np.asarray(jbaselines.exact_topk_decode(*_j(q, k, v, cur), jcfg))
+    got = baselines.exact_topk_decode(*_t(q, k, v, cur), cfg).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("policy", ["loki_block", "full", "exact_topk"])
+def test_paged_dispatch_matches_jax(backend, policy):
+    """Each policy's dispatch over a paged pool, both backends, against
+    JAX's dispatch on the same pool and table."""
+    b, hkv, g, s, dim, bs = 2, 2, 2, 128, 32, 16
+    rng = np.random.RandomState(len(policy))
+    q = rng.randn(b, hkv * g, dim).astype(np.float32)
+    k = rng.randn(b, s, hkv, dim).astype(np.float32)
+    v = rng.randn(b, s, hkv, dim).astype(np.float32)
+    proj = _orthogonal(hkv, dim, seed=2)
+    cur = np.array([100, 17], np.int32)
+    pk, pv, table, _, _ = _paged(k, v, 32, seed=5)
+    jcfg = JLokiConfig(enabled=True, block_size=bs, backend=backend)
+    cfg = LokiConfig(**dataclasses.asdict(jcfg))
+    jp = dict(page_table=jnp.asarray(table), page_size=32)
+    tp = dict(page_table=torch.from_numpy(table), page_size=32)
+    if policy == "loki_block":
+        want = jdispatch.loki_block_decode(*_j(q, pk, pv, cur, proj), jcfg,
+                                           interpret=True, **jp)
+        got = dispatch.loki_block_decode(*_t(q, pk, pv, cur, proj), cfg,
+                                         **tp)
+    elif policy == "full":
+        kw = dict(backend=backend, block_size=bs, logit_scale=dim ** -0.5)
+        want = jdispatch.full_paged_decode(*_j(q, pk, pv, cur), **kw,
+                                           interpret=True, **jp)
+        got = dispatch.full_paged_decode(*_t(q, pk, pv, cur), **kw, **tp)
+    else:
+        want = jdispatch.exact_topk_paged_decode(
+            *_j(q, pk, pv, cur), jcfg, logit_scale=dim ** -0.5,
+            interpret=True, **jp)
+        got = dispatch.exact_topk_paged_decode(
+            *_t(q, pk, pv, cur), cfg, logit_scale=dim ** -0.5, **tp)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_plan_full_decode():
+    assert tuning.plan_full_decode(4096, 128, 1, 128, 128) == \
+        tuning.KernelPlan("stream", 128)
+    assert tuning.plan_full_decode(96, 64, 2, 64, 128).block_size == 32
+    assert tuning.plan_full_decode(4096, 128, 32, 128, 128) is None
+    assert tuning.plan_full_decode(100, 128, 1, 128, 128) is None
+    # exact_topk plans the fused kernel at d = kd, as JAX does
+    assert tuning.plan_decode(4096, 128, 1, 128, 128) == \
+        tuning.KernelPlan("fused", 128)
+
+
+CUDA_RAISES = ["full_no_plan", "exact_topk_no_plan", "loki_block_page",
+               "full_page", "exact_topk_page", "full_disabled"]
+
+
+@pytest.mark.parametrize("case", CUDA_RAISES)
+def test_cuda_paged_dispatch_raises(case, monkeypatch):
+    """On a CUDA tensor the kernel backend never falls back: no plan for
+    the shape (G = 32 > 16), a paged block that does not divide the page
+    (page 8, block 16), or a disabled backend raises. The tensors pose as
+    CUDA ones; the raise comes before any device op (chip_smoke.py checks
+    the same on the card). On the CPU the same calls run the plain path."""
+    g = 32 if case.endswith("no_plan") else 1
+    ps = 8 if case.endswith("page") else 16
+    rng = np.random.RandomState(1)
+    q = rng.randn(1, g, 16).astype(np.float32)
+    pool = rng.randn(128 + ps, 1, 16).astype(np.float32)
+    table = np.arange(1, 128 // ps + 1, dtype=np.int32)[None]
+    args = _t(q, pool, pool, np.array([50], np.int32))
+    tp = dict(page_table=torch.from_numpy(table), page_size=ps)
+    cfg = LokiConfig(enabled=True, block_size=16, backend="pallas")
+    policy = case.split("_no_plan")[0].split("_page")[0].split(
+        "_disabled")[0]
+
+    def call():
+        if policy == "full":
+            return dispatch.full_paged_decode(*args, backend="pallas",
+                                              block_size=16, **tp)
+        if policy == "exact_topk":
+            return dispatch.exact_topk_paged_decode(*args, cfg, **tp)
+        proj = torch.eye(16)[None]
+        return dispatch.loki_block_decode(*args, proj, cfg, **tp)
+
+    assert call().shape == (1, g, 16)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    if case == "full_disabled":
+        dispatch.disable_backend("pallas", "test")
+        try:
+            with pytest.raises(RuntimeError, match="disabled"):
+                dispatch.full_paged_decode(*args, backend="auto",
+                                           block_size=16, **tp)
+        finally:
+            dispatch.enable_backend("pallas")
+        return
+    with pytest.raises(NotImplementedError, match="no CUDA kernel plan"):
+        call()

@@ -96,21 +96,26 @@ def test_unported_families_and_policies_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.init(get_smoke_config("mixtral-8x22b"), device="cpu")
     cfg = get_smoke_config("llama2-7b")
-    for policy in ("exact_topk", "pcaattn", "h2o"):
+    for policy in ("pcaattn", "h2o"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.init_cache(cfg.with_policy(policy), 1, 32, device="cpu")
+    with pytest.raises(ValueError, match="serves"):
+        lm.init_cache(cfg.with_policy("sparse"), 1, 32, device="cpu")
 
 
 def test_full_policy_is_plain_only(model):
-    """``full`` runs on backend="xla"; its kernel is not ported, so the
-    kernel backend raises instead of quietly running torch."""
+    """``full`` over the contiguous cache: backend="xla" runs the plain
+    ``decode_full``; the kernel backend now runs paged_full_decode (its
+    plain version on CPU), which computes the same function."""
     _, cfg, _, tparams, _, _ = model
     full = cfg.with_policy("full")
     toks = torch.arange(1, 40).reshape(1, -1) % cfg.vocab
-    _, cache, pos = lm.prefill(tparams, full, toks, 64,
-                               cache_dtype=torch.float32)
     tok = torch.tensor([1])
-    lm.decode_step(tparams, _with_backend(full, "xla"), cache, tok, pos)
-    pallas = _with_backend(full, "pallas")
-    with pytest.raises(NotImplementedError, match="paged_full_decode"):
-        lm.decode_step(tparams, pallas, cache, tok, pos)
+    logits = {}
+    for backend in ("xla", "pallas"):
+        _, cache, pos = lm.prefill(tparams, full, toks, 64,
+                                   cache_dtype=torch.float32)
+        logits[backend], _ = lm.decode_step(
+            tparams, _with_backend(full, backend), cache, tok, pos)
+    np.testing.assert_allclose(logits["pallas"].numpy(),
+                               logits["xla"].numpy(), **TOL)
