@@ -6,16 +6,22 @@
 Phases, each of which fails the run on any error:
   1. build   the CUDA sources in src/repro_torch/csrc with nvcc (sm_90a),
              one nvcc per source, all started together;
-  2. kernels hold the five kernels (fused_loki_decode, select_blocks,
+  2. kernels hold the nine kernels against their plain torch versions:
+             the five decode kernels (fused_loki_decode, select_blocks,
              block_sparse_attention_grouped, paged_full_decode,
-             fused_exact_topk_decode) against their plain torch versions
-             at llama2-7b and qwen2.5-3b decode shapes (plus a
-             sliding-window, a head_dim-256 and a short-cur_len case, fp32
-             and bf16 caches); hold each kernel's paged form bit for bit
-             against its contiguous form on the same logical data
-             (shuffled page tables with a trash-page row); check that
-             CUDA shapes no kernel plan takes raise; time each kernel,
-             contiguous and paged, at the main-path shape;
+             fused_exact_topk_decode) at llama2-7b and qwen2.5-3b decode
+             shapes (plus a sliding-window, a head_dim-256 and a
+             short-cur_len case, fp32 and bf16 caches), each one's paged
+             form bit for bit against its contiguous form on the same
+             logical data (shuffled page tables with a trash-page row);
+             the per-head pipeline's three (block_max_scores,
+             block_max_scores_fm, block_sparse_attention) at llama2-7b's
+             decode step flattened per head (bf16 q over fp32 K/V, fp32,
+             bf16), head_dim 256 and short cur_len (dead-block ties), the
+             two layouts bit for bit; flash_attention at the llama2-7b
+             prefill shape (causal and not), Sq != Sk, head_dim 64 and 256;
+             check that CUDA shapes no kernel takes raise; time each
+             kernel at its main-path shape;
   3. dense   llama2-7b at full width through the dense engine with
              loki_block (4 long prompts, 16 new tokens each), then full
              and exact_topk through it, the launch counters of each run
@@ -24,7 +30,11 @@ Phases, each of which fails the run on any error:
   4. step    the decode-step path: one decode step of all four slots
              through the fused kernel, each layer's call repeated through
              ops.loki_decode_two_kernel on the same inputs (its own launch
-             counts), and the step's logits held against the plain
+             counts); the per-head path: each layer's call flattened per
+             head through ops.loki_decode_attention, then through
+             ops.loki_decode_attention_fm on a feature-major copy (each
+             counted on its own), held against the fused kernel without
+             its recency window; the step's logits held against the plain
              per-head path; then a torch.profiler breakdown of one decode
              step and greedy agreement of a whole run with the plain path;
   5. paged   the main path: the paged engine serves the same four prompts
@@ -32,7 +42,10 @@ Phases, each of which fails the run on any error:
              chunks) once each with loki_block (in a pool too small for
              all four, so it must preempt), full and exact_topk, counted
              per run; decode tick time, device idle share and host syncs
-             per tick of each.
+             per tick of each;
+  6. flash   the prefill-flash path: one 3072-token prompt through
+             lm.prefill at full width, each layer's causal-attention q, k,
+             v through ops.flash (counted), held against plain flash.
 The second-to-last line is a JSON object listing the kernels; the last is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
@@ -55,6 +68,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_FLOPS = 67e12              # H100 SXM float32 rate outside tensor cores
+BF16_FLOPS = 989e12             # H100 SXM bf16 dense tensor-core peak
 NEG_INF = -1e30
 DEV = "cuda"
 
@@ -495,15 +509,349 @@ def time_kernels(results):
         ms, paged_ms = time_ms(kern[name]), time_ms(paged[name])
         plain_ms = time_ms(plain[name], reps=5)
         timing[name] = dict(ms=ms, paged_ms=paged_ms, plain_ms=plain_ms,
-                            bound_ms=bnd[name][0], bound_by=bnd[name][1])
+                            bound_ms=bnd[name][0], bound_by=bnd[name][1],
+                            library_ms=(sdpa_ms if name == "paged_full_decode"
+                                        else None))
         log(f"timing: {name} at {case['name']}: {ms:.4f} ms contiguous, "
             f"{paged_ms:.4f} ms paged (page 128, one more idle row), bound "
             f"{bnd[name][0]:.4f} ms by {bnd[name][1]}, plain "
             f"{plain_ms:.4f} ms")
     log(f"timing: scaled_dot_product_attention over the same live cache "
         f"(library call of paged_full_decode's function): {sdpa_ms:.4f} ms")
-    results["timing"], results["sdpa_ms"] = timing, sdpa_ms
+    results.setdefault("timing", {}).update(timing)
+    results["sdpa_ms"] = sdpa_ms
     del results["paged"]
+
+
+# ------------------------------------------- per-head pipeline and flash
+
+HEAD_KERNELS = ("block_max_scores", "block_max_scores_fm",
+                "block_sparse_attention")
+
+
+def make_head_case(name, *, BH, D, S, bs, d, kb, cur, heads, kv_dtype,
+                   q_dtype, seed):
+    """A per-head case: (BH, D) queries over (BH, S, D) caches, the
+    batch's cur_len repeated for each of its ``heads`` rows."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    f = dict(device=DEV, generator=gen)
+    return dict(
+        name=name, bs=bs, d=d, kb=kb,
+        q=torch.randn((BH, D), **f).to(q_dtype),
+        k=torch.randn((BH, S, D), **f).to(kv_dtype),
+        v=torch.randn((BH, S, D), **f).to(kv_dtype),
+        cur=torch.tensor(cur, dtype=torch.int32,
+                         device=DEV).repeat_interleave(heads))
+
+
+def head_cases():
+    """The per-head shapes, made one at a time: llama2-7b's decode step
+    flattened per head (B 4 x Hkv 32 rows) first."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    llama = dict(BH=128, D=128, S=4096, bs=128, d=32, kb=8, heads=32,
+                 cur=[3000, 2500, 1800, 3100])
+    yield make_head_case("llama2-7b per head q:bf16 kv:fp32", **llama,
+                         kv_dtype=f32, q_dtype=bf16, seed=21)
+    yield make_head_case("llama2-7b per head q:fp32 kv:fp32", **llama,
+                         kv_dtype=f32, q_dtype=f32, seed=22)
+    yield make_head_case("llama2-7b per head q:bf16 kv:bf16", **llama,
+                         kv_dtype=bf16, q_dtype=bf16, seed=23)
+    yield make_head_case("per head head_dim=256, d=64",
+                         **dict(llama, BH=64, D=256, d=64, heads=16),
+                         kv_dtype=f32, q_dtype=f32, seed=24)
+    yield make_head_case("per head short cur_len, dead-block ties",
+                         **dict(llama, cur=[1, 100, 129, 300]),
+                         kv_dtype=f32, q_dtype=f32, seed=25)
+
+
+def check_head_kernels(results):
+    """block_max_scores, block_max_scores_fm and block_sparse_attention
+    against their plain versions on every per-head case, and the ops
+    pipelines built on them. Block maxima: within fp32 summation order
+    (1e-4), dead blocks exactly -1e30, the two layouts bit for bit;
+    selections equal on rows without a near-tie (dead blocks tie exactly
+    in both and go to the lower index in both); attention within
+    ``tolerance``."""
+    from repro_torch.core.loki import topk_lower_index
+    from repro_torch.kernels import approx_scores as AS
+    from repro_torch.kernels import approx_scores_fm as ASF
+    from repro_torch.kernels import gather_attention as GA
+    from repro_torch.kernels import ops
+
+    for case in head_cases():
+        q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
+        bs, d, kb = case["bs"], case["d"], case["kb"]
+        kw = dict(d=d, block_size=bs, scale=q.shape[-1] ** -0.5)
+        kT = k.transpose(1, 2).contiguous()          # feature-major copy
+        blk = AS.block_max_scores(q, k, cur, **kw)
+        blk_fm = ASF.block_max_scores_fm(q, kT, cur, **kw)
+        blk_p = AS.block_max_scores_plain(q, k, cur, **kw)
+        blk_fm_p = ASF.block_max_scores_fm_plain(q, kT, cur, **kw)
+        sync()
+        dead = blk_p <= NEG_INF / 2
+        errs = {}
+        for name, got, want in (("block_max_scores", blk, blk_p),
+                                ("block_max_scores_fm", blk_fm, blk_fm_p)):
+            if not torch.equal(got[dead], want[dead]) or \
+                    (got[~dead] <= NEG_INF / 2).any():
+                raise AssertionError(f"{case['name']}: {name}: dead blocks "
+                                     "are not exactly -1e30")
+            torch.testing.assert_close(
+                got[~dead], want[~dead], atol=1e-4, rtol=1e-4,
+                msg=lambda m: f"{case['name']}: {name}: {m}")
+            errs[name] = float((got - want).abs()[~dead].max())
+        # the two kernels sum each dot in one order (the plain versions,
+        # run in a CPU rehearsal, do not)
+        if DEV == "cuda" and not torch.equal(blk_fm, blk):
+            raise AssertionError(f"{case['name']}: feature-major block "
+                                 "maxima differ from token-major ones")
+        ties = near_tie_rows(blk_p, kb)
+        sel = topk_lower_index(blk_p, kb)[1]
+        diff = (topk_lower_index(blk, kb)[1] != sel).any(-1)
+        if (diff & ~ties).any():
+            raise AssertionError(f"{case['name']}: selections differ in "
+                                 f"{int((diff & ~ties).sum())} rows with no "
+                                 "near-tie")
+        att_kw = dict(block_size=bs, scale=kw["scale"])
+        att = GA.block_sparse_attention(q, k, v, sel, cur, **att_kw)
+        want = GA.block_sparse_attention_plain(q, k, v, sel, cur, **att_kw)
+        pipe = ops.loki_decode_attention(q, k, v, cur, d=d, k_blocks=kb,
+                                         block_size=bs)
+        pipe_fm = ops.loki_decode_attention_fm(q, kT, v, cur, d=d,
+                                               k_blocks=kb, block_size=bs)
+        sync()
+        atol, rtol = tolerance(q.dtype)
+        rows = ~ties
+        # the fm pipeline reads the selected blocks through K̂ᵀ's strides
+        for what, got, ref in (("block_sparse_attention", att, want),
+                               ("loki_decode_attention", pipe[rows],
+                                want[rows]),
+                               ("loki_decode_attention_fm", pipe_fm, pipe)):
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{case['name']}: {what} non-finite")
+            torch.testing.assert_close(
+                got.float(), ref.float(), atol=atol, rtol=rtol,
+                msg=lambda m: f"{case['name']}: {what}: {m}")
+        errs["block_sparse_attention"] = float(
+            (att.float() - want.float()).abs().max())
+        live_blocks = (cur.long() + bs - 1) // bs
+        log(f"kernels: {case['name']}: block maxima max|err| "
+            f"{errs['block_max_scores']:.3e} (fm "
+            f"{errs['block_max_scores_fm']:.3e}, fm == token-major bit for "
+            f"bit), dead blocks "
+            f"{int(dead.sum())}; selections equal in {int((~diff).sum())}/"
+            f"{diff.numel()} rows (near-ties {int(ties.sum())}, rows choosing "
+            f"dead blocks {int((live_blocks < kb).sum())}); "
+            f"block_sparse_attention max|err| "
+            f"{errs['block_sparse_attention']:.3e}, pipelines fm == "
+            f"token-major {bool(torch.equal(pipe_fm, pipe))} (atol {atol}, "
+            f"rtol {rtol})")
+        if "head_main" not in results:
+            results["head_main"] = dict(case=case, kT=kT, sel=sel)
+            results.setdefault("errs", {}).update(errs)
+        del kT
+
+
+def flash_cases():
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (name, BH, Sq, Sk, D, dtype, causal): the prefill shape first
+    return [("llama2-7b prefill, causal", 32, 3072, 3072, 128, bf16, True),
+            ("llama2-7b prefill, non-causal", 32, 3072, 3072, 128, bf16,
+             False),
+            ("Sq 1024 < Sk 3072, causal", 8, 1024, 3072, 128, bf16, True),
+            ("Sq 1024 < Sk 3072, non-causal", 8, 1024, 3072, 128, bf16,
+             False),
+            ("Sq 3072 > Sk 1024, causal", 8, 3072, 1024, 128, bf16, True),
+            ("Sq 3072 > Sk 1024, non-causal", 8, 3072, 1024, 128, f32,
+             False),
+            ("head_dim 64, fp32", 8, 1024, 1024, 64, f32, True),
+            ("head_dim 64, bf16", 8, 1024, 1024, 64, bf16, True),
+            ("head_dim 256, fp32", 8, 1024, 1024, 256, f32, True),
+            ("head_dim 256, bf16", 8, 1024, 1024, 256, bf16, False)]
+
+
+def make_flash(bh, sq, sk, dim, dtype, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    f = dict(device=DEV, generator=gen)
+    return (torch.randn((bh, sq, dim), **f).to(dtype),
+            torch.randn((bh, sk, dim), **f).to(dtype),
+            torch.randn((bh, sk, dim), **f).to(dtype))
+
+
+# Absolute slack of the bf16 check: two float32 orders of the same sums
+# differ by ~1e-6 absolute, more than one bf16 ulp of an output near zero.
+BF16_ATOL = 1e-5
+
+
+def check_close(got, want, what):
+    """bf16: within one bf16 ulp of the larger of the two (both round the
+    same float32 function, which can straddle a rounding boundary), plus
+    BF16_ATOL; float32: ``tolerance``. Returns max |err|."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite output")
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        bad = (g - w).abs() > ulp + BF16_ATOL
+        if bad.any():
+            raise AssertionError(f"{what}: {int(bad.sum())} elements beyond "
+                                 f"one bf16 ulp (max |err| "
+                                 f"{float((g - w).abs().max()):.3e})")
+    else:
+        atol, rtol = tolerance(got.dtype)
+        torch.testing.assert_close(g, w, atol=atol, rtol=rtol,
+                                   msg=lambda m: f"{what}: {m}")
+    return float((g - w).abs().max())
+
+
+def check_flash(results):
+    """flash_attention against its plain version on every flash case."""
+    from repro_torch.kernels import flash_attention as FA
+    for i, (name, bh, sq, sk, dim, dtype, causal) in enumerate(flash_cases()):
+        q, k, v = make_flash(bh, sq, sk, dim, dtype, seed=31 + i)
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                        scale=dim ** -0.5)
+        sync()
+        err = check_close(got, want, f"flash {name}")
+        log(f"kernels: flash_attention {name} (BH {bh}, {sq} x {sk}, D "
+            f"{dim}, {str(dtype)[6:]}): max|err| {err:.3e} "
+            f"({'one bf16 ulp' if dtype == torch.bfloat16 else 'tolerance'})")
+        if i == 0:
+            results["flash_main"] = (q, k, v)
+            results.setdefault("errs", {})["flash_attention"] = err
+        del got, want
+
+
+def check_head_raises():
+    """CUDA shapes the per-head kernels and flash do not take raise: the
+    contract's (fm d = 12, flash Sq = 3000, S % bs != 0) with ValueError,
+    and a width the launcher refuses (D = 512) with its error code."""
+    from repro_torch.kernels import approx_scores as AS
+    from repro_torch.kernels import approx_scores_fm as ASF
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gather_attention as GA
+
+    gen = torch.Generator(device=DEV).manual_seed(26)
+    f = dict(device=DEV, generator=gen)
+    q, k = torch.randn((2, 128), **f), torch.randn((2, 1000, 128), **f)
+    cur = torch.tensor([900, 300], dtype=torch.int32, device=DEV)
+    kT = torch.randn((2, 128, 1024), **f)
+    fq, fk = torch.randn((2, 3000, 128), **f), torch.randn((2, 3072, 128), **f)
+    wide = torch.randn((1, 128, 512), **f)
+    calls = {
+        "block_max_scores_fm, d = 12": (ValueError, lambda:
+            ASF.block_max_scores_fm(q, kT, cur, d=12)),
+        "flash_attention, Sq = 3000": (ValueError, lambda:
+            FA.flash_attention(fq, fk, fk)),
+        "block_max_scores, S = 1000 % 128": (ValueError, lambda:
+            AS.block_max_scores(q, k, cur, d=32)),
+        "block_sparse_attention, S = 1000 % 128": (ValueError, lambda:
+            GA.block_sparse_attention(q, k, k, torch.zeros(
+                (2, 1), dtype=torch.int32, device=DEV), cur)),
+        "flash_attention, D = 512 (launcher)": (RuntimeError, lambda:
+            FA.flash_attention(wide, wide, wide)),
+    }
+    for what, (err, call) in calls.items():
+        try:
+            call()
+        except err as e:
+            log(f"kernels: raises on the card ({what}): {e}")
+            continue
+        raise AssertionError(f"a CUDA call outside the contract did not "
+                             f"raise {err.__name__} ({what})")
+
+
+def head_bounds(case, sel):
+    """bound_ms of the per-head kernels at ``case`` for this run's data:
+    bytes (each input read once, each output written once) over 3.35
+    TB/s against float32 operations over 67 TFLOP/s."""
+    q, k, cur = case["q"], case["k"], case["cur"].long()
+    bh, dim = q.shape
+    bs, d = case["bs"], case["d"]
+    nb = k.shape[1] // bs
+    ksz, qsz = k.element_size(), q.element_size()
+    live = int(cur.clamp(max=k.shape[1]).sum())
+    pos = sel.long()[..., None] * bs + torch.arange(bs, device=sel.device)
+    won = int((pos < cur[:, None, None]).sum())
+    meta = 4 * bh                                       # cur_len
+
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+        return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+    scores = bound(live * d * ksz + bh * d * qsz + bh * nb * 4 + meta,
+                   2 * live * d)
+    return {"block_max_scores": scores, "block_max_scores_fm": scores,
+            "block_sparse_attention": bound(
+                won * 2 * dim * ksz + bh * dim * qsz + sel.numel() * 4
+                + meta + bh * dim * qsz, 4 * won * dim)}
+
+
+def flash_bound(q, k, causal):
+    """bound_ms of flash_attention: bytes over 3.35 TB/s against the
+    operations of the live (query, key) pairs over the tensor-core peak
+    of the inputs' type (bf16 989 TFLOP/s; float32 67 TFLOP/s)."""
+    bh, sq, dim = q.shape
+    sk = k.shape[1]
+    n = min(sq, sk)
+    pairs = n * (n + 1) // 2 + max(0, sq - sk) * sk if causal else sq * sk
+    ops = 4 * bh * dim * pairs
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
+        k.element_size()
+    rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / rate
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def time_head_kernels(results):
+    """The four kernels of this path, their plain versions and, for
+    flash, scaled_dot_product_attention (the same function, timed here
+    only), at the main per-head and prefill shapes."""
+    from repro_torch.kernels import approx_scores as AS
+    from repro_torch.kernels import approx_scores_fm as ASF
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gather_attention as GA
+
+    main = results.pop("head_main")
+    case, kT, sel = main["case"], main["kT"], main["sel"]
+    q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
+    kw = dict(d=case["d"], block_size=case["bs"], scale=q.shape[-1] ** -0.5)
+    att_kw = dict(block_size=case["bs"], scale=kw["scale"])
+    runs = {
+        "block_max_scores": (lambda: AS.block_max_scores(q, k, cur, **kw),
+                             lambda: AS.block_max_scores_plain(q, k, cur,
+                                                               **kw)),
+        "block_max_scores_fm": (
+            lambda: ASF.block_max_scores_fm(q, kT, cur, **kw),
+            lambda: ASF.block_max_scores_fm_plain(q, kT, cur, **kw)),
+        "block_sparse_attention": (
+            lambda: GA.block_sparse_attention(q, k, v, sel, cur, **att_kw),
+            lambda: GA.block_sparse_attention_plain(q, k, v, sel, cur,
+                                                    **att_kw)),
+    }
+    bnd = head_bounds(case, sel)
+    fq, fk, fv = results.pop("flash_main")
+    runs["flash_attention"] = (
+        lambda: FA.flash_attention(fq, fk, fv, causal=True),
+        lambda: FA.flash_attention_plain(fq, fk, fv, causal=True,
+                                         scale=fq.shape[-1] ** -0.5))
+    bnd["flash_attention"] = flash_bound(fq, fk, True)
+    sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        fq[None], fk[None], fv[None], is_causal=True))
+    timing = results.setdefault("timing", {})
+    for name, (kern, plain) in runs.items():
+        ms, plain_ms = time_ms(kern), time_ms(plain, reps=5)
+        lib = sdpa if name == "flash_attention" else None
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[name][0],
+                            bound_by=bnd[name][1], library_ms=lib)
+        where = ("llama2-7b prefill (32, 3072, 3072, 128) bf16 causal"
+                 if name == "flash_attention" else case["name"])
+        log(f"timing: {name} at {where}: {ms:.4f} ms, bound "
+            f"{bnd[name][0]:.4f} ms by {bnd[name][1]}, plain "
+            f"{plain_ms:.4f} ms"
+            + (f", scaled_dot_product_attention {lib:.4f} ms" if lib else ""))
 
 
 # -------------------------------------------------------------------- serve
@@ -658,6 +1006,7 @@ def serve(results, *, smoke=False, smax=4096, lengths=LENGTHS,
     log(f"serve: greedy tokens equal to backend=xla in {same}/{toks_out} "
         "(reported, not asserted)")
     launches["decode_step"] = step.pop("launches")
+    launches.update(step["per_head"].pop("launches"))
 
     # the paged path's greedy reference, one dense run per policy
     paged_toks = prompts(cfg.vocab, list(paged_lengths), seed=11)
@@ -953,6 +1302,7 @@ def decode_step_check(params, cfg, toks, smax):
     check_launches("decode-step path", counts,
                    ("fused_loki_decode", "select_blocks",
                     "block_sparse_attention_grouped"), 1, cfg.n_layers)
+    per_head = per_head_path(calls, cfg)
 
     # the step's own K/V rows are rewritten from its own layer inputs, so
     # each step reads the prefilled rows plus rows it wrote itself
@@ -1008,11 +1358,169 @@ def decode_step_check(params, cfg, toks, smax):
         f"vs xla {control:.3e} (a different function, reported)")
     if bound is not None and gap > bound:
         raise AssertionError(f"decode-step logits disagree beyond {bound}")
-    return {"launches": counts, "two_vs_fused_max_abs_err": two_err,
+    return {"launches": counts, "per_head": per_head,
+            "two_vs_fused_max_abs_err": two_err,
             "layer_rel_kernel_vs_plain_max": max(same_in),
             "layer_rel_fused_vs_xla_step": across,
             f"{cfg.dtype}_rel_fused_vs_xla": gap,
             f"{cfg.dtype}_rel_no_recency_vs_xla": control}
+
+
+def per_head_views(args):
+    """A recorded fused call's (B,Hkv,1,W) query and (B,S,Hkv,·) caches
+    as the per-head pipeline's (B*Hkv, ·) rows (token-major copies), and
+    cur_len repeated per head."""
+    q, k, v, cur = args
+    b, n_kv, g, w = q.shape
+    if g != 1:
+        raise AssertionError(f"per-head views need G = 1, got {g}")
+    rows = lambda x: x.transpose(1, 2).reshape(b * n_kv, x.shape[1],
+                                               x.shape[-1]).contiguous()
+    return q.reshape(b * n_kv, w).contiguous(), rows(k), rows(v), \
+        cur.repeat_interleave(n_kv)
+
+
+def per_head_path(calls, cfg, d=32, k_blocks=8):
+    """The per-head path on the decode step's 32 recorded fused calls
+    (llama2-7b at full width, G = 1), flattened to (B*Hkv, ·) rows:
+    ops.loki_decode_attention (token-major) and ops.loki_decode_attention_
+    fm (a feature-major copy of K̂), each run counted on its own, held
+    against ops.loki_decode_fused without its recency window on the same
+    inputs (rows without a near-tie) and against each other."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import ops
+
+    scale = cfg.resolved_head_dim ** -0.5
+    fkw = dict(d=d, k_blocks=k_blocks, block_size=cfg.loki.block_size,
+               scale=scale, local_window=0, sliding_window=0)
+    fused, rows = [], []
+    for args, _, _ in calls:
+        q, k, v, cur = args
+        fused.append(ops.loki_decode_fused(q, k, v, cur, **fkw).reshape(
+            -1, v.shape[-1]))
+        rows.append(~near_tie_rows(F.block_scores_plain(
+            q, k, cur, d=d, block_size=fkw["block_size"], scale=scale),
+            k_blocks).reshape(-1))
+    kw = dict(d=d, k_blocks=k_blocks, block_size=fkw["block_size"])
+
+    # ---- the per-head path: counts set to 0 just before, read just after
+    K.reset_launch_counts()
+    tm = [ops.loki_decode_attention(*per_head_views(args), **kw)
+          for args, _, _ in calls]
+    sync()
+    counts_tm = K.launch_counts()
+    # ---- end of the per-head path
+    check_launches("per-head path", counts_tm,
+                   ("block_max_scores", "block_sparse_attention"), 1,
+                   cfg.n_layers)
+
+    # ---- the feature-major per-head path, counted on its own; the peak
+    # device memory of each call shows that no copy of K̂ᵀ is made
+    K.reset_launch_counts()
+    fm, extra = [], 0
+    for args, _, _ in calls:
+        q, k, v, cur = per_head_views(args)
+        kT = k.transpose(1, 2).contiguous()
+        k_bytes = kT.numel() * kT.element_size()
+        del k
+        if DEV == "cuda":
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        fm.append(ops.loki_decode_attention_fm(q, kT, v, cur, **kw))
+        if DEV == "cuda":
+            sync()
+            extra = max(extra, torch.cuda.max_memory_allocated() - base)
+        del kT
+    sync()
+    counts_fm = K.launch_counts()
+    # ---- end of the feature-major per-head path
+    if extra > k_bytes / 16:
+        raise AssertionError(f"an fm pipeline call allocated {extra} B, "
+                             f"against a K̂ of {k_bytes} B")
+    check_launches("per-head fm path", counts_fm,
+                   ("block_max_scores_fm", "block_sparse_attention"), 1,
+                   cfg.n_layers)
+
+    atol, rtol = tolerance(tm[0].dtype)
+    err, err_fm, n_ties, same = 0.0, 0.0, 0, 0
+    for layer, (a, b, c, r) in enumerate(zip(tm, fm, fused, rows)):
+        torch.testing.assert_close(
+            a.float()[r], c.float()[r], atol=atol, rtol=rtol,
+            msg=lambda m: f"layer {layer}: per-head vs fused: {m}")
+        torch.testing.assert_close(
+            b.float(), a.float(), atol=atol, rtol=rtol,
+            msg=lambda m: f"layer {layer}: fm vs token-major: {m}")
+        err = max(err, float((a.float() - c.float())[r].abs().max()))
+        err_fm = max(err_fm, float((b.float() - a.float()).abs().max()))
+        n_ties += int((~r).sum())
+        same += int(torch.equal(a, b))
+    log(f"per-head: launches token-major {counts_tm}, feature-major "
+        f"{counts_fm}; per-head vs fused (local_window 0) max|err| "
+        f"{err:.3e} over {len(tm)} layers (near-tie rows left out "
+        f"{n_ties}); fm vs token-major max|err| {err_fm:.3e}, bit-equal in "
+        f"{same}/{len(tm)} layers; an fm call's extra device memory at "
+        f"most {extra} B (atol {atol}, rtol {rtol})")
+    return {"launches": {"per_head": counts_tm, "per_head_fm": counts_fm},
+            "vs_fused_max_abs_err": err, "fm_vs_tm_max_abs_err": err_fm,
+            "near_tie_rows": n_ties, "fm_extra_bytes": extra}
+
+
+PREFILL_TOKENS = 3072          # a multiple of 128: JAX's flash contract
+
+
+def prefill_flash(results, params, cfg, smax=4096):
+    """The prefill-flash path: one 3072-token prompt through lm.prefill at
+    full width with causal_attention's q, k, v recorded on every layer;
+    ops.flash(causal=True) on each layer's (H, S, D) views, counted on its
+    own and held against the plain flash version (one bf16 ulp). The gap
+    to the model's own causal_attention output is reported: the model
+    scales a bf16 q before the dot, flash scales it in float32."""
+    from repro_torch import kernels as K
+    from repro_torch.core import attention as A
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    toks = prompts(cfg.vocab, [PREFILL_TOKENS], seed=13)[0]
+    heads = lambda x: x[0].transpose(0, 1).contiguous()     # (H, S, D)
+    with recording(A, "causal_attention") as calls:
+        lm.prefill(params, cfg, torch.as_tensor(toks[None], device=DEV),
+                   smax)
+        sync()
+    if len(calls) != cfg.n_layers:
+        raise AssertionError(f"causal_attention called {len(calls)} times "
+                             f"in a {cfg.n_layers}-layer prefill")
+    views = [tuple(heads(x) for x in args[:3]) for args, _, _ in calls]
+    model = [heads(out) for _, _, out in calls]
+    del calls
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the prefill-flash path: counts set to 0 just before, read after
+    K.reset_launch_counts()
+    outs = [ops.flash(q, k, v, causal=True) for q, k, v in views]
+    sync()
+    counts = K.launch_counts()
+    # ---- end of the prefill-flash path
+    check_launches("prefill-flash path", counts, ("flash_attention",), 1,
+                   cfg.n_layers)
+    err, gap = 0.0, []
+    for layer, ((q, k, v), out, ref) in enumerate(zip(views, outs, model)):
+        want = FA.flash_attention_plain(q, k, v, causal=True,
+                                        scale=q.shape[-1] ** -0.5)
+        err = max(err, check_close(out, want, f"prefill layer {layer}"))
+        gap.append(float((out.float() - ref.float()).norm()
+                         / ref.float().norm()))
+    log(f"prefill-flash: {cfg.n_layers} layers of ({views[0][0].shape[0]}, "
+        f"{PREFILL_TOKENS}, {views[0][0].shape[-1]}) {views[0][0].dtype}, "
+        f"launches {counts}; flash vs plain max|err| {err:.3e} (one bf16 "
+        f"ulp); rel-L2 to the model's causal_attention, by layer (reported): "
+        + ", ".join(f"{i}: {gap[i]:.3e}" for i in
+                    sorted({0, 1, 15, len(gap) - 1}) if i < len(gap)))
+    results.setdefault("launches", {})["prefill_flash"] = counts
+    results["prefill_flash"] = dict(max_abs_err=err, rel_l2_to_model=gap)
 
 
 # --------------------------------------------------------------------- main
@@ -1033,6 +1541,18 @@ SOURCES = {
     "fused_exact_topk_decode": ("src/repro_torch/csrc/fused_decode.cu",
                                 "src/repro/kernels/fused_decode.py:328",
                                 "paged_exact_topk"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:67",
+                        "prefill_flash"),
+    "block_max_scores": ("src/repro_torch/csrc/approx_scores.cu",
+                         "src/repro/kernels/approx_scores.py:50",
+                         "per_head"),
+    "block_sparse_attention": ("src/repro_torch/csrc/gather_attention.cu",
+                               "src/repro/kernels/gather_attention.py:75",
+                               "per_head"),
+    "block_max_scores_fm": ("src/repro_torch/csrc/approx_scores.cu",
+                            "src/repro/kernels/approx_scores_fm.py:54",
+                            "per_head_fm"),
 }
 
 
@@ -1062,30 +1582,38 @@ def main() -> int:
     check_kernels(results)
     check_paged(results)
     check_no_fallback()
+    check_head_kernels(results)
+    check_flash(results)
+    check_head_raises()
     time_kernels(results)
+    time_head_kernels(results)
     log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
     if args.only != "kernels":
         params, cfg, toks, greedy = serve(results)
         log(f"dense paths done at {time.perf_counter() - t_start:.1f} s")
         serve_paged(results, params, cfg, toks, greedy)
+        log(f"paged paths done at {time.perf_counter() - t_start:.1f} s")
+        prefill_flash(results, params, cfg)
     launches = results.get("launches", {})
 
+    errs = dict(results["main"]["errs"], **results["errs"])
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
         t = results["timing"][name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": path,
             "launches": launches.get(path, {}).get(name, 0),
             "launches_by_path": {p: c.get(name, 0)
                                  for p, c in launches.items()},
-            "max_abs_err": results["main"]["errs"][name],
-            "ms": t["ms"], "paged_ms": t["paged_ms"],
+            "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": (results["sdpa_ms"] if name == "paged_full_decode"
-                           else None),
-            "full_attention_sdpa_ms_not_same_function": results["sdpa_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
+        if name in KERNELS:
+            entry.update(paged_ms=t["paged_ms"],
+                         full_attention_sdpa_ms_not_same_function=results[
+                             "sdpa_ms"])
+        kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1093,6 +1621,7 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels,
                    "launches": launches, "serve": results.get("serve"),
                    "paged_serve": results.get("paged_serve"),
+                   "prefill_flash": results.get("prefill_flash"),
                    "profile": results.get("profile")}, fh, indent=1)
     log(card)                   # as nvidia-smi prints it: name, limit
     print(json.dumps({"kernels": kernels}))

@@ -26,6 +26,26 @@
 // Paged mode: with a page table the caches are the pools (R, Hkv, ·) and
 // every block read resolves through BlockRows; S is the logical length
 // n_tab * page_size.
+//
+// block_sparse_attention replaces the per-head Pallas TPU kernel of the
+// same name (repro/kernels/gather_attention.py:75), the last stage of the
+// per-head pipeline (ops.loki_decode_attention): exact online-softmax
+// attention of each (BH) row over its own blk_idx (BH, n_sel) blocks,
+// masking positions >= cur_len; a row masked everywhere gives zeros. It
+// has no -1 sentinel, no window and no page table, as the TPU kernel has
+// none. What bounds it: bytes, the n_sel selected K̂ and V blocks of a row
+// at full width (llama2-7b per head: 128 rows x 8 blocks x 128 tokens x
+// 2 x 512 B fp32 = 134 MB, 40 us at 3.35 TB/s). The TPU walked n_sel as a
+// sequential grid axis with the softmax state in VMEM scratch; here one
+// CTA per row walks the blocks in a loop, with one block's scores and the
+// softmax state in shared memory and the (D,) accumulator in registers.
+// K̂ is read through a token stride and a feature stride, so the
+// feature-major pipeline reads the selected blocks straight from K̂ᵀ
+// (BH, D, S) without a token-major copy of the cache. Either way a warp
+// takes a token and its lanes the features f = lane + 32 m, so the two
+// layouts sum each dot in the same order (coalesced when token-major; in
+// feature-major the lanes read 32 feature rows, each line serving the
+// next tokens from L1).
 #include "decode_common.cuh"
 
 namespace loki {
@@ -148,6 +168,174 @@ struct Full {
   }
 };
 
+// The per-head kernel: one CTA per row r. Scores are q̂·K̂[s] then * scale
+// (the TPU kernel's order, gather_attention.py:49); the grouped kernels
+// scale q̂ first.
+template <typename TQ, typename TK>
+__global__ void __launch_bounds__(THREADS)
+block_sparse_attention_kernel(const TQ* __restrict__ q,
+                              const TK* __restrict__ k,
+                              const TK* __restrict__ v,
+                              const int* __restrict__ blk_idx,
+                              const int* __restrict__ cur_len,
+                              TQ* __restrict__ out, int S, int D, int bs,
+                              int n_sel, int64_t k_row, int64_t k_tok,
+                              int64_t k_feat, float scale) {
+  extern __shared__ float smem[];
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* qs = smem;                                   // D
+  int* sel = reinterpret_cast<int*>(qs + D);          // n_sel
+  float* sc = reinterpret_cast<float*>(sel + n_sel);  // bs
+  float* red = sc + bs;                               // nsplit*D
+  __shared__ float st[2];                             // running max, alpha
+  __shared__ float l_run;
+  const int nb = S / bs;
+  const int ln = cur_len[r];
+  const int nsplit = blockDim.x / D;
+  const int col = tid % D, split = tid / D;
+  const bool owns = split < nsplit;
+  load_query(q + (int64_t)r * D, qs, D, 1.f);
+  for (int t = tid; t < n_sel; t += blockDim.x)
+    sel[t] = blk_idx[(int64_t)r * n_sel + t];
+  if (tid == 0) {
+    st[0] = NEG_INF;
+    l_run = 0.f;
+  }
+  float acc = 0.f;
+  __syncthreads();
+
+  const TK* kr = k + (int64_t)r * k_row;
+  const TK* vr = v + (int64_t)r * S * D;
+  for (int t = 0; t < n_sel; ++t) {
+    const int blk = sel[t];
+    // an index outside the cache is never read (the TPU kernel's result
+    // for one is undefined); the same value in every thread
+    if (blk < 0 || blk >= nb) continue;
+    for (int i0 = warp * TOK_UNROLL; i0 < bs; i0 += NWARPS * TOK_UNROLL) {
+      float kv[TOK_UNROLL][PER_LANE];
+      bool live[TOK_UNROLL];
+#pragma unroll
+      for (int u = 0; u < TOK_UNROLL; ++u) {
+        const int i = i0 + u, pos = blk * bs + i;
+        live[u] = i < bs && pos < ln;
+        const TK* row = kr + (int64_t)pos * k_tok;
+#pragma unroll
+        for (int m = 0; m < PER_LANE; ++m) {
+          const int f = lane + 32 * m;
+          kv[u][m] = (live[u] && f < D) ? to_f(row[f * k_feat]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < TOK_UNROLL; ++u) {
+        float p = 0.f;
+#pragma unroll
+        for (int m = 0; m < PER_LANE; ++m) {
+          const int f = lane + 32 * m;
+          if (f < D) p = fmaf(qs[f], kv[u][m], p);
+        }
+        p = warp_sum(p);
+        if (lane == 0 && i0 + u < bs)
+          sc[i0 + u] = live[u] ? p * scale : NEG_INF;
+      }
+    }
+    __syncthreads();
+
+    if (warp == 0) {
+      float bm = NEG_INF;
+      for (int i = lane; i < bs; i += 32) bm = fmaxf(bm, sc[i]);
+      bm = warp_max(bm);
+      const float m_prev = st[0];
+      const float m_new = fmaxf(m_prev, bm);
+      // guard: a block with no live position and an empty accumulator
+      // must not produce exp(NEG_INF - NEG_INF)
+      const float m_safe = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
+      const float alpha =
+          m_prev > NEG_INF * 0.5f ? expf(fminf(m_prev - m_safe, 0.f)) : 0.f;
+      float sum = 0.f;
+      for (int i = lane; i < bs; i += 32) {
+        const float s = sc[i];
+        const float p = s > NEG_INF * 0.5f ? expf(s - m_safe) : 0.f;
+        sc[i] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      __syncwarp();
+      if (lane == 0) {
+        st[0] = m_new;
+        st[1] = alpha;
+        l_run = l_run * alpha + sum;
+      }
+    }
+    __syncthreads();
+
+    if (owns) {
+      acc *= st[1];
+      // positions past cur_len have p == 0: stop there
+      const int n_live = max(0, min(bs, ln - blk * bs));
+      const TK* vb = vr + (int64_t)blk * bs * D + col;
+      for (int i0 = split; i0 < n_live; i0 += nsplit * V_UNROLL) {
+        float vv[V_UNROLL];
+#pragma unroll
+        for (int u = 0; u < V_UNROLL; ++u) {
+          const int i = i0 + u * nsplit;
+          vv[u] = i < n_live ? to_f(vb[(int64_t)i * D]) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < V_UNROLL; ++u) {
+          const int i = i0 + u * nsplit;
+          if (i < n_live) acc = fmaf(sc[i], vv[u], acc);
+        }
+      }
+    }
+    __syncthreads();                  // sc is rewritten by the next block
+  }
+
+  if (owns) red[split * D + col] = acc;
+  __syncthreads();
+  for (int c = tid; c < D; c += blockDim.x) {
+    float a = 0.f;
+    for (int sp = 0; sp < nsplit; ++sp) a += red[sp * D + c];
+    store_f(out + (int64_t)r * D + c, a / fmaxf(l_run, 1e-30f));
+  }
+}
+
+struct HeadLaunch {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* blk_idx;
+  const void* cur_len;
+  void* out;
+  int BH, S, D, bs, n_sel;
+  long long k_row, k_tok, k_feat;
+  float scale;
+  cudaStream_t stream;
+
+  bool ok() const {
+    return BH >= 1 && D >= 1 && D <= MAXDIM && bs >= 1 && S >= bs &&
+           S % bs == 0 && n_sel >= 1 && (k_tok == 1 || k_feat == 1);
+  }
+};
+
+template <typename TQ, typename TK>
+struct PerHead {
+  static cudaError_t run(const HeadLaunch& a) {
+    const int nsplit = THREADS / a.D;
+    const size_t smem = sizeof(float) * ((size_t)a.D + a.n_sel + a.bs +
+                                         (size_t)nsplit * a.D);
+    auto kern = block_sparse_attention_kernel<TQ, TK>;
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<a.BH, THREADS, smem, a.stream>>>(
+        static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
+        static_cast<const TK*>(a.v), static_cast<const int*>(a.blk_idx),
+        static_cast<const int*>(a.cur_len), static_cast<TQ*>(a.out), a.S,
+        a.D, a.bs, a.n_sel, a.k_row, a.k_tok, a.k_feat, a.scale);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace loki
 
 using namespace loki;
@@ -179,4 +367,21 @@ extern "C" int loki_full_decode(const void* q, const void* k, const void* v,
                  static_cast<cudaStream_t>(stream)};
   if (!a.ok()) return (int)cudaErrorInvalidValue;
   return (int)by_dtype<Full>(q_bf16, kv_bf16, a);
+}
+
+// The per-head kernel: q (BH, D); k̂ element (r, s, f) at k + r * k_row +
+// s * k_tok + f * k_feat (token-major: k_tok = D, k_feat = 1; the
+// feature-major K̂ᵀ (BH, D, S): k_tok = 1, k_feat = S); v (BH, S, D)
+// contiguous; blk_idx (BH, n_sel) int32; out (BH, D). Returns a
+// cudaError_t.
+extern "C" int loki_block_sparse_attention(
+    const void* q, const void* k, const void* v, const void* blk_idx,
+    const void* cur_len, void* out, int q_bf16, int kv_bf16, int BH, int S,
+    int D, int bs, int n_sel, long long k_row, long long k_tok,
+    long long k_feat, float scale, void* stream) {
+  const HeadLaunch a{q, k, v, blk_idx, cur_len, out, BH, S, D, bs, n_sel,
+                     k_row, k_tok, k_feat, scale,
+                     static_cast<cudaStream_t>(stream)};
+  if (!a.ok()) return (int)cudaErrorInvalidValue;
+  return (int)by_dtype<PerHead>(q_bf16, kv_bf16, a);
 }

@@ -1,11 +1,13 @@
-"""GQA-batched decode attention: CUDA kernels and plain versions.
+"""Decode attention over selected or live blocks: CUDA kernels and plain
+versions.
 
 Counterparts of ``repro.kernels.gather_attention``'s
 ``block_sparse_attention_grouped`` and ``paged_full_decode`` (the CUDA
-source is ``csrc/gather_attention.cu``). Exact attention of all G query
+source is ``csrc/gather_attention.cu``): exact attention of all G query
 heads of a KV group over a group-shared block selection (``-1`` entries of
 ``blk_idx`` contribute nothing), or over every live block (the ``full``
 policy: from the sliding window's first block to ``ceil(cur_len/bs)``).
+The per-head ``block_sparse_attention`` is at the end of this module.
 
   q_hat    (B, Hkv, G, W)    grouped queries in the storage basis (W <= D)
   k_hat    (B, S, Hkv, W)    key cache, or the pool (R, Hkv, W)
@@ -206,3 +208,110 @@ def paged_full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
 
 
 paged_full_decode.launches = 0
+
+
+# ------------------------------------------------ per-head sparse attention
+#
+#   q_hat    (BH, D)        PCA-basis query (full D: exact, Lemma 4.1)
+#   k_hat    (BH, S, D)     key cache; token-major, or a (BH, D, S)
+#                           feature-major cache seen through
+#                           ``.transpose(1, 2)`` (read in place)
+#   v        (BH, S, D)
+#   blk_idx  (BH, n_sel)    selected blocks, each in [0, S / block_size)
+#   cur_len  (BH,)
+# Output:    (BH, D) in q_hat's dtype. No -1 sentinel, no window, no page
+# table: the JAX function has none.
+
+
+def block_sparse_attention_plain(q_hat, k_hat, v, blk_idx, cur_len, *,
+                                 block_size, scale):
+    """Plain torch version (``repro.kernels.ref.block_sparse_attention_
+    ref``): softmax attention over the selected blocks' tokens, masking
+    positions >= cur_len; a row with no live token gives zeros. The scale
+    multiplies the dot, as in the TPU kernel."""
+    bh = q_hat.shape[0]
+    tok = (blk_idx.long()[..., None] * block_size
+           + torch.arange(block_size, device=blk_idx.device)).reshape(bh, -1)
+    k_sel = torch.gather(k_hat, 1, tok[..., None].expand(
+        -1, -1, k_hat.shape[-1]))
+    v_sel = torch.gather(v, 1, tok[..., None].expand(-1, -1, v.shape[-1]))
+    s = torch.einsum("bd,bkd->bk", q_hat.float(), k_sel.float()) * scale
+    live = tok < cur_len.to(tok.device).long()[:, None]
+    w = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
+    w = torch.where(live.any(-1, keepdim=True), w, 0.0)
+    return torch.einsum("bk,bkd->bd", w, v_sel.float()).to(q_hat.dtype)
+
+
+def key_strides(k_hat):
+    """(row, token, feature) element strides of a (BH, S, D) key view the
+    kernel reads in place: token-major (feature stride 1) or feature-major
+    (token stride 1)."""
+    row, tok, feat = k_hat.stride()
+    if feat != 1 and tok != 1:
+        raise ValueError(f"k_hat strides {k_hat.stride()}: the kernel reads "
+                         "a token-major (BH, S, D) cache or a feature-major "
+                         "(BH, D, S) one seen through transpose(1, 2)")
+    return row, tok, feat
+
+
+def _head_lib():
+    """``loki_block_sparse_attention``: six pointers, seven ints, the three
+    64-bit K̂ strides, the scale and the stream."""
+    fn = _FN.get("loki_block_sparse_attention")
+    if fn is None:
+        fn = _build.load("gather_attention").loki_block_sparse_attention
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN["loki_block_sparse_attention"] = fn
+    return fn
+
+
+def block_sparse_attention(q_hat, k_hat, v, blk_idx, cur_len, *,
+                           block_size: int = 128, scale=None):
+    """Per-head exact attention over each row's selected blocks.
+    (BH,D),(BH,S,D),(BH,S,D),(BH,n_sel),(BH,) -> (BH,D) in q_hat's
+    dtype. Default scale ``D**-0.5``."""
+    bh, dim = q_hat.shape
+    if k_hat.shape[0] != bh or k_hat.shape[2] != dim or \
+            v.shape != k_hat.shape:
+        raise ValueError(f"shapes differ: q_hat {tuple(q_hat.shape)}, k_hat "
+                         f"{tuple(k_hat.shape)}, v {tuple(v.shape)}")
+    if blk_idx.ndim != 2 or blk_idx.shape[0] != bh or \
+            cur_len.shape != (bh,):
+        raise ValueError(f"blk_idx {tuple(blk_idx.shape)} / cur_len "
+                         f"{tuple(cur_len.shape)} are not (BH, n_sel) / "
+                         f"(BH,) with BH = {bh}")
+    s_len = k_hat.shape[1]
+    if block_size < 1 or s_len % block_size:
+        raise ValueError(f"cache length {s_len} must be a multiple of "
+                         f"block_size {block_size}")
+    k_row, k_tok, k_feat = key_strides(k_hat)
+    n_sel = blk_idx.shape[1]
+    scale = float(scale if scale is not None else dim ** -0.5)
+    if not q_hat.is_cuda:
+        return block_sparse_attention_plain(q_hat, k_hat, v, blk_idx,
+                                            cur_len, block_size=block_size,
+                                            scale=scale)
+    if k_hat.dtype != v.dtype:
+        raise TypeError("k_hat and v must share a dtype")
+    if k_hat.device != q_hat.device:
+        raise ValueError(f"block_sparse_attention: k_hat is on "
+                         f"{k_hat.device}, expected {q_hat.device}")
+    out = torch.empty((bh, dim), dtype=q_hat.dtype, device=q_hat.device)
+    q_p, v_p, idx_p, len_p, out_p = _build.cuda_args(
+        "block_sparse_attention", q_hat=q_hat, v=v,
+        blk_idx=blk_idx.to(torch.int32), cur_len=cur_len.to(torch.int32),
+        out=out)
+    rc = _head_lib()(
+        q_p, ctypes.c_void_p(k_hat.data_ptr()), v_p, idx_p, len_p, out_p,
+        _build.dtype_code(q_hat, "q_hat"), _build.dtype_code(k_hat, "k_hat"),
+        bh, s_len, dim, block_size, n_sel, k_row, k_tok, k_feat, scale,
+        _build.stream_of(q_hat))
+    _build.check(rc, "block_sparse_attention")
+    block_sparse_attention.launches += 1
+    return out
+
+
+block_sparse_attention.launches = 0

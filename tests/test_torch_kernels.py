@@ -274,10 +274,21 @@ def test_cpu_tensors_never_launch():
     ops.loki_decode_two_kernel(q, k, v, cur, d=8, k_blocks=2, block_size=16)
     ops.full_decode(q, k, v, cur, block_size=16)
     ops.exact_topk_decode_fused(q, k, v, cur, k_blocks=2, block_size=16)
-    assert K.launch_counts() == {"fused_loki_decode": 0, "select_blocks": 0,
-                                 "block_sparse_attention_grouped": 0,
-                                 "paged_full_decode": 0,
-                                 "fused_exact_topk_decode": 0}
+    # per-head rows: (Hkv, W), (Hkv, S, W), (Hkv, S, D)
+    qh = q[0, :, 0].contiguous()
+    kh, vh = (x[0].transpose(0, 1).contiguous() for x in (k, v))
+    ops.loki_decode_attention(qh, kh, vh, cur.repeat(2), d=8, k_blocks=2,
+                              block_size=16)
+    ops.loki_decode_attention_fm(qh, kh.transpose(1, 2).contiguous(), vh,
+                                 cur.repeat(2), d=8, k_blocks=2,
+                                 block_size=16)
+    ops.flash(kh, kh, vh, causal=True, block_q=16, block_k=16)
+    assert K.launch_counts() == {
+        "fused_loki_decode": 0, "select_blocks": 0,
+        "block_sparse_attention_grouped": 0, "paged_full_decode": 0,
+        "fused_exact_topk_decode": 0, "flash_attention": 0,
+        "block_max_scores": 0, "block_sparse_attention": 0,
+        "block_max_scores_fm": 0}
 
 
 # ------------------------------------------------------ paged pools, #4, #5
