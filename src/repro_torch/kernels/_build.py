@@ -104,6 +104,17 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def sass(name: str) -> str:
+    """The built library's machine code as ``cuobjdump -sass`` prints it
+    (to check which instructions a kernel was compiled to)."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr}")
+    return out.stdout
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)

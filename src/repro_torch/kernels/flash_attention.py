@@ -5,9 +5,15 @@ source is ``csrc/flash_attention.cu``, entry ``loki_flash_attention``).
 
   q     (BH, Sq, D)
   k, v  (BH, Sk, D)
-Output: (BH, Sq, D) in q's dtype; all arithmetic in float32, q scaled in
-float32 before the dot. The causal mask is top-left aligned: query i sees
-keys j <= i, both counted from 0, also when Sq != Sk.
+Output: (BH, Sq, D) in q's dtype. The causal mask is top-left aligned:
+query i sees keys j <= i, both counted from 0, also when Sq != Sk.
+
+The plain version computes in float32. On the card, bf16 q, k and v run
+the tensor-core body: bf16 products summed in float32, a float32 online
+softmax, and P rounded to bf16 before P·V (the one rounding the float32
+version does not have); D must then be a multiple of 8 (TMA's 16-byte row
+strides). Every other dtype combination runs the float32 body, q scaled
+in float32 before the dot.
 
 The JAX contract holds at this function: ``bq, bk = min(block_q, Sq),
 min(block_k, Sk)`` must divide Sq and Sk, else ValueError. ``block_q`` and
@@ -71,6 +77,9 @@ def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if k.dtype != v.dtype:
         raise TypeError("k and v must share a dtype")
+    if q.dtype == k.dtype == torch.bfloat16 and dim % 8:
+        raise ValueError(f"bf16 flash_attention needs D a multiple of 8, "
+                         f"got {dim}")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     ptrs = _build.cuda_args("flash_attention", q=q, k=k, v=v, out=out)
     rc = _lib()(*ptrs, _build.dtype_code(q, "q"), _build.dtype_code(k, "k"),

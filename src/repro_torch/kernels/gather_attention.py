@@ -21,6 +21,13 @@ Paged mode: ``page_table (B, n_tab)`` and ``page_size`` (a multiple of
 length is ``n_tab * page_size``. The wrappers launch the kernels for CUDA
 tensors and run the plain versions (over the gathered logical view when
 paged) for CPU tensors; nothing falls back from one to the other.
+
+The full decode's kernel is split-KV: each (slot, kv-head)'s live block
+range is cut into ``n_split`` equal shares (``split_blocks``, the device's
+own formula), each share writes a float32 partial (acc, m, l) and a second
+kernel merges them by log-sum-exp. ``full_decode_n_split`` picks n_split
+from shapes only. ``full_decode_split_plain`` repeats that arithmetic in
+torch for the tests and the card's checks.
 """
 from __future__ import annotations
 
@@ -110,10 +117,98 @@ def full_decode_plain(q_hat, k_hat, v, cur_len, *, scale,
     return out.reshape(b, n_kv, g, v.shape[-1]).to(q_hat.dtype)
 
 
+#: CTAs per SM the full decode's split count aims at
+SPLIT_CTAS_PER_SM = 4
+
+
+def full_decode_n_split(n_blocks: int, rows: int, n_sm: int) -> int:
+    """Splits per (slot, kv-head) of the full decode, from shapes only:
+    about SPLIT_CTAS_PER_SM CTAs per SM over ``rows`` = B * Hkv, at least
+    1 and at most the ``n_blocks`` = S / block_size blocks of a row. It
+    never sees cur_len, so choosing it costs the host no sync."""
+    return max(1, min(n_blocks, SPLIT_CTAS_PER_SM * n_sm // max(rows, 1)))
+
+
+def split_blocks(cur_len, n_blocks: int, block_size: int, n_split: int,
+                 sliding_window: int = 0):
+    """[first, end) logical blocks of each split, (B, n_split, 2) int64:
+    the live range [lo, hi) (the window's first block .. ceil(cur_len /
+    bs)) cut into n_split shares of ceil((hi - lo) / n_split) blocks, as
+    the kernel computes it from cur_len on the device. Trailing shares may
+    be empty."""
+    cur = cur_len.long()
+    if sliding_window > 0:
+        lo = (cur - sliding_window).clamp(min=0) // block_size
+    else:
+        lo = torch.zeros_like(cur)
+    hi = torch.clamp((cur + block_size - 1) // block_size, max=n_blocks)
+    per = ((hi - lo).clamp(min=0) + n_split - 1) // n_split
+    share = torch.arange(n_split, device=cur.device)
+    first = lo[:, None] + share * per[:, None]
+    end = torch.minimum(hi[:, None], first + per[:, None])
+    return torch.stack([first, torch.maximum(end, first)], dim=-1)
+
+
+def full_decode_split_plain(q_hat, k_hat, v, cur_len, *, block_size, scale,
+                            n_split, sliding_window=0, page_table=None,
+                            page_size: int = 0):
+    """Plain torch version of the split-KV full decode: each split's float32
+    partial (acc, m, l) over its share of the live tokens, with the online
+    softmax's guards, then the log-sum-exp merge (alpha = 0 for an empty
+    partial, the 1e-30 floor). Not on any serving path: the tests and the
+    card's checks hold the kernel's arithmetic with it."""
+    q_hat, k_hat, v = logical(q_hat, k_hat, v, page_table, page_size)
+    b, n_kv, g, w = q_hat.shape
+    s_len = k_hat.shape[1]
+    cur = cur_len.to(q_hat.device).long()
+    span = split_blocks(cur, s_len // block_size, block_size, n_split,
+                        sliding_window)
+    pos = torch.arange(s_len, device=q_hat.device)
+    live = pos[None] < cur[:, None]
+    if sliding_window > 0:
+        live &= pos[None] >= (cur - sliding_window)[:, None]
+    s = torch.einsum("bhgw,bshw->bhgs", q_hat.float() * scale,
+                     k_hat.float())
+    vf = v.float()
+    parts = []
+    for i in range(n_split):
+        blk = pos[None] // block_size
+        mine = live & (blk >= span[:, i, :1]) & (blk < span[:, i, 1:])
+        mine = mine[:, None, None, :]                      # (B,1,1,S)
+        si = torch.where(mine, s, NEG_INF)
+        m = si.amax(-1)                                    # (B,Hkv,G)
+        m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+        p = torch.where(mine, torch.exp(si - m_safe[..., None]), 0.0)
+        parts.append((torch.einsum("bhgs,bshd->bhgd", p, vf), m,
+                      p.sum(-1)))
+    mx = torch.stack([m for _, m, _ in parts]).amax(0)
+    m_safe = torch.where(mx <= NEG_INF / 2, 0.0, mx)
+    acc = torch.zeros_like(parts[0][0])
+    den = torch.zeros_like(parts[0][2])
+    for a, m, l in parts:
+        wt = torch.where(m > NEG_INF / 2,
+                         torch.exp(torch.clamp(m - m_safe, max=0.0)), 0.0)
+        acc = acc + wt[..., None] * a
+        den = den + wt * l
+    return (acc / den.clamp(min=1e-30)[..., None]).to(q_hat.dtype)
+
+
+_SM_COUNT: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
 _FN: dict = {}
 # pointers, then int arguments, then float + int tail of each launcher
 _ARITY = {"loki_block_sparse_attention_grouped": (7, 12),
-          "loki_full_decode": (6, 11)}
+          "loki_full_decode": (7, 12)}
 
 
 def _lib(name):
@@ -182,7 +277,10 @@ def paged_full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
     """Full-attention decode streamed over the live blocks only (the
     ``full`` policy's kernel), contiguous or paged.
     (B,Hkv,G,W),(B,S,Hkv,W),(B,S,Hkv,D),(B,) -> (B,Hkv,G,D) in q_hat's
-    dtype. Default scale ``D**-0.5``; cur_len >= 1 per row."""
+    dtype. Default scale ``D**-0.5``; cur_len >= 1 per row. On the card
+    the live blocks are split ``full_decode_n_split`` ways and merged in
+    the same launcher call, through a float32 scratch of
+    (B, Hkv, n_split, G, D + 2)."""
     unscaled(k_scale, v_scale)
     b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
     s_len = cache_args(k_hat, block_size, page_table, page_size)
@@ -193,14 +291,18 @@ def paged_full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
             scale=scale, sliding_window=sliding_window)
     out = torch.empty((b, n_kv, g, dim), dtype=q_hat.dtype,
                       device=q_hat.device)
+    n_split = full_decode_n_split(s_len // block_size, b * n_kv,
+                                  _sm_count(q_hat.device))
+    part = torch.empty((b, n_kv, n_split, g, dim + 2), dtype=torch.float32,
+                       device=q_hat.device)
     table, n_tab = _build.table_arg(page_table, q_hat.device)
     ptrs = _build.cuda_args("paged_full_decode", q_hat=q_hat, k_hat=k_hat,
                             v=v, cur_len=cur_len.to(torch.int32),
-                            table=table, out=out)
+                            table=table, out=out, part=part)
     rc = _lib("loki_full_decode")(
         *ptrs, _build.dtype_code(q_hat, "q_hat"),
         _build.dtype_code(k_hat, "k_hat"), b, s_len, n_kv, g, kdim, dim,
-        block_size, n_tab, page_size, scale, sliding_window,
+        block_size, n_tab, page_size, n_split, scale, sliding_window,
         _build.stream_of(q_hat))
     _build.check(rc, "paged_full_decode")
     paged_full_decode.launches += 1

@@ -3,15 +3,16 @@
 ``plan_decode`` maps a decode shape ``(S, D, G, d, bs_hint)`` to a kernel
 plan: which variant runs (single-pass ``fused`` or the ``two_kernel`` pair
 select_blocks + block_sparse_attention_grouped) and at what block size.
-``plan_full_decode`` picks the block size of the streaming full-decode
+``plan_full_decode`` picks the block size of the split-KV full-decode
 kernel. ``None`` means no kernel takes the shape; the dispatcher then falls
 back to the plain torch path on CPU tensors and raises on CUDA tensors. A
 paged call whose page size the plan's block does not divide gets no plan
 either (the dispatcher checks; a block must not straddle two pages).
 
-The budget is the kernels' real dynamic shared memory (csrc/*.cu: every
-staged value is float32, so the cache dtype does not enter) against the
-H100's per-block opt-in limit. ``TUNED`` pins measured shapes; it stays
+The budget is the kernels' real dynamic shared memory against the H100's
+per-block opt-in limit: the fused, select and grouped kernels stage every
+value as float32, so the cache dtype does not enter theirs; the split-KV
+full decode copies cache rows as they are stored, so its does. ``TUNED`` pins measured shapes; it stays
 empty until shapes have been measured on the card.
 """
 from __future__ import annotations
@@ -55,9 +56,29 @@ def fused_smem_bytes(*, nb: int, k_blocks: int, g: int, kdim: int,
                                       dim=dim, bs=bs)
 
 
-def full_smem_bytes(*, g: int, kdim: int, dim: int, bs: int) -> int:
-    """paged_full_decode: the attention phase without a selection list."""
-    return attend_smem_bytes(n_sel=0, g=g, kdim=kdim, dim=dim, bs=bs)
+#: the split-KV full decode (csrc/gather_attention.cu): warps per CTA,
+#: tokens per ring stage, ring stages per warp
+SPLIT_WARPS, SPLIT_TOK, SPLIT_STAGES = 4, 4, 2
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def full_smem_bytes(*, g: int, kdim: int, dim: int, itemsize: int) -> int:
+    """paged_full_decode (split-KV): the scaled float32 query (G, W) and
+    each warp's ring of SPLIT_STAGES stages of SPLIT_TOK K̂ and V rows in
+    the cache dtype (rows padded to 4 elements); the warps' log-sum-exp
+    merge, (G, D + 2) float32 each, reuses the ring. It does not grow with
+    smax or the block size."""
+    ring = SPLIT_WARPS * SPLIT_STAGES * _round16(
+        SPLIT_TOK * (_pad4(kdim) + _pad4(dim)) * itemsize)
+    merge = 4 * SPLIT_WARPS * g * (dim + 2)
+    return _round16(4 * g * _pad4(kdim)) + max(ring, merge)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,15 +99,16 @@ def _block_size(smax: int, block_size: int) -> int:
 def plan_full_decode(smax: int, dim: int, g: int, kdim: int,
                      block_size: int,
                      itemsize: int = 4) -> Optional[KernelPlan]:
-    """Block size of the streaming full-decode kernel, or None for no
-    kernel. It holds one block's scores and the (G,)-wide softmax state,
-    never a score row, so its shared memory does not grow with smax."""
-    del itemsize
+    """Block size of the split-KV full-decode kernel, or None for no
+    kernel. The block size is the unit its splits share out; its shared
+    memory (``full_smem_bytes``) depends on G, the widths and the cache
+    dtype only, and every shape it takes (G <= 16, W <= D <= 256, any
+    cache dtype) fits SMEM_LIMIT: the budget check cannot refuse one."""
     if g > MAX_G or dim > MAX_DIM or kdim > dim:
         return None
     bs = _block_size(smax, block_size)
     if not bs or full_smem_bytes(g=g, kdim=kdim, dim=dim,
-                                 bs=bs) > SMEM_LIMIT:
+                                 itemsize=itemsize) > SMEM_LIMIT:
         return None
     return KernelPlan("stream", bs)
 

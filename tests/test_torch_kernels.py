@@ -392,6 +392,90 @@ def test_full_decode_matches_jax(g, sw, paged):
                                jops_want, **TOL)
 
 
+_SPLIT_JAX: dict = {}
+
+
+def _split_case(g, sw, paged):
+    """Inputs of the split-KV tests, the JAX kernel's output on them
+    (interpret mode, computed once per (G, window, paged)) and the logical
+    (contiguous) caches that a paged case's table reads."""
+    dim, bs, s = 32, 16, 128
+    w = 16 if g == 4 else dim
+    q, k, v, cur = _inputs(3, 2, g, s, w, dim, seed=7 * g + sw,
+                           cur=[128, 57, 1])
+    kw = dict(block_size=bs, sliding_window=sw, scale=dim ** -0.5)
+    if paged:
+        pk, pv, table, k, v = _paged(k, v, 32, seed=g, trash_rows=1)
+        args = (q, pk, pv, cur)
+        jkw = dict(kw, page_table=jnp.asarray(table), page_size=32)
+        tkw = dict(kw, page_table=torch.from_numpy(table), page_size=32)
+    else:
+        args, jkw, tkw = (q, k, v, cur), kw, kw
+    key = (g, sw, paged)
+    if key not in _SPLIT_JAX:
+        _SPLIT_JAX[key] = np.asarray(jgather.paged_full_decode(
+            *_j(*args), **jkw, interpret=True))
+    return args, tkw, _SPLIT_JAX[key], (q, k, v, cur)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 12])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("sw", [0, 40])
+@pytest.mark.parametrize("paged", [False, True])
+def test_full_decode_split_matches_jax(n_split, g, sw, paged):
+    """#4's split-KV arithmetic (each split's partial over its share of the
+    live blocks, then the log-sum-exp merge) against the JAX kernel, with
+    n_split 1, 2, 3 and more than the 8 blocks of a row: the row with
+    cur_len 1 has one live block, so its other splits are empty (alpha = 0
+    in the merge), as are the trailing ones at n_split 12. Paged equals
+    contiguous on the logical data exactly."""
+    args, tkw, want, (q, k, v, cur) = _split_case(g, sw, paged)
+    got = gather_attention.full_decode_split_plain(*_t(*args), **tkw,
+                                                   n_split=n_split)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if paged:
+        contig = gather_attention.full_decode_split_plain(
+            *_t(q, k, v, cur), block_size=tkw["block_size"],
+            sliding_window=sw, scale=tkw["scale"], n_split=n_split)
+        np.testing.assert_array_equal(got.numpy(), contig.numpy())
+
+
+@pytest.mark.parametrize("sw", [0, 40])
+def test_split_blocks_cover_every_live_block_once(sw):
+    """For every cur_len of a 128-token, 16-token-block cache and every
+    n_split from 1 to past the block count, the splits' [first, end)
+    ranges are disjoint and their union is exactly the live block range
+    [window's first block, ceil(cur_len / bs))."""
+    bs, nb = 16, 8
+    cur = torch.arange(1, nb * bs + 1)
+    for n_split in range(1, nb + 3):
+        span = gather_attention.split_blocks(cur, nb, bs, n_split, sw)
+        for i, ln in enumerate(cur.tolist()):
+            lo = max(ln - sw, 0) // bs if sw else 0
+            hi = min(nb, -(-ln // bs))
+            covered = [blk for first, end in span[i].tolist()
+                       for blk in range(first, end)]
+            assert covered == list(range(lo, hi)), (ln, n_split, covered)
+
+
+def test_full_decode_n_split_rule_reads_shapes_only():
+    """The host's split count is a function of three ints (blocks per row,
+    B * Hkv, SMs), never of a tensor, so it costs the paged tick no sync:
+    about 4 CTAs per SM, at least 1, at most one split per block."""
+    import inspect
+    rule = gather_attention.full_decode_n_split
+    params = inspect.signature(rule).parameters
+    assert [p.annotation for p in params.values()] == ["int"] * 3
+    assert rule(32, 128, 132) == 4                 # llama2-7b, 4 slots
+    assert rule(32, 4 * 8, 132) == 16              # qwen2.5-3b: 2 kv heads
+    assert rule(2, 8, 132) == 2                    # capped by the blocks
+    assert rule(32, 1024, 132) == 1                # never below one
+    for rows in range(1, 600):
+        n = rule(32, rows, 132)
+        assert 1 <= n <= 32 and (n == 1 or n == 32 or
+                                 rows * n <= 4 * 132 < rows * (n + 1))
+
+
 EXACT = [(1, 0, False), (4, 0, False), (4, 40, False), (1, 0, True),
          (4, 40, True)]                              # (G, window, paged)
 
@@ -509,6 +593,22 @@ def test_plan_full_decode():
     assert tuning.plan_full_decode(96, 64, 2, 64, 128).block_size == 32
     assert tuning.plan_full_decode(4096, 128, 32, 128, 128) is None
     assert tuning.plan_full_decode(100, 128, 1, 128, 128) is None
+    # the split-KV kernel's shared memory (csrc/gather_attention.cu,
+    # split_smem_bytes): the query + 4 warps x 2 stages x 4 rows of K̂ and
+    # V in the cache dtype; llama2-7b's fp32 cache 32.5 KB
+    assert tuning.full_smem_bytes(g=1, kdim=128, dim=128, itemsize=4) == \
+        512 + 4 * 2 * 4 * 256 * 4
+    assert tuning.full_smem_bytes(g=1, kdim=128, dim=128, itemsize=2) == \
+        512 + 4 * 2 * 4 * 256 * 2
+    # the widest case the kernel takes fits the 227 KB limit, in any dtype;
+    # there the warps' merge (16 x 258 floats each) outgrows the ring
+    widest = tuning.full_smem_bytes(g=16, kdim=256, dim=256, itemsize=4)
+    assert widest == 16 * 256 * 4 + 4 * 4 * 16 * 258 <= tuning.SMEM_LIMIT
+    assert tuning.plan_full_decode(4096, 256, 16, 256, 128, itemsize=4) == \
+        tuning.KernelPlan("stream", 128)
+    # odd widths pad rows to 4 elements and the ring stage to 16 bytes
+    assert tuning.full_smem_bytes(g=2, kdim=30, dim=62, itemsize=2) == \
+        2 * 32 * 4 + 4 * 2 * (4 * (32 + 64) * 2)
     # exact_topk plans the fused kernel at d = kd, as JAX does
     assert tuning.plan_decode(4096, 128, 1, 128, 128) == \
         tuning.KernelPlan("fused", 128)
