@@ -11,9 +11,14 @@ Phases, each of which fails the run on any error:
              block_sparse_attention_grouped, paged_full_decode,
              fused_exact_topk_decode) at llama2-7b and qwen2.5-3b decode
              shapes (plus a sliding-window, a head_dim-256 and a
-             short-cur_len case, fp32 and bf16 caches), each one's paged
-             form bit for bit against its contiguous form on the same
-             logical data (shuffled page tables with a trash-page row);
+             short-cur_len case, fp32 and bf16 caches), the two fused
+             kernels also against their plain cluster form at the
+             launcher's own cluster size and against themselves (two calls
+             bit for bit), with the launcher's shared memory equal to
+             tuning.fused_smem_bytes and its clusters resident; each
+             kernel's paged form bit for bit against its contiguous form
+             on the same logical data (shuffled page tables with a
+             trash-page row);
              the per-head pipeline's three (block_max_scores,
              block_max_scores_fm, block_sparse_attention) at llama2-7b's
              decode step flattened per head (bf16 q over fp32 K/V, fp32,
@@ -25,7 +30,9 @@ Phases, each of which fails the run on any error:
              the float32 body); check that CUDA shapes no kernel takes
              raise; time each kernel at its main-path shape (flash beside
              its float32 body on an fp32 copy and SDPA; the split-KV full
-             decode beside SDPA, with its split count and scratch);
+             decode beside SDPA, with its split count and scratch; the
+             fused kernels beside the full decode on the same cache, with
+             their cluster size, shared memory and resident clusters);
   3. dense   llama2-7b at full width through the dense engine with
              loki_block (4 long prompts, 16 new tokens each), then full
              and exact_topk through it, the launch counters of each run
@@ -46,7 +53,7 @@ Phases, each of which fails the run on any error:
              chunks) once each with loki_block (in a pool too small for
              all four, so it must preempt), full and exact_topk, counted
              per run; decode tick time, device idle share and host syncs
-             per tick of each (1 per decode tick asserted under full);
+             per tick of each (1 per decode tick asserted under each);
   6. flash   the prefill-flash path: one 3072-token prompt through
              lm.prefill at full width, each layer's causal-attention q, k,
              v through ops.flash (counted), held against plain flash
@@ -86,6 +93,17 @@ def sync() -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_state() -> str:
+    """The card's SM and memory clocks, temperature and power draw now, as
+    nvidia-smi reads them (logged around the timings: a card held below
+    its clocks runs a memory-bound kernel slower)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60)
+    return out.stdout.strip() if out.returncode == 0 else "unreadable"
 
 
 def card_line() -> str:
@@ -230,8 +248,50 @@ def check_selection(case, q, k, cur, *, d, lw):
     return sel_k, sel_p, ~diff, ties
 
 
+def fused_plans(case):
+    """The fused launchers' cluster size, shared memory and resident
+    clusters at a case, for fused_loki_decode (d) and
+    fused_exact_topk_decode (d = W), each checked: the launcher's shared
+    memory equals tuning.fused_smem_bytes (one layout, two sources), its
+    C equals fused_cluster_size at this card's SM count, and at least one
+    cluster of that size fits on the card."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+    from repro_torch.kernels import tuning
+    q, k, v = case["q"], case["k"], case["v"]
+    B, Hkv, G, W = q.shape
+    nb = k.shape[1] // case["bs"]
+    kb = min(case["kb"], nb)
+    plans = {}
+    for name, d in (("fused_loki_decode", case["d"]),
+                    ("fused_exact_topk_decode", W)):
+        want = tuning.fused_smem_bytes(nb=nb, k_blocks=kb, g=G, kdim=W,
+                                       dim=v.shape[-1], bs=case["bs"], d=d,
+                                       itemsize=k.element_size())
+        if DEV != "cuda":             # a CPU rehearsal: no library to ask
+            plans[name] = dict(C=F.fused_cluster_size(nb, B * Hkv, 132),
+                               smem=want, max_clusters=None)
+            continue
+        plan = F.cluster_plan(q, k, v, d=d, k_blocks=kb,
+                              block_size=case["bs"])
+        if not plan["smem"] == plan["smem_layout"] == want:
+            raise AssertionError(f"{case['name']}: {name} launcher shared "
+                                 f"memory {plan} != tuning {want}")
+        rule = F.fused_cluster_size(nb, B * Hkv, GA._sm_count(q.device))
+        if plan["C"] != rule:
+            raise AssertionError(f"{case['name']}: {name} launcher C "
+                                 f"{plan['C']} != fused_cluster_size {rule}")
+        if plan["max_clusters"] < 1:
+            raise AssertionError(f"{case['name']}: {name}: no cluster of "
+                                 f"{plan['C']} CTAs fits ({plan})")
+        plans[name] = plan
+    return plans
+
+
 def check_kernels(results):
-    """Each of the five kernels against its plain version on every case."""
+    """Each of the five kernels against its plain version on every case;
+    the fused kernels also against their plain cluster form at the
+    launcher's own C, and against a second call, bit for bit."""
     from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import gather_attention as GA
 
@@ -239,6 +299,11 @@ def check_kernels(results):
         q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
         W = k.shape[-1]
         kw, ex_kw = kernel_kw(case), kernel_kw(case, exact=True)
+        plans = fused_plans(case)
+        fused = {"fused_loki_decode": lambda: F.fused_loki_decode(
+                     q, k, v, cur, **kw),
+                 "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode(
+                     q, k, v, cur, **ex_kw)}
         att_kw = dict(block_size=case["bs"], scale=kw["scale"],
                       sliding_window=case["sw"])
         # select_blocks at the fused kernel's scale, so all three share
@@ -250,7 +315,7 @@ def check_kernels(results):
         _, sel_x, agree_x, ties_x = check_selection(case, q, k, cur, d=W,
                                                     lw=0)
         runs = {
-            "fused_loki_decode": (F.fused_loki_decode(q, k, v, cur, **kw),
+            "fused_loki_decode": (fused["fused_loki_decode"](),
                                   F.fused_loki_decode_plain(q, k, v, cur,
                                                             **kw), agree),
             "block_sparse_attention_grouped": (
@@ -270,11 +335,29 @@ def check_kernels(results):
                     n_split=full_split(case["bs"], k.shape[1],
                                        q.shape[0] * q.shape[1])), None),
             "fused_exact_topk_decode": (
-                F.fused_exact_topk_decode(q, k, v, cur, **ex_kw),
+                fused["fused_exact_topk_decode"](),
                 F.fused_exact_topk_decode_plain(q, k, v, cur, **ex_kw),
                 agree_x),
+            # the fused kernels against the plain cluster form at the
+            # launcher's own cluster size
+            "fused_loki_decode (cluster)": (
+                fused["fused_loki_decode"](),
+                F.fused_cluster_plain(
+                    q, k, v, cur, **kw,
+                    n_cta=plans["fused_loki_decode"]["C"]), agree),
+            "fused_exact_topk_decode (cluster)": (
+                fused["fused_exact_topk_decode"](),
+                F.fused_cluster_plain(
+                    q, k, v, cur, **ex_kw, d=W, local_window=0,
+                    n_cta=plans["fused_exact_topk_decode"]["C"]), agree_x),
         }
         sync()
+        for kname, call in fused.items():
+            again = call()
+            sync()
+            if not torch.equal(again, runs[kname][0]):
+                raise AssertionError(f"{case['name']}: {kname}: two calls "
+                                     "differ")
         atol, rtol = tolerance(q.dtype)
         errs = {}
         for kname, (got, want, rows) in runs.items():
@@ -292,16 +375,22 @@ def check_kernels(results):
             (sel_k - sel_p).abs()[agree].max()) if agree.any() else 0.0
         errs["paged_full_decode"] = max(
             errs["paged_full_decode"], errs.pop("paged_full_decode (splits)"))
+        for kname in ("fused_loki_decode", "fused_exact_topk_decode"):
+            errs[kname] = max(errs[kname], errs.pop(f"{kname} (cluster)"))
         log(f"kernels: {case['name']}: indices equal in "
             f"{int(agree.sum())}/{agree.numel()} rows at d={case['d']} "
             f"(near-ties {int(ties.sum())}) and {int(agree_x.sum())}/"
             f"{agree_x.numel()} at d={W} (near-ties {int(ties_x.sum())}), "
             f"-1 sentinels {int((sel_p < 0).sum())}; max|err| "
             + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-            + f" (atol {atol}, rtol {rtol})")
+            + f" (atol {atol}, rtol {rtol}; fused kernels also vs their "
+            f"plain cluster form, and two calls bit for bit); clusters: "
+            + ", ".join(f"{n} C {p['C']}, {p['smem']} B shared, "
+                        f"{p['max_clusters']} resident"
+                        for n, p in plans.items()))
         if "main" not in results:
             results["main"] = dict(case=case, sel=sel_p, sel_exact=sel_x,
-                                   errs=errs)
+                                   errs=errs, plans=plans)
 
 
 def paged_copy(case, ps, seed):
@@ -529,6 +618,8 @@ def time_kernels(results):
         qs, kt, vt, attn_mask=mask, scale=kw["scale"]))
     bnd = bounds(case, sel, main["sel_exact"])
     timing = {}
+    log(f"timing: card before (SM clock, memory clock, temperature, "
+        f"power): {card_state()}")
     for name in KERNELS:
         ms, paged_ms = time_ms(kern[name]), time_ms(paged[name])
         plain_ms = time_ms(plain[name], reps=5)
@@ -542,6 +633,24 @@ def time_kernels(results):
             f"{plain_ms:.4f} ms")
     log(f"timing: scaled_dot_product_attention over the same live cache "
         f"(library call of paged_full_decode's function): {sdpa_ms:.4f} ms")
+    log(f"timing: card after: {card_state()}")
+    full = timing["paged_full_decode"]
+    for name, plan in main["plans"].items():
+        if plan["C"] < 2:
+            raise AssertionError(f"{name} at the main shape launches "
+                                 f"clusters of {plan['C']} CTA")
+        t = timing[name]
+        log(f"timing: {name} launches clusters of C = {plan['C']} CTAs "
+            f"({B * Hkv * plan['C']} CTAs of 128 threads), "
+            f"{plan['smem']} B dynamic shared memory each, "
+            f"cudaOccupancyMaxActiveClusters {plan['max_clusters']}; "
+            f"{t['ms']:.4f} / {t['paged_ms']:.4f} ms contiguous / paged = "
+            f"{t['ms'] / t['bound_ms']:.2f}x / "
+            f"{t['paged_ms'] / t['bound_ms']:.2f}x its bound, "
+            f"{t['ms'] / full['ms']:.2f}x / "
+            f"{t['paged_ms'] / full['paged_ms']:.2f}x paged_full_decode on "
+            f"the same cache ({full['ms']:.4f} / {full['paged_ms']:.4f} ms)")
+    results["fused_plans"] = main["plans"]
     # the scratch as the allocator saw it: one call's peak beyond its output
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -1220,9 +1329,9 @@ def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
             raise AssertionError(f"paged {policy}: requests not DONE: {bad}")
         check_launches(f"paged {policy}", counts, planned,
                        st["n_decode_steps"], cfg.n_layers)
-        if policy == "full" and syncs.get("decode") != 1:
-            raise AssertionError(f"paged full: {syncs.get('decode')} host "
-                                 "syncs in a decode tick, expected 1")
+        if syncs.get("decode") != 1:
+            raise AssertionError(f"paged {policy}: {syncs.get('decode')} "
+                                 "host syncs in a decode tick, expected 1")
         if policy == "loki_block" and st["n_preempted"] < 1:
             raise AssertionError(f"paged loki_block in a {n_pages}-page pool "
                                  "did not preempt")
@@ -1754,7 +1863,9 @@ def main() -> int:
                    "launches": launches, "serve": results.get("serve"),
                    "paged_serve": results.get("paged_serve"),
                    "prefill_flash": results.get("prefill_flash"),
-                   "profile": results.get("profile")}, fh, indent=1)
+                   "profile": results.get("profile"),
+                   "fused_plans": results.get("fused_plans")}, fh,
+                  indent=1)
     log(card)                   # as nvidia-smi prints it: name, limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -116,8 +116,10 @@ def _no_plan(policy: str, smax: int, dim: int, g: int, d: int,
         f"no CUDA kernel plan for {policy} decode at smax={smax}, "
         f"head_dim={dim}, G={g}, d={d}{paged}: the kernels take G <= "
         f"{tuning.MAX_G}, head_dim <= {tuning.MAX_DIM}, smax a multiple of "
-        "8, a page size that the block size divides and a score row "
-        "within shared memory (split-KV form: ROADMAP queue 2 item 1)")
+        "8, a page size that the block size divides and a block-maxima "
+        "row that fits shared memory beside the rings (the fused and "
+        "select kernels keep the whole row on chip: "
+        "kernels/tuning.py fused_smem_bytes, select_smem_bytes)")
 
 
 def _token_fallback(q_rope, k_hat_cache, v_cache, cur_len, proj, cfg, *,

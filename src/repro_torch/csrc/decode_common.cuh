@@ -1,16 +1,20 @@
 // Shared device code of the Loki decode kernels (fused_decode.cu,
 // gather_attention.cu): float conversion, warp reductions, the logical
-// block -> cache row map, the score -> select phase and the exact
-// attention phase over a list (or a range) of KV blocks.
+// block -> cache row map, the one-CTA score -> select phase and exact
+// attention phase over a list (or a range) of KV blocks (select_blocks,
+// block_sparse_attention_grouped), and the split-KV streaming body that
+// the full decode and the fused cluster kernels share: a per-warp
+// cp.async ring over 4-token chunks of any token ranges, a per-warp online
+// softmax, the 4-warp log-sum-exp merge and the log-sum-exp merge of
+// per-CTA partials.
 //
 // Layout (the JAX package's model-native one):
 //   q_hat  (B, Hkv, G, W)   grouped PCA-basis queries, W = stored key width
 //   k_hat  (B, S, Hkv, W)   key cache in the PCA basis, or the paged pool
 //                           (R, Hkv, W) read through a page table
 //   v      (B, S, Hkv, D)   value cache, or the pool (R, Hkv, D)
-// One CUDA block of THREADS threads runs one (b, kv-head) pair; a loop inside
-// the block takes the place of the TPU's sequential grid. Every staged value
-// is float32 in shared memory, whatever the cache dtype (fp32 or bf16).
+// The one-CTA phases stage every value as float32 in shared memory; the
+// split-KV rings copy cache rows as they are stored (fp32 or bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -352,6 +356,304 @@ __device__ void attend_blocks(const TK* __restrict__ k,
     for (int sp = 0; sp < nsplit; ++sp) a += red[(sp * G + g) * D + c];
     store_f(out + idx, a / fmaxf(l_s[g], 1e-30f));
   }
+}
+
+// ------------------------------------------------ split-KV streaming body
+
+constexpr int SPLIT_WARPS = 4;
+constexpr int SPLIT_THREADS = 32 * SPLIT_WARPS;
+constexpr int SPLIT_TOK = 4;          // tokens per warp and ring stage
+constexpr int SPLIT_STAGES = 2;
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline size_t round16(size_t n) {
+  return (n + 15) & ~size_t(15);
+}
+
+// one warp's ring stage: SPLIT_TOK rows of K̂ then of V in the cache dtype,
+// rows padded to 4 elements
+template <typename TK>
+__host__ __device__ inline size_t split_stage_bytes(int W, int D) {
+  return round16((size_t)SPLIT_TOK * (pad4(W) + pad4(D)) * sizeof(TK));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Copy the K̂ and V rows of tokens pos0 .. pos0 + SPLIT_TOK - 1 (those below
+// t1) into a warp's ring stage, then commit one cp.async group (empty when
+// nothing was issued, so the group count stays in step). The tokens' cache
+// rows are resolved first, walking the blocks, so a paged chunk does one
+// page-table read per block it touches, before any copy is issued.
+template <typename TK>
+__device__ void split_fill(uint8_t* stage, const TK* __restrict__ k,
+                           const TK* __restrict__ v, const BlockRows& rows,
+                           int b, int h, int Hkv, int W, int D, int bs,
+                           int pos0, int t1, bool vec, int lane) {
+  TK* ks = reinterpret_cast<TK*>(stage);
+  TK* vs = ks + SPLIT_TOK * pad4(W);
+  const int n_tok = min(SPLIT_TOK, t1 - pos0);
+  int64_t rk[SPLIT_TOK];              // (cache row) * Hkv + h per token
+  int blk = pos0 / bs, off = pos0 % bs;
+  int64_t base = rows.first_row(b, blk);
+#pragma unroll
+  for (int u = 0; u < SPLIT_TOK; ++u) {
+    if (off == bs) {
+      ++blk;
+      off = 0;
+      if (u < n_tok) base = rows.first_row(b, blk);
+    }
+    rk[u] = (base + off++) * Hkv + h;
+  }
+  if (vec) {
+    constexpr int E = 16 / sizeof(TK);             // elements per 16 B
+    const int kp = W / E, vp = D / E;
+#pragma unroll
+    for (int u = 0; u < SPLIT_TOK; ++u) {
+      if (u >= n_tok) break;
+      for (int i = lane; i < kp; i += 32)
+        cp_async16(ks + u * W + i * E, k + rk[u] * W + i * E);
+      for (int i = lane; i < vp; i += 32)
+        cp_async16(vs + u * D + i * E, v + rk[u] * D + i * E);
+    }
+  } else {
+    const int Wp = pad4(W), Dp = pad4(D);
+#pragma unroll
+    for (int u = 0; u < SPLIT_TOK; ++u) {
+      if (u >= n_tok) break;
+      for (int c = lane; c < Wp; c += 32)
+        store_f(ks + u * Wp + c, c < W ? to_f(k[rk[u] * W + c]) : 0.f);
+      for (int c = lane; c < Dp; c += 32)
+        store_f(vs + u * Dp + c, c < D ? to_f(v[rk[u] * D + c]) : 0.f);
+    }
+  }
+  cp_async_commit();
+}
+
+// One warp's online softmax: the (G,) running max and sum and the (G, D)
+// accumulators, lane-held columns 4 * lane + 128 * jj. GM >= G query heads
+// per group, DC = column groups of 4 per lane (1 for D <= 128, 2 for
+// D <= 256).
+template <int GM, int DC>
+struct WarpSoftmax {
+  float m[GM], l[GM], acc[GM][4 * DC];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      m[g] = NEG_INF;
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4 * DC; ++e) acc[g][e] = 0.f;
+    }
+  }
+};
+
+// Stream a warp's ``my_n`` chunks through its two-stage ring and fold each
+// into ``st``. ``chunk_at(j)`` gives the warp's j-th chunk as int2 {first
+// token, end of its range}: the chunk is tokens first .. first +
+// SPLIT_TOK - 1 below the end. The next chunk's K̂ and V rows are in flight
+// (16-byte cp.async) while the warp computes on this one; no CTA barrier in
+// the loop. qs: the scaled float32 query, G x Wp. Ends with every copy
+// landed; the caller synchronises the CTA before reusing the ring.
+template <typename TK, int GM, int DC, typename ChunkAt>
+__device__ __forceinline__ void stream_chunks(
+    WarpSoftmax<GM, DC>& st, const float* qs, uint8_t* my_ring,
+    size_t stage_bytes, const TK* __restrict__ k, const TK* __restrict__ v,
+    const BlockRows& rows, int b, int h, int Hkv, int G, int W, int D, int bs,
+    int my_n, ChunkAt chunk_at, bool vec, int lane) {
+  const int Wp = pad4(W), Dp = pad4(D);
+#pragma unroll
+  for (int j = 0; j < SPLIT_STAGES - 1; ++j) {
+    if (j < my_n) {
+      const int2 c = chunk_at(j);
+      split_fill(my_ring + j * stage_bytes, k, v, rows, b, h, Hkv, W, D, bs,
+                 c.x, c.y, vec, lane);
+    } else {
+      cp_async_commit();
+    }
+  }
+
+  for (int j = 0; j < my_n; ++j) {
+    const int jn = j + SPLIT_STAGES - 1;             // the chunk to prefetch
+    if (jn < my_n) {
+      const int2 c = chunk_at(jn);
+      split_fill(my_ring + (jn % SPLIT_STAGES) * stage_bytes, k, v, rows, b,
+                 h, Hkv, W, D, bs, c.x, c.y, vec, lane);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<SPLIT_STAGES - 1>();
+    __syncwarp();
+
+    const TK* ks =
+        reinterpret_cast<const TK*>(my_ring + (j % SPLIT_STAGES) * stage_bytes);
+    const TK* vs = ks + SPLIT_TOK * Wp;
+    const int2 cj = chunk_at(j);
+    const int n_tok = min(SPLIT_TOK, cj.y - cj.x);  // >= 1
+    float sc[GM][SPLIT_TOK];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+      float qf[4 * DC];
+#pragma unroll
+      for (int jj = 0; jj < DC; ++jj) {
+        const int c = 4 * lane + 128 * jj;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[4 * jj + e] = 0.f;
+        if (c < Wp) load4(qs + g * Wp + c, qf + 4 * jj);
+      }
+#pragma unroll
+      for (int u = 0; u < SPLIT_TOK; ++u) {
+        float p = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < DC; ++jj) {
+          const int c = 4 * lane + 128 * jj;
+          if (c < Wp) {
+            float kv[4];
+            load4(ks + u * Wp + c, kv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) p = fmaf(qf[4 * jj + e], kv[e], p);
+          }
+        }
+        p = warp_sum(p);
+        sc[g][u] = u < n_tok ? p : NEG_INF;
+      }
+      // online softmax of head g over the chunk (the TPU kernel's guards)
+      float bm = NEG_INF;
+#pragma unroll
+      for (int u = 0; u < SPLIT_TOK; ++u) bm = fmaxf(bm, sc[g][u]);
+      const float m_new = fmaxf(st.m[g], bm);
+      const float m_safe = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
+      const float alpha =
+          st.m[g] > NEG_INF * 0.5f ? expf(fminf(st.m[g] - m_safe, 0.f)) : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < SPLIT_TOK; ++u) {
+        const float x = sc[g][u];
+        const float p = x > NEG_INF * 0.5f ? expf(x - m_safe) : 0.f;
+        sc[g][u] = p;
+        sum += p;
+      }
+      st.l[g] = st.l[g] * alpha + sum;
+      st.m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < 4 * DC; ++e) st.acc[g][e] *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < SPLIT_TOK; ++u) {
+      if (u >= n_tok) break;          // rows past the end hold stale bytes
+#pragma unroll
+      for (int jj = 0; jj < DC; ++jj) {
+        const int c = 4 * lane + 128 * jj;
+        if (c < Dp) {
+          float vv[4];
+          load4(vs + u * Dp + c, vv);
+#pragma unroll
+          for (int g = 0; g < GM; ++g)
+            if (g < G)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                st.acc[g][4 * jj + e] =
+                    fmaf(sc[g][u], vv[e], st.acc[g][4 * jj + e]);
+        }
+      }
+    }
+    __syncwarp();                     // the stage is refilled next round
+  }
+  cp_async_wait<0>();
+}
+
+// The SPLIT_WARPS warps' states by log-sum-exp into one partial, written
+// to ``out`` (G rows of acc[D], m, l; global or shared memory). mw is
+// SPLIT_WARPS x G x (D + 2) floats of shared scratch (the ring, once the
+// caller has synchronised the CTA after stream_chunks).
+template <int GM, int DC>
+__device__ __forceinline__ void merge_warps(const WarpSoftmax<GM, DC>& st,
+                                            float* mw, float* out, int G,
+                                            int D) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g >= G) break;
+    float* dst = mw + (warp * G + g) * (D + 2);
+#pragma unroll
+    for (int jj = 0; jj < DC; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * lane + 128 * jj + e;
+        if (c < D) dst[c] = st.acc[g][4 * jj + e];
+      }
+    if (lane == 0) {
+      dst[D] = st.m[g];
+      dst[D + 1] = st.l[g];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * (D + 2); i += SPLIT_THREADS) {
+    const int g = i / (D + 2), c = i % (D + 2);
+    float mx = NEG_INF;
+    for (int w = 0; w < SPLIT_WARPS; ++w)
+      mx = fmaxf(mx, mw[(w * G + g) * (D + 2) + D]);
+    const float m_safe = mx <= NEG_INF * 0.5f ? 0.f : mx;
+    float a = 0.f;
+    for (int w = 0; w < SPLIT_WARPS; ++w) {
+      const float* src = mw + (w * G + g) * (D + 2);
+      const float wt =
+          src[D] > NEG_INF * 0.5f ? expf(fminf(src[D] - m_safe, 0.f)) : 0.f;
+      a += wt * src[c == D ? D + 1 : c];
+    }
+    out[i] = c == D ? mx : a;       // c == D + 1 sums l
+  }
+}
+
+// Output (g, c) of ``n`` partials merged by log-sum-exp in order s = 0 ..
+// n - 1: ``part(s)`` points at partial s (G rows of acc[D], m, l).
+// alpha = 0 for an empty partial (m = -1e30), the 1e-30 floor on the sum.
+template <typename PartAt>
+__device__ __forceinline__ float merge_partials(PartAt part, int n, int g,
+                                                int c, int D) {
+  float mx = NEG_INF;
+  for (int s = 0; s < n; ++s) mx = fmaxf(mx, part(s)[g * (D + 2) + D]);
+  const float m_safe = mx <= NEG_INF * 0.5f ? 0.f : mx;
+  float a = 0.f, den = 0.f;
+  for (int s = 0; s < n; ++s) {
+    const float* src = part(s) + g * (D + 2);
+    const float wt =
+        src[D] > NEG_INF * 0.5f ? expf(fminf(src[D] - m_safe, 0.f)) : 0.f;
+    a += wt * src[c];
+    den += wt * src[D + 1];
+  }
+  return a / fmaxf(den, 1e-30f);
+}
+
+// The live block range [lo, hi) of a row (the sliding window's first block
+// .. ceil(cur_len / bs)) and share ``s`` of ``n`` equal shares of it,
+// [first, end): ceil((hi - lo) / n) blocks each, trailing shares possibly
+// empty. The host's kernels/gather_attention.py split_blocks repeats it.
+struct BlockShare {
+  int lo, hi, per, first, end;
+};
+__device__ __forceinline__ BlockShare block_share(int ln, int nb, int bs,
+                                                  int sliding_window, int s,
+                                                  int n) {
+  BlockShare r;
+  r.lo = sliding_window > 0 ? max(ln - sliding_window, 0) / bs : 0;
+  r.hi = min(nb, (ln + bs - 1) / bs);
+  r.per = (max(r.hi - r.lo, 0) + n - 1) / n;
+  r.first = r.lo + s * r.per;
+  r.end = min(r.hi, r.first + r.per);
+  return r;
 }
 
 // Run F<TQ, TK>::run(a) for the launch's (query, cache) dtype pair:

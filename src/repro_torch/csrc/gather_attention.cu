@@ -32,7 +32,9 @@
 // each of 4 warps streams its own chunks of 4 tokens through a private
 // two-stage shared-memory ring filled by 16-byte cp.async (the next
 // chunk's K̂ and V rows in flight while the warp computes on this one; no
-// CTA barrier in the loop): lanes hold 4 columns (8 at D > 128), a token's
+// CTA barrier in the loop; the body, stream_chunks and merge_warps in
+// decode_common.cuh, is shared with the fused cluster kernels of
+// fused_decode.cu): lanes hold 4 columns (8 at D > 128), a token's
 // G scores are warp sums, and the warp keeps its own (G,) online softmax
 // and (G, D) accumulators in registers. The 4 warps then merge by
 // log-sum-exp in shared memory, and the split writes its partial (acc[G,
@@ -104,92 +106,12 @@ block_sparse_attention_grouped_kernel(
 
 // ---------------------------------------------------- split-KV full decode
 
-constexpr int SPLIT_WARPS = 4;
-constexpr int SPLIT_THREADS = 32 * SPLIT_WARPS;
-constexpr int SPLIT_TOK = 4;          // tokens per warp and ring stage
-constexpr int SPLIT_STAGES = 2;
-
-__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
-__host__ __device__ inline size_t round16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
-
-// one warp's ring stage: SPLIT_TOK rows of K̂ then of V in the cache dtype,
-// rows padded to 4 elements
-template <typename TK>
-__host__ __device__ inline size_t split_stage_bytes(int W, int D) {
-  return round16((size_t)SPLIT_TOK * (pad4(W) + pad4(D)) * sizeof(TK));
-}
-
 template <typename TK>
 inline size_t split_smem_bytes(int G, int W, int D) {
   const size_t ring = (size_t)SPLIT_WARPS * SPLIT_STAGES *
                       split_stage_bytes<TK>(W, D);
   const size_t merge = sizeof(float) * SPLIT_WARPS * G * (D + 2);
   return round16(sizeof(float) * G * pad4(W)) + (ring > merge ? ring : merge);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Copy the K̂ and V rows of tokens pos0 .. pos0 + SPLIT_TOK - 1 (those below
-// t1) into a warp's ring stage, then commit one cp.async group (empty when
-// nothing was issued, so the group count stays in step). The tokens' cache
-// rows are resolved first, walking the blocks, so a paged chunk does one
-// page-table read per block it touches, before any copy is issued.
-template <typename TK>
-__device__ void split_fill(uint8_t* stage, const TK* __restrict__ k,
-                           const TK* __restrict__ v, const BlockRows& rows,
-                           int b, int h, int Hkv, int W, int D, int bs,
-                           int pos0, int t1, bool vec, int lane) {
-  TK* ks = reinterpret_cast<TK*>(stage);
-  TK* vs = ks + SPLIT_TOK * pad4(W);
-  const int n_tok = min(SPLIT_TOK, t1 - pos0);
-  int64_t rk[SPLIT_TOK];              // (cache row) * Hkv + h per token
-  int blk = pos0 / bs, off = pos0 % bs;
-  int64_t base = rows.first_row(b, blk);
-#pragma unroll
-  for (int u = 0; u < SPLIT_TOK; ++u) {
-    if (off == bs) {
-      ++blk;
-      off = 0;
-      if (u < n_tok) base = rows.first_row(b, blk);
-    }
-    rk[u] = (base + off++) * Hkv + h;
-  }
-  if (vec) {
-    constexpr int E = 16 / sizeof(TK);             // elements per 16 B
-    const int kp = W / E, vp = D / E;
-#pragma unroll
-    for (int u = 0; u < SPLIT_TOK; ++u) {
-      if (u >= n_tok) break;
-      for (int i = lane; i < kp; i += 32)
-        cp_async16(ks + u * W + i * E, k + rk[u] * W + i * E);
-      for (int i = lane; i < vp; i += 32)
-        cp_async16(vs + u * D + i * E, v + rk[u] * D + i * E);
-    }
-  } else {
-    const int Wp = pad4(W), Dp = pad4(D);
-#pragma unroll
-    for (int u = 0; u < SPLIT_TOK; ++u) {
-      if (u >= n_tok) break;
-      for (int c = lane; c < Wp; c += 32)
-        store_f(ks + u * Wp + c, c < W ? to_f(k[rk[u] * W + c]) : 0.f);
-      for (int c = lane; c < Dp; c += 32)
-        store_f(vs + u * Dp + c, c < D ? to_f(v[rk[u] * D + c]) : 0.f);
-    }
-  }
-  cp_async_commit();
 }
 
 // GM >= G query heads per group, DC = column groups of 4 per lane (1 for
@@ -207,7 +129,7 @@ full_decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
   const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int n_split = gridDim.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int Wp = pad4(W), Dp = pad4(D);
+  const int Wp = pad4(W);
   const size_t bh = (size_t)b * Hkv + h;
   float* qs = reinterpret_cast<float*>(smem4);        // G x Wp, scaled
   uint8_t* ring = reinterpret_cast<uint8_t*>(smem4) +
@@ -221,13 +143,10 @@ full_decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
 
   // this split's share of the live blocks, then its live tokens [t0, t1)
   const int ln = cur_len[b];
-  const int lo = sliding_window > 0 ? max(ln - sliding_window, 0) / bs : 0;
-  const int hi = min(nb, (ln + bs - 1) / bs);
-  const int per = (max(hi - lo, 0) + n_split - 1) / n_split;
-  const int blk0 = lo + sp * per, blk1 = min(hi, blk0 + per);
-  int t0 = blk0 * bs;
+  const BlockShare sh = block_share(ln, nb, bs, sliding_window, sp, n_split);
+  int t0 = sh.first * bs;
   if (sliding_window > 0) t0 = max(t0, ln - sliding_window);
-  const int t1 = min(blk1 * bs, ln);
+  const int t1 = min(sh.end * bs, ln);
   const int n_chunks = t1 > t0 ? (t1 - t0 + SPLIT_TOK - 1) / SPLIT_TOK : 0;
   // warp w takes chunks w, w + SPLIT_WARPS, ...
   const int my_n = n_chunks > warp
@@ -235,147 +154,18 @@ full_decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
                        : 0;
   __syncthreads();                                    // qs
 
-  float m[GM], l[GM], acc[GM][4 * DC];
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4 * DC; ++e) acc[g][e] = 0.f;
-  }
-  auto chunk_pos = [&](int j) {
-    return t0 + (warp + j * SPLIT_WARPS) * SPLIT_TOK;
-  };
-#pragma unroll
-  for (int j = 0; j < SPLIT_STAGES - 1; ++j) {
-    if (j < my_n)
-      split_fill(my_ring + j * stage_bytes, k, v, rows, b, h, Hkv, W, D, bs,
-                 chunk_pos(j), t1, vec, lane);
-    else
-      cp_async_commit();
-  }
-
-  for (int j = 0; j < my_n; ++j) {
-    const int jn = j + SPLIT_STAGES - 1;             // the chunk to prefetch
-    if (jn < my_n)
-      split_fill(my_ring + (jn % SPLIT_STAGES) * stage_bytes, k, v, rows, b,
-                 h, Hkv, W, D, bs, chunk_pos(jn), t1, vec, lane);
-    else
-      cp_async_commit();
-    cp_async_wait<SPLIT_STAGES - 1>();
-    __syncwarp();
-
-    const TK* ks =
-        reinterpret_cast<const TK*>(my_ring + (j % SPLIT_STAGES) * stage_bytes);
-    const TK* vs = ks + SPLIT_TOK * Wp;
-    const int n_tok = min(SPLIT_TOK, t1 - chunk_pos(j));   // >= 1
-    float sc[GM][SPLIT_TOK];
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      if (g >= G) break;
-      float qf[4 * DC];
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) {
-        const int c = 4 * lane + 128 * jj;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qf[4 * jj + e] = 0.f;
-        if (c < Wp) load4(qs + g * Wp + c, qf + 4 * jj);
-      }
-#pragma unroll
-      for (int u = 0; u < SPLIT_TOK; ++u) {
-        float p = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < DC; ++jj) {
-          const int c = 4 * lane + 128 * jj;
-          if (c < Wp) {
-            float kv[4];
-            load4(ks + u * Wp + c, kv);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) p = fmaf(qf[4 * jj + e], kv[e], p);
-          }
-        }
-        p = warp_sum(p);
-        sc[g][u] = u < n_tok ? p : NEG_INF;
-      }
-      // online softmax of head g over the chunk (the TPU kernel's guards)
-      float bm = NEG_INF;
-#pragma unroll
-      for (int u = 0; u < SPLIT_TOK; ++u) bm = fmaxf(bm, sc[g][u]);
-      const float m_new = fmaxf(m[g], bm);
-      const float m_safe = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
-      const float alpha =
-          m[g] > NEG_INF * 0.5f ? expf(fminf(m[g] - m_safe, 0.f)) : 0.f;
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < SPLIT_TOK; ++u) {
-        const float x = sc[g][u];
-        const float p = x > NEG_INF * 0.5f ? expf(x - m_safe) : 0.f;
-        sc[g][u] = p;
-        sum += p;
-      }
-      l[g] = l[g] * alpha + sum;
-      m[g] = m_new;
-#pragma unroll
-      for (int e = 0; e < 4 * DC; ++e) acc[g][e] *= alpha;
-    }
-#pragma unroll
-    for (int u = 0; u < SPLIT_TOK; ++u) {
-      if (u >= n_tok) break;          // rows past t1 hold stale bytes
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) {
-        const int c = 4 * lane + 128 * jj;
-        if (c < Dp) {
-          float vv[4];
-          load4(vs + u * Dp + c, vv);
-#pragma unroll
-          for (int g = 0; g < GM; ++g)
-            if (g < G)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                acc[g][4 * jj + e] = fmaf(sc[g][u], vv[e], acc[g][4 * jj + e]);
-        }
-      }
-    }
-    __syncwarp();                     // the stage is refilled next round
-  }
-  cp_async_wait<0>();
+  WarpSoftmax<GM, DC> st;
+  st.init();
+  stream_chunks<TK>(st, qs, my_ring, stage_bytes, k, v, rows, b, h, Hkv, G,
+                    W, D, bs, my_n,
+                    [&](int j) {
+                      return make_int2(
+                          t0 + (warp + j * SPLIT_WARPS) * SPLIT_TOK, t1);
+                    },
+                    vec != 0, lane);
   __syncthreads();                    // every ring is free: merge there
-
-  // the 4 warps' states by log-sum-exp into this split's partial
-  float* mw = reinterpret_cast<float*>(ring);         // warps x G x (D + 2)
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (g >= G) break;
-    float* dst = mw + (warp * G + g) * (D + 2);
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 4 * lane + 128 * jj + e;
-        if (c < D) dst[c] = acc[g][4 * jj + e];
-      }
-    if (lane == 0) {
-      dst[D] = m[g];
-      dst[D + 1] = l[g];
-    }
-  }
-  __syncthreads();
-  float* out = part + (bh * n_split + sp) * G * (D + 2);
-  for (int i = tid; i < G * (D + 2); i += SPLIT_THREADS) {
-    const int g = i / (D + 2), c = i % (D + 2);
-    float mx = NEG_INF;
-    for (int w = 0; w < SPLIT_WARPS; ++w)
-      mx = fmaxf(mx, mw[(w * G + g) * (D + 2) + D]);
-    const float m_safe = mx <= NEG_INF * 0.5f ? 0.f : mx;
-    float a = 0.f;
-    for (int w = 0; w < SPLIT_WARPS; ++w) {
-      const float* src = mw + (w * G + g) * (D + 2);
-      const float wt =
-          src[D] > NEG_INF * 0.5f ? expf(fminf(src[D] - m_safe, 0.f)) : 0.f;
-      a += wt * src[c == D ? D + 1 : c];
-    }
-    out[i] = c == D ? mx : a;       // c == D + 1 sums l
-  }
+  merge_warps(st, reinterpret_cast<float*>(ring),
+              part + (bh * n_split + sp) * G * (D + 2), G, D);
 }
 
 // Merge the n_split partials of each (b, kv-head) by log-sum-exp.
@@ -387,19 +177,9 @@ full_decode_combine_kernel(const float* __restrict__ part,
   const float* pb = part + bh * n_split * G * (D + 2);
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D, c = i % D;
-    float mx = NEG_INF;
-    for (int s = 0; s < n_split; ++s)
-      mx = fmaxf(mx, pb[(s * G + g) * (D + 2) + D]);
-    const float m_safe = mx <= NEG_INF * 0.5f ? 0.f : mx;
-    float a = 0.f, den = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float* src = pb + (s * G + g) * (D + 2);
-      const float wt =
-          src[D] > NEG_INF * 0.5f ? expf(fminf(src[D] - m_safe, 0.f)) : 0.f;
-      a += wt * src[c];
-      den += wt * src[D + 1];
-    }
-    store_f(out + bh * G * D + i, a / fmaxf(den, 1e-30f));
+    store_f(out + bh * G * D + i,
+            merge_partials([&](int s) { return pb + s * G * (D + 2); },
+                           n_split, g, c, D));
   }
 }
 

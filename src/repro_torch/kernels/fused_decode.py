@@ -30,6 +30,14 @@ multiple of ``block_size``.
 Default scales differ as in the JAX package: ``D**-0.5`` for the fused
 kernels, ``W**-0.5`` for select_blocks. The wrappers launch the kernels for
 CUDA tensors and run the plain versions for CPU tensors.
+
+On the card the two fused kernels run as one cluster of C CTAs per (slot,
+kv-head): CTA r scores share r of the live blocks (``split_blocks``), every
+CTA runs the same top-k over the whole row of block maxima, CTA r attends
+share r of the winners (``winner_shares``) and CTA 0 merges the C partials
+by log-sum-exp in rank order. ``fused_cluster_size`` is the launcher's rule
+for C (shapes only); ``fused_cluster_plain`` repeats the cluster form's
+arithmetic in torch for the tests and the card's checks.
 """
 from __future__ import annotations
 
@@ -40,17 +48,20 @@ import torch
 from repro_torch.core.loki import topk_lower_index
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_attention import (NEG_INF,
+                                                  SPLIT_CTAS_PER_SM,
                                                   attend_blocks_plain,
-                                                  cache_args, logical)
+                                                  cache_args, logical,
+                                                  merge_partials_plain,
+                                                  split_blocks)
 from repro_torch.serving.paged_cache import unscaled
 
 
-def block_scores_plain(q_hat, k_hat, cur_len, *, d, block_size, scale,
-                       local_window=0, sliding_window=0):
-    """Phase 1: the (B,Hkv,nb) float32 block scores selection runs on."""
-    b, s_len, n_kv, _ = k_hat.shape
-    bs = block_size
-    nb = s_len // bs
+def token_scores_plain(q_hat, k_hat, cur_len, *, d, scale, local_window=0,
+                       sliding_window=0):
+    """(B,Hkv,S) float32 token scores: the group max of q̂[:d]·k̂[:d],
+    NEG_INF outside cur_len and the sliding window, +1e4 in the local
+    window."""
+    s_len = k_hat.shape[1]
     s = torch.einsum("bhgd,bshd->bhgs", q_hat[..., :d].float() * scale,
                      k_hat[..., :d].float()).amax(2)     # (B,Hkv,S)
     pos = torch.arange(s_len, device=s.device)
@@ -61,7 +72,17 @@ def block_scores_plain(q_hat, k_hat, cur_len, *, d, block_size, scale,
     s = torch.where(live, s, NEG_INF)
     if local_window:
         s = torch.where(live & (pos >= cur - local_window), s + 1e4, s)
-    return s.reshape(b, n_kv, nb, bs).amax(-1)
+    return s
+
+
+def block_scores_plain(q_hat, k_hat, cur_len, *, d, block_size, scale,
+                       local_window=0, sliding_window=0):
+    """Phase 1: the (B,Hkv,nb) float32 block scores selection runs on."""
+    b, s_len, n_kv, _ = k_hat.shape
+    s = token_scores_plain(q_hat, k_hat, cur_len, d=d, scale=scale,
+                           local_window=local_window,
+                           sliding_window=sliding_window)
+    return s.reshape(b, n_kv, s_len // block_size, block_size).amax(-1)
 
 
 def select_blocks_plain(q_hat, k_hat, cur_len, *, d, k_blocks, block_size,
@@ -88,6 +109,98 @@ def fused_loki_decode_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
     return attend_blocks_plain(q_hat, k_hat, v, sel, cur_len,
                                block_size=block_size, scale=scale,
                                sliding_window=sliding_window)
+
+
+def fused_cluster_size(n_blocks: int, rows: int, n_sm: int) -> int:
+    """CTAs per cluster of the fused kernels, from shapes only: about
+    SPLIT_CTAS_PER_SM CTAs per SM over ``rows`` = B * Hkv clusters, at
+    least 1 and at most 8 (the portable cluster limit) or the
+    ``n_blocks`` = S / block_size blocks of a row. The launcher computes
+    the same (``cluster_size`` in csrc/fused_decode.cu); it never sees
+    cur_len, so choosing it costs the host no sync."""
+    return max(1, min(8, n_blocks,
+                      SPLIT_CTAS_PER_SM * n_sm // max(rows, 1)))
+
+
+def winner_shares(n_valid, n_cta: int):
+    """[first, end) positions in the selection list of the winners each
+    CTA attends, (..., n_cta, 2) int64: the ``n_valid`` winners (those
+    before the first -1) cut into n_cta shares of ceil(n_valid / n_cta),
+    as the kernel cuts them on the device. Trailing shares may be
+    empty."""
+    nv = n_valid.long()
+    per = (nv + n_cta - 1) // n_cta
+    share = torch.arange(n_cta, device=nv.device)
+    first = torch.minimum(share * per[..., None], nv[..., None])
+    end = torch.minimum(first + per[..., None], nv[..., None])
+    return torch.stack([first, end], dim=-1)
+
+
+def fused_cluster_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
+                        block_size, scale, n_cta, local_window=0,
+                        sliding_window=0, page_table=None,
+                        page_size: int = 0):
+    """Plain torch version of the fused kernels' cluster form with n_cta
+    CTAs per (slot, kv-head): each CTA's block maxima over its share of
+    the live blocks, assembled into one row; the shared top-k over that
+    row; each CTA's float32 partial (acc, m, l) over its share of the
+    winners' live tokens, with the online softmax's guards; then the
+    log-sum-exp merge in rank order (alpha = 0 for an empty partial, the
+    1e-30 floor). ``fused_exact_topk_decode``'s form is d = W with
+    local_window 0. Not on any serving path: the tests and the card's
+    checks hold the kernel's arithmetic with it."""
+    q_hat, k_hat, v = logical(q_hat, k_hat, v, page_table, page_size)
+    b, n_kv, g, w = q_hat.shape
+    s_len, bs = k_hat.shape[1], block_size
+    nb = s_len // bs
+    k_blocks = min(k_blocks, nb)
+    cur = cur_len.to(q_hat.device).long()
+    # 1. score: each CTA's block maxima over its own share of the blocks
+    tok = token_scores_plain(q_hat, k_hat, cur, d=d, scale=scale,
+                             local_window=local_window,
+                             sliding_window=sliding_window)
+    span = split_blocks(cur, nb, bs, n_cta, sliding_window)   # (B,C,2)
+    blk = torch.arange(nb, device=q_hat.device)
+    pos_blk = torch.arange(s_len, device=q_hat.device) // bs
+    row = torch.full((b, n_kv, nb), NEG_INF, device=q_hat.device)
+    for r in range(n_cta):
+        lo, hi = span[:, r, :1], span[:, r, 1:]               # (B,1)
+        mine = (pos_blk >= lo) & (pos_blk < hi)               # (B,S)
+        part = torch.where(mine[:, None], tok, NEG_INF)
+        part = part.reshape(b, n_kv, nb, bs).amax(-1)
+        owned = ((blk >= lo) & (blk < hi))[:, None]           # (B,1,nb)
+        row = torch.where(owned, part, row)
+    # 2. select: the same top-k over the whole row in every CTA
+    taken, idx = topk_lower_index(row, k_blocks)
+    valid = taken > NEG_INF / 2
+    sel = torch.where(valid, idx, 0)
+    # 3. attend: CTA r's partial over its share of the winners
+    shares = winner_shares(valid.sum(-1), n_cta)          # (B,Hkv,C,2)
+    rank = torch.arange(k_blocks, device=q_hat.device)
+    tpos = (sel[..., None] * bs
+            + torch.arange(bs, device=q_hat.device))      # (B,Hkv,kb,bs)
+    live = valid[..., None] & (tpos < cur[:, None, None, None])
+    if sliding_window:
+        live &= tpos >= (cur - sliding_window)[:, None, None, None]
+    flat = tpos.reshape(b, n_kv, k_blocks * bs)
+    k_sel = torch.gather(k_hat.transpose(1, 2), 2,
+                         flat[..., None].expand(-1, -1, -1, w)).float()
+    v_sel = torch.gather(v.transpose(1, 2), 2, flat[..., None].expand(
+        -1, -1, -1, v.shape[-1])).float()
+    s = torch.einsum("bhgw,bhtw->bhgt", q_hat.float() * scale, k_sel)
+    parts = []
+    for r in range(n_cta):
+        first, end = shares[..., r, :1], shares[..., r, 1:]   # (B,Hkv,1)
+        in_r = (rank >= first) & (rank < end)                 # (B,Hkv,kb)
+        mask = (live & in_r[..., None]).reshape(b, n_kv, 1, -1)
+        sr = torch.where(mask, s, NEG_INF)
+        m = sr.amax(-1)                                       # (B,Hkv,G)
+        m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+        p = torch.where(mask, torch.exp(sr - m_safe[..., None]), 0.0)
+        parts.append((torch.einsum("bhgt,bhtd->bhgd", p, v_sel), m,
+                      p.sum(-1)))
+    # 4. merge in rank order
+    return merge_partials_plain(parts).to(q_hat.dtype)
 
 
 def _outputs(kernel, q_hat, k_hat, v, cur_len, page_table, dim):
@@ -121,6 +234,42 @@ _FN: dict = {}
 _ARITY = {"loki_fused_decode": (6, 13, 2),
           "loki_fused_exact_topk_decode": (6, 12, 1),
           "loki_select_blocks": (5, 12, 2)}
+# argument and result types of the library's two shape queries
+_QUERIES = {"loki_fused_cluster_info": ([ctypes.c_int] * 11
+                                        + [ctypes.c_void_p], ctypes.c_int),
+            "loki_fused_smem_bytes": ([ctypes.c_int] * 8,
+                                      ctypes.c_longlong)}
+
+
+def cluster_plan(q_hat, k_hat, v, *, d: int, k_blocks: int,
+                 block_size: int = 128, page_table=None,
+                 page_size: int = 0) -> dict:
+    """What the fused launcher would use at these CUDA tensors' shapes
+    (``d`` = W for the exact-top-k kernel), asked from the built library
+    without a launch: the cluster size ``C``, the dynamic shared memory
+    ``smem`` (bytes) and ``max_clusters`` (cudaOccupancyMaxActiveClusters
+    at that memory and C), plus ``smem_layout``, the library's
+    ``loki_fused_smem_bytes`` at the same shape. For chip_smoke's log and
+    checks."""
+    b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
+                                               k_blocks, page_table,
+                                               page_size)
+    for name, (args, res) in _QUERIES.items():
+        if name not in _FN:
+            fn = getattr(_build.load("fused_decode"), name)
+            fn.argtypes, fn.restype = args, res
+            _FN[name] = fn
+    info = (ctypes.c_longlong * 3)()
+    kv_bf16 = _build.dtype_code(k_hat, "k_hat")
+    _build.check(_FN["loki_fused_cluster_info"](
+        _build.dtype_code(q_hat, "q_hat"), kv_bf16, b, s_len, n_kv, g, kdim,
+        v.shape[-1], d, block_size, k_blocks, info), "fused cluster info")
+    smem = _FN["loki_fused_smem_bytes"]
+    return dict(C=int(info[0]), smem=int(info[1]),
+                max_clusters=int(info[2]),
+                smem_layout=int(smem(kv_bf16, g, kdim, v.shape[-1], d,
+                                     block_size, s_len // block_size,
+                                     k_blocks)))
 
 
 def _lib(name):
@@ -160,7 +309,8 @@ def fused_loki_decode(q_hat, k_hat, v, cur_len, *, d: int, k_blocks: int,
                       k_scale=None, v_scale=None):
     """Single-pass Loki decode. (B,Hkv,G,W),(B,S,Hkv,W),(B,S,Hkv,D),(B,)
     (or pooled (R,Hkv,·) caches with ``page_table``/``page_size``) ->
-    (B,Hkv,G,D) in q_hat's dtype."""
+    (B,Hkv,G,D) in q_hat's dtype. On the card: one launch of
+    ``fused_cluster_size`` CTAs per (slot, kv-head), as one cluster."""
     unscaled(k_scale, v_scale)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
                                                k_blocks, page_table,

@@ -181,6 +181,13 @@ def full_decode_split_plain(q_hat, k_hat, v, cur_len, *, block_size, scale,
         p = torch.where(mine, torch.exp(si - m_safe[..., None]), 0.0)
         parts.append((torch.einsum("bhgs,bshd->bhgd", p, vf), m,
                       p.sum(-1)))
+    return merge_partials_plain(parts).to(q_hat.dtype)
+
+
+def merge_partials_plain(parts):
+    """float32 partials (acc (...,D), m, l) merged by log-sum-exp in list
+    order, as the kernels merge them: alpha = 0 for an empty partial
+    (m = NEG_INF), the 1e-30 floor on the sum."""
     mx = torch.stack([m for _, m, _ in parts]).amax(0)
     m_safe = torch.where(mx <= NEG_INF / 2, 0.0, mx)
     acc = torch.zeros_like(parts[0][0])
@@ -190,7 +197,7 @@ def full_decode_split_plain(q_hat, k_hat, v, cur_len, *, block_size, scale,
                          torch.exp(torch.clamp(m - m_safe, max=0.0)), 0.0)
         acc = acc + wt[..., None] * a
         den = den + wt * l
-    return (acc / den.clamp(min=1e-30)[..., None]).to(q_hat.dtype)
+    return acc / den.clamp(min=1e-30)[..., None]
 
 
 _SM_COUNT: dict = {}

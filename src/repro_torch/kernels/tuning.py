@@ -10,10 +10,11 @@ paged call whose page size the plan's block does not divide gets no plan
 either (the dispatcher checks; a block must not straddle two pages).
 
 The budget is the kernels' real dynamic shared memory against the H100's
-per-block opt-in limit: the fused, select and grouped kernels stage every
-value as float32, so the cache dtype does not enter theirs; the split-KV
-full decode copies cache rows as they are stored, so its does. ``TUNED`` pins measured shapes; it stays
-empty until shapes have been measured on the card.
+per-block opt-in limit: the select and grouped kernels stage every value
+as float32, so the cache dtype does not enter theirs; the split-KV full
+decode and the fused cluster kernels copy cache rows as they are stored,
+so theirs depend on it. ``TUNED`` pins measured shapes; it stays empty
+until shapes have been measured on the card.
 """
 from __future__ import annotations
 
@@ -48,17 +49,13 @@ def attend_smem_bytes(*, n_sel: int, g: int, kdim: int, dim: int,
     return 4 * (g * kdim + n_sel + g * bs + 3 * g + nsplit * g * dim)
 
 
-def fused_smem_bytes(*, nb: int, k_blocks: int, g: int, kdim: int,
-                     dim: int, bs: int) -> int:
-    """fused_loki_decode: the block-maxima row plus everything the
-    attention phase holds."""
-    return 4 * nb + attend_smem_bytes(n_sel=k_blocks, g=g, kdim=kdim,
-                                      dim=dim, bs=bs)
-
-
-#: the split-KV full decode (csrc/gather_attention.cu): warps per CTA,
-#: tokens per ring stage, ring stages per warp
+#: the split-KV body of the full decode and the fused kernels
+#: (csrc/decode_common.cuh): warps per CTA, tokens per ring stage, ring
+#: stages per warp
 SPLIT_WARPS, SPLIT_TOK, SPLIT_STAGES = 4, 4, 2
+#: the fused kernels' score stream (csrc/fused_decode.cu): ring stages per
+#: warp, tokens per chunk at most (one a lane), bytes per stage at most
+SCORE_STAGES, SCORE_MAX_TOK, SCORE_STAGE_BYTES = 2, 32, 32 * 144
 
 
 def _pad4(n: int) -> int:
@@ -67,6 +64,38 @@ def _pad4(n: int) -> int:
 
 def _round16(n: int) -> int:
     return (n + 15) // 16 * 16
+
+
+def score_tokens(*, d: int, bs: int, itemsize: int) -> tuple:
+    """(tokens per score chunk, bytes per staged token row) of the fused
+    kernels: a row is the leading d features rounded up to 16 bytes plus
+    16 bytes against bank conflicts; the chunk is the largest power of two
+    up to 32 that divides bs and keeps a stage within SCORE_STAGE_BYTES."""
+    row = _round16(d * itemsize) + 16
+    tok = SCORE_MAX_TOK
+    while tok > 1 and (tok * row > SCORE_STAGE_BYTES or bs % tok):
+        tok //= 2
+    return tok, row
+
+
+def fused_smem_bytes(*, nb: int, k_blocks: int, g: int, kdim: int,
+                     dim: int, bs: int, d: int, itemsize: int) -> int:
+    """The fused cluster kernels (fused_loki_decode; fused_exact_topk_decode
+    at d = kdim): the scaled float32 query, the (nb,) block-maxima row, the
+    selection and chunk tables (4 k_blocks + 1 ints), the argmax exchange
+    (2 x 4 warps), and one region that holds in turn the 4 warps' score
+    rings, the selection's copy of the row, the 4 warps' attention rings
+    and the warp merge plus the CTA's partial. The launcher computes the
+    same (``loki_fused_smem_bytes``, csrc/fused_decode.cu)."""
+    tok, row = score_tokens(d=d, bs=bs, itemsize=itemsize)
+    fixed = (_round16(4 * g * _pad4(kdim)) + _round16(4 * nb)
+             + _round16(4 * (4 * k_blocks + 1))
+             + _round16(2 * SPLIT_WARPS * 8))
+    score_ring = SPLIT_WARPS * SCORE_STAGES * tok * row
+    attn_ring = SPLIT_WARPS * SPLIT_STAGES * _round16(
+        SPLIT_TOK * (_pad4(kdim) + _pad4(dim)) * itemsize)
+    merge = 4 * (SPLIT_WARPS + 1) * g * (dim + 2)
+    return fixed + _round16(max(score_ring, attn_ring, merge, 4 * nb))
 
 
 def full_smem_bytes(*, g: int, kdim: int, dim: int, itemsize: int) -> int:
@@ -116,12 +145,11 @@ def plan_full_decode(smax: int, dim: int, g: int, kdim: int,
 def plan_decode(smax: int, dim: int, g: int, d: int, block_size: int,
                 itemsize: int = 4) -> Optional[KernelPlan]:
     """Pick (variant, block_size) for one decode step, or None for no
-    kernel. ``d`` is the approximate-score width, ``block_size`` the
-    config hint. ``itemsize`` (the cache dtype width) is kept for the JAX
-    package's interface; the kernels stage float32 whatever the cache
-    holds, so it does not change the budget. The budget assumes the
-    widest case, kdim = dim and k_blocks = nb."""
-    del itemsize
+    kernel. ``d`` is the score width (the approximate width, or the stored
+    key width for exact top-k), ``block_size`` the config hint,
+    ``itemsize`` the cache dtype's width (the fused kernels' rings hold
+    cache rows as stored). The budget assumes the widest case, kdim = dim
+    and k_blocks = nb."""
     if g > MAX_G or dim > MAX_DIM or d > dim:
         return None
     key = (smax, dim, g, block_size)
@@ -134,8 +162,8 @@ def plan_decode(smax: int, dim: int, g: int, d: int, block_size: int,
     if not bs:
         return None
     nb = smax // bs
-    if fused_smem_bytes(nb=nb, k_blocks=nb, g=g, kdim=dim, dim=dim,
-                        bs=bs) <= SMEM_LIMIT:
+    if fused_smem_bytes(nb=nb, k_blocks=nb, g=g, kdim=dim, dim=dim, bs=bs,
+                        d=d, itemsize=itemsize) <= SMEM_LIMIT:
         return KernelPlan("fused", bs)
     if (select_smem_bytes(nb=nb, g=g, kdim=dim) <= SMEM_LIMIT
             and attend_smem_bytes(n_sel=nb, g=g, kdim=dim, dim=dim,

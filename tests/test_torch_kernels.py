@@ -232,6 +232,21 @@ def test_plan_decode_budget():
     # the main path: llama2-7b, smax 4096, G = 1
     assert tuning.plan_decode(4096, 128, 1, 32, 128) == \
         tuning.KernelPlan("fused", 128)
+    # the fused cluster kernel's shared memory (csrc/fused_decode.cu,
+    # fused_layout) at the main path's shape: query 512 B, block-maxima row
+    # 128 B, selection and chunk tables 144 B, argmax exchange 64 B, then
+    # the largest of the 4 warps' score rings (2 stages of 32 tokens of
+    # 144 B), attention rings (2 stages of 4 x 256 fp32) and merge buffers
+    main = dict(nb=32, k_blocks=8, g=1, kdim=128, dim=128, bs=128)
+    assert tuning.fused_smem_bytes(**main, d=32, itemsize=4) == \
+        512 + 128 + 144 + 64 + 4 * 2 * 32 * 144
+    # exact top-k scores all 128 features: 8 tokens of 528 B a stage
+    assert tuning.fused_smem_bytes(**main, d=128, itemsize=4) == \
+        848 + 4 * 2 * 8 * 528
+    # a bf16 cache: 32 tokens of 80 B a score stage, still the largest
+    assert tuning.fused_smem_bytes(**main, d=32, itemsize=2) == \
+        848 + 4 * 2 * 32 * 80
+    assert tuning.score_tokens(d=32, bs=8, itemsize=4) == (8, 144)
     # a score row too long for the fused kernel's shared memory
     big = tuning.plan_decode(2 ** 22, 256, 16, 64, 128)
     assert big == tuning.KernelPlan("two_kernel", 128)
@@ -474,6 +489,98 @@ def test_full_decode_n_split_rule_reads_shapes_only():
         n = rule(32, rows, 132)
         assert 1 <= n <= 32 and (n == 1 or n == 32 or
                                  rows * n <= 4 * 132 < rows * (n + 1))
+
+
+_CLUSTER_JAX: dict = {}
+
+
+@pytest.mark.parametrize("n_cta", [1, 2, 3, 8])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("sw", [0, 40])
+@pytest.mark.parametrize("paged", [False, True])
+def test_fused_cluster_matches_jax(n_cta, g, sw, paged):
+    """#1 and #5's cluster form (per-CTA score shares, the shared top-k,
+    per-CTA attention partials, the rank-ordered log-sum-exp merge)
+    against the JAX kernel in interpret mode, computed once per (G,
+    window) on the logical cache: fused_loki_decode (recency window 8) at
+    (G 1, no window) and (G 4, window 40), fused_exact_topk_decode at the
+    other two, so each kernel meets both G and both windows. C = 1, 2, 3
+    and 8 = S / bs, which is more CTAs than live blocks in every row (the
+    window leaves 3; cur_len 30 and 1 leave 2 and 1, fewer than k_blocks,
+    so -1 sentinels and empty shares). A paged pool through a shuffled
+    table with a trash-page row equals the contiguous cache bit for
+    bit."""
+    dim, bs, s = 32, 16, 128
+    w = 16 if g == 4 else dim
+    q, k, v, cur = _inputs(3, 2, g, s, w, dim, seed=3 * g + sw,
+                           cur=[128, 30, 1])
+    # the caches are the logical view of a pool (the last row reads the
+    # trash page), so the contiguous and paged cases share one JAX output
+    pk, pv, table, k, v = _paged(k, v, 32, seed=g, trash_rows=1)
+    kw = dict(k_blocks=4, block_size=bs, sliding_window=sw,
+              scale=dim ** -0.5)
+    loki_case = (g == 1) == (sw == 0)
+    extra = dict(d=8, local_window=8) if loki_case else \
+        dict(d=w, local_window=0)
+    if (g, sw) not in _CLUSTER_JAX:
+        if loki_case:
+            out = jfused.fused_loki_decode(*_j(q, k, v, cur), **extra, **kw,
+                                           interpret=True)
+        else:
+            out = jfused.fused_exact_topk_decode(*_j(q, k, v, cur), **kw,
+                                                 interpret=True)
+        _CLUSTER_JAX[(g, sw)] = np.asarray(out)
+    got = fused_decode.fused_cluster_plain(*_t(q, k, v, cur), **extra, **kw,
+                                           n_cta=n_cta).numpy()
+    np.testing.assert_allclose(got, _CLUSTER_JAX[(g, sw)], **TOL)
+    if paged:
+        got_p = fused_decode.fused_cluster_plain(
+            *_t(q, pk, pv, cur), **extra, **kw, n_cta=n_cta,
+            page_table=torch.from_numpy(table), page_size=32).numpy()
+        np.testing.assert_array_equal(got_p, got)
+
+
+def test_fused_cluster_size_rule_reads_shapes_only():
+    """The host's cluster size is a function of three ints (blocks per
+    row, B * Hkv, SMs), never of a tensor, so it costs the paged tick no
+    sync: about 4 CTAs per SM, at least 1, at most 8 (the portable cluster
+    limit) and at most one CTA per block."""
+    import inspect
+    rule = fused_decode.fused_cluster_size
+    params = inspect.signature(rule).parameters
+    assert [p.annotation for p in params.values()] == ["int"] * 3
+    assert rule(32, 128, 132) == 4                 # llama2-7b, 4 slots
+    assert rule(32, 4 * 2, 132) == 8               # qwen2.5-3b: the limit
+    assert rule(2, 8, 132) == 2                    # capped by the blocks
+    assert rule(32, 1024, 132) == 1                # never below one
+    for nb in (1, 3, 32):
+        for rows in range(1, 600):
+            n = rule(nb, rows, 132)
+            assert 1 <= n <= min(8, nb) and (
+                n in (1, 8, nb) or rows * n <= 4 * 132 < rows * (n + 1))
+
+
+@pytest.mark.parametrize("sw", [0, 40])
+def test_fused_cluster_shares_cover_each_block_and_winner_once(sw):
+    """For every cur_len of a 128-token, 16-token-block cache and every
+    cluster size the rule can give (1 to 8), the CTAs' score shares are
+    disjoint and cover exactly the live block range, and for every count
+    of valid winners (0 to k_blocks) their attention shares are disjoint
+    and cover exactly the winners, in rank order."""
+    bs, nb, kb = 16, 8, 4
+    cur = torch.arange(1, nb * bs + 1)
+    for n_cta in range(1, 9):
+        span = gather_attention.split_blocks(cur, nb, bs, n_cta, sw)
+        for i, ln in enumerate(cur.tolist()):
+            lo = max(ln - sw, 0) // bs if sw else 0
+            covered = [blk for first, end in span[i].tolist()
+                       for blk in range(first, end)]
+            assert covered == list(range(lo, min(nb, -(-ln // bs))))
+        shares = fused_decode.winner_shares(torch.arange(kb + 1), n_cta)
+        for nv in range(kb + 1):
+            taken = [t for first, end in shares[nv].tolist()
+                     for t in range(first, end)]
+            assert taken == list(range(nv)), (n_cta, nv, taken)
 
 
 EXACT = [(1, 0, False), (4, 0, False), (4, 40, False), (1, 0, True),
