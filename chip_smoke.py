@@ -11,11 +11,13 @@ Phases, each of which fails the run on any error:
              block_sparse_attention_grouped, paged_full_decode,
              fused_exact_topk_decode) at llama2-7b and qwen2.5-3b decode
              shapes (plus a sliding-window, a head_dim-256 and a
-             short-cur_len case, fp32 and bf16 caches), the two fused
-             kernels also against their plain cluster form at the
-             launcher's own cluster size and against themselves (two calls
-             bit for bit), with the launcher's shared memory equal to
-             tuning.fused_smem_bytes and its clusters resident; each
+             short-cur_len case, fp32 and bf16 caches), the three cluster
+             kernels (the two fused ones and
+             block_sparse_attention_grouped) also against their plain
+             cluster form at the launcher's own cluster size and against
+             themselves (two calls bit for bit), with the launcher's
+             shared memory equal to tuning.fused_smem_bytes or
+             tuning.attend_smem_bytes and its clusters resident; each
              kernel's paged form bit for bit against its contiguous form
              on the same logical data (shuffled page tables with a
              trash-page row);
@@ -23,7 +25,10 @@ Phases, each of which fails the run on any error:
              block_max_scores_fm, block_sparse_attention) at llama2-7b's
              decode step flattened per head (bf16 q over fp32 K/V, fp32,
              bf16), head_dim 256 and short cur_len (dead-block ties), the
-             two layouts bit for bit; flash_attention at the llama2-7b
+             two layouts bit for bit (block_sparse_attention also over
+             K̂ᵀ in place, each layout against its plain cluster form at
+             the launcher's C, with its plan checked as above, and two
+             calls bit for bit); flash_attention at the llama2-7b
              prefill shape (causal and not), Sq != Sk, head_dim 64 and 256
              (bf16 cases on the tensor-core body within FLASH_BF16_BOUND
              and FLASH_BF16_REL_L2, whose wgmma the built library is checked for; fp32 cases on
@@ -31,8 +36,10 @@ Phases, each of which fails the run on any error:
              raise; time each kernel at its main-path shape (flash beside
              its float32 body on an fp32 copy and SDPA; the split-KV full
              decode beside SDPA, with its split count and scratch; the
-             fused kernels beside the full decode on the same cache, with
-             their cluster size, shared memory and resident clusters);
+             two block-list kernels beside SDPA under a mask of the
+             selected tokens; the cluster kernels with their cluster size,
+             shared memory and resident clusters, the fused ones beside
+             the full decode on the same cache);
   3. dense   llama2-7b at full width through the dense engine with
              loki_block (4 long prompts, 16 new tokens each), then full
              and exact_topk through it, the launch counters of each run
@@ -40,9 +47,10 @@ Phases, each of which fails the run on any error:
              no other;
   4. step    the decode-step path: one decode step of all four slots
              through the fused kernel, each layer's call repeated through
-             ops.loki_decode_two_kernel on the same inputs (its own launch
-             counts); the per-head path: each layer's call flattened per
-             head through ops.loki_decode_attention, then through
+             ops.loki_decode_two_kernel on the same inputs, bit for bit
+             (its own launch counts); the per-head path: each layer's call
+             flattened per head through ops.loki_decode_attention, then
+             through
              ops.loki_decode_attention_fm on a feature-major copy (each
              counted on its own), held against the fused kernel without
              its recency window; the step's logits held against the plain
@@ -248,13 +256,36 @@ def check_selection(case, q, k, cur, *, d, lw):
     return sel_k, sel_p, ~diff, ties
 
 
+def checked_plan(what, ask, want_smem, nb, rows):
+    """A cluster launcher's plan (``ask()``: C, its shared memory, its
+    library's layout function and cudaOccupancyMaxActiveClusters), checked:
+    the launcher's shared memory equals the layout function and the tuning
+    mirror ``want_smem`` (one layout, three sources), its C equals
+    fused_cluster_size at this card's SM count over ``rows`` clusters, and
+    at least one cluster of that size fits on the card."""
+    from repro_torch.kernels import gather_attention as GA
+    if DEV != "cuda":                 # a CPU rehearsal: no library to ask
+        return dict(C=GA.fused_cluster_size(nb, rows, 132), smem=want_smem,
+                    max_clusters=None)
+    plan = ask()
+    if not plan["smem"] == plan["smem_layout"] == want_smem:
+        raise AssertionError(f"{what}: launcher shared memory {plan} != "
+                             f"tuning {want_smem}")
+    rule = GA.fused_cluster_size(nb, rows, GA._sm_count(torch.device(DEV)))
+    if plan["C"] != rule:
+        raise AssertionError(f"{what}: launcher C {plan['C']} != "
+                             f"fused_cluster_size {rule}")
+    if plan["max_clusters"] < 1:
+        raise AssertionError(f"{what}: no cluster of {plan['C']} CTAs fits "
+                             f"({plan})")
+    return plan
+
+
 def fused_plans(case):
-    """The fused launchers' cluster size, shared memory and resident
-    clusters at a case, for fused_loki_decode (d) and
-    fused_exact_topk_decode (d = W), each checked: the launcher's shared
-    memory equals tuning.fused_smem_bytes (one layout, two sources), its
-    C equals fused_cluster_size at this card's SM count, and at least one
-    cluster of that size fits on the card."""
+    """The cluster launchers' plans at a case (``checked_plan``):
+    fused_loki_decode (d), fused_exact_topk_decode (d = W) against
+    tuning.fused_smem_bytes, and block_sparse_attention_grouped over the
+    case's k_blocks entries against tuning.attend_smem_bytes."""
     from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import gather_attention as GA
     from repro_torch.kernels import tuning
@@ -268,30 +299,25 @@ def fused_plans(case):
         want = tuning.fused_smem_bytes(nb=nb, k_blocks=kb, g=G, kdim=W,
                                        dim=v.shape[-1], bs=case["bs"], d=d,
                                        itemsize=k.element_size())
-        if DEV != "cuda":             # a CPU rehearsal: no library to ask
-            plans[name] = dict(C=F.fused_cluster_size(nb, B * Hkv, 132),
-                               smem=want, max_clusters=None)
-            continue
-        plan = F.cluster_plan(q, k, v, d=d, k_blocks=kb,
-                              block_size=case["bs"])
-        if not plan["smem"] == plan["smem_layout"] == want:
-            raise AssertionError(f"{case['name']}: {name} launcher shared "
-                                 f"memory {plan} != tuning {want}")
-        rule = F.fused_cluster_size(nb, B * Hkv, GA._sm_count(q.device))
-        if plan["C"] != rule:
-            raise AssertionError(f"{case['name']}: {name} launcher C "
-                                 f"{plan['C']} != fused_cluster_size {rule}")
-        if plan["max_clusters"] < 1:
-            raise AssertionError(f"{case['name']}: {name}: no cluster of "
-                                 f"{plan['C']} CTAs fits ({plan})")
-        plans[name] = plan
+        plans[name] = checked_plan(
+            f"{case['name']}: {name}",
+            lambda: F.cluster_plan(q, k, v, d=d, k_blocks=kb,
+                                   block_size=case["bs"]),
+            want, nb, B * Hkv)
+    idx = torch.zeros((B, Hkv, kb), dtype=torch.int32, device=DEV)
+    plans["block_sparse_attention_grouped"] = checked_plan(
+        f"{case['name']}: block_sparse_attention_grouped",
+        lambda: GA.attend_plan(q, k, v, idx, block_size=case["bs"]),
+        tuning.attend_smem_bytes(n_sel=kb, g=G, kdim=W, dim=v.shape[-1],
+                                 itemsize=k.element_size()), nb, B * Hkv)
     return plans
 
 
 def check_kernels(results):
     """Each of the five kernels against its plain version on every case;
-    the fused kernels also against their plain cluster form at the
-    launcher's own C, and against a second call, bit for bit."""
+    the three cluster kernels (the fused ones and the grouped attention)
+    also against their plain cluster form at the launcher's own C, and
+    against a second call, bit for bit."""
     from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import gather_attention as GA
 
@@ -300,10 +326,6 @@ def check_kernels(results):
         W = k.shape[-1]
         kw, ex_kw = kernel_kw(case), kernel_kw(case, exact=True)
         plans = fused_plans(case)
-        fused = {"fused_loki_decode": lambda: F.fused_loki_decode(
-                     q, k, v, cur, **kw),
-                 "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode(
-                     q, k, v, cur, **ex_kw)}
         att_kw = dict(block_size=case["bs"], scale=kw["scale"],
                       sliding_window=case["sw"])
         # select_blocks at the fused kernel's scale, so all three share
@@ -314,14 +336,26 @@ def check_kernels(results):
                                                     lw=case["lw"])
         _, sel_x, agree_x, ties_x = check_selection(case, q, k, cur, d=W,
                                                     lw=0)
+        fused = {"fused_loki_decode": lambda: F.fused_loki_decode(
+                     q, k, v, cur, **kw),
+                 "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode(
+                     q, k, v, cur, **ex_kw),
+                 "block_sparse_attention_grouped": lambda:
+                     GA.block_sparse_attention_grouped(q, k, v, sel_p, cur,
+                                                       **att_kw)}
         runs = {
             "fused_loki_decode": (fused["fused_loki_decode"](),
                                   F.fused_loki_decode_plain(q, k, v, cur,
                                                             **kw), agree),
             "block_sparse_attention_grouped": (
-                GA.block_sparse_attention_grouped(q, k, v, sel_p, cur,
-                                                  **att_kw),
+                fused["block_sparse_attention_grouped"](),
                 GA.attend_blocks_plain(q, k, v, sel_p, cur, **att_kw), None),
+            "block_sparse_attention_grouped (cluster)": (
+                fused["block_sparse_attention_grouped"](),
+                GA.grouped_cluster_plain(
+                    q, k, v, sel_p, cur, **att_kw,
+                    n_cta=plans["block_sparse_attention_grouped"]["C"]),
+                None),
             "paged_full_decode": (
                 GA.paged_full_decode(q, k, v, cur, **att_kw),
                 GA.full_decode_plain(q, k, v, cur, scale=kw["scale"],
@@ -375,7 +409,8 @@ def check_kernels(results):
             (sel_k - sel_p).abs()[agree].max()) if agree.any() else 0.0
         errs["paged_full_decode"] = max(
             errs["paged_full_decode"], errs.pop("paged_full_decode (splits)"))
-        for kname in ("fused_loki_decode", "fused_exact_topk_decode"):
+        for kname in ("fused_loki_decode", "fused_exact_topk_decode",
+                      "block_sparse_attention_grouped"):
             errs[kname] = max(errs[kname], errs.pop(f"{kname} (cluster)"))
         log(f"kernels: {case['name']}: indices equal in "
             f"{int(agree.sum())}/{agree.numel()} rows at d={case['d']} "
@@ -383,7 +418,7 @@ def check_kernels(results):
             f"{agree_x.numel()} at d={W} (near-ties {int(ties_x.sum())}), "
             f"-1 sentinels {int((sel_p < 0).sum())}; max|err| "
             + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-            + f" (atol {atol}, rtol {rtol}; fused kernels also vs their "
+            + f" (atol {atol}, rtol {rtol}; cluster kernels also vs their "
             f"plain cluster form, and two calls bit for bit); clusters: "
             + ", ".join(f"{n} C {p['C']}, {p['smem']} B shared, "
                         f"{p['max_clusters']} resident"
@@ -529,6 +564,24 @@ def live_work(case, sel):
     return scored, int(ok.sum())
 
 
+def selected_tokens(sel, cur, bs, s_len, sw=0):
+    """(rows..., S) bool: the live tokens of the blocks listed in ``sel``
+    (rows..., n) (entries outside [0, S / bs) skipped), below cur_len
+    (per leading row) and inside the sliding window."""
+    nb = s_len // bs
+    ok = (sel >= 0) & (sel < nb)
+    blk = torch.zeros(sel.shape[:-1] + (nb + 1,), dtype=torch.bool,
+                      device=sel.device)
+    blk.scatter_(-1, torch.where(ok, sel.long(), nb), True)
+    tok = blk[..., :nb].repeat_interleave(bs, dim=-1)
+    pos = torch.arange(s_len, device=sel.device)
+    c = cur.long().reshape(cur.shape + (1,) * (sel.ndim - cur.ndim))
+    tok &= pos < c
+    if sw:
+        tok &= pos >= c - sw
+    return tok
+
+
 def full_split(bs, s_len, rows):
     """The full decode's split count at a shape, as its wrapper picks it
     (shapes and this card's SM count only)."""
@@ -616,6 +669,21 @@ def time_kernels(results):
     mask = (pos[None, :] < cur[:, None].long())[:, None, None, :]
     sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qs, kt, vt, attn_mask=mask, scale=kw["scale"]))
+    # block_sparse_attention_grouped's function as one library call: SDPA
+    # under a boolean mask of the selected blocks' live tokens, built (with
+    # the views) outside the timed window
+    sel_mask = selected_tokens(sel, cur, case["bs"], k.shape[1],
+                               case["sw"])
+    if G > 1:
+        sel_mask = sel_mask.repeat_interleave(G, dim=1)
+    sel_mask = sel_mask[:, :, None, :]
+    grouped_sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kt, vt, attn_mask=sel_mask, scale=kw["scale"])
+    lib = {"paged_full_decode": sdpa_ms,
+           "block_sparse_attention_grouped": time_ms(grouped_sdpa)}
+    lib_err = float((grouped_sdpa().reshape(B, Hkv, G, -1).float()
+                     - kern["block_sparse_attention_grouped"]().float())
+                    .abs().max())
     bnd = bounds(case, sel, main["sel_exact"])
     timing = {}
     log(f"timing: card before (SM clock, memory clock, temperature, "
@@ -625,14 +693,17 @@ def time_kernels(results):
         plain_ms = time_ms(plain[name], reps=5)
         timing[name] = dict(ms=ms, paged_ms=paged_ms, plain_ms=plain_ms,
                             bound_ms=bnd[name][0], bound_by=bnd[name][1],
-                            library_ms=(sdpa_ms if name == "paged_full_decode"
-                                        else None))
+                            library_ms=lib.get(name))
         log(f"timing: {name} at {case['name']}: {ms:.4f} ms contiguous, "
             f"{paged_ms:.4f} ms paged (page 128, one more idle row), bound "
             f"{bnd[name][0]:.4f} ms by {bnd[name][1]}, plain "
             f"{plain_ms:.4f} ms")
     log(f"timing: scaled_dot_product_attention over the same live cache "
         f"(library call of paged_full_decode's function): {sdpa_ms:.4f} ms")
+    log(f"timing: scaled_dot_product_attention under the selected blocks' "
+        f"token mask (library call of block_sparse_attention_grouped's "
+        f"function): {lib['block_sparse_attention_grouped']:.4f} ms, max "
+        f"|d| to the kernel {lib_err:.3e}")
     log(f"timing: card after: {card_state()}")
     full = timing["paged_full_decode"]
     for name, plan in main["plans"].items():
@@ -712,6 +783,25 @@ def head_cases():
                          kv_dtype=f32, q_dtype=f32, seed=25)
 
 
+def head_plans(case, kT, sel):
+    """block_sparse_attention's launcher plans at a per-head case over the
+    token-major K̂ and the feature-major K̂ᵀ (``checked_plan``, against
+    tuning.attend_smem_bytes at G = 1 and 16-byte chunks)."""
+    from repro_torch.kernels import gather_attention as GA
+    from repro_torch.kernels import tuning
+    q, k = case["q"], case["k"]
+    bh, dim = q.shape
+    want = tuning.attend_smem_bytes(n_sel=sel.shape[1], g=1, kdim=dim,
+                                    dim=dim, itemsize=k.element_size(),
+                                    tok=16 // k.element_size())
+    return {lay: checked_plan(
+        f"{case['name']}: block_sparse_attention {lay}",
+        lambda: GA.head_plan(q, kk, sel, block_size=case["bs"]), want,
+        k.shape[1] // case["bs"], bh)
+        for lay, kk in (("token-major", k),
+                        ("feature-major", kT.transpose(1, 2)))}
+
+
 def check_head_kernels(results):
     """block_max_scores, block_max_scores_fm and block_sparse_attention
     against their plain versions on every per-head case, and the ops
@@ -761,17 +851,39 @@ def check_head_kernels(results):
                                  f"{int((diff & ~ties).sum())} rows with no "
                                  "near-tie")
         att_kw = dict(block_size=bs, scale=kw["scale"])
+        kTv = kT.transpose(1, 2)                     # K̂ᵀ read in place
+        plans = head_plans(case, kT, sel)
         att = GA.block_sparse_attention(q, k, v, sel, cur, **att_kw)
+        att_fm = GA.block_sparse_attention(q, kTv, v, sel, cur, **att_kw)
         want = GA.block_sparse_attention_plain(q, k, v, sel, cur, **att_kw)
+        clus = GA.head_cluster_plain(q, k, v, sel, cur, **att_kw,
+                                     n_cta=plans["token-major"]["C"])
+        clus_fm = GA.head_cluster_plain(q, kTv, v, sel, cur, **att_kw,
+                                        n_cta=plans["feature-major"]["C"])
         pipe = ops.loki_decode_attention(q, k, v, cur, d=d, k_blocks=kb,
                                          block_size=bs)
         pipe_fm = ops.loki_decode_attention_fm(q, kT, v, cur, d=d,
                                                k_blocks=kb, block_size=bs)
+        again = GA.block_sparse_attention(q, k, v, sel, cur, **att_kw)
+        again_fm = GA.block_sparse_attention(q, kTv, v, sel, cur, **att_kw)
         sync()
+        if DEV == "cuda":
+            # one body, one summation order for both K̂ layouts
+            for what, a, b in (("fm vs token-major", att_fm, att),
+                               ("two calls", again, att),
+                               ("two calls (fm)", again_fm, att_fm)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{case['name']}: "
+                                         f"block_sparse_attention {what} "
+                                         "differ")
         atol, rtol = tolerance(q.dtype)
         rows = ~ties
         # the fm pipeline reads the selected blocks through K̂ᵀ's strides
         for what, got, ref in (("block_sparse_attention", att, want),
+                               ("block_sparse_attention (cluster)", att,
+                                clus),
+                               ("block_sparse_attention fm (cluster)",
+                                att_fm, clus_fm),
                                ("loki_decode_attention", pipe[rows],
                                 want[rows]),
                                ("loki_decode_attention_fm", pipe_fm, pipe)):
@@ -780,8 +892,9 @@ def check_head_kernels(results):
             torch.testing.assert_close(
                 got.float(), ref.float(), atol=atol, rtol=rtol,
                 msg=lambda m: f"{case['name']}: {what}: {m}")
-        errs["block_sparse_attention"] = float(
-            (att.float() - want.float()).abs().max())
+        errs["block_sparse_attention"] = max(
+            float((got.float() - ref.float()).abs().max())
+            for got, ref in ((att, want), (att, clus), (att_fm, clus_fm)))
         live_blocks = (cur.long() + bs - 1) // bs
         log(f"kernels: {case['name']}: block maxima max|err| "
             f"{errs['block_max_scores']:.3e} (fm "
@@ -791,11 +904,16 @@ def check_head_kernels(results):
             f"{diff.numel()} rows (near-ties {int(ties.sum())}, rows choosing "
             f"dead blocks {int((live_blocks < kb).sum())}); "
             f"block_sparse_attention max|err| "
-            f"{errs['block_sparse_attention']:.3e}, pipelines fm == "
-            f"token-major {bool(torch.equal(pipe_fm, pipe))} (atol {atol}, "
-            f"rtol {rtol})")
+            f"{errs['block_sparse_attention']:.3e} (also vs its plain "
+            f"cluster form, token-major and fm; fm == token-major and two "
+            f"calls bit for bit), pipelines fm == token-major "
+            f"{bool(torch.equal(pipe_fm, pipe))} (atol {atol}, rtol {rtol}); "
+            f"clusters: " + ", ".join(
+                f"{n} C {p['C']}, {p['smem']} B shared, "
+                f"{p['max_clusters']} resident" for n, p in plans.items()))
         if "head_main" not in results:
-            results["head_main"] = dict(case=case, kT=kT, sel=sel)
+            results["head_main"] = dict(case=case, kT=kT, sel=sel,
+                                        plans=plans)
             results.setdefault("errs", {}).update(errs)
         del kT
 
@@ -991,8 +1109,9 @@ def flash_bound(q, k, causal):
 
 def time_head_kernels(results):
     """The four kernels of this path, their plain versions and, for
-    flash, scaled_dot_product_attention (the same function, timed here
-    only), at the main per-head and prefill shapes."""
+    flash and block_sparse_attention, scaled_dot_product_attention (the
+    same function, timed here only), at the main per-head and prefill
+    shapes; block_sparse_attention also over the feature-major K̂ᵀ."""
     from repro_torch.kernels import approx_scores as AS
     from repro_torch.kernels import approx_scores_fm as ASF
     from repro_torch.kernels import flash_attention as FA
@@ -1016,6 +1135,20 @@ def time_head_kernels(results):
                                                     **att_kw)),
     }
     bnd = head_bounds(case, sel)
+    # block_sparse_attention's function as one library call: SDPA over the
+    # rows under a boolean mask of the selected blocks' live tokens, built
+    # (with the views) outside the timed window
+    hq, hk, hv = q[None, :, None].to(k.dtype), k[None], v[None]
+    hmask = selected_tokens(sel, cur, case["bs"], k.shape[1])[None, :, None]
+    head_sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        hq, hk, hv, attn_mask=hmask, scale=kw["scale"])
+    lib = {"block_sparse_attention": time_ms(head_sdpa)}
+    head_sdpa_err = float((head_sdpa()[0, :, 0].float()
+                           - GA.block_sparse_attention(
+                               q, k, v, sel, cur, **att_kw).float())
+                          .abs().max())
+    fm_ms = time_ms(lambda: GA.block_sparse_attention(
+        q, kT.transpose(1, 2), v, sel, cur, **att_kw))
     fq, fk, fv = results.pop("flash_main")
     runs["flash_attention"] = (
         lambda: FA.flash_attention(fq, fk, fv, causal=True),
@@ -1024,6 +1157,7 @@ def time_head_kernels(results):
     bnd["flash_attention"] = flash_bound(fq, fk, True)
     sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         fq[None], fk[None], fv[None], is_causal=True))
+    lib["flash_attention"] = sdpa
     # the float32 body on an fp32 copy of the same shape
     f32 = [x.float() for x in (fq, fk, fv)]
     fp32_body_ms = time_ms(lambda: FA.flash_attention(*f32, causal=True))
@@ -1031,15 +1165,28 @@ def time_head_kernels(results):
     timing = results.setdefault("timing", {})
     for name, (kern, plain) in runs.items():
         ms, plain_ms = time_ms(kern), time_ms(plain, reps=5)
-        lib = sdpa if name == "flash_attention" else None
         timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[name][0],
-                            bound_by=bnd[name][1], library_ms=lib)
+                            bound_by=bnd[name][1], library_ms=lib.get(name))
         where = ("llama2-7b prefill (32, 3072, 3072, 128) bf16 causal"
                  if name == "flash_attention" else case["name"])
         log(f"timing: {name} at {where}: {ms:.4f} ms, bound "
             f"{bnd[name][0]:.4f} ms by {bnd[name][1]}, plain "
             f"{plain_ms:.4f} ms"
-            + (f", scaled_dot_product_attention {lib:.4f} ms" if lib else ""))
+            + (f", scaled_dot_product_attention {lib[name]:.4f} ms"
+               if name in lib else ""))
+    att = timing["block_sparse_attention"]
+    att["fm_ms"] = fm_ms
+    results["head_plans"] = main["plans"]
+    for lay, plan in main["plans"].items():
+        log(f"timing: block_sparse_attention ({lay} K̂) launches clusters "
+            f"of C = {plan['C']} CTAs ({q.shape[0] * plan['C']} CTAs of 128 "
+            f"threads), {plan['smem']} B dynamic shared memory each, "
+            f"cudaOccupancyMaxActiveClusters {plan['max_clusters']}")
+    log(f"timing: block_sparse_attention over the feature-major K̂ᵀ: "
+        f"{fm_ms:.4f} ms against {att['ms']:.4f} ms token-major "
+        f"({fm_ms / att['ms']:.2f}x; bound {att['bound_ms']:.4f} ms); SDPA "
+        f"under the selected tokens' mask max |d| to the kernel "
+        f"{head_sdpa_err:.3e}")
     timing["flash_attention"]["fp32_body_ms"] = fp32_body_ms
     log(f"timing: flash_attention's float32 body on an fp32 copy of the "
         f"prefill shape: {fp32_body_ms:.4f} ms; tensor-core body "
@@ -1484,18 +1631,25 @@ def decode_step_check(params, cfg, toks, smax):
     two_err = 0.0
     for layer, (args, kwargs, out) in enumerate(calls):
         # the same q̂ and the same cache rows: the two-kernel pair selects
-        # the same blocks and attends in the same order
+        # the same blocks (select_blocks' block maxima are the fused
+        # kernel's bits) and attends them with the fused kernel's shares,
+        # chunks and merge order (attend_share), so it gives its bits
         two = ops.loki_decode_two_kernel(*args, **kwargs)
+        sync()
+        two_err = max(two_err, float((two.float() - out.float()).abs().max()))
+        if DEV == "cuda" and not torch.equal(two, out):
+            raise AssertionError(f"layer {layer}: two_kernel differs from "
+                                 f"fused (max |d| {two_err:.3e})")
         atol, rtol = tolerance(out.dtype)
         torch.testing.assert_close(
             two.float(), out.float(), atol=atol, rtol=rtol,
             msg=lambda m: f"layer {layer}: two_kernel vs fused: {m}")
-        two_err = max(two_err, float((two.float() - out.float()).abs().max()))
     sync()
     counts = K.launch_counts()
     # ---- end of the decode-step path
     log(f"step: decode-step path launches {counts}; two_kernel vs fused "
-        f"on each layer's inputs max|err| {two_err:.3e}")
+        f"on each layer's inputs max|err| {two_err:.3e} (bit for bit on "
+        f"the card, asserted)")
     check_launches("decode-step path", counts,
                    ("fused_loki_decode", "select_blocks",
                     "block_sparse_attention_grouped"), 1, cfg.n_layers)
@@ -1760,8 +1914,9 @@ SOURCES = {
 
 def ptxas_summary(text):
     """A ptxas -v log in a few lines: the kernel count, the register range
-    and the kernels that spill; each tensor-core flash kernel on its own
-    line; any line about wgmma (a serialised wgmma would show there)."""
+    and the kernels that spill; each tensor-core flash kernel and each
+    instantiation of the two block-list cluster kernels on its own line;
+    any line about wgmma (a serialised wgmma would show there)."""
     kernels, out, name = [], [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '_ZN4loki(?:2tc)?\d+(\w+?)"
@@ -1773,7 +1928,7 @@ def ptxas_summary(text):
         elif "Used" in line and "registers" in line and name:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             kernels.append((name, regs, spill))
-            if "flash_tc" in name:
+            if re.match(r"(flash_tc|grouped_cluster|head_cluster)", name):
                 out.append(f"{name}: {regs} registers, {spill} B spilled")
             name = None
         if "wgmma" in line or "warpgroup" in line:
@@ -1850,8 +2005,9 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
-        if "fp32_body_ms" in t:
-            entry["fp32_body_ms"] = t["fp32_body_ms"]
+        for extra in ("fp32_body_ms", "fm_ms"):
+            if extra in t:
+                entry[extra] = t[extra]
         if name in KERNELS:
             entry.update(paged_ms=t["paged_ms"],
                          full_attention_sdpa_ms_not_same_function=results[
@@ -1864,7 +2020,8 @@ def main() -> int:
                    "paged_serve": results.get("paged_serve"),
                    "prefill_flash": results.get("prefill_flash"),
                    "profile": results.get("profile"),
-                   "fused_plans": results.get("fused_plans")}, fh,
+                   "fused_plans": results.get("fused_plans"),
+                   "head_plans": results.get("head_plans")}, fh,
                   indent=1)
     log(card)                   # as nvidia-smi prints it: name, limit
     print(json.dumps({"kernels": kernels}))

@@ -1,36 +1,41 @@
 // Shared device code of the Loki decode kernels (fused_decode.cu,
 // gather_attention.cu): float conversion, warp reductions, the logical
-// block -> cache row map, the one-CTA score -> select phase and exact
-// attention phase over a list (or a range) of KV blocks (select_blocks,
-// block_sparse_attention_grouped), and the split-KV streaming body that
-// the full decode and the fused cluster kernels share: a per-warp
-// cp.async ring over 4-token chunks of any token ranges, a per-warp online
-// softmax, the 4-warp log-sum-exp merge and the log-sum-exp merge of
-// per-CTA partials.
+// block -> cache row map, the one-CTA score -> select phase
+// (select_blocks), and the split-KV streaming body that every attention
+// kernel shares: a per-warp cp.async ring over small chunks of any token
+// ranges, a per-warp online softmax, the 4-warp log-sum-exp merge, the
+// log-sum-exp merge of per-CTA partials, and attend_share, the attention
+// over a list of blocks by one thread-block cluster (the fused kernels'
+// phases 3-4, block_sparse_attention_grouped and block_sparse_attention),
+// with the host's cluster-size rule and residency query.
 //
 // Layout (the JAX package's model-native one):
 //   q_hat  (B, Hkv, G, W)   grouped PCA-basis queries, W = stored key width
 //   k_hat  (B, S, Hkv, W)   key cache in the PCA basis, or the paged pool
 //                           (R, Hkv, W) read through a page table
 //   v      (B, S, Hkv, D)   value cache, or the pool (R, Hkv, D)
-// The one-CTA phases stage every value as float32 in shared memory; the
+// The one-CTA phase stages every value as float32 in shared memory; the
 // split-KV rings copy cache rows as they are stored (fp32 or bf16).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace loki {
+
+namespace cg = cooperative_groups;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int MAXG = 16;          // query heads per KV group
 constexpr int MAXDIM = 256;       // key / value width (gemma-7b: 256)
-constexpr int PER_LANE = MAXDIM / 32;
-constexpr int TOK_UNROLL = 4;     // key rows in flight per warp (attention)
-constexpr int V_UNROLL = 8;       // value rows in flight per thread
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -214,149 +219,6 @@ __device__ void score_and_select(const TK* __restrict__ k, const float* qs,
   __syncthreads();
 }
 
-// Exact attention over the blocks listed in sel[0..n) (-1 entries skipped;
-// they contribute exactly nothing in the TPU kernels too), or, when sel is
-// nullptr, over the range first .. first + n - 1, folded into a (G,)-wide
-// online softmax with the TPU kernels' m_safe / alpha guards.
-//
-// Per block: a warp takes TOK_UNROLL tokens and its lanes read each token's
-// W key features (coalesced), giving the G scores by warp sums; a warp per head
-// then updates the running max and sum and turns the scores into weights;
-// finally thread (split, col) accumulates weight * v[token][col] for the
-// tokens i = split (mod nsplit) into registers, G accumulators each. The
-// nsplit partial sums meet in shared memory at the end.
-//
-// Shared scratch: sc[G*bs], m_s[G], l_s[G], alpha_s[G], red[nsplit*G*D].
-template <typename TK, typename TQ>
-__device__ void attend_blocks(const TK* __restrict__ k,
-                              const TK* __restrict__ v, const float* qs,
-                              const int* sel, int first, int n, float* sc,
-                              float* m_s, float* l_s, float* alpha_s,
-                              float* red, TQ* __restrict__ out,
-                              const BlockRows& rows, int b, int h, int ln,
-                              int Hkv, int G, int W, int D, int bs,
-                              int sliding_window) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nsplit = blockDim.x / D;
-  const int col = tid % D, split = tid / D;
-  const bool owns = split < nsplit;
-  for (int g = tid; g < G; g += blockDim.x) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.f;
-  }
-  float acc[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
-  __syncthreads();
-
-  for (int t = 0; t < n; ++t) {
-    const int blk = sel != nullptr ? sel[t] : first + t;
-    if (blk < 0) continue;            // the same value in every thread
-    const int64_t row0 = rows.first_row(b, blk);
-
-    // TOK_UNROLL tokens per warp at a time: their loads are all in flight
-    // before the first reduction waits on one
-    for (int i0 = warp * TOK_UNROLL; i0 < bs; i0 += NWARPS * TOK_UNROLL) {
-      float kr[TOK_UNROLL][PER_LANE];
-      bool live[TOK_UNROLL];
-#pragma unroll
-      for (int u = 0; u < TOK_UNROLL; ++u) {
-        const int i = i0 + u, pos = blk * bs + i;
-        live[u] = i < bs && pos < ln &&
-                  (sliding_window <= 0 || pos >= ln - sliding_window);
-        const TK* row = k + ((row0 + i) * Hkv + h) * (int64_t)W;
-#pragma unroll
-        for (int m = 0; m < PER_LANE; ++m) {
-          const int f = lane + 32 * m;
-          kr[u][m] = (live[u] && f < W) ? to_f(row[f]) : 0.f;
-        }
-      }
-      for (int g = 0; g < G; ++g) {
-#pragma unroll
-        for (int u = 0; u < TOK_UNROLL; ++u) {
-          float p = 0.f;
-#pragma unroll
-          for (int m = 0; m < PER_LANE; ++m) {
-            const int f = lane + 32 * m;
-            if (f < W) p = fmaf(qs[g * W + f], kr[u][m], p);
-          }
-          p = warp_sum(p);
-          if (lane == 0 && i0 + u < bs)
-            sc[g * bs + i0 + u] = live[u] ? p : NEG_INF;
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += NWARPS) {
-      float bm = NEG_INF;
-      for (int i = lane; i < bs; i += 32) bm = fmaxf(bm, sc[g * bs + i]);
-      bm = warp_max(bm);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, bm);
-      // guard: a selected block with no live position and an empty
-      // accumulator must not produce exp(NEG_INF - NEG_INF)
-      const float m_safe = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
-      const float alpha =
-          m_prev > NEG_INF * 0.5f ? expf(fminf(m_prev - m_safe, 0.f)) : 0.f;
-      float sum = 0.f;
-      for (int i = lane; i < bs; i += 32) {
-        const float s = sc[g * bs + i];
-        const float p = s > NEG_INF * 0.5f ? expf(s - m_safe) : 0.f;
-        sc[g * bs + i] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        m_s[g] = m_new;
-        l_s[g] = l_s[g] * alpha + sum;
-        alpha_s[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    if (owns) {
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < G) acc[g] *= alpha_s[g];
-      // positions past cur_len have p == 0: stop there; V_UNROLL rows
-      // per thread are loaded before any is used
-      const int n_live = max(0, min(bs, ln - blk * bs));
-      const TK* vb = v + (row0 * Hkv + h) * (int64_t)D + col;
-      for (int i0 = split; i0 < n_live; i0 += nsplit * V_UNROLL) {
-        float vv[V_UNROLL];
-#pragma unroll
-        for (int u = 0; u < V_UNROLL; ++u) {
-          const int i = i0 + u * nsplit;
-          vv[u] = i < n_live ? to_f(vb[(int64_t)i * Hkv * D]) : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < V_UNROLL; ++u) {
-          const int i = i0 + u * nsplit;
-          if (i < n_live) {
-#pragma unroll
-            for (int g = 0; g < MAXG; ++g)
-              if (g < G) acc[g] = fmaf(sc[g * bs + i], vv[u], acc[g]);
-          }
-        }
-      }
-    }
-    __syncthreads();                  // sc is rewritten by the next block
-  }
-
-  if (owns) {
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-      if (g < G) red[(split * G + g) * D + col] = acc[g];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < G * D; idx += blockDim.x) {
-    const int g = idx / D, c = idx % D;
-    float a = 0.f;
-    for (int sp = 0; sp < nsplit; ++sp) a += red[(sp * G + g) * D + c];
-    store_f(out + idx, a / fmaxf(l_s[g], 1e-30f));
-  }
-}
 
 // ------------------------------------------------ split-KV streaming body
 
@@ -370,11 +232,11 @@ __host__ __device__ inline size_t round16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-// one warp's ring stage: SPLIT_TOK rows of K̂ then of V in the cache dtype,
-// rows padded to 4 elements
-template <typename TK>
+// one warp's ring stage: TOK rows of K̂ then of V in the cache dtype, rows
+// padded to 4 elements (a feature-major K̂ stage holds the same elements)
+template <typename TK, int TOK = SPLIT_TOK>
 __host__ __device__ inline size_t split_stage_bytes(int W, int D) {
-  return round16((size_t)SPLIT_TOK * (pad4(W) + pad4(D)) * sizeof(TK));
+  return round16((size_t)TOK * (pad4(W) + pad4(D)) * sizeof(TK));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -388,6 +250,22 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// sixteen bytes of staged cache row as float32: 4 fp32 or 8 bf16 values
+__device__ __forceinline__ void load16(const float* p, float* o) {
+  load4(p, o);
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
 }
 
 // Copy the K̂ and V rows of tokens pos0 .. pos0 + SPLIT_TOK - 1 (those below
@@ -440,6 +318,68 @@ __device__ void split_fill(uint8_t* stage, const TK* __restrict__ k,
   cp_async_commit();
 }
 
+// A feature-major K̂ stage holds feature f's TOK tokens (one 16-byte piece)
+// at piece fm_slot(f). The xor permutes each aligned group of 4 pieces so
+// that a quarter-warp's 16-byte reads (features 4 l + e, l = 0 .. 7) fall
+// in 8 distinct bank groups.
+__host__ __device__ inline int fm_slot(int f) { return f ^ ((f >> 3) & 3); }
+
+// The per-head kernel's fill: tokens pos0 .. pos0 + TOK - 1 (those below
+// t1) of one row's K̂ and V into a warp's ring stage, then one cp.async
+// group. kr is the row's K̂, element (s, f) at kr[s * k_tok + f * k_feat];
+// vr its V, (S, D) contiguous. Token-major K̂ (k_feat = 1) is staged as
+// split_fill stages it, one row of pad4(D) elements per token; a
+// feature-major K̂ᵀ (FM, k_tok = 1) as one 16-byte piece of TOK tokens per
+// feature, each copied straight from its feature row. vec: 16-byte copies
+// (the launcher checks the alignment and strides, and for FM that every
+// chunk starts on a piece and ends inside the cache); otherwise element by
+// element, zero-padded to pad4(D).
+template <typename TK, int TOK, bool FM>
+__device__ __forceinline__ void head_fill(uint8_t* stage,
+                                          const TK* __restrict__ kr,
+                                          const TK* __restrict__ vr,
+                                          int64_t k_tok, int64_t k_feat,
+                                          int D, int pos0, int t1, bool vec,
+                                          int lane) {
+  const int Dp = pad4(D);
+  TK* ks = reinterpret_cast<TK*>(stage);
+  TK* vs = ks + TOK * Dp;
+  const int n_tok = min(TOK, t1 - pos0);
+  constexpr int E = 16 / sizeof(TK);
+  if (vec) {
+    if constexpr (FM) {
+      for (int f = lane; f < D; f += 32)
+        cp_async16(ks + fm_slot(f) * TOK, kr + f * k_feat + pos0);
+    } else {
+      for (int u = 0; u < n_tok; ++u)
+        for (int i = lane; i < D / E; i += 32)
+          cp_async16(ks + u * Dp + i * E,
+                     kr + (int64_t)(pos0 + u) * k_tok + i * E);
+    }
+    for (int u = 0; u < n_tok; ++u)
+      for (int i = lane; i < D / E; i += 32)
+        cp_async16(vs + u * Dp + i * E, vr + (int64_t)(pos0 + u) * D + i * E);
+  } else {
+    if constexpr (FM) {
+      for (int i = lane; i < Dp * TOK; i += 32) {
+        const int f = i / TOK, u = i % TOK;
+        store_f(ks + fm_slot(f) * TOK + u,
+                f < D && u < n_tok ? to_f(kr[f * k_feat + pos0 + u]) : 0.f);
+      }
+    } else {
+      for (int u = 0; u < n_tok; ++u)
+        for (int c = lane; c < Dp; c += 32)
+          store_f(ks + u * Dp + c,
+                  c < D ? to_f(kr[(int64_t)(pos0 + u) * k_tok + c]) : 0.f);
+    }
+    for (int u = 0; u < n_tok; ++u)
+      for (int c = lane; c < Dp; c += 32)
+        store_f(vs + u * Dp + c,
+                c < D ? to_f(vr[(int64_t)(pos0 + u) * D + c]) : 0.f);
+  }
+  cp_async_commit();
+}
+
 // One warp's online softmax: the (G,) running max and sum and the (G, D)
 // accumulators, lane-held columns 4 * lane + 128 * jj. GM >= G query heads
 // per group, DC = column groups of 4 per lane (1 for D <= 128, 2 for
@@ -461,24 +401,33 @@ struct WarpSoftmax {
 
 // Stream a warp's ``my_n`` chunks through its two-stage ring and fold each
 // into ``st``. ``chunk_at(j)`` gives the warp's j-th chunk as int2 {first
-// token, end of its range}: the chunk is tokens first .. first +
-// SPLIT_TOK - 1 below the end. The next chunk's K̂ and V rows are in flight
+// token, end of its range}: the chunk is tokens first .. first + TOK - 1
+// below the end; ``fill(stage, first, end)`` copies it into a stage and
+// commits one cp.async group. The next chunk's K̂ and V rows are in flight
 // (16-byte cp.async) while the warp computes on this one; no CTA barrier in
-// the loop. qs: the scaled float32 query, G x Wp. Ends with every copy
-// landed; the caller synchronises the CTA before reusing the ring.
-template <typename TK, int GM, int DC, typename ChunkAt>
+// the loop. qs: the float32 query, G x Wp. A token's score is the warp sum
+// of q·k̂ over the lanes' columns, each lane summing its 4 (8) columns in
+// order, times ``dot_scale`` when SCALE_DOT (the per-head kernel scales
+// after the dot, as its TPU kernel does; the others pass a scaled query).
+// FM: the K̂ stage is feature-major (head_fill); the lanes then read their
+// features' pieces and sum in the same order, so both layouts give the
+// same bits. Ends with every copy landed; the caller synchronises the CTA
+// before reusing the ring.
+template <typename TK, int TOK = SPLIT_TOK, bool FM = false,
+          bool SCALE_DOT = false, int GM, int DC, typename ChunkAt,
+          typename Fill>
 __device__ __forceinline__ void stream_chunks(
     WarpSoftmax<GM, DC>& st, const float* qs, uint8_t* my_ring,
-    size_t stage_bytes, const TK* __restrict__ k, const TK* __restrict__ v,
-    const BlockRows& rows, int b, int h, int Hkv, int G, int W, int D, int bs,
-    int my_n, ChunkAt chunk_at, bool vec, int lane) {
+    size_t stage_bytes, int G, int W, int D, int my_n, ChunkAt chunk_at,
+    Fill fill, float dot_scale, int lane) {
+  static_assert(!FM || TOK * sizeof(TK) == 16,
+                "a feature's chunk is one 16-byte piece");
   const int Wp = pad4(W), Dp = pad4(D);
 #pragma unroll
   for (int j = 0; j < SPLIT_STAGES - 1; ++j) {
     if (j < my_n) {
       const int2 c = chunk_at(j);
-      split_fill(my_ring + j * stage_bytes, k, v, rows, b, h, Hkv, W, D, bs,
-                 c.x, c.y, vec, lane);
+      fill(my_ring + j * stage_bytes, c.x, c.y);
     } else {
       cp_async_commit();
     }
@@ -488,8 +437,7 @@ __device__ __forceinline__ void stream_chunks(
     const int jn = j + SPLIT_STAGES - 1;             // the chunk to prefetch
     if (jn < my_n) {
       const int2 c = chunk_at(jn);
-      split_fill(my_ring + (jn % SPLIT_STAGES) * stage_bytes, k, v, rows, b,
-                 h, Hkv, W, D, bs, c.x, c.y, vec, lane);
+      fill(my_ring + (jn % SPLIT_STAGES) * stage_bytes, c.x, c.y);
     } else {
       cp_async_commit();
     }
@@ -498,10 +446,27 @@ __device__ __forceinline__ void stream_chunks(
 
     const TK* ks =
         reinterpret_cast<const TK*>(my_ring + (j % SPLIT_STAGES) * stage_bytes);
-    const TK* vs = ks + SPLIT_TOK * Wp;
+    const TK* vs = ks + TOK * Wp;
     const int2 cj = chunk_at(j);
-    const int n_tok = min(SPLIT_TOK, cj.y - cj.x);  // >= 1
-    float sc[GM][SPLIT_TOK];
+    const int n_tok = min(TOK, cj.y - cj.x);        // >= 1
+    // feature-major: this lane's 4 * DC features, TOK tokens each
+    float kf[FM ? DC : 1][4][FM ? TOK : 1];
+    if constexpr (FM) {
+#pragma unroll
+      for (int jj = 0; jj < DC; ++jj) {
+        const int c = 4 * lane + 128 * jj;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c < Wp) {
+            load16(ks + fm_slot(c + e) * TOK, kf[jj][e]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < TOK; ++u) kf[jj][e][u] = 0.f;
+          }
+        }
+      }
+    }
+    float sc[GM][TOK];
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
@@ -514,32 +479,38 @@ __device__ __forceinline__ void stream_chunks(
         if (c < Wp) load4(qs + g * Wp + c, qf + 4 * jj);
       }
 #pragma unroll
-      for (int u = 0; u < SPLIT_TOK; ++u) {
+      for (int u = 0; u < TOK; ++u) {
         float p = 0.f;
 #pragma unroll
         for (int jj = 0; jj < DC; ++jj) {
           const int c = 4 * lane + 128 * jj;
           if (c < Wp) {
             float kv[4];
-            load4(ks + u * Wp + c, kv);
+            if constexpr (FM) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) kv[e] = kf[jj][e][u];
+            } else {
+              load4(ks + u * Wp + c, kv);
+            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) p = fmaf(qf[4 * jj + e], kv[e], p);
           }
         }
         p = warp_sum(p);
+        if constexpr (SCALE_DOT) p *= dot_scale;
         sc[g][u] = u < n_tok ? p : NEG_INF;
       }
       // online softmax of head g over the chunk (the TPU kernel's guards)
       float bm = NEG_INF;
 #pragma unroll
-      for (int u = 0; u < SPLIT_TOK; ++u) bm = fmaxf(bm, sc[g][u]);
+      for (int u = 0; u < TOK; ++u) bm = fmaxf(bm, sc[g][u]);
       const float m_new = fmaxf(st.m[g], bm);
       const float m_safe = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
       const float alpha =
           st.m[g] > NEG_INF * 0.5f ? expf(fminf(st.m[g] - m_safe, 0.f)) : 0.f;
       float sum = 0.f;
 #pragma unroll
-      for (int u = 0; u < SPLIT_TOK; ++u) {
+      for (int u = 0; u < TOK; ++u) {
         const float x = sc[g][u];
         const float p = x > NEG_INF * 0.5f ? expf(x - m_safe) : 0.f;
         sc[g][u] = p;
@@ -551,7 +522,7 @@ __device__ __forceinline__ void stream_chunks(
       for (int e = 0; e < 4 * DC; ++e) st.acc[g][e] *= alpha;
     }
 #pragma unroll
-    for (int u = 0; u < SPLIT_TOK; ++u) {
+    for (int u = 0; u < TOK; ++u) {
       if (u >= n_tok) break;          // rows past the end hold stale bytes
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) {
@@ -656,6 +627,130 @@ __device__ __forceinline__ BlockShare block_share(int ln, int nb, int bs,
   return r;
 }
 
+// ------------------------------------- attention over a list, one cluster
+
+// The entries of idx[0 .. n) that lie in [0, nb), in list order, into sel
+// (warp 0 writes them); every thread returns their count. Other entries
+// (the -1 sentinels) contribute nothing. Needs whole warps.
+__device__ __forceinline__ int keep_valid(const int* __restrict__ idx, int n,
+                                          int nb, int* sel) {
+  const int lane = threadIdx.x & 31;
+  const bool writer = threadIdx.x < 32;
+  int nv = 0;
+  for (int t0 = 0; t0 < n; t0 += 32) {
+    const int x = t0 + lane < n ? idx[t0 + lane] : -1;
+    const bool ok = x >= 0 && x < nb;
+    const unsigned m = __ballot_sync(FULL, ok);
+    if (writer && ok) sel[nv + __popc(m & ((1u << lane) - 1u))] = x;
+    nv += __popc(m);
+  }
+  return nv;
+}
+
+// Phases 3-4 of a cluster kernel. CTA r of the C in its cluster attends
+// share r of the nv blocks in sel[0 .. nv) (list order, each in [0, nb)):
+// entries [r * per, (r + 1) * per), per = ceil(nv / C), trailing shares
+// possibly empty. A block's live tokens run from blk * bs (or ln -
+// sliding_window, if later) to min(blk * bs + bs, ln). The share's
+// TOK-token chunks are numbered block after block and warp w takes chunks
+// w, w + 4, ...; a chunk's block is found by walking the share's list (a
+// few entries), so no table is built. Each warp streams its chunks
+// (stream_chunks) through its ring in ``uni``; the CTA merges its 4 warps
+// into its partial (merge_warps; G x (D + 2) float32 after the warps'
+// scratch in ``uni``); after cluster.sync() rank 0 reads the C partials
+// through distributed shared memory and merges them by log-sum-exp in rank
+// order into out (G x D in TQ). A CTA with no chunk adds m = -1e30, l = 0.
+// The caller writes sel and the query before the call (the first barrier
+// here orders them, and frees ``uni``); the last cluster.sync() keeps the
+// peers' partials alive until rank 0 has read them.
+template <typename TQ, typename TK, int TOK, bool FM, bool SCALE_DOT, int GM,
+          int DC, typename Fill>
+__device__ __forceinline__ void attend_share(
+    const int* sel, int nv, const float* qs, uint8_t* uni, size_t stage_bytes,
+    Fill fill, int ln, int G, int W, int D, int bs, int sliding_window,
+    float dot_scale, TQ* __restrict__ out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int per = (nv + C - 1) / C;
+  const int s0 = rank * per, n_mine = max(0, min(nv, s0 + per) - s0);
+  const int* mine = sel + s0;
+  // block blk's live tokens {first, end}
+  const auto span = [&](int blk) {
+    int t0 = blk * bs;
+    if (sliding_window > 0) t0 = max(t0, ln - sliding_window);
+    return make_int2(t0, min(blk * bs + bs, ln));
+  };
+  const auto n_chunks = [](int2 t) {
+    return t.y > t.x ? (t.y - t.x + TOK - 1) / TOK : 0;
+  };
+  __syncthreads();                    // sel and qs written, uni free
+  int n_ch = 0;
+  for (int i = 0; i < n_mine; ++i) n_ch += n_chunks(span(mine[i]));
+  const int my_n =
+      n_ch > warp ? (n_ch - warp + SPLIT_WARPS - 1) / SPLIT_WARPS : 0;
+  WarpSoftmax<GM, DC> st;
+  st.init();
+  stream_chunks<TK, TOK, FM, SCALE_DOT>(
+      st, qs, uni + (size_t)warp * SPLIT_STAGES * stage_bytes, stage_bytes, G,
+      W, D, my_n,
+      [&](int j) {
+        int c = warp + j * SPLIT_WARPS, i = 0;
+        int2 t = span(mine[0]);
+        for (int n = n_chunks(t); c >= n; n = n_chunks(t)) {
+          c -= n;
+          t = span(mine[++i]);
+        }
+        return make_int2(t.x + c * TOK, t.y);
+      },
+      fill, dot_scale, lane);
+  __syncthreads();                    // every ring is free: merge there
+  float* mw = reinterpret_cast<float*>(uni);
+  float* part = mw + SPLIT_WARPS * G * (D + 2);
+  merge_warps(st, mw, part, G, D);
+
+  cluster.sync();                     // every CTA's partial, written
+  if (rank == 0) {
+    for (int i = tid; i < G * D; i += SPLIT_THREADS) {
+      const int g = i / D, c = i % D;
+      store_f(out + i,
+              merge_partials(
+                  [&](int s) { return cluster.map_shared_rank(part, s); }, C,
+                  g, c, D));
+    }
+  }
+  cluster.sync();                     // peers' partials read
+}
+
+// Byte offsets of the dynamic shared memory of block_sparse_attention and
+// block_sparse_attention_grouped: the float32 query (G x pad4(W)) and the
+// kept block list (n_sel ints), then one region for the 4 warps' rings,
+// which the warp merge and the CTA's partial reuse. kernels/tuning.py
+// attend_smem_bytes mirrors it.
+struct AttendLayout {
+  size_t qs, sel, uni, total;
+};
+
+template <typename TK, int TOK>
+__host__ __device__ inline AttendLayout attend_layout(int G, int W, int D,
+                                                      int n_sel) {
+  AttendLayout L;
+  size_t off = 0;
+  L.qs = off;
+  off += round16(sizeof(float) * G * pad4(W));
+  L.sel = off;
+  off += round16(sizeof(int) * (size_t)n_sel);
+  L.uni = off;
+  const size_t ring =
+      (size_t)SPLIT_WARPS * SPLIT_STAGES * split_stage_bytes<TK, TOK>(W, D);
+  const size_t merge = sizeof(float) * (SPLIT_WARPS + 1) * G * (D + 2);
+  L.total = off + round16(ring > merge ? ring : merge);
+  return L;
+}
+
+// ------------------------------------------------------------- host side
+
 // Run F<TQ, TK>::run(a) for the launch's (query, cache) dtype pair:
 // 0 = float32, 1 = bfloat16.
 template <template <typename, typename> class F, typename Args>
@@ -672,6 +767,91 @@ inline cudaError_t allow_smem(Kern kern, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+constexpr int MAX_CLUSTER = 8;        // the portable cluster size limit
+constexpr int CLUSTER_CTAS_PER_SM = 4;
+
+// The SM count of the current device, read once per device.
+inline int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= 0 && dev < 64) cached[dev] = n;
+  return n;
+}
+
+// CTAs per cluster from shapes only: about CLUSTER_CTAS_PER_SM CTAs per SM
+// over ``rows`` clusters, 1 <= C <= min(MAX_CLUSTER, nb).
+// kernels/fused_decode.py fused_cluster_size is the same rule.
+inline int cluster_size(int nb, int rows, int n_sm) {
+  int c = CLUSTER_CTAS_PER_SM * n_sm / (rows > 1 ? rows : 1);
+  c = c < MAX_CLUSTER ? c : MAX_CLUSTER;
+  c = c < nb ? c : nb;
+  return c > 1 ? c : 1;
+}
+
+// cudaOccupancyMaxActiveClusters for a kernel, shared memory and cluster
+// size, asked once per device.
+inline cudaError_t max_clusters(const void* kern,
+                                const cudaLaunchConfig_t& cfg, int C,
+                                int* n) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t, int>, int> seen;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(dev, kern, cfg.dynamicSmemBytes, C);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = seen.find(key);
+  if (it != seen.end()) {
+    *n = it->second;
+    return cudaSuccess;
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(n, kern, &cfg);
+  if (err == cudaSuccess) seen[key] = *n;
+  return err;
+}
+
+// Launch ``kern`` on grid (gx, gy, C) as clusters of C CTAs along z, each
+// SPLIT_THREADS threads with ``smem`` bytes of dynamic shared memory; or,
+// when ``info`` is not null, only report info[0] = C, info[1] = smem and
+// info[2] = cudaOccupancyMaxActiveClusters. A cluster that cannot be
+// resident never launches: no fallback.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kern)(Params...), int gx, int gy, int C,
+                           size_t smem, cudaStream_t stream, long long* info,
+                           Args... args) {
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = C;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(gx, gy, C);
+  cfg.blockDim = dim3(SPLIT_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n_clusters = 0;
+  err = max_clusters(reinterpret_cast<const void*>(kern), cfg, C,
+                     &n_clusters);
+  if (err != cudaSuccess) return err;
+  if (info != nullptr) {
+    info[0] = C;
+    info[1] = (long long)smem;
+    info[2] = n_clusters;
+    return cudaSuccess;
+  }
+  if (n_clusters < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace loki

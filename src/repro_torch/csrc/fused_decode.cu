@@ -19,8 +19,8 @@
 // The fused kernels (fused_loki_decode, fused_exact_topk_decode) run as
 // split-KV over a thread-block cluster: grid (Hkv, B, C), one cluster of C
 // CTAs of 4 warps per (kv-head, slot), C picked on the host from shapes
-// only (about 4 CTAs per SM, 1 <= C <= min(8, S / bs); cluster_size), so
-// the host never reads cur_len. In one launch:
+// only (about 4 CTAs per SM, 1 <= C <= min(8, S / bs); cluster_size in
+// decode_common.cuh), so the host never reads cur_len. In one launch:
 //   1. score: CTA r takes an equal share of the live block range [lo, hi)
 //      (block_share, the full decode's split rule) and streams the leading
 //      d features of its live tokens through a per-warp two-stage ring of
@@ -37,11 +37,13 @@
 //      same k_blocks rounds of argmax-and-suppress (all 4 warps, one CTA
 //      barrier a round; ties to the lower index, -1 once no finite maximum
 //      is left), so all C CTAs hold the same selection with no broadcast.
-//   3. attend: CTA r takes an equal share of the winners (2 of 8 at C = 4)
-//      and streams their live tokens through the full decode's warp ring
-//      (stream_chunks: 4-token chunks, 16-byte cp.async, per-warp online
-//      softmax), then merges its 4 warps (merge_warps) into a partial
-//      (acc[G, D], m, l) in its own shared memory.
+//   3. attend (attend_share in decode_common.cuh, which
+//      block_sparse_attention_grouped runs too): CTA r takes an equal share
+//      of the winners (2 of 8 at C = 4) and streams their live tokens
+//      through the full decode's warp ring (stream_chunks: 4-token chunks,
+//      16-byte cp.async, per-warp online softmax), then merges its 4 warps
+//      (merge_warps) into a partial (acc[G, D], m, l) in its own shared
+//      memory.
 //   4. merge: cluster.sync(); CTA rank 0 reads the C partials through
 //      distributed shared memory and merges them by log-sum-exp in rank
 //      order (merge_partials: alpha = 0 for an empty partial, the 1e-30
@@ -50,17 +52,21 @@
 //      no second kernel.
 // Shared memory (fused_layout, exported as loki_fused_smem_bytes and
 // mirrored by kernels/tuning.py fused_smem_bytes): the scaled query, the
-// block-maxima row, the selection and chunk tables, and one region that
-// holds in turn the score ring, the selection's copy of the row, the
-// attention ring and the merge buffers: 37,712 B at llama2-7b's fp32 cache
-// (d 32, smax 4096, block 128, k_blocks 8), so 4 CTAs per SM fit.
+// block-maxima row, the selection, and one region that holds in turn the
+// score ring, the selection's copy of the row, the attention ring and the
+// merge buffers: 37,600 B at llama2-7b's fp32 cache
+// (d 32, smax 4096, block 128, k_blocks 8), so 6 CTAs per SM fit.
 // ptxas (-O3, sm_90a) for the fused cluster kernel: G <= 1 at D <= 128,
-// the main path's shape, 72 registers, with 8 B spilled over an fp32
-// cache (none over bf16); G <= 4, or G <= 1 at D > 128: 120-128
-// registers, no spill; G <= 16 at D <= 128: 238-243 registers, no spill;
-// G <= 16 at D > 128: 255 registers and 360-420 B of spill stores. At
-// the main shape shared memory, not registers, limits residency (4 CTAs
-// per SM). chip_smoke.py saves the whole build log beside its report.
+// the main path's shape, 72-80 registers (28 B spilled with fp32 queries
+// over a bf16 cache, none on the main path's bf16 queries over fp32);
+// G <= 4, or G <= 1 at D > 128: 96-128 registers, up to 44 B spilled;
+// G <= 16 at D <= 128: 243-247 registers, no spill; G <= 16 at D > 128:
+// 255 registers and 276 B of spill stores. At the main shape shared
+// memory, not registers, limits residency (6 CTAs per SM). chip_smoke.py
+// saves the whole build log beside its report. A loop around the
+// attention stream (attend_share) doubled the main instantiation's
+// registers and slowed it, so attend_share streams each share in one
+// pass.
 //
 // select_blocks keeps the one-CTA body (score_and_select): one block of
 // 256 threads per (kv-head, batch) pair.
@@ -74,15 +80,7 @@
 // Requires cur_len >= 1 per row (the decode invariant: the new token is in
 // the cache already); it is not checked here, to keep the hot path free of
 // host syncs.
-#include <cooperative_groups.h>
-
-#include <map>
-#include <mutex>
-#include <tuple>
-
 #include "decode_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace loki {
 
@@ -110,8 +108,6 @@ constexpr int SCORE_STAGES = 2;
 constexpr int SCORE_MAX_TOK = 32;     // one token per lane
 // a score stage: 32 tokens of d = 32 fp32 (128 B + 16 B of padding each)
 constexpr int SCORE_STAGE_BYTES = 32 * 144;
-constexpr int MAX_CLUSTER = 8;        // the portable cluster size limit
-constexpr int CLUSTER_CTAS_PER_SM = 4;
 
 // Bytes of one staged token row of the score stream: its leading d
 // features in the cache dtype rounded up to 16 B, plus 16 B so that lanes
@@ -135,7 +131,7 @@ __host__ __device__ inline int score_tokens(int row_bytes, int bs) {
 // maxima, the 4 warps' attention rings, and the warp-merge scratch
 // followed by the CTA's partial (G x (D + 2) float32).
 struct FusedLayout {
-  size_t qs, blkmax, ints, wsel, uni, total;
+  size_t qs, blkmax, sel, wsel, uni, total;
   int row_bytes, tok;
 };
 
@@ -151,8 +147,8 @@ __host__ __device__ inline FusedLayout fused_layout(int G, int W, int D,
   off += round16(sizeof(float) * G * pad4(W));
   L.blkmax = off;
   off += round16(sizeof(float) * nb);
-  L.ints = off;                           // sel, first, end: kb; prefix kb+1
-  off += round16(sizeof(int) * (4 * (size_t)kb + 1));
+  L.sel = off;                            // the kb winners
+  off += round16(sizeof(int) * (size_t)kb);
   L.wsel = off;                           // 2 rounds x 4 warps (value, index)
   off += round16(2 * SPLIT_WARPS * (sizeof(float) + sizeof(int)));
   L.uni = off;
@@ -168,22 +164,6 @@ __host__ __device__ inline FusedLayout fused_layout(int G, int W, int D,
   u = row > u ? row : u;
   L.total = off + round16(u);
   return L;
-}
-
-// sixteen bytes of staged cache row as float32: 4 fp32 or 8 bf16 values
-__device__ __forceinline__ void load16(const float* p, float* o) {
-  load4(p, o);
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
 }
 
 // Maximum of a shared float and v, exact for all non-NaN values: the
@@ -295,10 +275,7 @@ fused_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
   const size_t bh = (size_t)b * Hkv + h;
   float* qs = reinterpret_cast<float*>(base + L.qs);        // G x Wp
   float* blkmax = reinterpret_cast<float*>(base + L.blkmax); // nb
-  int* sel = reinterpret_cast<int*>(base + L.ints);          // kb
-  int* first = sel + kb;                 // this CTA's winners: first token,
-  int* end = first + kb;                 // end of its live range,
-  int* prefix = end + kb;                // chunk prefix (kb + 1)
+  int* sel = reinterpret_cast<int*>(base + L.sel);           // kb
   float* wv = reinterpret_cast<float*>(base + L.wsel);       // 2 x warps
   int* wi = reinterpret_cast<int*>(wv + 2 * SPLIT_WARPS);
   uint8_t* uni = base + L.uni;
@@ -399,59 +376,14 @@ fused_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
     if (tid == 0) sel[t] = bi;
   }
 
-  // ---- 3. attend this CTA's share of the winners
-  const int per_w = (nv + C - 1) / C;
-  const int s0 = rank * per_w, n_mine = max(0, min(nv, s0 + per_w) - s0);
-  __syncthreads();                    // sel is complete, row is free
-  if (tid == 0) {
-    int n = 0;
-    prefix[0] = 0;
-    for (int i = 0; i < n_mine; ++i) {
-      const int blk = sel[s0 + i];
-      int t0 = blk * bs;
-      if (sliding_window > 0) t0 = max(t0, ln - sliding_window);
-      const int t1 = min(blk * bs + bs, ln);
-      first[i] = t0;
-      end[i] = t1;
-      n += t1 > t0 ? (t1 - t0 + SPLIT_TOK - 1) / SPLIT_TOK : 0;
-      prefix[i + 1] = n;
-    }
-  }
-  __syncthreads();
-  const int n_ch = prefix[n_mine];
-  const int my_n = n_ch > warp
-                       ? (n_ch - warp + SPLIT_WARPS - 1) / SPLIT_WARPS
-                       : 0;
-  const size_t stage_bytes = split_stage_bytes<TK>(W, D);
-  WarpSoftmax<GM, DC> st;
-  st.init();
-  stream_chunks<TK>(st, qs, uni + (size_t)warp * SPLIT_STAGES * stage_bytes,
-                    stage_bytes, k, v, rows, b, h, Hkv, G, W, D, bs, my_n,
-                    [&](int j) {
-                      const int c = warp + j * SPLIT_WARPS;
-                      int i = 0;
-                      while (prefix[i + 1] <= c) ++i;
-                      return make_int2(
-                          first[i] + (c - prefix[i]) * SPLIT_TOK, end[i]);
-                    },
-                    vec_kv != 0, lane);
-  __syncthreads();                    // every ring is free: merge there
-  float* mw = reinterpret_cast<float*>(uni);
-  float* part = mw + SPLIT_WARPS * G * (D + 2);
-  merge_warps(st, mw, part, G, D);
-
-  // ---- 4. merge the C partials in rank 0
-  cluster.sync();                     // every CTA's partial, written
-  if (rank == 0) {
-    for (int i = tid; i < G * D; i += SPLIT_THREADS) {
-      const int g = i / D, c = i % D;
-      store_f(out + bh * G * D + i,
-              merge_partials(
-                  [&](int s) { return cluster.map_shared_rank(part, s); }, C,
-                  g, c, D));
-    }
-  }
-  cluster.sync();                     // peers' partials read
+  // ---- 3-4. attend this CTA's share of the winners, merge in rank 0
+  attend_share<TQ, TK, SPLIT_TOK, false, false, GM, DC>(
+      sel, nv, qs, uni, split_stage_bytes<TK>(W, D),
+      [&](uint8_t* stage, int pos0, int t1) {
+        split_fill(stage, k, v, rows, b, h, Hkv, W, D, bs, pos0, t1,
+                   vec_kv != 0, lane);
+      },
+      ln, G, W, D, bs, sliding_window, 1.f, out + bh * G * D);
 }
 
 // The host side of one launch: shapes, the page table and the stream.
@@ -474,49 +406,6 @@ struct Launch {
   int vec() const { return (d % 4 == 0) && (W % 4 == 0); }
 };
 
-// The SM count of the current device, read once per device.
-inline int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
-  int n = 0;
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  if (dev >= 0 && dev < 64) cached[dev] = n;
-  return n;
-}
-
-// CTAs per cluster from shapes only: about CLUSTER_CTAS_PER_SM CTAs per SM
-// over rows = B * Hkv clusters, 1 <= C <= min(MAX_CLUSTER, nb).
-// kernels/fused_decode.py fused_cluster_size is the same rule.
-inline int cluster_size(int nb, int rows, int n_sm) {
-  int c = CLUSTER_CTAS_PER_SM * n_sm / (rows > 1 ? rows : 1);
-  c = c < MAX_CLUSTER ? c : MAX_CLUSTER;
-  c = c < nb ? c : nb;
-  return c > 1 ? c : 1;
-}
-
-// cudaOccupancyMaxActiveClusters for a kernel, shared memory and cluster
-// size, asked once per device.
-inline cudaError_t max_clusters(const void* kern,
-                                const cudaLaunchConfig_t& cfg, int C,
-                                int* n) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, const void*, size_t, int>, int> seen;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const auto key = std::make_tuple(dev, kern, cfg.dynamicSmemBytes, C);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = seen.find(key);
-  if (it != seen.end()) {
-    *n = it->second;
-    return cudaSuccess;
-  }
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(n, kern, &cfg);
-  if (err == cudaSuccess) seen[key] = *n;
-  return err;
-}
-
 template <typename TQ, typename TK>
 struct Fused {
   template <int GM, int DC>
@@ -525,43 +414,16 @@ struct Fused {
     const FusedLayout L =
         fused_layout<TK>(a.G, a.W, a.D, a.d, a.bs, nb, a.kb);
     const int C = cluster_size(nb, a.B * a.Hkv, sm_count());
-    auto kern = fused_cluster_kernel<TQ, TK, GM, DC>;
-    cudaError_t err = allow_smem(kern, L.total);
-    if (err != cudaSuccess) return err;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = C;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(a.Hkv, a.B, C);
-    cfg.blockDim = dim3(SPLIT_THREADS);
-    cfg.dynamicSmemBytes = L.total;
-    cfg.stream = a.stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int n_clusters = 0;
-    err = max_clusters(reinterpret_cast<const void*>(kern), cfg, C,
-                       &n_clusters);
-    if (err != cudaSuccess) return err;
-    if (a.info != nullptr) {
-      a.info[0] = C;
-      a.info[1] = (long long)L.total;
-      a.info[2] = n_clusters;
-      return cudaSuccess;
-    }
-    // a cluster that cannot be resident never launches: no fallback
-    if (n_clusters < 1) return cudaErrorInvalidConfiguration;
     // 16-byte copies need rows of whole 16-byte pieces
     const int vec_k = (a.W * sizeof(TK)) % 16 == 0;
     const int vec_kv = vec_k && (a.D * sizeof(TK)) % 16 == 0;
-    err = cudaLaunchKernelEx(
-        &cfg, kern, static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
-        static_cast<const TK*>(a.v), static_cast<const int*>(a.cur_len),
-        a.rows(), static_cast<TQ*>(a.out), a.Hkv, a.G, a.W, a.D, a.d, a.bs,
-        nb, a.kb, a.scale, a.local_window, a.sliding_window, vec_k, vec_kv);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
+    return launch_cluster(
+        fused_cluster_kernel<TQ, TK, GM, DC>, a.Hkv, a.B, C, L.total,
+        a.stream, a.info, static_cast<const TQ*>(a.q),
+        static_cast<const TK*>(a.k), static_cast<const TK*>(a.v),
+        static_cast<const int*>(a.cur_len), a.rows(), static_cast<TQ*>(a.out),
+        a.Hkv, a.G, a.W, a.D, a.d, a.bs, nb, a.kb, a.scale, a.local_window,
+        a.sliding_window, vec_k, vec_kv);
   }
   template <int GM>
   static cudaError_t by_width(const Launch& a) {

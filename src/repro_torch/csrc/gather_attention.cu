@@ -12,96 +12,114 @@
 // sliding window's first block to ceil(cur_len / bs), so the bytes read
 // follow the live prefix and never the table's capacity.
 //
-// What bounds all of them on an H100: bytes. They read each K̂ block of
-// width W and V block of width D per (b, kv-head) once, whatever G is (the
-// G query heads of a KV group share every block), and do O(G) FMAs per
-// element read. The TPU kernels walked the blocks as a sequential grid axis
-// (or a fori_loop) with the softmax state in scratch.
-//
-// block_sparse_attention_grouped: one block of 256 threads per (kv-head,
-// batch) pair walks the selected blocks in a loop (attend_blocks), with
-// the online softmax state and one block's scores in shared memory and the
-// (G, D) accumulators in registers.
-//
-// full_decode is split-KV, because one CTA per (kv-head, slot) is 128 CTAs
-// on 132 SMs at llama2-7b's 4 slots, each walking ~25 blocks with one
-// block's loads in flight. Grid (Hkv, B, n_split): split s takes an equal
-// share of the live block range [lo, hi), computed on the device from
-// cur_len; n_split comes from the host, from shapes only (the wrapper aims
-// at about 4 CTAs per SM), so the host never reads cur_len. In a split,
-// each of 4 warps streams its own chunks of 4 tokens through a private
-// two-stage shared-memory ring filled by 16-byte cp.async (the next
-// chunk's K̂ and V rows in flight while the warp computes on this one; no
-// CTA barrier in the loop; the body, stream_chunks and merge_warps in
-// decode_common.cuh, is shared with the fused cluster kernels of
-// fused_decode.cu): lanes hold 4 columns (8 at D > 128), a token's
-// G scores are warp sums, and the warp keeps its own (G,) online softmax
-// and (G, D) accumulators in registers. The 4 warps then merge by
-// log-sum-exp in shared memory, and the split writes its partial (acc[G,
-// D], m, l) in float32 to a scratch tensor; a second small kernel in the
-// same launcher call merges the n_split partials by log-sum-exp (alpha = 0
-// for an empty partial, the 1e-30 floor) into (B, Hkv, G, D). A split with
-// no live block writes m = -1e30, l = 0. Widths whose rows are not 16-byte
-// multiples are copied element by element into the same ring. Shared
-// memory: the scaled query (G x W float32) + 4 warps x 2 stages x 4 tokens
-// x (W + D) cache elements, the warp merge reusing the ring: 32.5 KB at
-// llama2-7b's fp32 cache, so its 512 CTAs are all resident at once: small
-// chunks and many resident warps beat deeper rings and longer chunks here
-// (measured on an H100: PERF.md §6).
-//
-// Paged mode: with a page table the caches are the pools (R, Hkv, ·) and
-// every block read resolves through BlockRows; S is the logical length
-// n_tab * page_size.
-//
 // block_sparse_attention replaces the per-head Pallas TPU kernel of the
 // same name (repro/kernels/gather_attention.py:75), the last stage of the
 // per-head pipeline (ops.loki_decode_attention): exact online-softmax
 // attention of each (BH) row over its own blk_idx (BH, n_sel) blocks,
 // masking positions >= cur_len; a row masked everywhere gives zeros. It
-// has no -1 sentinel, no window and no page table, as the TPU kernel has
-// none. What bounds it: bytes, the n_sel selected K̂ and V blocks of a row
-// at full width (llama2-7b per head: 128 rows x 8 blocks x 128 tokens x
-// 2 x 512 B fp32 = 134 MB, 40 us at 3.35 TB/s). The TPU walked n_sel as a
-// sequential grid axis with the softmax state in VMEM scratch; here one
-// CTA per row walks the blocks in a loop, with one block's scores and the
-// softmax state in shared memory and the (D,) accumulator in registers.
-// K̂ is read through a token stride and a feature stride, so the
-// feature-major pipeline reads the selected blocks straight from K̂ᵀ
-// (BH, D, S) without a token-major copy of the cache. Either way a warp
-// takes a token and its lanes the features f = lane + 32 m, so the two
-// layouts sum each dot in the same order (coalesced when token-major; in
-// feature-major the lanes read 32 feature rows, each line serving the
-// next tokens from L1).
+// has no window and no page table, as the TPU kernel has none.
+//
+// What bounds all of them on an H100: bytes. They read each K̂ block of
+// width W and V block of width D per (b, kv-head) once, whatever G is (the
+// G query heads of a KV group share every block), and do O(G) FMAs per
+// element read (llama2-7b at 4 slots, 8 blocks of 128 fp32 tokens per
+// row: 134 MB, 40 us at 3.35 TB/s). The TPU kernels walked the blocks as a
+// sequential grid axis (or a fori_loop) with the softmax state in scratch.
+// One CTA per row, walking its blocks, is 128 CTAs on 132 SMs at that
+// shape, so all three split each row's work over several CTAs, and all
+// three stream through the same body (decode_common.cuh): each of a CTA's
+// 4 warps streams its own chunks of 4 tokens (8 for the per-head kernel
+// over bf16) through a private two-stage shared-memory ring filled by
+// 16-byte cp.async (the next chunk's K̂ and V rows in flight while the
+// warp computes on this one; no CTA barrier in the loop; stream_chunks):
+// lanes hold 4 columns (8 at D > 128), a token's G scores are warp sums,
+// and the warp keeps its own (G,) online softmax and (G, D) accumulators
+// in registers. The 4 warps then merge by log-sum-exp in shared memory
+// (merge_warps). Widths whose rows are not 16-byte multiples are copied
+// element by element into the same ring.
+//
+// block_sparse_attention_grouped and block_sparse_attention: one
+// thread-block cluster of C CTAs per row, (slot, kv-head) or (BH) row, C
+// from shapes only (cluster_size, the fused kernels' rule: about 4 CTAs
+// per SM; 4 at llama2-7b's 128 rows, so 512 CTAs). Every CTA keeps the
+// row's entries in [0, S / bs) in list order (keep_valid; -1 and other
+// entries contribute nothing), takes an equal share of them and streams
+// their live tokens; CTA rank 0 merges the C partials by log-sum-exp in
+// rank order through distributed shared memory (attend_share, the fused
+// kernels' phases 3-4). The pair select_blocks + grouped therefore runs
+// the fused kernel's selection, shares and merge order, and gives its
+// bits. Shared memory (attend_layout, mirrored by kernels/tuning.py
+// attend_smem_bytes): the float32 query, the kept list, and the rings,
+// which the merges reuse: 33,312 B at llama2-7b's fp32 cache (n_sel 8). The per-head kernel reads K̂ through a row, a
+// token and a feature stride, so the feature-major pipeline reads the
+// selected blocks straight from K̂ᵀ (BH, D, S): each feature row's run of
+// a chunk's tokens is one 16-byte cp.async into a feature-major stage
+// (head_fill), from which each lane reads its own features' pieces, so
+// both layouts sum every dot in the same order and give the same bits.
+// Its scores are q̂·k̂ then * scale, the TPU kernel's order. Chunks of 8
+// fp32 (16 bf16) tokens, whose feature-row runs are whole 32-byte
+// sectors, made the feature-major read as fast as the token-major one but
+// slowed the token-major one (twice the ring, fewer resident CTAs) and
+// both over bf16 caches, so the runs stay 16 bytes (PERF.md §6). ptxas
+// (-O3, sm_90a): the grouped kernel at G <= 1, D <= 128 80-126 registers
+// (16 B spilled over an fp32 cache), G <= 4 115-128, G <= 16 at D > 128
+// 255 registers and 588-596 B of spill stores; the per-head kernel 55-95
+// registers, no spill.
+//
+// full_decode is split-KV: grid (Hkv, B, n_split); split s takes an equal
+// share of the live block range [lo, hi), computed on the device from
+// cur_len; n_split comes from the host, from shapes only (the wrapper aims
+// at about 4 CTAs per SM), so the host never reads cur_len. Each split
+// writes its partial (acc[G, D], m, l) in float32 to a scratch tensor; a
+// second small kernel in the same launcher call merges the n_split
+// partials by log-sum-exp (alpha = 0 for an empty partial, the 1e-30
+// floor) into (B, Hkv, G, D). A split with no live block writes m = -1e30,
+// l = 0. Shared memory: the scaled query (G x W float32) + 4 warps x 2
+// stages x 4 tokens x (W + D) cache elements, the warp merge reusing the
+// ring: 32.5 KB at llama2-7b's fp32 cache, so its 512 CTAs are all
+// resident at once: small chunks and many resident warps beat deeper rings
+// and longer chunks here (measured on an H100: PERF.md §6).
+//
+// Paged mode (full decode, grouped): with a page table the caches are the
+// pools (R, Hkv, ·) and every block read resolves through BlockRows; S is
+// the logical length n_tab * page_size. Paged and contiguous run the same
+// shares, so their outputs are bit-identical.
 #include "decode_common.cuh"
 
 namespace loki {
 
-template <typename TQ, typename TK>
-__global__ void __launch_bounds__(THREADS)
-block_sparse_attention_grouped_kernel(
-    const TQ* __restrict__ q, const TK* __restrict__ k,
-    const TK* __restrict__ v, const int* __restrict__ blk_idx,
-    const int* __restrict__ cur_len, BlockRows rows, TQ* __restrict__ out,
-    int Hkv, int G, int W, int D, int bs, int n_sel, float scale,
-    int sliding_window) {
-  extern __shared__ float smem[];
+// One CTA of the grouped kernel: its cluster of C attends the (slot b,
+// kv-head h) row of blk_idx.
+template <typename TQ, typename TK, int GM, int DC>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+grouped_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
+                       const TK* __restrict__ v,
+                       const int* __restrict__ blk_idx,
+                       const int* __restrict__ cur_len, BlockRows rows,
+                       TQ* __restrict__ out, int Hkv, int G, int W, int D,
+                       int bs, int nb, int n_sel, float scale,
+                       int sliding_window, int vec) {
+  extern __shared__ float4 smem4[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem4);
   const int h = blockIdx.x, b = blockIdx.y;
-  float* qs = smem;                                   // G*W
-  int* sel = reinterpret_cast<int*>(qs + G * W);      // n_sel
-  float* sc = reinterpret_cast<float*>(sel + n_sel);  // G*bs
-  float* m_s = sc + G * bs;                           // G
-  float* l_s = m_s + G;                               // G
-  float* alpha_s = l_s + G;                           // G
-  float* red = alpha_s + G;                           // nsplit*G*D
-  const int ln = cur_len[b];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const AttendLayout L = attend_layout<TK, SPLIT_TOK>(G, W, D, n_sel);
+  const int Wp = pad4(W);
   const size_t bh = (size_t)b * Hkv + h;
-  load_query(q + bh * G * W, qs, G * W, scale);
-  for (int t = threadIdx.x; t < n_sel; t += blockDim.x)
-    sel[t] = blk_idx[bh * n_sel + t];
-  __syncthreads();
-  attend_blocks(k, v, qs, sel, 0, n_sel, sc, m_s, l_s, alpha_s, red,
-                out + bh * G * D, rows, b, h, ln, Hkv, G, W, D, bs,
-                sliding_window);
+  float* qs = reinterpret_cast<float*>(base + L.qs);        // G x Wp, scaled
+  int* sel = reinterpret_cast<int*>(base + L.sel);           // n_sel
+  for (int i = tid; i < G * Wp; i += SPLIT_THREADS) {
+    const int g = i / Wp, c = i % Wp;
+    qs[i] = c < W ? to_f(q[(bh * G + g) * W + c]) * scale : 0.f;
+  }
+  const int nv = keep_valid(blk_idx + bh * n_sel, n_sel, nb, sel);
+  attend_share<TQ, TK, SPLIT_TOK, false, false, GM, DC>(
+      sel, nv, qs, base + L.uni, split_stage_bytes<TK>(W, D),
+      [&](uint8_t* stage, int pos0, int t1) {
+        split_fill(stage, k, v, rows, b, h, Hkv, W, D, bs, pos0, t1,
+                   vec != 0, lane);
+      },
+      cur_len[b], G, W, D, bs, sliding_window, 1.f, out + bh * G * D);
 }
 
 // ---------------------------------------------------- split-KV full decode
@@ -156,13 +174,16 @@ full_decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
 
   WarpSoftmax<GM, DC> st;
   st.init();
-  stream_chunks<TK>(st, qs, my_ring, stage_bytes, k, v, rows, b, h, Hkv, G,
-                    W, D, bs, my_n,
+  stream_chunks<TK>(st, qs, my_ring, stage_bytes, G, W, D, my_n,
                     [&](int j) {
                       return make_int2(
                           t0 + (warp + j * SPLIT_WARPS) * SPLIT_TOK, t1);
                     },
-                    vec != 0, lane);
+                    [&](uint8_t* stage, int pos0, int end) {
+                      split_fill(stage, k, v, rows, b, h, Hkv, W, D, bs,
+                                 pos0, end, vec != 0, lane);
+                    },
+                    1.f, lane);
   __syncthreads();                    // every ring is free: merge there
   merge_warps(st, reinterpret_cast<float*>(ring),
               part + (bh * n_split + sp) * G * (D + 2), G, D);
@@ -197,6 +218,7 @@ struct Launch {
   cudaStream_t stream;
   float* part;        // full decode: the splits' partials
   int n_split;
+  long long* info;    // grouped: not null = report (C, smem, clusters)
 
   BlockRows rows() const {
     return make_rows(table, n_tab, page_size, S, bs);
@@ -210,21 +232,31 @@ struct Launch {
 
 template <typename TQ, typename TK>
 struct Grouped {
+  template <int GM, int DC>
+  static cudaError_t go(const Launch& a) {
+    const int nb = a.S / a.bs;
+    const AttendLayout L = attend_layout<TK, SPLIT_TOK>(a.G, a.W, a.D, a.n_sel);
+    const int C = cluster_size(nb, a.B * a.Hkv, sm_count());
+    // 16-byte copies need rows of whole 16-byte pieces
+    const int vec =
+        (a.W * sizeof(TK)) % 16 == 0 && (a.D * sizeof(TK)) % 16 == 0;
+    return launch_cluster(
+        grouped_cluster_kernel<TQ, TK, GM, DC>, a.Hkv, a.B, C, L.total,
+        a.stream, a.info, static_cast<const TQ*>(a.q),
+        static_cast<const TK*>(a.k), static_cast<const TK*>(a.v),
+        static_cast<const int*>(a.blk_idx),
+        static_cast<const int*>(a.cur_len), a.rows(), static_cast<TQ*>(a.out),
+        a.Hkv, a.G, a.W, a.D, a.bs, nb, a.n_sel, a.scale, a.sliding_window,
+        vec);
+  }
+  template <int GM>
+  static cudaError_t by_width(const Launch& a) {
+    return pad4(a.D) <= 128 ? go<GM, 1>(a) : go<GM, 2>(a);
+  }
   static cudaError_t run(const Launch& a) {
-    const int nsplit = THREADS / a.D;
-    const size_t smem = sizeof(float) *
-                        ((size_t)a.G * a.W + a.n_sel + a.G * a.bs +
-                         3 * a.G + (size_t)nsplit * a.G * a.D);
-    auto kern = block_sparse_attention_grouped_kernel<TQ, TK>;
-    cudaError_t err = allow_smem(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<dim3(a.Hkv, a.B), THREADS, smem, a.stream>>>(
-        static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
-        static_cast<const TK*>(a.v), static_cast<const int*>(a.blk_idx),
-        static_cast<const int*>(a.cur_len), a.rows(),
-        static_cast<TQ*>(a.out), a.Hkv, a.G, a.W, a.D, a.bs, a.n_sel,
-        a.scale, a.sliding_window);
-    return cudaGetLastError();
+    if (a.G == 1) return by_width<1>(a);
+    if (a.G <= 4) return by_width<4>(a);
+    return by_width<MAXG>(a);
   }
 };
 
@@ -262,136 +294,40 @@ struct Full {
   }
 };
 
-// The per-head kernel: one CTA per row r. Scores are q̂·K̂[s] then * scale
-// (the TPU kernel's order, gather_attention.py:49); the grouped kernels
-// scale q̂ first.
-template <typename TQ, typename TK>
-__global__ void __launch_bounds__(THREADS)
-block_sparse_attention_kernel(const TQ* __restrict__ q,
-                              const TK* __restrict__ k,
-                              const TK* __restrict__ v,
-                              const int* __restrict__ blk_idx,
-                              const int* __restrict__ cur_len,
-                              TQ* __restrict__ out, int S, int D, int bs,
-                              int n_sel, int64_t k_row, int64_t k_tok,
-                              int64_t k_feat, float scale) {
-  extern __shared__ float smem[];
+// One CTA of the per-head kernel: its cluster of C attends row r of
+// blk_idx (BH, n_sel). K̂ is read in place through its strides: FM = a
+// feature-major K̂ᵀ (k_tok = 1), else token-major (k_feat = 1). Scores are
+// q̂·K̂[s] then * scale (the TPU kernel's order, gather_attention.py:49);
+// the grouped kernels scale q̂ first.
+template <typename TQ, typename TK, int DC, bool FM>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+head_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
+                    const TK* __restrict__ v,
+                    const int* __restrict__ blk_idx,
+                    const int* __restrict__ cur_len, TQ* __restrict__ out,
+                    int S, int D, int bs, int n_sel, int64_t k_row,
+                    int64_t k_tok, int64_t k_feat, float scale, int vec) {
+  constexpr int TOK = 16 / sizeof(TK);
+  extern __shared__ float4 smem4[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem4);
   const int r = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* qs = smem;                                   // D
-  int* sel = reinterpret_cast<int*>(qs + D);          // n_sel
-  float* sc = reinterpret_cast<float*>(sel + n_sel);  // bs
-  float* red = sc + bs;                               // nsplit*D
-  __shared__ float st[2];                             // running max, alpha
-  __shared__ float l_run;
-  const int nb = S / bs;
-  const int ln = cur_len[r];
-  const int nsplit = blockDim.x / D;
-  const int col = tid % D, split = tid / D;
-  const bool owns = split < nsplit;
-  load_query(q + (int64_t)r * D, qs, D, 1.f);
-  for (int t = tid; t < n_sel; t += blockDim.x)
-    sel[t] = blk_idx[(int64_t)r * n_sel + t];
-  if (tid == 0) {
-    st[0] = NEG_INF;
-    l_run = 0.f;
-  }
-  float acc = 0.f;
-  __syncthreads();
-
-  const TK* kr = k + (int64_t)r * k_row;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const AttendLayout L = attend_layout<TK, TOK>(1, D, D, n_sel);
+  const int Dp = pad4(D);
+  float* qs = reinterpret_cast<float*>(base + L.qs);        // Dp, unscaled
+  int* sel = reinterpret_cast<int*>(base + L.sel);           // n_sel
+  for (int c = tid; c < Dp; c += SPLIT_THREADS)
+    qs[c] = c < D ? to_f(q[(int64_t)r * D + c]) : 0.f;
+  const int nv = keep_valid(blk_idx + (int64_t)r * n_sel, n_sel, S / bs, sel);
+  const TK* kr = k + r * k_row;
   const TK* vr = v + (int64_t)r * S * D;
-  for (int t = 0; t < n_sel; ++t) {
-    const int blk = sel[t];
-    // an index outside the cache is never read (the TPU kernel's result
-    // for one is undefined); the same value in every thread
-    if (blk < 0 || blk >= nb) continue;
-    for (int i0 = warp * TOK_UNROLL; i0 < bs; i0 += NWARPS * TOK_UNROLL) {
-      float kv[TOK_UNROLL][PER_LANE];
-      bool live[TOK_UNROLL];
-#pragma unroll
-      for (int u = 0; u < TOK_UNROLL; ++u) {
-        const int i = i0 + u, pos = blk * bs + i;
-        live[u] = i < bs && pos < ln;
-        const TK* row = kr + (int64_t)pos * k_tok;
-#pragma unroll
-        for (int m = 0; m < PER_LANE; ++m) {
-          const int f = lane + 32 * m;
-          kv[u][m] = (live[u] && f < D) ? to_f(row[f * k_feat]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < TOK_UNROLL; ++u) {
-        float p = 0.f;
-#pragma unroll
-        for (int m = 0; m < PER_LANE; ++m) {
-          const int f = lane + 32 * m;
-          if (f < D) p = fmaf(qs[f], kv[u][m], p);
-        }
-        p = warp_sum(p);
-        if (lane == 0 && i0 + u < bs)
-          sc[i0 + u] = live[u] ? p * scale : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    if (warp == 0) {
-      float bm = NEG_INF;
-      for (int i = lane; i < bs; i += 32) bm = fmaxf(bm, sc[i]);
-      bm = warp_max(bm);
-      const float m_prev = st[0];
-      const float m_new = fmaxf(m_prev, bm);
-      // guard: a block with no live position and an empty accumulator
-      // must not produce exp(NEG_INF - NEG_INF)
-      const float m_safe = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
-      const float alpha =
-          m_prev > NEG_INF * 0.5f ? expf(fminf(m_prev - m_safe, 0.f)) : 0.f;
-      float sum = 0.f;
-      for (int i = lane; i < bs; i += 32) {
-        const float s = sc[i];
-        const float p = s > NEG_INF * 0.5f ? expf(s - m_safe) : 0.f;
-        sc[i] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      __syncwarp();
-      if (lane == 0) {
-        st[0] = m_new;
-        st[1] = alpha;
-        l_run = l_run * alpha + sum;
-      }
-    }
-    __syncthreads();
-
-    if (owns) {
-      acc *= st[1];
-      // positions past cur_len have p == 0: stop there
-      const int n_live = max(0, min(bs, ln - blk * bs));
-      const TK* vb = vr + (int64_t)blk * bs * D + col;
-      for (int i0 = split; i0 < n_live; i0 += nsplit * V_UNROLL) {
-        float vv[V_UNROLL];
-#pragma unroll
-        for (int u = 0; u < V_UNROLL; ++u) {
-          const int i = i0 + u * nsplit;
-          vv[u] = i < n_live ? to_f(vb[(int64_t)i * D]) : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < V_UNROLL; ++u) {
-          const int i = i0 + u * nsplit;
-          if (i < n_live) acc = fmaf(sc[i], vv[u], acc);
-        }
-      }
-    }
-    __syncthreads();                  // sc is rewritten by the next block
-  }
-
-  if (owns) red[split * D + col] = acc;
-  __syncthreads();
-  for (int c = tid; c < D; c += blockDim.x) {
-    float a = 0.f;
-    for (int sp = 0; sp < nsplit; ++sp) a += red[sp * D + c];
-    store_f(out + (int64_t)r * D + c, a / fmaxf(l_run, 1e-30f));
-  }
+  attend_share<TQ, TK, TOK, FM, true, 1, DC>(
+      sel, nv, qs, base + L.uni, split_stage_bytes<TK, TOK>(D, D),
+      [&](uint8_t* stage, int pos0, int t1) {
+        head_fill<TK, TOK, FM>(stage, kr, vr, k_tok, k_feat, D, pos0, t1,
+                               vec != 0, lane);
+      },
+      cur_len[r], 1, D, D, bs, 0, scale, out + (int64_t)r * D);
 }
 
 struct HeadLaunch {
@@ -405,6 +341,7 @@ struct HeadLaunch {
   long long k_row, k_tok, k_feat;
   float scale;
   cudaStream_t stream;
+  long long* info;    // not null: report (C, smem, clusters), no launch
 
   bool ok() const {
     return BH >= 1 && D >= 1 && D <= MAXDIM && bs >= 1 && S >= bs &&
@@ -414,19 +351,36 @@ struct HeadLaunch {
 
 template <typename TQ, typename TK>
 struct PerHead {
-  static cudaError_t run(const HeadLaunch& a) {
-    const int nsplit = THREADS / a.D;
-    const size_t smem = sizeof(float) * ((size_t)a.D + a.n_sel + a.bs +
-                                         (size_t)nsplit * a.D);
-    auto kern = block_sparse_attention_kernel<TQ, TK>;
-    cudaError_t err = allow_smem(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<a.BH, THREADS, smem, a.stream>>>(
-        static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
+  template <int DC, bool FM>
+  static cudaError_t go(const HeadLaunch& a) {
+    constexpr int TOK = 16 / sizeof(TK);
+    constexpr size_t E = 16 / sizeof(TK);
+    const int nb = a.S / a.bs;
+    const AttendLayout L = attend_layout<TK, TOK>(1, a.D, a.D, a.n_sel);
+    const int C = cluster_size(nb, a.BH, sm_count());
+    // 16-byte copies: aligned rows of whole 16-byte pieces; feature-major
+    // chunks start on a piece and end inside their block
+    const auto aligned = [](const void* p) {
+      return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    };
+    int vec = aligned(a.k) && aligned(a.v) && a.D % E == 0 &&
+              a.k_row % E == 0;
+    vec = vec && (FM ? a.k_feat % E == 0 && a.bs % TOK == 0
+                     : a.k_tok % E == 0);
+    return launch_cluster(
+        head_cluster_kernel<TQ, TK, DC, FM>, a.BH, 1, C, L.total, a.stream,
+        a.info, static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
         static_cast<const TK*>(a.v), static_cast<const int*>(a.blk_idx),
         static_cast<const int*>(a.cur_len), static_cast<TQ*>(a.out), a.S,
-        a.D, a.bs, a.n_sel, a.k_row, a.k_tok, a.k_feat, a.scale);
-    return cudaGetLastError();
+        a.D, a.bs, a.n_sel, (int64_t)a.k_row, (int64_t)a.k_tok,
+        (int64_t)a.k_feat, a.scale, vec);
+  }
+  template <bool FM>
+  static cudaError_t by_width(const HeadLaunch& a) {
+    return pad4(a.D) <= 128 ? go<1, FM>(a) : go<2, FM>(a);
+  }
+  static cudaError_t run(const HeadLaunch& a) {
+    return a.k_feat != 1 ? by_width<true>(a) : by_width<false>(a);
   }
 };
 
@@ -445,9 +399,38 @@ extern "C" int loki_block_sparse_attention_grouped(
     void* stream) {
   const Launch a{q, k, v, blk_idx, cur_len, table, out, B, S, Hkv, G, W, D,
                  bs, n_sel, n_tab, page_size, scale, sliding_window,
-                 static_cast<cudaStream_t>(stream), nullptr, 0};
+                 static_cast<cudaStream_t>(stream), nullptr, 0, nullptr};
   if (!a.ok() || n_sel < 1) return (int)cudaErrorInvalidValue;
   return (int)by_dtype<Grouped>(q_bf16, kv_bf16, a);
+}
+
+// What a grouped launch at this shape would use, without launching:
+// info[0] the cluster size C, info[1] the dynamic shared memory in bytes,
+// info[2] cudaOccupancyMaxActiveClusters for that kernel, memory and C.
+extern "C" int loki_grouped_cluster_info(int q_bf16, int kv_bf16, int B,
+                                         int S, int Hkv, int G, int W, int D,
+                                         int bs, int n_sel,
+                                         long long* info) {
+  const Launch a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, B, S, Hkv, G, W, D, bs, n_sel, 0, 0, 1.f, 0,
+                 nullptr, nullptr, 0, info};
+  if (!a.ok() || n_sel < 1 || info == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)by_dtype<Grouped>(q_bf16, kv_bf16, a);
+}
+
+// The attention kernels' dynamic shared memory in bytes at a shape
+// (attend_layout with ``tok``-token chunks: 4 for the grouped kernel,
+// 16 / element size for the per-head one); kernels/tuning.py
+// attend_smem_bytes must give the same.
+extern "C" long long loki_attend_smem_bytes(int kv_bf16, int G, int W, int D,
+                                            int n_sel, int tok) {
+  if (kv_bf16)
+    return tok == 8 ? (long long)attend_layout<__nv_bfloat16, 8>(G, W, D,
+                                                                 n_sel).total
+                    : (long long)attend_layout<__nv_bfloat16, SPLIT_TOK>(
+                          G, W, D, n_sel).total;
+  return (long long)attend_layout<float, SPLIT_TOK>(G, W, D, n_sel).total;
 }
 
 // Full decode: part is the (B, Hkv, n_split, G, D + 2) float32 scratch,
@@ -462,7 +445,7 @@ extern "C" int loki_full_decode(const void* q, const void* k, const void* v,
   const Launch a{q, k, v, nullptr, cur_len, table, out, B, S, Hkv, G, W, D,
                  bs, 0, n_tab, page_size, scale, sliding_window,
                  static_cast<cudaStream_t>(stream), static_cast<float*>(part),
-                 n_split};
+                 n_split, nullptr};
   if (!a.ok() || part == nullptr || n_split < 1 || n_split > S / bs)
     return (int)cudaErrorInvalidValue;
   return (int)by_dtype<Full>(q_bf16, kv_bf16, a);
@@ -480,7 +463,20 @@ extern "C" int loki_block_sparse_attention(
     long long k_feat, float scale, void* stream) {
   const HeadLaunch a{q, k, v, blk_idx, cur_len, out, BH, S, D, bs, n_sel,
                      k_row, k_tok, k_feat, scale,
-                     static_cast<cudaStream_t>(stream)};
+                     static_cast<cudaStream_t>(stream), nullptr};
   if (!a.ok()) return (int)cudaErrorInvalidValue;
+  return (int)by_dtype<PerHead>(q_bf16, kv_bf16, a);
+}
+
+// What a per-head launch at this shape and K̂ layout (fm: feature-major)
+// would use, without launching: info as loki_grouped_cluster_info's.
+extern "C" int loki_head_cluster_info(int q_bf16, int kv_bf16, int BH, int S,
+                                      int D, int bs, int n_sel, int fm,
+                                      long long* info) {
+  const HeadLaunch a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     BH, S, D, bs, n_sel, (long long)S * D,
+                     fm ? 1LL : (long long)D, fm ? (long long)S : 1LL, 1.f,
+                     nullptr, info};
+  if (!a.ok() || info == nullptr) return (int)cudaErrorInvalidValue;
   return (int)by_dtype<PerHead>(q_bf16, kv_bf16, a);
 }

@@ -35,9 +35,10 @@ On the card the two fused kernels run as one cluster of C CTAs per (slot,
 kv-head): CTA r scores share r of the live blocks (``split_blocks``), every
 CTA runs the same top-k over the whole row of block maxima, CTA r attends
 share r of the winners (``winner_shares``) and CTA 0 merges the C partials
-by log-sum-exp in rank order. ``fused_cluster_size`` is the launcher's rule
-for C (shapes only); ``fused_cluster_plain`` repeats the cluster form's
-arithmetic in torch for the tests and the card's checks.
+by log-sum-exp in rank order. ``fused_cluster_size`` (in
+``gather_attention``, shared with the block-list kernels) is the
+launcher's rule for C (shapes only); ``fused_cluster_plain`` repeats the
+cluster form's arithmetic in torch for the tests and the card's checks.
 """
 from __future__ import annotations
 
@@ -48,11 +49,13 @@ import torch
 from repro_torch.core.loki import topk_lower_index
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_attention import (NEG_INF,
-                                                  SPLIT_CTAS_PER_SM,
                                                   attend_blocks_plain,
-                                                  cache_args, logical,
-                                                  merge_partials_plain,
-                                                  split_blocks)
+                                                  cache_args,
+                                                  fused_cluster_size,
+                                                  logical,
+                                                  share_partials_plain,
+                                                  split_blocks,
+                                                  winner_shares)
 from repro_torch.serving.paged_cache import unscaled
 
 
@@ -111,31 +114,6 @@ def fused_loki_decode_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
                                sliding_window=sliding_window)
 
 
-def fused_cluster_size(n_blocks: int, rows: int, n_sm: int) -> int:
-    """CTAs per cluster of the fused kernels, from shapes only: about
-    SPLIT_CTAS_PER_SM CTAs per SM over ``rows`` = B * Hkv clusters, at
-    least 1 and at most 8 (the portable cluster limit) or the
-    ``n_blocks`` = S / block_size blocks of a row. The launcher computes
-    the same (``cluster_size`` in csrc/fused_decode.cu); it never sees
-    cur_len, so choosing it costs the host no sync."""
-    return max(1, min(8, n_blocks,
-                      SPLIT_CTAS_PER_SM * n_sm // max(rows, 1)))
-
-
-def winner_shares(n_valid, n_cta: int):
-    """[first, end) positions in the selection list of the winners each
-    CTA attends, (..., n_cta, 2) int64: the ``n_valid`` winners (those
-    before the first -1) cut into n_cta shares of ceil(n_valid / n_cta),
-    as the kernel cuts them on the device. Trailing shares may be
-    empty."""
-    nv = n_valid.long()
-    per = (nv + n_cta - 1) // n_cta
-    share = torch.arange(n_cta, device=nv.device)
-    first = torch.minimum(share * per[..., None], nv[..., None])
-    end = torch.minimum(first + per[..., None], nv[..., None])
-    return torch.stack([first, end], dim=-1)
-
-
 def fused_cluster_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
                         block_size, scale, n_cta, local_window=0,
                         sliding_window=0, page_table=None,
@@ -172,35 +150,11 @@ def fused_cluster_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
         row = torch.where(owned, part, row)
     # 2. select: the same top-k over the whole row in every CTA
     taken, idx = topk_lower_index(row, k_blocks)
-    valid = taken > NEG_INF / 2
-    sel = torch.where(valid, idx, 0)
-    # 3. attend: CTA r's partial over its share of the winners
-    shares = winner_shares(valid.sum(-1), n_cta)          # (B,Hkv,C,2)
-    rank = torch.arange(k_blocks, device=q_hat.device)
-    tpos = (sel[..., None] * bs
-            + torch.arange(bs, device=q_hat.device))      # (B,Hkv,kb,bs)
-    live = valid[..., None] & (tpos < cur[:, None, None, None])
-    if sliding_window:
-        live &= tpos >= (cur - sliding_window)[:, None, None, None]
-    flat = tpos.reshape(b, n_kv, k_blocks * bs)
-    k_sel = torch.gather(k_hat.transpose(1, 2), 2,
-                         flat[..., None].expand(-1, -1, -1, w)).float()
-    v_sel = torch.gather(v.transpose(1, 2), 2, flat[..., None].expand(
-        -1, -1, -1, v.shape[-1])).float()
-    s = torch.einsum("bhgw,bhtw->bhgt", q_hat.float() * scale, k_sel)
-    parts = []
-    for r in range(n_cta):
-        first, end = shares[..., r, :1], shares[..., r, 1:]   # (B,Hkv,1)
-        in_r = (rank >= first) & (rank < end)                 # (B,Hkv,kb)
-        mask = (live & in_r[..., None]).reshape(b, n_kv, 1, -1)
-        sr = torch.where(mask, s, NEG_INF)
-        m = sr.amax(-1)                                       # (B,Hkv,G)
-        m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
-        p = torch.where(mask, torch.exp(sr - m_safe[..., None]), 0.0)
-        parts.append((torch.einsum("bhgt,bhtd->bhgd", p, v_sel), m,
-                      p.sum(-1)))
-    # 4. merge in rank order
-    return merge_partials_plain(parts).to(q_hat.dtype)
+    # 3-4. attend: CTA r's partial over its share of the winners, merged
+    # in rank order
+    return share_partials_plain(q_hat, k_hat, v, idx, taken > NEG_INF / 2,
+                                cur, block_size=bs, scale=scale, n_cta=n_cta,
+                                sliding_window=sliding_window)
 
 
 def _outputs(kernel, q_hat, k_hat, v, cur_len, page_table, dim):

@@ -28,6 +28,14 @@ own formula), each share writes a float32 partial (acc, m, l) and a second
 kernel merges them by log-sum-exp. ``full_decode_n_split`` picks n_split
 from shapes only. ``full_decode_split_plain`` repeats that arithmetic in
 torch for the tests and the card's checks.
+
+The two block-list kernels (grouped and per-head) run as one cluster of C
+CTAs per row, C = ``fused_cluster_size`` (shapes only), as the fused
+kernels' attention phase runs: the row's entries in [0, S / bs) are kept in
+list order, CTA r attends share r of them (``winner_shares``) and CTA 0
+merges the C float32 partials by log-sum-exp in rank order.
+``grouped_cluster_plain`` and ``head_cluster_plain`` repeat that
+arithmetic in torch (``share_partials_plain``).
 """
 from __future__ import annotations
 
@@ -117,7 +125,7 @@ def full_decode_plain(q_hat, k_hat, v, cur_len, *, scale,
     return out.reshape(b, n_kv, g, v.shape[-1]).to(q_hat.dtype)
 
 
-#: CTAs per SM the full decode's split count aims at
+#: CTAs per SM the full decode's split count and the cluster size aim at
 SPLIT_CTAS_PER_SM = 4
 
 
@@ -184,6 +192,97 @@ def full_decode_split_plain(q_hat, k_hat, v, cur_len, *, block_size, scale,
     return merge_partials_plain(parts).to(q_hat.dtype)
 
 
+def fused_cluster_size(n_blocks: int, rows: int, n_sm: int) -> int:
+    """CTAs per cluster of the cluster kernels (the two fused kernels,
+    block_sparse_attention_grouped, block_sparse_attention), from shapes
+    only: about SPLIT_CTAS_PER_SM CTAs per SM over ``rows`` clusters (B *
+    Hkv, or BH per head), at least 1 and at most 8 (the portable cluster
+    limit) or the ``n_blocks`` = S / block_size blocks of a row. The
+    launchers compute the same (``cluster_size`` in
+    csrc/decode_common.cuh); it never sees cur_len, so choosing it costs
+    the host no sync."""
+    return max(1, min(8, n_blocks,
+                      SPLIT_CTAS_PER_SM * n_sm // max(rows, 1)))
+
+
+def winner_shares(n_valid, n_cta: int):
+    """[first, end) positions in a block list of the entries each CTA of a
+    cluster attends, (..., n_cta, 2) int64: the ``n_valid`` valid entries
+    (the fused kernels' winners before the first -1, the block-list
+    kernels' entries in [0, S / bs)) cut into n_cta shares of
+    ceil(n_valid / n_cta), as the kernels cut them on the device. Trailing
+    shares may be empty."""
+    nv = n_valid.long()
+    per = (nv + n_cta - 1) // n_cta
+    share = torch.arange(n_cta, device=nv.device)
+    first = torch.minimum(share * per[..., None], nv[..., None])
+    end = torch.minimum(first + per[..., None], nv[..., None])
+    return torch.stack([first, end], dim=-1)
+
+
+def share_partials_plain(q_hat, k_hat, v, sel, valid, cur_len, *,
+                         block_size, scale, n_cta, sliding_window=0,
+                         scale_dot=False):
+    """The cluster kernels' attention over a block list, in torch: ``sel``
+    (B,Hkv,n) lists logical blocks whose valid entries (``valid``) come
+    first, in order; CTA r's float32 partial (acc, m, l) over the live
+    tokens of its share of them (``winner_shares``), with the online
+    softmax's guards; then the log-sum-exp merge in rank order (alpha = 0
+    for an empty partial, the 1e-30 floor). Scores are (q̂ * scale)·k̂, or
+    (q̂·k̂) * scale with ``scale_dot`` (the per-head kernel's order)."""
+    b, n_kv, g, w = q_hat.shape
+    bs, n = block_size, sel.shape[-1]
+    dev = q_hat.device
+    cur = cur_len.to(dev).long()
+    sel = torch.where(valid, sel.long(), 0)
+    shares = winner_shares(valid.sum(-1), n_cta)          # (B,Hkv,C,2)
+    rank = torch.arange(n, device=dev)
+    tpos = sel[..., None] * bs + torch.arange(bs, device=dev)  # (B,Hkv,n,bs)
+    live = valid[..., None] & (tpos < cur[:, None, None, None])
+    if sliding_window:
+        live &= tpos >= (cur - sliding_window)[:, None, None, None]
+    flat = tpos.reshape(b, n_kv, n * bs)
+    k_sel = torch.gather(k_hat.transpose(1, 2), 2,
+                         flat[..., None].expand(-1, -1, -1, w)).float()
+    v_sel = torch.gather(v.transpose(1, 2), 2, flat[..., None].expand(
+        -1, -1, -1, v.shape[-1])).float()
+    if scale_dot:
+        s = torch.einsum("bhgw,bhtw->bhgt", q_hat.float(), k_sel) * scale
+    else:
+        s = torch.einsum("bhgw,bhtw->bhgt", q_hat.float() * scale, k_sel)
+    parts = []
+    for r in range(n_cta):
+        first, end = shares[..., r, :1], shares[..., r, 1:]   # (B,Hkv,1)
+        in_r = (rank >= first) & (rank < end)                 # (B,Hkv,n)
+        mask = (live & in_r[..., None]).reshape(b, n_kv, 1, -1)
+        sr = torch.where(mask, s, NEG_INF)
+        m = sr.amax(-1)                                       # (B,Hkv,G)
+        m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+        p = torch.where(mask, torch.exp(sr - m_safe[..., None]), 0.0)
+        parts.append((torch.einsum("bhgt,bhtd->bhgd", p, v_sel), m,
+                      p.sum(-1)))
+    return merge_partials_plain(parts).to(q_hat.dtype)
+
+
+def grouped_cluster_plain(q_hat, k_hat, v, blk_idx, cur_len, *, block_size,
+                          scale, n_cta, sliding_window=0, page_table=None,
+                          page_size: int = 0, scale_dot=False):
+    """Plain torch version of block_sparse_attention_grouped's cluster
+    form with n_cta CTAs per (slot, kv-head): the entries of blk_idx in
+    [0, S / bs) kept in list order (-1 and others contribute nothing),
+    then ``share_partials_plain``. Not on any serving path: the tests and
+    the card's checks hold the kernel's arithmetic with it."""
+    q_hat, k_hat, v = logical(q_hat, k_hat, v, page_table, page_size)
+    nb = k_hat.shape[1] // block_size
+    blk = blk_idx.to(q_hat.device).long()
+    valid = (blk >= 0) & (blk < nb)
+    order = torch.argsort((~valid).to(torch.int32), dim=-1, stable=True)
+    return share_partials_plain(
+        q_hat, k_hat, v, blk.gather(-1, order), valid.gather(-1, order),
+        cur_len, block_size=block_size, scale=scale, n_cta=n_cta,
+        sliding_window=sliding_window, scale_dot=scale_dot)
+
+
 def merge_partials_plain(parts):
     """float32 partials (acc (...,D), m, l) merged by log-sum-exp in list
     order, as the kernels merge them: alpha = 0 for an empty partial
@@ -216,6 +315,48 @@ _FN: dict = {}
 # pointers, then int arguments, then float + int tail of each launcher
 _ARITY = {"loki_block_sparse_attention_grouped": (7, 12),
           "loki_full_decode": (7, 12)}
+# argument and result types of the library's shape queries
+_QUERIES = {"loki_grouped_cluster_info": ([ctypes.c_int] * 10
+                                          + [ctypes.c_void_p], ctypes.c_int),
+            "loki_head_cluster_info": ([ctypes.c_int] * 8
+                                       + [ctypes.c_void_p], ctypes.c_int),
+            "loki_attend_smem_bytes": ([ctypes.c_int] * 6,
+                                       ctypes.c_longlong)}
+
+
+def _query(name):
+    fn = _FN.get(name)
+    if fn is None:
+        fn = getattr(_build.load("gather_attention"), name)
+        fn.argtypes, fn.restype = _QUERIES[name]
+        _FN[name] = fn
+    return fn
+
+
+def _plan(info_call, kv_bf16, g, kdim, dim, n_sel, tok) -> dict:
+    info = (ctypes.c_longlong * 3)()
+    _build.check(info_call(info), "cluster info")
+    return dict(C=int(info[0]), smem=int(info[1]), max_clusters=int(info[2]),
+                smem_layout=int(_query("loki_attend_smem_bytes")(
+                    kv_bf16, g, kdim, dim, n_sel, tok)))
+
+
+def attend_plan(q_hat, k_hat, v, blk_idx, *, block_size: int = 128,
+                page_table=None, page_size: int = 0) -> dict:
+    """What block_sparse_attention_grouped's launcher would use at these
+    CUDA tensors' shapes, asked from the built library without a launch:
+    the cluster size ``C``, the dynamic shared memory ``smem`` (bytes),
+    ``max_clusters`` (cudaOccupancyMaxActiveClusters at that memory and C)
+    and ``smem_layout`` (the library's ``loki_attend_smem_bytes``). For
+    chip_smoke's log and checks."""
+    b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
+    s_len = cache_args(k_hat, block_size, page_table, page_size)
+    n_sel = blk_idx.shape[-1]
+    kv_bf16 = _build.dtype_code(k_hat, "k_hat")
+    return _plan(lambda info: _query("loki_grouped_cluster_info")(
+        _build.dtype_code(q_hat, "q_hat"), kv_bf16, b, s_len, n_kv, g, kdim,
+        dim, block_size, n_sel, info), kv_bf16, g, kdim, dim, n_sel,
+        tok=4)
 
 
 def _lib(name):
@@ -361,6 +502,33 @@ def key_strides(k_hat):
                          "a token-major (BH, S, D) cache or a feature-major "
                          "(BH, D, S) one seen through transpose(1, 2)")
     return row, tok, feat
+
+
+def head_cluster_plain(q_hat, k_hat, v, blk_idx, cur_len, *, block_size,
+                       scale, n_cta):
+    """Plain torch version of block_sparse_attention's cluster form with
+    n_cta CTAs per row: the grouped form at G = 1 over (BH, 1) rows, with
+    the dot scaled after it. ``k_hat`` may be a feature-major cache seen
+    through ``.transpose(1, 2)``."""
+    out = grouped_cluster_plain(
+        q_hat[:, None, None], k_hat[:, :, None], v[:, :, None],
+        blk_idx[:, None], cur_len, block_size=block_size, scale=scale,
+        n_cta=n_cta, scale_dot=True)
+    return out.reshape(q_hat.shape)
+
+
+def head_plan(q_hat, k_hat, blk_idx, *, block_size: int = 128) -> dict:
+    """``attend_plan`` for block_sparse_attention's launcher at these CUDA
+    tensors' shapes and K̂ layout (token-major, or feature-major seen
+    through ``.transpose(1, 2)``)."""
+    bh, dim = q_hat.shape
+    fm = int(key_strides(k_hat)[2] != 1)
+    n_sel = blk_idx.shape[1]
+    kv_bf16 = _build.dtype_code(k_hat, "k_hat")
+    return _plan(lambda info: _query("loki_head_cluster_info")(
+        _build.dtype_code(q_hat, "q_hat"), kv_bf16, bh, k_hat.shape[1], dim,
+        block_size, n_sel, fm, info), kv_bf16, 1, dim, dim, n_sel,
+        tok=16 // k_hat.element_size())
 
 
 def _head_lib():

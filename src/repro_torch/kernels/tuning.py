@@ -10,11 +10,11 @@ paged call whose page size the plan's block does not divide gets no plan
 either (the dispatcher checks; a block must not straddle two pages).
 
 The budget is the kernels' real dynamic shared memory against the H100's
-per-block opt-in limit: the select and grouped kernels stage every value
-as float32, so the cache dtype does not enter theirs; the split-KV full
-decode and the fused cluster kernels copy cache rows as they are stored,
-so theirs depend on it. ``TUNED`` pins measured shapes; it stays empty
-until shapes have been measured on the card.
+per-block opt-in limit: the select kernel stages every value as float32,
+so the cache dtype does not enter its budget; the split-KV full decode,
+the fused cluster kernels and the grouped attention copy cache rows as
+they are stored, so theirs depend on it. ``TUNED`` pins measured shapes;
+it stays empty until shapes have been measured on the card.
 """
 from __future__ import annotations
 
@@ -23,8 +23,6 @@ from typing import Optional
 
 #: H100 per-block shared memory with the opt-in attribute (232,448 B)
 SMEM_LIMIT = 227 * 1024
-#: threads per CUDA block of every decode kernel (csrc/decode_common.cuh)
-THREADS = 256
 #: kernel limits: query heads per KV group, key/value width
 MAX_G = 16
 MAX_DIM = 256
@@ -38,15 +36,6 @@ _BS_CANDIDATES = (128, 64, 32, 16, 8)
 def select_smem_bytes(*, nb: int, g: int, kdim: int) -> int:
     """select_blocks: the scaled query (G, W) and the block-maxima row."""
     return 4 * (g * kdim + nb)
-
-
-def attend_smem_bytes(*, n_sel: int, g: int, kdim: int, dim: int,
-                      bs: int) -> int:
-    """block_sparse_attention_grouped: query, selection, one block's
-    (G, bs) scores, the (G,) softmax state and the split-reduction
-    buffer for the (G, D) accumulators."""
-    nsplit = THREADS // dim
-    return 4 * (g * kdim + n_sel + g * bs + 3 * g + nsplit * g * dim)
 
 
 #: the split-KV body of the full decode and the fused kernels
@@ -82,20 +71,35 @@ def fused_smem_bytes(*, nb: int, k_blocks: int, g: int, kdim: int,
                      dim: int, bs: int, d: int, itemsize: int) -> int:
     """The fused cluster kernels (fused_loki_decode; fused_exact_topk_decode
     at d = kdim): the scaled float32 query, the (nb,) block-maxima row, the
-    selection and chunk tables (4 k_blocks + 1 ints), the argmax exchange
-    (2 x 4 warps), and one region that holds in turn the 4 warps' score
-    rings, the selection's copy of the row, the 4 warps' attention rings
-    and the warp merge plus the CTA's partial. The launcher computes the
-    same (``loki_fused_smem_bytes``, csrc/fused_decode.cu)."""
+    selection (k_blocks ints), the argmax exchange (2 x 4 warps), and one
+    region that holds in turn the 4 warps' score rings, the selection's
+    copy of the row, the 4 warps' attention rings and the warp merge plus
+    the CTA's partial. The launcher computes the same
+    (``loki_fused_smem_bytes``, csrc/fused_decode.cu)."""
     tok, row = score_tokens(d=d, bs=bs, itemsize=itemsize)
     fixed = (_round16(4 * g * _pad4(kdim)) + _round16(4 * nb)
-             + _round16(4 * (4 * k_blocks + 1))
-             + _round16(2 * SPLIT_WARPS * 8))
+             + _round16(4 * k_blocks) + _round16(2 * SPLIT_WARPS * 8))
     score_ring = SPLIT_WARPS * SCORE_STAGES * tok * row
     attn_ring = SPLIT_WARPS * SPLIT_STAGES * _round16(
         SPLIT_TOK * (_pad4(kdim) + _pad4(dim)) * itemsize)
     merge = 4 * (SPLIT_WARPS + 1) * g * (dim + 2)
     return fixed + _round16(max(score_ring, attn_ring, merge, 4 * nb))
+
+
+def attend_smem_bytes(*, n_sel: int, g: int, kdim: int, dim: int,
+                      itemsize: int, tok: int = SPLIT_TOK) -> int:
+    """block_sparse_attention_grouped (``tok`` = 4) and, at g = 1 and kdim
+    = dim, block_sparse_attention (``tok`` = 16 // itemsize): the float32
+    query (G, W) and the kept block list (n_sel ints), then the 4 warps'
+    rings of SPLIT_STAGES stages of ``tok`` K̂ and V rows in the cache
+    dtype, which the warp merge and the CTA's partial ((SPLIT_WARPS + 1)
+    G (D + 2) float32) reuse. The launchers compute the same
+    (``loki_attend_smem_bytes``, csrc/gather_attention.cu)."""
+    ring = SPLIT_WARPS * SPLIT_STAGES * _round16(
+        tok * (_pad4(kdim) + _pad4(dim)) * itemsize)
+    merge = 4 * (SPLIT_WARPS + 1) * g * (dim + 2)
+    return (_round16(4 * g * _pad4(kdim)) + _round16(4 * n_sel)
+            + _round16(max(ring, merge)))
 
 
 def full_smem_bytes(*, g: int, kdim: int, dim: int, itemsize: int) -> int:
@@ -167,6 +171,6 @@ def plan_decode(smax: int, dim: int, g: int, d: int, block_size: int,
         return KernelPlan("fused", bs)
     if (select_smem_bytes(nb=nb, g=g, kdim=dim) <= SMEM_LIMIT
             and attend_smem_bytes(n_sel=nb, g=g, kdim=dim, dim=dim,
-                                  bs=bs) <= SMEM_LIMIT):
+                                  itemsize=itemsize) <= SMEM_LIMIT):
         return KernelPlan("two_kernel", bs)
     return None

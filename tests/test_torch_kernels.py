@@ -234,18 +234,18 @@ def test_plan_decode_budget():
         tuning.KernelPlan("fused", 128)
     # the fused cluster kernel's shared memory (csrc/fused_decode.cu,
     # fused_layout) at the main path's shape: query 512 B, block-maxima row
-    # 128 B, selection and chunk tables 144 B, argmax exchange 64 B, then
-    # the largest of the 4 warps' score rings (2 stages of 32 tokens of
-    # 144 B), attention rings (2 stages of 4 x 256 fp32) and merge buffers
+    # 128 B, selection 32 B, argmax exchange 64 B, then the largest of the
+    # 4 warps' score rings (2 stages of 32 tokens of 144 B), attention
+    # rings (2 stages of 4 x 256 fp32) and merge buffers
     main = dict(nb=32, k_blocks=8, g=1, kdim=128, dim=128, bs=128)
     assert tuning.fused_smem_bytes(**main, d=32, itemsize=4) == \
-        512 + 128 + 144 + 64 + 4 * 2 * 32 * 144
+        512 + 128 + 32 + 64 + 4 * 2 * 32 * 144
     # exact top-k scores all 128 features: 8 tokens of 528 B a stage
     assert tuning.fused_smem_bytes(**main, d=128, itemsize=4) == \
-        848 + 4 * 2 * 8 * 528
+        736 + 4 * 2 * 8 * 528
     # a bf16 cache: 32 tokens of 80 B a score stage, still the largest
     assert tuning.fused_smem_bytes(**main, d=32, itemsize=2) == \
-        848 + 4 * 2 * 32 * 80
+        736 + 4 * 2 * 32 * 80
     assert tuning.score_tokens(d=32, bs=8, itemsize=4) == (8, 144)
     # a score row too long for the fused kernel's shared memory
     big = tuning.plan_decode(2 ** 22, 256, 16, 64, 128)
@@ -581,6 +581,78 @@ def test_fused_cluster_shares_cover_each_block_and_winner_once(sw):
             taken = [t for first, end in shares[nv].tolist()
                      for t in range(first, end)]
             assert taken == list(range(nv)), (n_cta, nv, taken)
+
+
+_GROUPED_JAX: dict = {}
+
+
+@pytest.mark.parametrize("n_cta", [1, 3])
+@pytest.mark.parametrize("g", [1, 4])
+def test_grouped_cluster_matches_jax(n_cta, g):
+    """#3's cluster form (entries in [0, nb) kept in list order, per-CTA
+    shares, partials and the rank-ordered log-sum-exp merge) against the
+    JAX kernel in interpret mode, contiguous and through a shuffled pool
+    with a trash-page row (bit for bit equal to contiguous). G 1 without
+    a window, G 4 with window 40; the selection holds -1 entries, a block
+    past cur_len and an empty row; C = 3 leaves empty shares."""
+    dim, bs, s = 32, 16, 128
+    sw = 40 if g == 4 else 0
+    w = 16 if g == 4 else dim
+    q, k, v, cur = _inputs(3, 2, g, s, w, dim, seed=13 * g, cur=[128, 30, 1])
+    pk, pv, table, k, v = _paged(k, v, 32, seed=g, trash_rows=1)
+    blk = np.array([[[7, -1, 2, 5], [0, 6, -1, -1]],
+                    [[1, 0, 6, -1], [-1, -1, -1, -1]],
+                    [[0, -1, 3, -1], [2, 0, -1, 1]]], np.int32)
+    kw = dict(block_size=bs, sliding_window=sw, scale=dim ** -0.5)
+    if g not in _GROUPED_JAX:
+        _GROUPED_JAX[g] = np.asarray(jgather.block_sparse_attention_grouped(
+            *_j(q, k, v, blk, cur), **kw, interpret=True))
+    got = gather_attention.grouped_cluster_plain(*_t(q, k, v, blk, cur),
+                                                 **kw, n_cta=n_cta)
+    np.testing.assert_allclose(got.numpy(), _GROUPED_JAX[g], **TOL)
+    assert (got[1, 1] == 0).all()                  # an all -1 row: zeros
+    got_p = gather_attention.grouped_cluster_plain(
+        *_t(q, pk, pv, blk, cur), **kw, n_cta=n_cta,
+        page_table=torch.from_numpy(table), page_size=32)
+    assert torch.equal(got_p, got)
+
+
+def test_grouped_cluster_equals_fused_cluster_on_its_selection():
+    """The pair's arithmetic is the fused kernel's: select_blocks' output
+    (winners, then -1) through #3's cluster form equals #1's cluster form
+    at every C, which is what lets the card hold the pair to the fused
+    kernel bit for bit."""
+    dim, bs, s = 32, 16, 128
+    q, k, v, cur = _inputs(3, 2, 4, s, dim, dim, seed=17, cur=[128, 30, 1])
+    kw = dict(block_size=bs, scale=dim ** -0.5, sliding_window=0)
+    sel = fused_decode.select_blocks(*_t(q, k, cur), d=8, k_blocks=4,
+                                     local_window=8, **kw)
+    assert (sel == -1).any()
+    for n_cta in (1, 2, 3, 4):
+        fused = fused_decode.fused_cluster_plain(
+            *_t(q, k, v, cur), d=8, k_blocks=4, local_window=8, **kw,
+            n_cta=n_cta)
+        pair = gather_attention.grouped_cluster_plain(
+            *_t(q, k, v), sel, torch.from_numpy(cur), **kw, n_cta=n_cta)
+        assert torch.equal(pair, fused), n_cta
+
+
+def test_attend_smem_bytes_layout():
+    """The block-list kernels' shared memory (csrc/decode_common.cuh,
+    attend_layout) at the main path's shapes: query 512 B, kept list 8
+    ints (32 B), and the 4 warps' rings of 2 stages of 4 fp32 (or, per
+    head, 8 bf16) tokens x (128 + 128), which the merges reuse."""
+    main = dict(n_sel=8, g=1, kdim=128, dim=128)
+    assert tuning.attend_smem_bytes(**main, itemsize=4) == \
+        512 + 32 + 4 * 2 * 4 * 256 * 4
+    assert tuning.attend_smem_bytes(**main, itemsize=2, tok=8) == \
+        tuning.attend_smem_bytes(**main, itemsize=4)
+    # G 16 at D 256: the merge buffers (5 x 16 x 258 floats) outgrow the
+    # rings; a list of every block of a 2**22-token cache still fits
+    assert tuning.attend_smem_bytes(n_sel=8, g=16, kdim=256, dim=256,
+                                    itemsize=4) == 16384 + 32 + 5 * 16 * 258 * 4
+    assert tuning.attend_smem_bytes(n_sel=2 ** 15, g=16, kdim=256, dim=256,
+                                    itemsize=4) <= tuning.SMEM_LIMIT
 
 
 EXACT = [(1, 0, False), (4, 0, False), (4, 40, False), (1, 0, True),

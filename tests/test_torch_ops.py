@@ -28,7 +28,7 @@ from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.gather_attention import block_sparse_attention as jbsa
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import pca
-from repro_torch.kernels import ops
+from repro_torch.kernels import gather_attention, ops
 from repro_torch.kernels.approx_scores import block_max_scores
 from repro_torch.kernels.approx_scores_fm import block_max_scores_fm
 from repro_torch.kernels.flash_attention import flash_attention
@@ -185,6 +185,29 @@ def test_block_sparse_attention_matches_pallas(dtype):
                                  torch.from_numpy(cur), block_size=32)
     _close(got, want, ATTN_TOL[dtype])
     assert (got[2] == 0).all() and (_np(want)[2] == 0).all()
+
+
+@pytest.mark.parametrize("fm", [False, True])
+def test_block_sparse_attention_cluster_matches_pallas(fm):
+    """#8's cluster form (entries kept in list order, per-CTA shares and
+    partials with the dot scaled after it, the rank-ordered log-sum-exp
+    merge) at C = 1 and 3 against the Pallas kernel in interpret mode,
+    over a token-major K̂ or a feature-major K̂ᵀ read through
+    transpose(1, 2); the row whose blocks all lie past cur_len gives
+    zeros."""
+    q, k, v, cur = _decode_inputs(3, 256, 64, seed=9, cur=[256, 90, 20])
+    bidx = np.array([[7, 2, 0, 5], [1, 3, 2, 0], [5, 1, 6, 2]], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x) for x in (q, k, v))
+    want = jbsa(jq, jk, jv, jnp.asarray(bidx), jnp.asarray(cur),
+                block_size=32, interpret=True)
+    if fm:
+        tk = tk.transpose(1, 2).contiguous().transpose(1, 2)
+    for n_cta in (1, 3):
+        got = gather_attention.head_cluster_plain(
+            tq, tk, tv, torch.from_numpy(bidx), torch.from_numpy(cur),
+            block_size=32, scale=64 ** -0.5, n_cta=n_cta)
+        _close(got, want, ATTN_TOL["float32"])
+        assert (got[2] == 0).all()
 
 
 # --------------------------------------------------------------------- flash
