@@ -60,8 +60,17 @@ Phases, each of which fails the run on any error:
              at full width (fp32 pool, 128-token pages, 512-token prefill
              chunks) once each with loki_block (in a pool too small for
              all four, so it must preempt), full and exact_topk, counted
-             per run; decode tick time, device idle share and host syncs
-             per tick of each (1 per decode tick asserted under each);
+             per run; then at page layout int8:pca:r=32 under the three
+             policies and at fp8 and bf16 under loki_block, each a path
+             of its own (paged_int8pca_loki_block, ...), with the same
+             prompts, pool pages, chunking and preemption; decode tick
+             time, device idle share, pool bytes and host syncs per tick
+             of each (1 per decode tick asserted under each); after each
+             run one decode step of a freshly prefilled pool at its
+             layout, kernels against the plain versions through the same
+             dispatch (asserted) and against the fp32 layout (reported),
+             and at int8:pca:r=32 each layer's fused call repeated
+             through the pair, bit for bit (paged_int8pca_step);
   6. flash   the prefill-flash path: one 3072-token prompt through
              lm.prefill at full width, each layer's causal-attention q, k,
              v through ops.flash (counted), held against plain flash
@@ -99,8 +108,15 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
+#: main() also writes every log line to chiprun_out/chip_smoke.log
+_LOG = []
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for fh in _LOG:
+        fh.write(msg + "\n")
+        fh.flush()
 
 
 def card_state() -> str:
@@ -326,6 +342,7 @@ def check_kernels(results):
         W = k.shape[-1]
         kw, ex_kw = kernel_kw(case), kernel_kw(case, exact=True)
         plans = fused_plans(case)
+        full_smem = full_smem_checked(case["name"], q, k, v)["smem"]
         att_kw = dict(block_size=case["bs"], scale=kw["scale"],
                       sliding_window=case["sw"])
         # select_blocks at the fused kernel's scale, so all three share
@@ -422,7 +439,9 @@ def check_kernels(results):
             f"plain cluster form, and two calls bit for bit); clusters: "
             + ", ".join(f"{n} C {p['C']}, {p['smem']} B shared, "
                         f"{p['max_clusters']} resident"
-                        for n, p in plans.items()))
+                        for n, p in plans.items())
+            + f"; paged_full_decode {full_smem} B shared (== "
+            "tuning.full_smem_bytes)")
         if "main" not in results:
             results["main"] = dict(case=case, sel=sel_p, sel_exact=sel_x,
                                    errs=errs, plans=plans)
@@ -740,6 +759,358 @@ def time_kernels(results):
     results.setdefault("timing", {}).update(timing)
     results["sdpa_ms"] = sdpa_ms
     del results["paged"]
+
+
+# ------------------------------------------------ page layouts (storage)
+
+#: the storages of the kernels' new modes (PageLayout dtypes: int8 and fp8
+#: codes carry per-page scales, fp16 values none), each at the main case's
+#: native key width (rank 0, W = D) and in the PCA basis cut to rank 32
+LAYOUT_STORAGE = ("fp16", "int8", "fp8")
+LAYOUT_RANKS = (0, 32)
+
+
+def layout_tag(dtype, rank):
+    return dtype + (f":pca:r={rank}" if rank else "")
+
+
+def layout_case(case, dtype, rank, ps=128, seed=0):
+    """The main case's caches stored at a page layout: a shuffled pool of
+    ``ps``-token pages (plus an idle row on the trash page, cur_len 1), K
+    cut to its leading ``rank`` features (0: all), written by the port's
+    own pool writers: int8 and fp8 through write_chunk_rows_q (codes and
+    per-page scales), fp16 through write_chunk_rows. The dict holds the
+    query, lengths, table, pools and scales, and the dequantized logical
+    views (``lk``, ``lv``) the plain versions read."""
+    from repro_torch.configs.base import PageLayout
+    from repro_torch.kernels import gather_attention as GA
+    from repro_torch.serving import paged_cache as PC
+    lay = PageLayout(dtype=dtype)
+    W = rank or case["k"].shape[-1]
+    q, k, v, cur = (case["q"][..., :W].contiguous(), case["k"][..., :W],
+                    case["v"], case["cur"])
+    B, S = k.shape[:2]
+    mp = S // ps
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.zeros((B + 1, mp), dtype=torch.int32)
+    table[:B] = (torch.randperm(B * mp, generator=gen) + 1).view(B, mp)
+    table = table.to(DEV)
+    n_pages = B * mp + 1
+    pools, scales = [], []
+    for x in (k, v):
+        pool = torch.zeros((n_pages * ps,) + x.shape[2:], device=DEV,
+                           dtype=PC.STORAGE_DTYPE[dtype])
+        sc = torch.zeros(n_pages, device=DEV) if lay.quantized else None
+        for b in range(B):
+            if sc is None:
+                PC.write_chunk_rows(pool, x[b], table[b], 0, ps)
+            else:
+                PC.write_chunk_rows_q(pool, sc, x[b].float(), table[b], 0,
+                                      ps, qmax=lay.qmax)
+        pools.append(pool)
+        scales.append(sc)
+    q2 = torch.cat([q, q[:1]])
+    cur2 = torch.cat([cur, torch.ones(1, dtype=cur.dtype, device=DEV)])
+    _, lk, lv = GA.logical(q2, pools[0], pools[1], table, ps, scales[0],
+                           scales[1])
+    return dict(name=f"llama2-7b {layout_tag(dtype, rank)}", dtype=dtype,
+                rank=rank, W=W, ps=ps, q=q2, cur=cur2, table=table,
+                k=pools[0], v=pools[1], ks=scales[0], vs=scales[1], lk=lk,
+                lv=lv, bs=case["bs"], d=min(case["d"], W), kb=case["kb"],
+                lw=case["lw"], sw=0, scale=v.shape[-1] ** -0.5)
+
+
+def layout_calls(lc, sel, sel_x):
+    """The five kernels on a layout case's pool (``sel``, ``sel_x``: the
+    grouped attention's block lists at the Loki and exact selections), and
+    their plain versions on the dequantized logical view."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+    q, cur, k, v, lk, lv = (lc[n] for n in ("q", "cur", "k", "v", "lk",
+                                            "lv"))
+    pg = dict(page_table=lc["table"], page_size=lc["ps"])
+    sc = dict(k_scale=lc["ks"], v_scale=lc["vs"])
+    base = dict(k_blocks=lc["kb"], block_size=lc["bs"], scale=lc["scale"],
+                sliding_window=0)
+    kw = dict(base, d=lc["d"], local_window=lc["lw"])
+    att = dict(block_size=lc["bs"], scale=lc["scale"], sliding_window=0)
+    kern = {
+        "fused_loki_decode": lambda: F.fused_loki_decode(q, k, v, cur, **kw,
+                                                         **pg, **sc),
+        "select_blocks": lambda: F.select_blocks(q, k, cur, **kw, **pg,
+                                                 k_scale=lc["ks"]),
+        "block_sparse_attention_grouped": lambda:
+            GA.block_sparse_attention_grouped(q, k, v, sel, cur, **att, **pg,
+                                              **sc),
+        "paged_full_decode": lambda: GA.paged_full_decode(q, k, v, cur,
+                                                          **att, **pg, **sc),
+        "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode(
+            q, k, v, cur, **base, **pg, **sc),
+        "exact pair": lambda: GA.block_sparse_attention_grouped(
+            q, k, v, sel_x, cur, **att, **pg, **sc),
+    }
+    plain = {
+        "fused_loki_decode": lambda: F.fused_loki_decode_plain(
+            q, lk, lv, cur, **kw),
+        "select_blocks": lambda: F.select_blocks_plain(q, lk, cur, **kw),
+        "block_sparse_attention_grouped": lambda: GA.attend_blocks_plain(
+            q, lk, lv, sel, cur, **att),
+        "paged_full_decode": lambda: GA.full_decode_plain(
+            q, lk, lv, cur, scale=lc["scale"]),
+        "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode_plain(
+            q, lk, lv, cur, **base),
+    }
+    return kern, plain, kw, base
+
+
+def layout_plans(lc):
+    """The launchers' shared memory at a layout case, each equal to its
+    tuning mirror (the fused and grouped ones through ``checked_plan``,
+    with C and residency; the full decode's through
+    ``loki_full_smem_bytes``)."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+    from repro_torch.kernels import tuning
+    q, k, v = lc["q"], lc["k"], lc["v"]
+    B, Hkv, G, W = q.shape
+    D, isz = v.shape[-1], k.element_size()
+    nb = lc["table"].shape[1] * lc["ps"] // lc["bs"]
+    pg = dict(page_table=lc["table"], page_size=lc["ps"])
+    plans = {}
+    for name, d in (("fused_loki_decode", lc["d"]),
+                    ("fused_exact_topk_decode", W)):
+        plans[name] = checked_plan(
+            f"{lc['name']}: {name}",
+            lambda: F.cluster_plan(q, k, v, d=d, k_blocks=lc["kb"],
+                                   block_size=lc["bs"], **pg),
+            tuning.fused_smem_bytes(nb=nb, k_blocks=lc["kb"], g=G, kdim=W,
+                                    dim=D, bs=lc["bs"], d=d, itemsize=isz),
+            nb, B * Hkv)
+    idx = torch.zeros((B, Hkv, lc["kb"]), dtype=torch.int32, device=DEV)
+    plans["block_sparse_attention_grouped"] = checked_plan(
+        f"{lc['name']}: block_sparse_attention_grouped",
+        lambda: GA.attend_plan(q, k, v, idx, block_size=lc["bs"], **pg),
+        tuning.attend_smem_bytes(n_sel=lc["kb"], g=G, kdim=W, dim=D,
+                                 itemsize=isz), nb, B * Hkv)
+    plans["paged_full_decode"] = full_smem_checked(lc["name"], q, k, v)
+    return plans
+
+
+def full_smem_checked(what, q, k, v):
+    """paged_full_decode's shared memory as its library computes it
+    (``loki_full_smem_bytes``), asserted equal to tuning.full_smem_bytes."""
+    from repro_torch.kernels import gather_attention as GA
+    from repro_torch.kernels import tuning
+    B, Hkv, G, W = q.shape
+    want = tuning.full_smem_bytes(g=G, kdim=W, dim=v.shape[-1],
+                                  itemsize=k.element_size())
+    if DEV != "cuda":
+        return dict(smem=want)
+    got = GA.full_plan(q, k, v)["smem_layout"]
+    if got != want:
+        raise AssertionError(f"{what}: paged_full_decode shared memory "
+                             f"{got} B != tuning.full_smem_bytes {want}")
+    return dict(smem=got)
+
+
+def layout_bounds(lc, sel, sel_x):
+    """bound_ms of the five kernels at a layout case: bytes at the storage
+    width (each input read once: the live rows each kernel must read, the
+    page scales it reads, the query, lengths and indices; each output
+    written once) over 3.35 TB/s, against float32 operations (the
+    dequantizing multiply of each code read included) at 67 TFLOP/s."""
+    q, k = lc["q"], lc["k"]
+    B, Hkv, G, W = q.shape
+    D, d, kb, bs = lc["v"].shape[-1], lc["d"], lc["kb"], lc["bs"]
+    isz, qsz = k.element_size(), q.element_size()
+    cur = lc["cur"].long().cpu()
+    scored = int(cur.sum()) * Hkv
+
+    def won(s):
+        s = s.long().cpu()
+        pos = s[..., None] * bs + torch.arange(bs)
+        return int(((s[..., None] >= 0)
+                    & (pos < cur[:, None, None, None])).sum())
+    won_l, won_x = won(sel), won(sel_x)
+    n_pages = lc["ks"].numel() if lc["ks"] is not None else 0
+    sc_b = 4 * n_pages                      # one scale vector, read once
+    q_b, out_b, len_b = q.numel() * qsz, B * Hkv * G * D * qsz, 4 * B
+    idx_b = 4 * B * Hkv * kb
+
+    def bound(nbytes, elems, fmas):
+        tb = nbytes / HBM_BYTES_PER_S
+        to = (2 * fmas + (elems if n_pages else 0)) / FP32_FLOPS
+        return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+    return {
+        "fused_loki_decode": bound(
+            q_b + scored * d * isz + won_l * ((W - d) + D) * isz + 2 * sc_b
+            + len_b + out_b, scored * d + won_l * (W + D),
+            scored * G * d + won_l * G * (W + D)),
+        "select_blocks": bound(q_b + scored * d * isz + sc_b + len_b
+                               + idx_b, scored * d, scored * G * d),
+        "block_sparse_attention_grouped": bound(
+            q_b + won_l * (W + D) * isz + 2 * sc_b + idx_b + len_b + out_b,
+            won_l * (W + D), won_l * G * (W + D)),
+        "paged_full_decode": bound(
+            q_b + scored * (W + D) * isz + 2 * sc_b + len_b + out_b,
+            scored * (W + D), scored * G * (W + D)),
+        "fused_exact_topk_decode": bound(
+            q_b + scored * W * isz + won_x * D * isz + 2 * sc_b + len_b
+            + out_b, scored * W + won_x * D,
+            scored * G * W + won_x * G * (W + D)),
+    }
+
+
+def check_layouts(results):
+    """The five kernels' storage modes (fp16; int8 and fp8 with per-page
+    scales) on pools the port's own writers fill, at the main case, native
+    and at rank 32: each against its plain version on the dequantized view
+    at tolerance(bf16) (select_blocks: indices equal on rows without a
+    near-tie), the cluster kernels against their plain cluster form at the
+    launcher's C, the full decode against its plain splits, the pair
+    select_blocks + grouped equal to the fused kernels bit for bit (Loki
+    and exact selections: so select_blocks' block maxima are the fused
+    kernels' bits), shared memory equal to tuning's at every storage; then
+    each timed (CUDA events, L2 flushed, median of 20) beside its plain
+    version and its bound at the storage bytes."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+
+    main = kernel_cases()[0]
+    timing, errs, plans_all = {}, {}, {}
+    for dtype in LAYOUT_STORAGE:
+        for rank in LAYOUT_RANKS:
+            lc = layout_case(main, dtype, rank, seed=rank + len(dtype))
+            tag = layout_tag(dtype, rank)
+            q, cur, lk, lv = lc["q"], lc["cur"], lc["lk"], lc["lv"]
+            plans = layout_plans(lc)
+            W = lc["W"]
+            sels = {}
+            for what, d, lw in (("loki", lc["d"], lc["lw"]), ("exact", W, 0)):
+                kw = dict(d=d, local_window=lw, k_blocks=lc["kb"],
+                          block_size=lc["bs"], scale=lc["scale"])
+                ties = near_tie_rows(F.block_scores_plain(
+                    q, lk, cur, d=d, block_size=lc["bs"], scale=lc["scale"],
+                    local_window=lw), lc["kb"])
+                sel_k = F.select_blocks(q, lc["k"], cur, **kw,
+                                        page_table=lc["table"],
+                                        page_size=lc["ps"], k_scale=lc["ks"])
+                sel_p = F.select_blocks_plain(q, lk, cur, **kw)
+                sync()
+                diff = (sel_k != sel_p).any(-1)
+                if (diff & ~ties).any():
+                    raise AssertionError(
+                        f"{lc['name']}: select_blocks ({what}) indices "
+                        f"differ in {int((diff & ~ties).sum())} rows with no "
+                        "near-tie")
+                sels[what] = (sel_k, sel_p, ~diff)
+            (sel_k, sel_p, agree), (sel_kx, _, agree_x) = (sels["loki"],
+                                                            sels["exact"])
+            kern, plain, kw, base = layout_calls(lc, sel_k, sel_kx)
+            got = {n: f() for n, f in kern.items()}
+            sync()
+            # the pairs, bit for bit: the grouped kernel over select_blocks'
+            # list is the fused kernel
+            for fused, pair in (("fused_loki_decode",
+                                 "block_sparse_attention_grouped"),
+                                ("fused_exact_topk_decode", "exact pair")):
+                if not torch.equal(got[fused], got[pair]):
+                    raise AssertionError(
+                        f"{lc['name']}: select_blocks + grouped differs from "
+                        f"{fused} (max |d| "
+                        f"{float((got[fused] - got[pair]).float().abs().max()):.3e})")
+            pg = dict(page_table=lc["table"], page_size=lc["ps"],
+                      k_scale=lc["ks"], v_scale=lc["vs"])
+            att = dict(block_size=lc["bs"], scale=lc["scale"])
+            runs = {
+                "fused_loki_decode": (got["fused_loki_decode"],
+                                      plain["fused_loki_decode"](), agree),
+                "fused_loki_decode (cluster)": (
+                    got["fused_loki_decode"],
+                    F.fused_cluster_plain(
+                        q, lc["k"], lc["v"], cur, **kw, **pg,
+                        n_cta=plans["fused_loki_decode"]["C"]), agree),
+                "fused_exact_topk_decode": (
+                    got["fused_exact_topk_decode"],
+                    plain["fused_exact_topk_decode"](), agree_x),
+                "fused_exact_topk_decode (cluster)": (
+                    got["fused_exact_topk_decode"],
+                    F.fused_cluster_plain(
+                        q, lc["k"], lc["v"], cur, **base, d=W,
+                        local_window=0, **pg,
+                        n_cta=plans["fused_exact_topk_decode"]["C"]),
+                    agree_x),
+                "block_sparse_attention_grouped": (
+                    GA.block_sparse_attention_grouped(
+                        q, lc["k"], lc["v"], sel_p, cur, **att, **pg),
+                    GA.attend_blocks_plain(q, lk, lv, sel_p, cur, **att),
+                    None),
+                "block_sparse_attention_grouped (cluster)": (
+                    GA.block_sparse_attention_grouped(
+                        q, lc["k"], lc["v"], sel_p, cur, **att, **pg),
+                    GA.grouped_cluster_plain(
+                        q, lc["k"], lc["v"], sel_p, cur, **att, **pg,
+                        n_cta=plans["block_sparse_attention_grouped"]["C"]),
+                    None),
+                "paged_full_decode": (got["paged_full_decode"],
+                                      plain["paged_full_decode"](), None),
+                "paged_full_decode (splits)": (
+                    got["paged_full_decode"],
+                    GA.full_decode_split_plain(
+                        q, lc["k"], lc["v"], cur, **att, **pg,
+                        n_split=full_split(lc["bs"],
+                                           lk.shape[1],
+                                           q.shape[0] * q.shape[1])), None),
+            }
+            atol, rtol = tolerance(q.dtype)
+            e = {}
+            for kname, (g, w, rows) in runs.items():
+                g32, w32 = g.float(), w.float()
+                if rows is not None:
+                    g32, w32 = g32[rows], w32[rows]
+                if not torch.isfinite(g32).all():
+                    raise AssertionError(f"{lc['name']}: {kname} non-finite")
+                torch.testing.assert_close(
+                    g32, w32, atol=atol, rtol=rtol,
+                    msg=lambda m: f"{lc['name']}: {kname}: {m}")
+                e[kname.split(" ")[0]] = max(
+                    e.get(kname.split(" ")[0], 0.0),
+                    float((g32 - w32).abs().max()) if g32.numel() else 0.0)
+            e["select_blocks"] = 0.0          # indices equal off near-ties
+            bnd = layout_bounds(lc, sel_k, sel_kx)
+            for name in KERNELS:
+                # a CPU rehearsal has no events to time with
+                ms = time_ms(kern[name]) if DEV == "cuda" else float("nan")
+                plain_ms = (time_ms(plain[name], reps=5) if DEV == "cuda"
+                            else float("nan"))
+                key = f"{name}[{tag}]"
+                timing[key] = dict(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bnd[name][0],
+                                   bound_by=bnd[name][1], library_ms=None)
+                errs[key] = e[name]
+            plans_all[tag] = {n: {k: p.get(k) for k in ("C", "smem",
+                                                         "max_clusters")}
+                              for n, p in plans.items()}
+            log(f"layouts: {lc['name']}: pool {lc['k'].dtype} K width {W}, "
+                f"indices equal in {int(agree.sum())}/{agree.numel()} rows "
+                f"(d={lc['d']}) and {int(agree_x.sum())}/{agree_x.numel()} "
+                f"(d={W}); pairs == fused kernels bit for bit; max|err| "
+                + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
+                + f" (atol {atol}, rtol {rtol}); shared memory "
+                + ", ".join(f"{n} {p['smem']} B" for n, p in plans.items()))
+            log(f"layouts: {lc['name']}: ms (bound, plain) "
+                + "; ".join(f"{n} {timing[f'{n}[{tag}]']['ms']:.4f} "
+                            f"({timing[f'{n}[{tag}]']['bound_ms']:.4f} by "
+                            f"{timing[f'{n}[{tag}]']['bound_by']}, "
+                            f"{timing[f'{n}[{tag}]']['plain_ms']:.4f})"
+                            for n in KERNELS))
+            del lc, lk, lv, got, runs
+            if DEV == "cuda":
+                torch.cuda.empty_cache()
+    results["layout_timing"] = timing
+    results["layout_errs"] = errs
+    results["layout_plans"] = plans_all
 
 
 # ------------------------------------------- per-head pipeline and flash
@@ -1224,20 +1595,25 @@ def policy_cfg(cfg, policy):
 
 
 def planned_kernels(cfg, smax: int, policy: str):
-    """The kernels the planner picks for one decode step of ``policy``."""
+    """The kernels the planner picks for one decode step of ``policy`` at
+    the config's page layout (its key width and storage itemsize; the
+    dense engine's caches and the default layout are float32)."""
+    from repro_torch.configs.base import LAYOUT_ITEMSIZE
     from repro_torch.core import dispatch
     from repro_torch.kernels import tuning
     hd = cfg.resolved_head_dim
     g = cfg.n_heads // cfg.n_kv_heads
     bs = cfg.loki.block_size
+    kd = cfg.page_layout.k_width(hd)
+    isz = LAYOUT_ITEMSIZE[cfg.page_layout.dtype]
     if policy == "full":
-        plan = tuning.plan_full_decode(smax, hd, g, hd, bs)
+        plan = tuning.plan_full_decode(smax, hd, g, kd, bs, itemsize=isz)
         return plan, ("paged_full_decode",)
     if policy == "exact_topk":
-        plan = tuning.plan_decode(smax, hd, g, hd, bs)
+        plan = tuning.plan_decode(smax, hd, g, kd, bs, itemsize=isz)
         fused = "fused_exact_topk_decode"
     else:
-        plan, _ = dispatch.decode_plan(cfg.loki, smax, hd, g, hd, 4)
+        plan, _ = dispatch.decode_plan(cfg.loki, smax, hd, g, kd, isz)
         fused = "fused_loki_decode"
     if plan is None:
         raise AssertionError(f"no kernel plan for {policy} at smax {smax}")
@@ -1415,20 +1791,46 @@ def device_busy_ms(fn, steps: int) -> float:
         / steps / 1e3
 
 
+#: the paged runs: (page layout, policy); "" is the default fp32 native
+#: layout, the main path's
+PAGED_RUNS = (("", "loki_block"), ("", "full"), ("", "exact_topk"),
+              ("int8:pca:r=32", "loki_block"), ("int8:pca:r=32", "full"),
+              ("int8:pca:r=32", "exact_topk"), ("fp8", "loki_block"),
+              ("bf16", "loki_block"))
+
+
+def paged_path(layout: str, policy: str) -> str:
+    """A paged run's path name: paged_<policy> at the default layout,
+    paged_<storage>[pca]_<policy> at another (int8:pca:r=32 ->
+    paged_int8pca_loki_block)."""
+    if not layout:
+        return f"paged_{policy}"
+    tag = layout.split(":")[0] + ("pca" if ":pca" in layout else "")
+    return f"paged_{tag}_{policy}"
+
+
 def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
-                page_size=128, chunk=512):
+                page_size=128, chunk=512, runs=PAGED_RUNS):
     """The paged path: the paged engine serves the four prompts at full
-    width, once per policy, counted on its own each time. loki_block runs
-    in a pool too small for all four (``tight_pool``) and must preempt."""
+    width, once per (layout, policy) of ``runs``, counted on its own each
+    time. loki_block runs in a pool too small for all four
+    (``tight_pool``) and must preempt. A run at another layout than the
+    default is compared with the default layout's run of its policy
+    (greedy tokens, reported) and checked by ``layout_step`` (one decode
+    step, kernels against the plain path on the same pool)."""
     from repro_torch import kernels as K
+    from repro_torch.configs.base import PageLayout
     from repro_torch.serving.engine import Request
     from repro_torch.serving.lifecycle import is_terminal
     from repro_torch.serving.scheduler import PagedServingEngine
 
     lengths = [len(t) for t in toks]
-    out = {}
-    for policy in ("loki_block", "full", "exact_topk"):
+    out, outs_fp32, ref_logits = {}, {}, {}
+    for layout, policy in runs:
+        path = paged_path(layout, policy)
         pcfg = policy_cfg(cfg, policy)
+        if layout:
+            pcfg = pcfg.with_layout(PageLayout.parse(layout))
         plan, planned = planned_kernels(pcfg, smax, policy)
         n_pages = (tight_pool(lengths, page_size, chunk)
                    if policy == "loki_block" else None)
@@ -1436,6 +1838,7 @@ def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
                                  page_size=page_size, n_pages=n_pages,
                                  prefill_chunk=chunk, backend="auto",
                                  device=DEV)
+        pool_bytes, page_bytes = eng.pool_bytes, eng.bytes_per_page
         reqs = [Request(rid=i, prompt=t, max_new=MAX_NEW)
                 for i, t in enumerate(toks)]
         for r in reqs:
@@ -1446,8 +1849,7 @@ def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
         t_all = time.perf_counter()
         while not all(is_terminal(r) for r in reqs):
             if eng.ticks > 400:
-                raise AssertionError(f"paged {policy} did not finish in "
-                                     "400 ticks")
+                raise AssertionError(f"{path} did not finish in 400 ticks")
             chunks, steps = eng.n_prefill_chunks, eng.n_decode_steps
             decode_only = not eng._queue and not eng._prefill_at
             if decode_only and "decode" not in syncs:
@@ -1473,22 +1875,29 @@ def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
             torch.cuda.empty_cache()
         bad = [r.rid for r in reqs if str(r.status) != "done"]
         if bad:
-            raise AssertionError(f"paged {policy}: requests not DONE: {bad}")
-        check_launches(f"paged {policy}", counts, planned,
-                       st["n_decode_steps"], cfg.n_layers)
+            raise AssertionError(f"{path}: requests not DONE: {bad}")
+        check_launches(path, counts, planned, st["n_decode_steps"],
+                       cfg.n_layers)
         if syncs.get("decode") != 1:
-            raise AssertionError(f"paged {policy}: {syncs.get('decode')} "
-                                 "host syncs in a decode tick, expected 1")
+            raise AssertionError(f"{path}: {syncs.get('decode')} host syncs "
+                                 "in a decode tick, expected 1")
         if policy == "loki_block" and st["n_preempted"] < 1:
-            raise AssertionError(f"paged loki_block in a {n_pages}-page pool "
-                                 "did not preempt")
+            raise AssertionError(f"{path} in a {n_pages}-page pool did not "
+                                 "preempt")
         toks_out = sum(len(r.out) for r in reqs)
-        same = sum(a == b for r, ref in zip(reqs, greedy[policy])
-                   for a, b in zip(r.out, ref))
+        if layout:
+            ref, ref_name = outs_fp32[policy], "the fp32 native paged run"
+        else:
+            ref, ref_name = greedy[policy], "the dense engine"
+            outs_fp32[policy] = [r.out for r in reqs]
+        same = sum(a == b for r, want in zip(reqs, ref)
+                   for a, b in zip(r.out, want))
         tick = statistics.median(decode_ms) if decode_ms else float("nan")
         busy_ms = statistics.median(busy) if busy else float("nan")
-        out[policy] = dict(
-            plan=str(plan), n_pages=n_pages or 1 + 4 * (smax // page_size),
+        out[path] = dict(
+            layout=st["layout"], policy=policy, plan=str(plan),
+            n_pages=n_pages or 1 + 4 * (smax // page_size),
+            pool_bytes=pool_bytes, bytes_per_page_layer=page_bytes,
             ticks=st["ticks"], decode_steps=st["n_decode_steps"],
             prefill_chunks=st["n_prefill_chunks"],
             n_preempted=st["n_preempted"], wall_s=wall,
@@ -1496,20 +1905,176 @@ def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
             decode_tok_per_s=4e3 / tick, device_busy_ms=busy_ms,
             idle_share=max(0.0, 1 - busy_ms / tick),
             host_syncs_per_tick=syncs, launches=counts,
-            greedy_equal_dense=same, tokens=toks_out)
-        log(f"paged: {policy}: {st['ticks']} ticks ({st['n_decode_steps']} "
-            f"decode steps, {st['n_prefill_chunks']} prefill chunks of "
-            f"{chunk}), pool {out[policy]['n_pages']} pages, preempted "
-            f"{st['n_preempted']}; {toks_out} tokens in {wall:.2f} s -> "
-            f"{toks_out / wall:.1f} tok/s; decode tick median {tick:.2f} ms "
-            f"-> {4e3 / tick:.1f} tok/s at 4 slots; device busy "
-            f"{busy_ms:.2f} ms per decode tick -> idle share "
-            f"{out[policy]['idle_share']:.3f}; host syncs per tick {syncs}")
-        log(f"paged: {policy}: launches {counts}; greedy tokens equal to "
-            f"the dense engine's in {same}/{toks_out} (reported, not "
-            "asserted: chunked and one-shot prefill round differently)")
-        results.setdefault("launches", {})[f"paged_{policy}"] = counts
+            greedy_equal_reference=same, greedy_reference=ref_name,
+            tokens=toks_out)
+        log(f"paged: {path} ({st['layout']}, {page_bytes} B/page/layer, "
+            f"pool {pool_bytes / 1e9:.3f} GB): {st['ticks']} ticks "
+            f"({st['n_decode_steps']} decode steps, "
+            f"{st['n_prefill_chunks']} prefill chunks of {chunk}), pool "
+            f"{out[path]['n_pages']} pages, preempted {st['n_preempted']}; "
+            f"{toks_out} tokens in {wall:.2f} s -> {toks_out / wall:.1f} "
+            f"tok/s; decode tick median {tick:.2f} ms -> {4e3 / tick:.1f} "
+            f"tok/s at 4 slots; device busy {busy_ms:.2f} ms per decode "
+            f"tick -> idle share {out[path]['idle_share']:.3f}; host syncs "
+            f"per tick {syncs}")
+        log(f"paged: {path}: launches {counts}; greedy tokens equal to "
+            f"{ref_name}'s in {same}/{toks_out} (reported, not asserted)")
+        results.setdefault("launches", {})[path] = counts
+        step = layout_step(results, params, pcfg, toks, policy, layout,
+                           ref_logits, smax=smax, page_size=page_size,
+                           chunk=chunk)
+        out[path].update(step)
     results["paged_serve"] = out
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The ops wrappers the paged policies' dispatch calls, replaced by
+    their kernels' plain versions over the dequantized logical views: a
+    step taken inside runs the dispatch's own path with the plain version
+    of each kernel, the same function."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+    from repro_torch.kernels import ops
+
+    def views(q, k, v, kw):
+        q, k, v = GA.logical(q, k, v, kw.pop("page_table", None),
+                             kw.pop("page_size", 0), kw.pop("k_scale", None),
+                             kw.pop("v_scale", None))
+        if kw.get("scale") is None:
+            kw["scale"] = v.shape[-1] ** -0.5
+        if "k_blocks" in kw:
+            kw["k_blocks"] = min(kw["k_blocks"], k.shape[1] // kw["block_size"])
+        return q, k, v
+
+    def fused(q, k, v, cur, **kw):
+        return F.fused_loki_decode_plain(*views(q, k, v, kw), cur, **kw)
+
+    def exact(q, k, v, cur, **kw):
+        return F.fused_exact_topk_decode_plain(*views(q, k, v, kw), cur, **kw)
+
+    def full(q, k, v, cur, **kw):
+        q, k, v = views(q, k, v, kw)
+        return GA.full_decode_plain(q, k, v, cur, scale=kw["scale"],
+                                    sliding_window=kw["sliding_window"])
+    real = {n: getattr(ops, n) for n in ("loki_decode_fused",
+                                         "exact_topk_decode_fused",
+                                         "full_decode")}
+    ops.loki_decode_fused, ops.exact_topk_decode_fused, ops.full_decode = \
+        fused, exact, full
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ops, n, fn)
+
+
+def layout_step(results, params, cfg, toks, policy, layout, ref_logits, *,
+                smax, page_size, chunk):
+    """One decode step of the four prompts (all but each last token
+    prefilled in ``chunk``-token chunks into a fresh pool at the layout)
+    through the kernels and through the plain path on the same pool (the
+    same dispatch with each kernel's plain version, ``plain_kernels``):
+    their logits within BF16_LOGITS_BOUND (rel-L2, asserted);
+    the kernel logits against the default layout's for the policy
+    (``ref_logits``, filled by the default layout's call first; the
+    layout's own error, reported). At int8:pca:r=32 under loki_block each
+    layer's fused call is then repeated through the two-kernel pair on its
+    own inputs, bit for bit: the path ``paged_int8pca_step``, counted on
+    its own."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serving.paged_cache import PagePool
+
+    per = [PagePool.pages_for(len(t), page_size) for t in toks]
+    mp = smax // page_size
+    table = torch.zeros((len(toks), mp), dtype=torch.int32)
+    nxt = 1
+    for i, n in enumerate(per):
+        table[i, :n] = torch.arange(nxt, nxt + n)
+        nxt += n
+    table = table.to(DEV)
+    cache = lm.init_paged_cache(cfg, nxt, page_size, device=DEV)
+    for i, t in enumerate(toks):
+        p = torch.as_tensor(t[:-1], device=DEV)
+        for s0 in range(0, len(p), chunk):
+            nv = min(chunk, len(p) - s0)
+            c = torch.zeros((1, chunk), dtype=p.dtype, device=DEV)
+            c[0, :nv] = p[s0:s0 + nv]
+            lm.prefill_chunk(params, cfg, cache, c, s0, nv, table[i:i + 1],
+                             page_size)
+    token = torch.as_tensor([int(t[-1]) for t in toks], device=DEV)
+    pos = torch.as_tensor([len(t) - 1 for t in toks], dtype=torch.int32,
+                          device=DEV)
+
+    def step(backend):
+        c = cfg.replace(loki=dataclasses.replace(cfg.loki, backend=backend))
+        logits, _ = lm.decode_step(params, c, cache, token, pos,
+                                   page_table=table, page_size=page_size)
+        sync()
+        return logits.float()
+
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    # (a CPU rehearsal reaches the kernels' plain versions only through
+    # backend "pallas"; "auto" is the xla path there)
+    backend = "auto" if DEV == "cuda" else "pallas"
+    with recording(ops, "loki_decode_fused") as calls:
+        kern = step(backend)
+    res = {}
+    if layout == "int8:pca:r=32" and policy == "loki_block":
+        if len(calls) != cfg.n_layers:
+            raise AssertionError(f"fused kernel called {len(calls)} times "
+                                 f"in a {cfg.n_layers}-layer step")
+        # ---- the paged pair path: counts set to 0 just before, read after
+        K.reset_launch_counts()
+        for layer, (args, kwargs, want) in enumerate(calls):
+            two = ops.loki_decode_two_kernel(*args, **kwargs)
+            sync()
+            if DEV == "cuda" and not torch.equal(two, want):
+                raise AssertionError(
+                    f"int8:pca:r=32 layer {layer}: select_blocks + grouped "
+                    "differs from fused_loki_decode")
+        counts = K.launch_counts()
+        # ---- end of the paged pair path
+        check_launches("paged_int8pca_step", counts,
+                       ("select_blocks", "block_sparse_attention_grouped"),
+                       1, cfg.n_layers)
+        results.setdefault("launches", {})["paged_int8pca_step"] = counts
+        res["pair_equal_fused_layers"] = len(calls)
+    # the plain step rewrites the step's rows (from its own layer inputs),
+    # so it comes after the pair has read the kernel step's pools
+    with plain_kernels():
+        plain = step(backend)
+    for name, x in (("kernel", kern), ("plain", plain)):
+        if not torch.isfinite(x).all() or x.shape != (len(toks), cfg.vocab):
+            raise AssertionError(f"{layout or 'fp32'} {policy} step: {name} "
+                                 f"logits bad {tuple(x.shape)}")
+    gap = rel(kern, plain)
+    if gap > BF16_LOGITS_BOUND:
+        raise AssertionError(f"{layout or 'fp32'} {policy} step: kernel "
+                             f"logits vs plain rel-L2 {gap:.3e} > "
+                             f"{BF16_LOGITS_BOUND}")
+    res["step_rel_kernel_vs_plain"] = gap
+    if not layout:
+        ref_logits[policy] = kern
+    else:
+        res["step_rel_vs_fp32_native"] = rel(kern, ref_logits[policy])
+        res["step_argmax_equal_fp32_native"] = int(
+            (kern.argmax(-1) == ref_logits[policy].argmax(-1)).sum())
+    del cache, calls
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    log(f"paged: {paged_path(layout, policy)}: one decode step, logits "
+        f"rel-L2 kernels vs plain {gap:.3e} (bound {BF16_LOGITS_BOUND})"
+        + (f"; vs the fp32 native layout {res['step_rel_vs_fp32_native']:.3e}"
+           f", argmax equal {res['step_argmax_equal_fp32_native']}/"
+           f"{len(toks)} (the layout's own error, reported)" if layout
+           else "")
+        + ("; the pair select_blocks + grouped == fused on all "
+           f"{res['pair_equal_fused_layers']} layers (paged_int8pca_step)"
+           if "pair_equal_fused_layers" in res else ""))
+    return res
 
 
 def prefilled_cache(params, cfg, toks, smax):
@@ -1669,7 +2234,7 @@ def decode_step_check(params, cfg, toks, smax):
     for (args, kwargs, out), (_, _, p_out) in zip(calls, plain_calls):
         q, k, v, cur = args
         kw = {n: x for n, x in kwargs.items()
-              if n not in ("page_table", "page_size")}
+              if n not in ("page_table", "page_size", "k_scale", "v_scale")}
         kw["scale"] = kwargs["scale"] or v.shape[-1] ** -0.5
         want = F.fused_loki_decode_plain(q, k, v, cur, **kw)
         rows = ~near_tie_rows(F.block_scores_plain(
@@ -1882,19 +2447,19 @@ def prefill_flash(results, params, cfg, smax=4096):
 # --------------------------------------------------------------------- main
 
 SOURCES = {
-    "fused_loki_decode": ("src/repro_torch/csrc/fused_decode.cu",
+    "fused_loki_decode": ("src/repro_torch/csrc/fused_decode.cuh",
                           "src/repro/kernels/fused_decode.py:248",
                           "paged_loki_block"),
-    "select_blocks": ("src/repro_torch/csrc/fused_decode.cu",
+    "select_blocks": ("src/repro_torch/csrc/fused_decode.cuh",
                       "src/repro/kernels/fused_decode.py:439",
                       "decode_step"),
     "block_sparse_attention_grouped": (
-        "src/repro_torch/csrc/gather_attention.cu",
+        "src/repro_torch/csrc/gather_attention.cuh",
         "src/repro/kernels/gather_attention.py:368", "decode_step"),
-    "paged_full_decode": ("src/repro_torch/csrc/gather_attention.cu",
+    "paged_full_decode": ("src/repro_torch/csrc/gather_attention.cuh",
                           "src/repro/kernels/gather_attention.py:215",
                           "paged_full"),
-    "fused_exact_topk_decode": ("src/repro_torch/csrc/fused_decode.cu",
+    "fused_exact_topk_decode": ("src/repro_torch/csrc/fused_decode.cuh",
                                 "src/repro/kernels/fused_decode.py:328",
                                 "paged_exact_topk"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1909,6 +2474,27 @@ SOURCES = {
     "block_max_scores_fm": ("src/repro_torch/csrc/approx_scores.cu",
                             "src/repro/kernels/approx_scores_fm.py:54",
                             "per_head_fm"),
+}
+
+
+#: the storage modes' TPU kernel bodies (the ``quant=True`` branches that
+#: multiply each block by its page scale after its DMA) and the path of
+#: each kernel at a layout run on (None: the kernel phase only)
+SCALED_BODIES = {
+    "fused_loki_decode": "src/repro/kernels/fused_decode.py:134",
+    "select_blocks": "src/repro/kernels/fused_decode.py:402",
+    "block_sparse_attention_grouped":
+        "src/repro/kernels/gather_attention.py:303",
+    "paged_full_decode": "src/repro/kernels/gather_attention.py:115",
+    "fused_exact_topk_decode": "src/repro/kernels/fused_decode.py:134",
+}
+LAYOUT_PATHS = {
+    ("fused_loki_decode", "int8:pca:r=32"): "paged_int8pca_loki_block",
+    ("select_blocks", "int8:pca:r=32"): "paged_int8pca_step",
+    ("block_sparse_attention_grouped", "int8:pca:r=32"): "paged_int8pca_step",
+    ("paged_full_decode", "int8:pca:r=32"): "paged_int8pca_full",
+    ("fused_exact_topk_decode", "int8:pca:r=32"): "paged_int8pca_exact_topk",
+    ("fused_loki_decode", "fp8"): "paged_fp8_loki_block",
 }
 
 
@@ -1951,6 +2537,9 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    _LOG.append(open(os.path.join(out_dir, "chip_smoke.log"), "w"))
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -1958,8 +2547,6 @@ def main() -> int:
     secs = _build.build_all()
     log(f"build: {len(_build.SOURCES)} CUDA sources built with nvcc "
         f"(sm_90a) in {secs:.1f} s")
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     for name in _build.SOURCES:
         text = _build.build_log(name)
         with open(os.path.join(out_dir, f"ptxas_{name}.log"), "w") as fh:
@@ -1976,6 +2563,7 @@ def main() -> int:
 
     results = {}
     check_kernels(results)
+    check_layouts(results)
     check_paged(results)
     check_no_fallback()
     check_head_kernels(results)
@@ -2013,15 +2601,36 @@ def main() -> int:
                          full_attention_sdpa_ms_not_same_function=results[
                              "sdpa_ms"])
         kernels.append(entry)
+    # the storage modes of kernels 1-5, one entry per (kernel, layout)
+    for key, t in results["layout_timing"].items():
+        name, tag = key[:-1].split("[")
+        path = LAYOUT_PATHS.get((name, tag))
+        lib = "decode_" + tag.split(":")[0]
+        kernels.append({
+            "name": key, "route": "cuda", "source": SOURCES[name][0],
+            "library": f"src/repro_torch/csrc/{lib}.cu",
+            "replaces": SCALED_BODIES[name] if not tag.startswith("fp16")
+            else SOURCES[name][1], "path": path,
+            "launches": launches.get(path, {}).get(name, 0) if path else 0,
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in launches.items()
+                                 if p.startswith(("paged_int8", "paged_fp8",
+                                                  "paged_bf16"))},
+            "max_abs_err": results["layout_errs"][key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
-        json.dump({"card": card, "kernels": kernels,
+        json.dump({"card": card, "build_s": secs,
+                   "script_s": time.perf_counter() - t_start,
+                   "kernels": kernels,
                    "launches": launches, "serve": results.get("serve"),
                    "paged_serve": results.get("paged_serve"),
                    "prefill_flash": results.get("prefill_flash"),
                    "profile": results.get("profile"),
                    "fused_plans": results.get("fused_plans"),
-                   "head_plans": results.get("head_plans")}, fh,
+                   "head_plans": results.get("head_plans"),
+                   "layout_plans": results.get("layout_plans")}, fh,
                   indent=1)
     log(card)                   # as nvidia-smi prints it: name, limit
     print(json.dumps({"kernels": kernels}))
@@ -2032,4 +2641,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for fh in _LOG:
+            fh.close()
+    sys.exit(code)

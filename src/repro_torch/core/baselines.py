@@ -15,7 +15,7 @@ from repro_torch.core.attention import (NEG_INF, attend_selected,
                                         decode_scores, gather_heads,
                                         length_mask, window_mask)
 from repro_torch.core.loki import select_topk, topk_lower_index
-from repro_torch.serving.paged_cache import gather_logical, unscaled
+from repro_torch.serving.paged_cache import gather_logical_dq
 
 
 def exact_topk_decode(q_rope, k_cache, v_cache, cur_len, cfg: LokiConfig,
@@ -43,10 +43,11 @@ def exact_topk_decode_block(q, k_cache, v_cache, cur_len, cfg: LokiConfig,
     shares one selection across the GQA group, the fused kernel's
     semantics. With ``page_table``/``page_size`` the caches are pools and
     the logical view is gathered first."""
-    unscaled(k_scale, v_scale)
     if page_table is not None:
-        k_cache = gather_logical(k_cache, page_table, page_size)
-        v_cache = gather_logical(v_cache, page_table, page_size)
+        k_cache = gather_logical_dq(k_cache, k_scale, page_table,
+                                    page_size)
+        v_cache = gather_logical_dq(v_cache, v_scale, page_table,
+                                    page_size)
     smax = k_cache.shape[1]
     bs = cfg.block_size
     if smax % bs:

@@ -20,7 +20,8 @@ kernels' group-shared selection*, so a backend choice is numerically
 consistent across shapes. CUDA tensors have no fallback: a shape no kernel
 takes (including a paged call whose page size the plan's block does not
 divide), or a disabled kernel backend, raises. Per-page scales (quantized
-layouts) raise until they are ported.
+layouts) pass through to every kernel; the plain paths read the
+dequantized logical view (``gather_logical_dq``).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from repro_torch.configs.base import LokiConfig
 from repro_torch.core import attention as A
 from repro_torch.core import baselines, loki
 from repro_torch.kernels import ops, tuning
-from repro_torch.serving.paged_cache import gather_logical, unscaled
+from repro_torch.serving.paged_cache import check_scales, gather_logical_dq
 
 BACKENDS = ("auto", "pallas", "xla")
 
@@ -84,12 +85,14 @@ def _device_type(t) -> str:
     return "cuda" if t.is_cuda else t.device.type
 
 
-def gathered(k_cache, v_cache, page_table, page_size):
-    """Logical (B,Smax,Hkv,·) views of possibly pooled caches."""
+def gathered(k_cache, v_cache, page_table, page_size, k_scale=None,
+             v_scale=None):
+    """Logical (B,Smax,Hkv,·) views of possibly pooled caches, dequantized
+    through the per-page scales of a quantized layout."""
     if page_table is None:
         return k_cache, v_cache
-    return (gather_logical(k_cache, page_table, page_size),
-            gather_logical(v_cache, page_table, page_size))
+    return (gather_logical_dq(k_cache, k_scale, page_table, page_size),
+            gather_logical_dq(v_cache, v_scale, page_table, page_size))
 
 
 def _cache_shape(k_cache, v_cache, page_table, page_size):
@@ -159,8 +162,10 @@ def loki_block_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
     width, or the pool (R,Hkv,W) with ``page_table (B, n_pages)`` and
     ``page_size``; v_cache likewise with width D; cur_len (B,) or scalar;
     proj (Hkv,D,D). Returns (B,H,D). ``sliding_window`` and
-    ``cfg.local_window`` are honoured identically on every backend."""
-    unscaled(k_scale, v_scale)
+    ``cfg.local_window`` are honoured identically on every backend.
+    Quantized layouts pass the pools' (n_pages,) float32 ``k_scale`` and
+    ``v_scale``."""
+    check_scales(k_hat_cache, k_scale, v_scale, page_table, page_size)
     backend = resolve_backend(cfg.backend, _device_type(q_rope))
     b, h = q_rope.shape[0], q_rope.shape[1]
     smax, n_kv, kd, dim = _cache_shape(k_hat_cache, v_cache, page_table,
@@ -172,6 +177,8 @@ def loki_block_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
     plan, d = decode_plan(cfg, smax, dim, g, kd, k_hat_cache.element_size())
     plan = _page_fits(plan, page_table, page_size)
     fb_args = dict(sliding_window=sliding_window, logit_scale=logit_scale)
+    pargs = dict(page_table=page_table, page_size=page_size)
+    qargs = dict(k_scale=k_scale, v_scale=v_scale)
 
     if backend == "xla":
         if smax % cfg.block_size:
@@ -179,19 +186,19 @@ def loki_block_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
             # than tripping the reference assert
             if plan is None:
                 return _token_fallback(
-                    q_rope, *gathered(k_hat_cache, v_cache, page_table,
-                                       page_size),
+                    q_rope, *gathered(k_hat_cache, v_cache, **pargs,
+                                       **qargs),
                     cur_len, proj, cfg, **fb_args)
             cfg = dataclasses.replace(cfg, block_size=plan.block_size)
         return loki.loki_decode_block(
-            q_rope, *gathered(k_hat_cache, v_cache, page_table, page_size),
+            q_rope, *gathered(k_hat_cache, v_cache, **pargs, **qargs),
             cur_len, proj, cfg, **fb_args)
     if plan is None:
         if q_rope.is_cuda:
             raise _no_plan("loki_block", smax, dim, g, d, page_size)
         # no kernel takes the shape: torch fallback on the CPU, keeping the
         # kernels' group-shared selection when the block decomposition exists
-        kc, vc = gathered(k_hat_cache, v_cache, page_table, page_size)
+        kc, vc = gathered(k_hat_cache, v_cache, **pargs, **qargs)
         if smax % cfg.block_size == 0 and (
                 page_table is None or page_size % cfg.block_size == 0):
             return loki.loki_decode_block(q_rope, kc, vc, cur_len, proj, cfg,
@@ -212,8 +219,7 @@ def loki_block_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
     out = fn(q_hat, k_hat_cache, v_cache, _lengths(cur_len, b, q_rope.device),
              d=d, k_blocks=k_blocks, block_size=plan.block_size,
              scale=logit_scale, local_window=cfg.local_window,
-             sliding_window=sliding_window, page_table=page_table,
-             page_size=page_size)
+             sliding_window=sliding_window, **pargs, **qargs)
     return out.reshape(b, h, dim)
 
 
@@ -227,8 +233,9 @@ def full_paged_decode(q, k_cache, v_cache, cur_len, *, backend: str = "auto",
     k_cache (B,Smax,Hkv,W) or the pool (R,Hkv,W) with ``page_table``;
     v_cache (·,Hkv,D). Returns (B,H,D). backend="xla" gathers the logical
     view into ``attention.decode_full``; "pallas" streams the live blocks
-    through paged_full_decode (the same function, an online softmax)."""
-    unscaled(k_scale, v_scale)
+    through paged_full_decode (the same function, an online softmax).
+    Quantized layouts pass the pools' per-page ``k_scale``/``v_scale``."""
+    check_scales(k_cache, k_scale, v_scale, page_table, page_size)
     backend = resolve_backend(backend, _device_type(q))
     b, h = q.shape[0], q.shape[1]
     smax, n_kv, kd, dim = _cache_shape(k_cache, v_cache, page_table,
@@ -244,16 +251,19 @@ def full_paged_decode(q, k_cache, v_cache, cur_len, *, backend: str = "auto",
             itemsize=k_cache.element_size()), page_table, page_size)
         if plan is None and q.is_cuda:
             raise _no_plan("full", smax, dim, g, kd, page_size)
+    qargs = dict(k_scale=k_scale, v_scale=v_scale)
     if plan is None:
-        kc, vc = gathered(k_cache, v_cache, page_table, page_size)
+        kc, vc = gathered(k_cache, v_cache, page_table, page_size, **qargs)
         return A.decode_full(q, kc, vc, cur_len,
                              sliding_window=sliding_window,
                              logit_scale=logit_scale)
-    out = ops.full_decode(_grouped_query(q, n_kv, kd), k_cache, v_cache,
+    qg = _grouped_query(q, n_kv, kd).contiguous()
+    out = ops.full_decode(qg, k_cache, v_cache,
                           _lengths(cur_len, b, q.device),
                           block_size=plan.block_size, scale=logit_scale,
                           sliding_window=sliding_window,
-                          page_table=page_table, page_size=page_size)
+                          page_table=page_table, page_size=page_size,
+                          **qargs)
     return out.reshape(b, h, dim)
 
 
@@ -267,8 +277,9 @@ def exact_topk_paged_decode(q, k_cache, v_cache, cur_len, cfg: LokiConfig,
     "pallas" fuses the exact score pass with block top-k (score width =
     the full stored key width, group-shared selection), planned at
     d = kd. ``baselines.exact_topk_decode_block`` is its plain oracle and
-    the CPU fallback for shapes no plan covers."""
-    unscaled(k_scale, v_scale)
+    the CPU fallback for shapes no plan covers. Quantized layouts pass the
+    pools' per-page ``k_scale``/``v_scale``."""
+    check_scales(k_cache, k_scale, v_scale, page_table, page_size)
     backend = resolve_backend(cfg.backend, _device_type(q))
     b, h = q.shape[0], q.shape[1]
     smax, n_kv, kd, dim = _cache_shape(k_cache, v_cache, page_table,
@@ -277,8 +288,9 @@ def exact_topk_paged_decode(q, k_cache, v_cache, cur_len, cfg: LokiConfig,
     if logit_scale is None and kd < dim:
         logit_scale = dim ** -0.5
 
+    qargs = dict(k_scale=k_scale, v_scale=v_scale)
     if backend == "xla":
-        kc, vc = gathered(k_cache, v_cache, page_table, page_size)
+        kc, vc = gathered(k_cache, v_cache, page_table, page_size, **qargs)
         return baselines.exact_topk_decode(q, kc, vc, cur_len, cfg,
                                            logit_scale=logit_scale)
     # the exact score pass reads the full stored width: plan with d = kd
@@ -293,8 +305,8 @@ def exact_topk_paged_decode(q, k_cache, v_cache, cur_len, cfg: LokiConfig,
             return baselines.exact_topk_decode_block(
                 q, k_cache, v_cache, cur_len, cfg, logit_scale=logit_scale,
                 group_select=True, page_table=page_table,
-                page_size=page_size)
-        kc, vc = gathered(k_cache, v_cache, page_table, page_size)
+                page_size=page_size, **qargs)
+        kc, vc = gathered(k_cache, v_cache, page_table, page_size, **qargs)
         return baselines.exact_topk_decode(q, kc, vc, cur_len, cfg,
                                            logit_scale=logit_scale)
 
@@ -302,7 +314,7 @@ def exact_topk_paged_decode(q, k_cache, v_cache, cur_len, cfg: LokiConfig,
     k_blocks = max(int(cfg.k_f * nb), 1)
     qg = _grouped_query(q, n_kv, kd).contiguous()
     cur = _lengths(cur_len, b, q.device)
-    pargs = dict(page_table=page_table, page_size=page_size)
+    pargs = dict(page_table=page_table, page_size=page_size, **qargs)
     if plan.variant == "fused":
         out = ops.exact_topk_decode_fused(
             qg, k_cache, v_cache, cur, k_blocks=k_blocks,

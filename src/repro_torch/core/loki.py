@@ -24,7 +24,7 @@ from repro_torch.configs.base import LokiConfig
 from repro_torch.core.attention import (NEG_INF, attend_selected,
                                         decode_scores, gather_heads,
                                         length_mask, window_mask)
-from repro_torch.serving.paged_cache import gather_logical, unscaled
+from repro_torch.serving.paged_cache import gather_logical_dq
 
 
 def topk_lower_index(x, k: int):
@@ -138,11 +138,13 @@ def loki_decode_block(q_rope, k_hat_cache, v_cache, cur_len, proj,
     semantics; identical to per-head selection when G == 1.
 
     With ``page_table``/``page_size`` the caches are the paged engine's
-    pools and the logical view is gathered first."""
-    unscaled(k_scale, v_scale)
+    pools and the logical view is gathered first (dequantized through
+    ``k_scale``/``v_scale`` for a quantized layout)."""
     if page_table is not None:
-        k_hat_cache = gather_logical(k_hat_cache, page_table, page_size)
-        v_cache = gather_logical(v_cache, page_table, page_size)
+        k_hat_cache = gather_logical_dq(k_hat_cache, k_scale, page_table,
+                                        page_size)
+        v_cache = gather_logical_dq(v_cache, v_scale, page_table,
+                                    page_size)
     dim = q_rope.shape[-1]
     smax = k_hat_cache.shape[1]
     kd = k_hat_cache.shape[-1]

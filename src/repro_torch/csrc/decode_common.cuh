@@ -15,17 +15,30 @@
 //                           (R, Hkv, W) read through a page table
 //   v      (B, S, Hkv, D)   value cache, or the pool (R, Hkv, D)
 // The one-CTA phase stages every value as float32 in shared memory; the
-// split-KV rings copy cache rows as they are stored (fp32 or bf16).
+// split-KV rings copy cache rows as they are stored.
+//
+// Storage: fp32, bf16 and fp16 caches hold values; int8 and fp8-e4m3
+// (quantized page layouts) hold codes with one float32 scale per pool page
+// for K and one for V (BlockRows::ksc, vsc; paged only). Every kernel
+// dequantizes a row as it reads it: code -> float32 * page scale, element
+// by element, then the dot (and V likewise before p·V), the order the TPU
+// kernels use (repro/kernels/fused_decode.py:104-108). The rings copy the
+// codes as raw bytes; a stage of the split-KV ring carries its tokens' K
+// and V scales beside the rows, the score ring the block's K scale in the
+// padding of its first row.
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 namespace loki {
 
@@ -38,17 +51,57 @@ constexpr int MAXG = 16;          // query heads per KV group
 constexpr int MAXDIM = 256;       // key / value width (gemma-7b: 256)
 constexpr unsigned FULL = 0xffffffffu;
 
+// Whether a storage type holds codes with per-page scales.
+template <typename TK>
+struct Store {
+  static constexpr bool scaled = false;
+};
+template <>
+struct Store<int8_t> {
+  static constexpr bool scaled = true;
+};
+template <>
+struct Store<__nv_fp8_e4m3> {
+  static constexpr bool scaled = true;
+};
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+__device__ __forceinline__ void store_f(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+__device__ __forceinline__ void store_f(int8_t* p, float x) {
+  *p = (int8_t)__float2int_rn(x);
+}
+__device__ __forceinline__ void store_f(__nv_fp8_e4m3* p, float x) {
+  *p = __nv_fp8_e4m3(x);
+}
 
-// four consecutive elements; the caller guarantees 16 B (fp32) or 8 B
-// (bf16) alignment
+// two fp8-e4m3 codes (the low byte first) as float32
+__device__ __forceinline__ float2 fp8x2_to_f2(uint32_t u) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(u & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+// four int8 codes of a 32-bit word (the low byte first) as float32
+__device__ __forceinline__ void i8x4_to_f(uint32_t u, float* o) {
+  const char4 c = *reinterpret_cast<const char4*>(&u);
+  o[0] = (float)c.x; o[1] = (float)c.y; o[2] = (float)c.z; o[3] = (float)c.w;
+}
+
+// four consecutive elements; the caller guarantees their alignment (16 B
+// fp32, 8 B bf16 / fp16, 4 B int8 / fp8)
 __device__ __forceinline__ void load4(const float* p, float* o) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
@@ -59,6 +112,20 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
       *reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 c = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  o[0] = a.x; o[1] = a.y; o[2] = c.x; o[3] = c.y;
+}
+__device__ __forceinline__ void load4(const __half* p, float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 c = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  o[0] = a.x; o[1] = a.y; o[2] = c.x; o[3] = c.y;
+}
+__device__ __forceinline__ void load4(const int8_t* p, float* o) {
+  i8x4_to_f(*reinterpret_cast<const uint32_t*>(p), o);
+}
+__device__ __forceinline__ void load4(const __nv_fp8_e4m3* p, float* o) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  const float2 a = fp8x2_to_f2(u), c = fp8x2_to_f2(u >> 16);
   o[0] = a.x; o[1] = a.y; o[2] = c.x; o[3] = c.y;
 }
 
@@ -87,17 +154,24 @@ __device__ void load_query(const TQ* __restrict__ q, float* qs, int n,
 // run the same kernel body, so paged output is bit-identical to contiguous
 // output on the same logical data. Offsets are 64-bit: a pool of 4,096
 // 128-token pages at llama2-7b's width (R * Hkv * W elements) passes 2^31.
+// A quantized pool also gives each block its page's K and V scales (ksc,
+// vsc: (n_pages,) float32, one per physical page; null otherwise).
 struct BlockRows {
   const int* table;   // (B, n_tab) int32 page ids, or nullptr
   int n_tab;          // pages per table row
   int bpp;            // kernel blocks per page
   int S;              // contiguous cache length per batch row
   int bs;             // tokens per kernel block
+  const float* ksc;   // per-page K scales (scaled storage), or nullptr
+  const float* vsc;   // per-page V scales (scaled storage), or nullptr
 
+  // the physical page holding logical block blk of row b (paged only)
+  __device__ __forceinline__ int page(int b, int blk) const {
+    return table[(int64_t)b * n_tab + blk / bpp];
+  }
   __device__ __forceinline__ int64_t first_row(int b, int blk) const {
     if (table == nullptr) return (int64_t)b * S + (int64_t)blk * bs;
-    const int page = table[(int64_t)b * n_tab + blk / bpp];
-    return ((int64_t)page * bpp + blk % bpp) * bs;
+    return ((int64_t)page(b, blk) * bpp + blk % bpp) * bs;
   }
 };
 
@@ -110,9 +184,27 @@ inline bool rows_ok(const void* table, int n_tab, int page_size, int S,
                               n_tab >= 1 && S == n_tab * page_size);
 }
 inline BlockRows make_rows(const void* table, int n_tab, int page_size,
-                           int S, int bs) {
+                           int S, int bs, const void* ksc = nullptr,
+                           const void* vsc = nullptr) {
   return BlockRows{static_cast<const int*>(table), n_tab,
-                   table ? page_size / bs : 1, S, bs};
+                   table ? page_size / bs : 1, S, bs,
+                   static_cast<const float*>(ksc),
+                   static_cast<const float*>(vsc)};
+}
+
+// The launch-time check of a storage type: scaled storage (int8, fp8) is
+// paged and comes with its K scales (and V scales, ``need_v``); other
+// storage comes without scales; the storage beside fp32 and bf16 (fp16,
+// int8, fp8) is copied only in 16-byte pieces, so its rows (``vec``) must
+// be whole 16-byte runs.
+template <typename TK>
+inline bool storage_ok(const void* table, const void* ksc, const void* vsc,
+                       bool need_v, bool vec) {
+  if (Store<TK>::scaled)
+    return table != nullptr && ksc != nullptr && (vsc != nullptr || !need_v) &&
+           vec;
+  const bool wide = sizeof(TK) == 4 || std::is_same<TK, __nv_bfloat16>::value;
+  return ksc == nullptr && vsc == nullptr && (wide || vec);
 }
 
 // Phases 1-2 of the TPU kernel's _score_and_select.
@@ -125,6 +217,9 @@ inline BlockRows make_rows(const void* table, int n_tab, int page_size,
 // positions get +1e4. Only the block maximum survives, in scores[nb].
 // Streaming stops at the last live block, ceil(cur_len / bs): dead blocks
 // are all NEG_INF and can never be selected.
+//
+// A quantized cache's codes are dequantized by the block's page scale
+// before the dot, element by element.
 //
 // Phase 2: warp 0 runs k_blocks rounds of argmax-and-suppress over
 // scores[] (ties to the lower index, lax.top_k's order) and writes the
@@ -145,6 +240,8 @@ __device__ void score_and_select(const TK* __restrict__ k, const float* qs,
   for (int j = lo + warp; j < hi; j += NWARPS) {
     float best = NEG_INF;
     const int64_t row0 = rows.first_row(b, j);
+    float ks = 1.f;
+    if constexpr (Store<TK>::scaled) ks = rows.ksc[rows.page(b, j)];
     for (int i = lane; i < bs; i += 32) {
       const int pos = j * bs + i;
       bool live = pos < ln;
@@ -158,6 +255,10 @@ __device__ void score_and_select(const TK* __restrict__ k, const float* qs,
         for (int f = 0; f < d; f += 4) {
           float kv[4];
           load4(row + f, kv);
+          if constexpr (Store<TK>::scaled) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) kv[e] *= ks;
+          }
 #pragma unroll
           for (int g = 0; g < MAXG; ++g) {
             if (g < G) {
@@ -171,7 +272,8 @@ __device__ void score_and_select(const TK* __restrict__ k, const float* qs,
         }
       } else {
         for (int f = 0; f < d; ++f) {
-          const float kv = to_f(row[f]);
+          float kv = to_f(row[f]);
+          if constexpr (Store<TK>::scaled) kv *= ks;
 #pragma unroll
           for (int g = 0; g < MAXG; ++g)
             if (g < G) acc[g] = fmaf(qs[g * W + f], kv, acc[g]);
@@ -233,14 +335,26 @@ __host__ __device__ inline size_t round16(size_t n) {
 }
 
 // one warp's ring stage: TOK rows of K̂ then of V in the cache dtype, rows
-// padded to 4 elements (a feature-major K̂ stage holds the same elements)
+// padded to 4 elements (a feature-major K̂ stage holds the same elements),
+// then for scaled storage the TOK tokens' K scales and their V scales
+template <typename TK, int TOK = SPLIT_TOK>
+__host__ __device__ inline size_t split_scales_offset(int W, int D) {
+  return (size_t)TOK * (pad4(W) + pad4(D)) * sizeof(TK);
+}
 template <typename TK, int TOK = SPLIT_TOK>
 __host__ __device__ inline size_t split_stage_bytes(int W, int D) {
-  return round16((size_t)TOK * (pad4(W) + pad4(D)) * sizeof(TK));
+  return round16(split_scales_offset<TK, TOK>(W, D) +
+                 (Store<TK>::scaled ? 2 * TOK * sizeof(float) : 0));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+// four bytes (a page scale): cp.async.ca takes 4-, 8- and 16-byte copies
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                   "l"(src) : "memory");
 }
@@ -252,9 +366,39 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// sixteen bytes of staged cache row as float32: 4 fp32 or 8 bf16 values
+// sixteen bytes of staged cache row as float32: 4 fp32, 8 bf16 / fp16 or
+// 16 int8 / fp8 values
 __device__ __forceinline__ void load16(const float* p, float* o) {
   load4(p, o);
+}
+__device__ __forceinline__ void load16(const __half* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load16(const int8_t* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  i8x4_to_f(u.x, o);
+  i8x4_to_f(u.y, o + 4);
+  i8x4_to_f(u.z, o + 8);
+  i8x4_to_f(u.w, o + 12);
+}
+__device__ __forceinline__ void load16(const __nv_fp8_e4m3* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = fp8x2_to_f2(w[i]), c = fp8x2_to_f2(w[i] >> 16);
+    o[4 * i] = a.x;
+    o[4 * i + 1] = a.y;
+    o[4 * i + 2] = c.x;
+    o[4 * i + 3] = c.y;
+  }
 }
 __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -272,7 +416,9 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
 // t1) into a warp's ring stage, then commit one cp.async group (empty when
 // nothing was issued, so the group count stays in step). The tokens' cache
 // rows are resolved first, walking the blocks, so a paged chunk does one
-// page-table read per block it touches, before any copy is issued.
+// page-table read per block it touches, before any copy is issued. Scaled
+// storage also copies each token's page scales, K then V (a chunk may
+// straddle two pages), 4 bytes each, by lanes 0 .. 2 * SPLIT_TOK - 1.
 template <typename TK>
 __device__ void split_fill(uint8_t* stage, const TK* __restrict__ k,
                            const TK* __restrict__ v, const BlockRows& rows,
@@ -284,14 +430,28 @@ __device__ void split_fill(uint8_t* stage, const TK* __restrict__ k,
   int64_t rk[SPLIT_TOK];              // (cache row) * Hkv + h per token
   int blk = pos0 / bs, off = pos0 % bs;
   int64_t base = rows.first_row(b, blk);
+  int my_page = 0;                    // scaled: lane's token's page
+  if constexpr (Store<TK>::scaled) my_page = rows.page(b, blk);
 #pragma unroll
   for (int u = 0; u < SPLIT_TOK; ++u) {
     if (off == bs) {
       ++blk;
       off = 0;
-      if (u < n_tok) base = rows.first_row(b, blk);
+      if (u < n_tok) {
+        base = rows.first_row(b, blk);
+        if constexpr (Store<TK>::scaled)
+          if ((lane & (SPLIT_TOK - 1)) >= u) my_page = rows.page(b, blk);
+      }
     }
     rk[u] = (base + off++) * Hkv + h;
+  }
+  if constexpr (Store<TK>::scaled) {
+    float* sc = reinterpret_cast<float*>(
+        stage + split_scales_offset<TK>(W, D));
+    const int u = lane & (SPLIT_TOK - 1);
+    if (lane < 2 * SPLIT_TOK && u < n_tok)
+      cp_async4(sc + lane,
+                (lane < SPLIT_TOK ? rows.ksc : rows.vsc) + my_page);
   }
   if (vec) {
     constexpr int E = 16 / sizeof(TK);             // elements per 16 B
@@ -411,8 +571,10 @@ struct WarpSoftmax {
 // after the dot, as its TPU kernel does; the others pass a scaled query).
 // FM: the K̂ stage is feature-major (head_fill); the lanes then read their
 // features' pieces and sum in the same order, so both layouts give the
-// same bits. Ends with every copy landed; the caller synchronises the CTA
-// before reusing the ring.
+// same bits. Scaled storage: each K and V element is multiplied by its
+// token's page scale (from the stage) before the dot and before p·V. Ends
+// with every copy landed; the caller synchronises the CTA before reusing
+// the ring.
 template <typename TK, int TOK = SPLIT_TOK, bool FM = false,
           bool SCALE_DOT = false, int GM, int DC, typename ChunkAt,
           typename Fill>
@@ -447,6 +609,10 @@ __device__ __forceinline__ void stream_chunks(
     const TK* ks =
         reinterpret_cast<const TK*>(my_ring + (j % SPLIT_STAGES) * stage_bytes);
     const TK* vs = ks + TOK * Wp;
+    // scaled storage: the TOK tokens' K scales, then their V scales
+    const float* ssc = reinterpret_cast<const float*>(
+        reinterpret_cast<const uint8_t*>(ks) +
+        split_scales_offset<TK, TOK>(W, D));
     const int2 cj = chunk_at(j);
     const int n_tok = min(TOK, cj.y - cj.x);        // >= 1
     // feature-major: this lane's 4 * DC features, TOK tokens each
@@ -492,6 +658,10 @@ __device__ __forceinline__ void stream_chunks(
             } else {
               load4(ks + u * Wp + c, kv);
             }
+            if constexpr (Store<TK>::scaled) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) kv[e] *= ssc[u];
+            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) p = fmaf(qf[4 * jj + e], kv[e], p);
           }
@@ -530,6 +700,10 @@ __device__ __forceinline__ void stream_chunks(
         if (c < Dp) {
           float vv[4];
           load4(vs + u * Dp + c, vv);
+          if constexpr (Store<TK>::scaled) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) vv[e] *= ssc[TOK + u];
+          }
 #pragma unroll
           for (int g = 0; g < GM; ++g)
             if (g < G)
@@ -759,6 +933,55 @@ cudaError_t by_dtype(int q_bf16, int kv_bf16, const Args& a) {
   if (q_bf16) return F<__nv_bfloat16, float>::run(a);
   if (kv_bf16) return F<float, __nv_bfloat16>::run(a);
   return F<float, float>::run(a);
+}
+
+// Cache storage codes of the decode kernels 1-5 (kernels/_build.py
+// STORAGE): 0 float32, 1 bfloat16, 2 float16, 3 int8, 4 float8_e4m3fn.
+enum : int { KV_F32 = 0, KV_BF16 = 1, KV_F16 = 2, KV_I8 = 3, KV_F8 = 4 };
+
+template <template <typename, typename> class F, typename TK, typename Args>
+cudaError_t by_query(int q_bf16, const Args& a) {
+  return q_bf16 ? F<__nv_bfloat16, TK>::run(a) : F<float, TK>::run(a);
+}
+
+// Run F<TQ, TK>::run(a) for the launch's query dtype (float32 or bfloat16)
+// and cache storage code, over the storage types this library is built
+// for: LOKI_STORAGE_WIDE (float32, bfloat16), LOKI_STORAGE_F16,
+// LOKI_STORAGE_I8 or LOKI_STORAGE_F8, defined before the include. Any
+// other code is refused.
+template <template <typename, typename> class F, typename Args>
+cudaError_t by_storage(int q_bf16, int kv, const Args& a) {
+  switch (kv) {
+#ifdef LOKI_STORAGE_WIDE
+    case KV_F32: return by_query<F, float>(q_bf16, a);
+    case KV_BF16: return by_query<F, __nv_bfloat16>(q_bf16, a);
+#endif
+#ifdef LOKI_STORAGE_F16
+    case KV_F16: return by_query<F, __half>(q_bf16, a);
+#endif
+#ifdef LOKI_STORAGE_I8
+    case KV_I8: return by_query<F, int8_t>(q_bf16, a);
+#endif
+#ifdef LOKI_STORAGE_F8
+    case KV_F8: return by_query<F, __nv_fp8_e4m3>(q_bf16, a);
+#endif
+    default: break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+// fn(static_cast<TK*>(nullptr)) for a storage code's type, any code (the
+// shared-memory layout queries); -1 for an unknown code.
+template <typename Fn>
+long long with_storage(int kv, Fn fn) {
+  switch (kv) {
+    case KV_F32: return fn(static_cast<float*>(nullptr));
+    case KV_BF16: return fn(static_cast<__nv_bfloat16*>(nullptr));
+    case KV_F16: return fn(static_cast<__half*>(nullptr));
+    case KV_I8: return fn(static_cast<int8_t*>(nullptr));
+    case KV_F8: return fn(static_cast<__nv_fp8_e4m3*>(nullptr));
+    default: return -1;
+  }
 }
 
 // Dynamic shared memory above 48 KB needs the opt-in attribute.

@@ -21,7 +21,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_decode", "gather_attention", "approx_scores",
-           "flash_attention")
+           "flash_attention", "decode_fp16", "decode_int8", "decode_fp8")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -142,6 +142,69 @@ def dtype_code(t, what: str) -> int:
         raise TypeError(f"{what}: dtype {t.dtype} not supported by the CUDA "
                         "kernels (float32 or bfloat16)")
     return codes[t.dtype]
+
+
+#: cache storage of the decode kernels 1-5 -> (launcher code, library of
+#: fused_decode's launchers, library of gather_attention's). float32 and
+#: bfloat16 caches build with their sources; each other storage has a
+#: source of its own (csrc/decode_<dtype>.cu), so the builds run apart.
+STORAGE = {"float32": (0, "fused_decode", "gather_attention"),
+           "bfloat16": (1, "fused_decode", "gather_attention"),
+           "float16": (2, "decode_fp16", "decode_fp16"),
+           "int8": (3, "decode_int8", "decode_int8"),
+           "float8_e4m3fn": (4, "decode_fp8", "decode_fp8")}
+#: storage codes whose pools carry per-page float32 scales
+SCALED_CODES = (3, 4)
+
+
+def storage(t, what: str):
+    """(code, fused library, attention library) of a cache's storage."""
+    name = str(t.dtype).replace("torch.", "")
+    if name not in STORAGE:
+        raise TypeError(f"{what}: storage dtype {t.dtype} not supported by "
+                        f"the CUDA decode kernels ({sorted(STORAGE)})")
+    return STORAGE[name]
+
+
+def storage_args(kernel: str, k_hat, v, scaled: bool):
+    """Check a launch's cache storage and return ``storage(k_hat)``: int8
+    and fp8 pools come with their page scales and other pools without
+    (the kernels dequantize exactly the codes that are scaled), and the
+    cache rows of the storages beside float32 and bfloat16 are whole
+    16-byte runs (their rings copy nothing but 16-byte pieces)."""
+    found = storage(k_hat, kernel)
+    code = found[0]
+    if (code in SCALED_CODES) != scaled:
+        raise ValueError(
+            f"{kernel}: a {k_hat.dtype} pool "
+            + ("needs its per-page k_scale/v_scale" if code in SCALED_CODES
+               else "takes no per-page scales (int8 and fp8 pools do)"))
+    if code >= 2:
+        for name, t in (("k_hat", k_hat), ("v", v)):
+            if t is not None and (t.shape[-1] * t.element_size()) % 16:
+                raise ValueError(
+                    f"{kernel}: {name} rows of {t.shape[-1]} {t.dtype} "
+                    "elements are not a whole number of 16-byte runs; the "
+                    "CUDA kernels copy such a pool's rows in 16-byte "
+                    "pieces only")
+    return found
+
+
+def scale_ptrs(kernel: str, device, *scales):
+    """Device pointers of per-page scale vectors (null for None): float32,
+    contiguous, 4-byte aligned, on ``device``."""
+    import torch
+    ptrs = []
+    for s in scales:
+        if s is None:
+            ptrs.append(ctypes.c_void_p(None))
+            continue
+        if s.device != device or s.dtype != torch.float32 or \
+                not s.is_contiguous() or s.data_ptr() % 4:
+            raise ValueError(f"{kernel}: page scales must be contiguous "
+                             f"float32 on {device}")
+        ptrs.append(ctypes.c_void_p(s.data_ptr()))
+    return ptrs
 
 
 def table_arg(page_table, device):

@@ -27,6 +27,13 @@ are the serving engine's pools (R, Hkv, ·) and the logical length is
 the plain versions gather the logical view first. ``page_size`` must be a
 multiple of ``block_size``.
 
+Quantized pools (int8, fp8-e4m3) come with their (n_pages,) float32
+``k_scale``/``v_scale`` (select_blocks takes ``k_scale`` alone; paged
+only): every kernel dequantizes a row as it reads it, code -> float32 *
+page scale, then takes the dot (and likewise V before p·V); the plain
+versions dequantize the gathered view in the same order. fp16 pools carry
+no scales.
+
 Default scales differ as in the JAX package: ``D**-0.5`` for the fused
 kernels, ``W**-0.5`` for select_blocks. The wrappers launch the kernels for
 CUDA tensors and run the plain versions for CPU tensors.
@@ -56,7 +63,7 @@ from repro_torch.kernels.gather_attention import (NEG_INF,
                                                   share_partials_plain,
                                                   split_blocks,
                                                   winner_shares)
-from repro_torch.serving.paged_cache import unscaled
+from repro_torch.serving.paged_cache import check_scales
 
 
 def token_scores_plain(q_hat, k_hat, cur_len, *, d, scale, local_window=0,
@@ -117,7 +124,7 @@ def fused_loki_decode_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
 def fused_cluster_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
                         block_size, scale, n_cta, local_window=0,
                         sliding_window=0, page_table=None,
-                        page_size: int = 0):
+                        page_size: int = 0, k_scale=None, v_scale=None):
     """Plain torch version of the fused kernels' cluster form with n_cta
     CTAs per (slot, kv-head): each CTA's block maxima over its share of
     the live blocks, assembled into one row; the shared top-k over that
@@ -127,7 +134,8 @@ def fused_cluster_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
     1e-30 floor). ``fused_exact_topk_decode``'s form is d = W with
     local_window 0. Not on any serving path: the tests and the card's
     checks hold the kernel's arithmetic with it."""
-    q_hat, k_hat, v = logical(q_hat, k_hat, v, page_table, page_size)
+    q_hat, k_hat, v = logical(q_hat, k_hat, v, page_table, page_size,
+                              k_scale, v_scale)
     b, n_kv, g, w = q_hat.shape
     s_len, bs = k_hat.shape[1], block_size
     nb = s_len // bs
@@ -157,19 +165,23 @@ def fused_cluster_plain(q_hat, k_hat, v, cur_len, *, d, k_blocks,
                                 sliding_window=sliding_window)
 
 
-def _outputs(kernel, q_hat, k_hat, v, cur_len, page_table, dim):
-    """The (B,Hkv,G,D) output and the launch pointers q, k, v, cur_len,
-    table, out of a fused kernel, checked."""
+def _outputs(kernel, q_hat, k_hat, v, cur_len, page_table, dim, k_scale,
+             v_scale):
+    """The (B,Hkv,G,D) output, the storage code and the launch pointers q,
+    k, v, cur_len, table, k_scale, v_scale, out of a fused kernel,
+    checked."""
     if k_hat.dtype != v.dtype:
         raise TypeError("k_hat and v must share a dtype")
+    code = _build.storage_args(kernel, k_hat, v, k_scale is not None)[0]
     b, n_kv, g, _ = q_hat.shape
     out = torch.empty((b, n_kv, g, dim), dtype=q_hat.dtype,
                       device=q_hat.device)
     table, n_tab = _build.table_arg(page_table, q_hat.device)
-    ptrs = _build.cuda_args(kernel, q_hat=q_hat, k_hat=k_hat, v=v,
-                            cur_len=cur_len.to(torch.int32), table=table,
-                            out=out)
-    return out, ptrs, n_tab
+    ptrs = (_build.cuda_args(kernel, q_hat=q_hat, k_hat=k_hat, v=v,
+                             cur_len=cur_len.to(torch.int32), table=table)
+            + _build.scale_ptrs(kernel, q_hat.device, k_scale, v_scale)
+            + _build.cuda_args(kernel, out=out))
+    return out, code, ptrs, n_tab
 
 
 def fused_exact_topk_decode_plain(q_hat, k_hat, v, cur_len, *, k_blocks,
@@ -184,15 +196,32 @@ def fused_exact_topk_decode_plain(q_hat, k_hat, v, cur_len, *, k_blocks,
 
 
 _FN: dict = {}
-# pointers, then int arguments, of each launcher in csrc/fused_decode.cu
-_ARITY = {"loki_fused_decode": (6, 13, 2),
-          "loki_fused_exact_topk_decode": (6, 12, 1),
-          "loki_select_blocks": (5, 12, 2)}
+# pointers, then int arguments, of each launcher (csrc/fused_decode.cuh)
+_ARITY = {"loki_fused_decode": (8, 13, 2),
+          "loki_fused_exact_topk_decode": (8, 12, 1),
+          "loki_select_blocks": (6, 12, 2)}
 # argument and result types of the library's two shape queries
 _QUERIES = {"loki_fused_cluster_info": ([ctypes.c_int] * 11
                                         + [ctypes.c_void_p], ctypes.c_int),
             "loki_fused_smem_bytes": ([ctypes.c_int] * 8,
                                       ctypes.c_longlong)}
+
+
+def _fn(lib: str, name: str):
+    """Launcher or query ``name`` of the built library ``lib``, typed."""
+    fn = _FN.get((lib, name))
+    if fn is None:
+        fn = getattr(_build.load(lib), name)
+        if name in _QUERIES:
+            fn.argtypes, fn.restype = _QUERIES[name]
+        else:
+            n_ptrs, n_ints, n_tail = _ARITY[name]
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                           + [ctypes.c_int] * n_ints + [ctypes.c_float]
+                           + [ctypes.c_int] * n_tail + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        _FN[(lib, name)] = fn
+    return fn
 
 
 def cluster_plan(q_hat, k_hat, v, *, d: int, k_blocks: int,
@@ -208,35 +237,17 @@ def cluster_plan(q_hat, k_hat, v, *, d: int, k_blocks: int,
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
                                                k_blocks, page_table,
                                                page_size)
-    for name, (args, res) in _QUERIES.items():
-        if name not in _FN:
-            fn = getattr(_build.load("fused_decode"), name)
-            fn.argtypes, fn.restype = args, res
-            _FN[name] = fn
+    code, lib, _ = _build.storage(k_hat, "k_hat")
     info = (ctypes.c_longlong * 3)()
-    kv_bf16 = _build.dtype_code(k_hat, "k_hat")
-    _build.check(_FN["loki_fused_cluster_info"](
-        _build.dtype_code(q_hat, "q_hat"), kv_bf16, b, s_len, n_kv, g, kdim,
+    _build.check(_fn(lib, "loki_fused_cluster_info")(
+        _build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g, kdim,
         v.shape[-1], d, block_size, k_blocks, info), "fused cluster info")
-    smem = _FN["loki_fused_smem_bytes"]
+    smem = _fn(lib, "loki_fused_smem_bytes")
     return dict(C=int(info[0]), smem=int(info[1]),
                 max_clusters=int(info[2]),
-                smem_layout=int(smem(kv_bf16, g, kdim, v.shape[-1], d,
+                smem_layout=int(smem(code, g, kdim, v.shape[-1], d,
                                      block_size, s_len // block_size,
                                      k_blocks)))
-
-
-def _lib(name):
-    fn = _FN.get(name)
-    if fn is None:
-        n_ptrs, n_ints, n_tail = _ARITY[name]
-        fn = getattr(_build.load("fused_decode"), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float] + [ctypes.c_int] * n_tail
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN[name] = fn
-    return fn
 
 
 def _shape(q_hat, k_hat, block_size, k_blocks, page_table, page_size):
@@ -247,11 +258,11 @@ def _shape(q_hat, k_hat, block_size, k_blocks, page_table, page_size):
     return b, n_kv, g, kdim, s_len, min(k_blocks, s_len // block_size)
 
 
-def _launch(name, counter, ptrs, q_hat, k_hat, ints, floats_and_tail):
-    fn = _lib(name)
-    rc = fn(*ptrs, _build.dtype_code(q_hat, "q_hat"),
-            _build.dtype_code(k_hat, "k_hat"), *ints, *floats_and_tail,
-            _build.stream_of(q_hat))
+def _launch(name, counter, ptrs, q_hat, k_hat, code, ints,
+            floats_and_tail):
+    fn = _fn(_build.storage(k_hat, name)[1], name)
+    rc = fn(*ptrs, _build.dtype_code(q_hat, "q_hat"), code, *ints,
+            *floats_and_tail, _build.stream_of(q_hat))
     _build.check(rc, counter.__name__)
     counter.launches += 1
 
@@ -262,10 +273,11 @@ def fused_loki_decode(q_hat, k_hat, v, cur_len, *, d: int, k_blocks: int,
                       page_table=None, page_size: int = 0,
                       k_scale=None, v_scale=None):
     """Single-pass Loki decode. (B,Hkv,G,W),(B,S,Hkv,W),(B,S,Hkv,D),(B,)
-    (or pooled (R,Hkv,·) caches with ``page_table``/``page_size``) ->
-    (B,Hkv,G,D) in q_hat's dtype. On the card: one launch of
-    ``fused_cluster_size`` CTAs per (slot, kv-head), as one cluster."""
-    unscaled(k_scale, v_scale)
+    (or pooled (R,Hkv,·) caches with ``page_table``/``page_size``, and
+    their per-page ``k_scale``/``v_scale`` when quantized) -> (B,Hkv,G,D)
+    in q_hat's dtype. On the card: one launch of ``fused_cluster_size``
+    CTAs per (slot, kv-head), as one cluster."""
+    check_scales(k_hat, k_scale, v_scale, page_table, page_size)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
                                                k_blocks, page_table,
                                                page_size)
@@ -273,14 +285,16 @@ def fused_loki_decode(q_hat, k_hat, v, cur_len, *, d: int, k_blocks: int,
     scale = float(scale if scale is not None else dim ** -0.5)
     if not q_hat.is_cuda:
         return fused_loki_decode_plain(
-            *logical(q_hat, k_hat, v, page_table, page_size), cur_len, d=d,
-            k_blocks=k_blocks, block_size=block_size, scale=scale,
-            local_window=local_window, sliding_window=sliding_window)
-    out, ptrs, n_tab = _outputs("fused_loki_decode", q_hat, k_hat, v,
-                                cur_len, page_table, dim)
+            *logical(q_hat, k_hat, v, page_table, page_size, k_scale,
+                     v_scale), cur_len, d=d, k_blocks=k_blocks,
+            block_size=block_size, scale=scale, local_window=local_window,
+            sliding_window=sliding_window)
+    out, code, ptrs, n_tab = _outputs("fused_loki_decode", q_hat, k_hat, v,
+                                      cur_len, page_table, dim, k_scale,
+                                      v_scale)
     _launch("loki_fused_decode", fused_loki_decode, ptrs, q_hat, k_hat,
-            (b, s_len, n_kv, g, kdim, dim, d, block_size, k_blocks, n_tab,
-             page_size), (scale, local_window, sliding_window))
+            code, (b, s_len, n_kv, g, kdim, dim, d, block_size, k_blocks,
+                   n_tab, page_size), (scale, local_window, sliding_window))
     return out
 
 
@@ -293,9 +307,9 @@ def fused_exact_topk_decode(q_hat, k_hat, v, cur_len, *, k_blocks: int,
                             page_size: int = 0, k_scale=None, v_scale=None):
     """Single-pass exact-top-k decode: exact full-width block scores,
     group-shared block top-k and attention over the winners in one
-    kernel. Shapes and paging follow ``fused_loki_decode``; no recency
-    boost. -> (B,Hkv,G,D) in q_hat's dtype."""
-    unscaled(k_scale, v_scale)
+    kernel. Shapes, paging and scales follow ``fused_loki_decode``; no
+    recency boost. -> (B,Hkv,G,D) in q_hat's dtype."""
+    check_scales(k_hat, k_scale, v_scale, page_table, page_size)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
                                                k_blocks, page_table,
                                                page_size)
@@ -303,14 +317,16 @@ def fused_exact_topk_decode(q_hat, k_hat, v, cur_len, *, k_blocks: int,
     scale = float(scale if scale is not None else dim ** -0.5)
     if not q_hat.is_cuda:
         return fused_exact_topk_decode_plain(
-            *logical(q_hat, k_hat, v, page_table, page_size), cur_len,
-            k_blocks=k_blocks, block_size=block_size, scale=scale,
+            *logical(q_hat, k_hat, v, page_table, page_size, k_scale,
+                     v_scale), cur_len, k_blocks=k_blocks,
+            block_size=block_size, scale=scale,
             sliding_window=sliding_window)
-    out, ptrs, n_tab = _outputs("fused_exact_topk_decode", q_hat, k_hat, v,
-                                cur_len, page_table, dim)
+    out, code, ptrs, n_tab = _outputs("fused_exact_topk_decode", q_hat,
+                                      k_hat, v, cur_len, page_table, dim,
+                                      k_scale, v_scale)
     _launch("loki_fused_exact_topk_decode", fused_exact_topk_decode, ptrs,
-            q_hat, k_hat, (b, s_len, n_kv, g, kdim, dim, block_size,
-                           k_blocks, n_tab, page_size),
+            q_hat, k_hat, code, (b, s_len, n_kv, g, kdim, dim, block_size,
+                                 k_blocks, n_tab, page_size),
             (scale, sliding_window))
     return out
 
@@ -322,27 +338,31 @@ def select_blocks(q_hat, k_hat, cur_len, *, d: int, k_blocks: int,
                   block_size: int = 128, scale=None, local_window: int = 0,
                   sliding_window: int = 0, page_table=None,
                   page_size: int = 0, k_scale=None):
-    """Fused score+select: (B,Hkv,G,W),(B,S,Hkv,W) or pooled,(B,) ->
-    (B,Hkv,kb) int32 logical block indices, group-shared, ``-1`` for
-    exhausted entries."""
-    unscaled(k_scale, None)
+    """Fused score+select: (B,Hkv,G,W),(B,S,Hkv,W) or pooled (with the K
+    pool's ``k_scale`` when quantized),(B,) -> (B,Hkv,kb) int32 logical
+    block indices, group-shared, ``-1`` for exhausted entries."""
+    check_scales(k_hat, k_scale, None, page_table, page_size, need_v=False)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
                                                k_blocks, page_table,
                                                page_size)
     scale = float(scale if scale is not None else kdim ** -0.5)
     if not q_hat.is_cuda:
-        q_hat, k_hat, _ = logical(q_hat, k_hat, None, page_table, page_size)
+        q_hat, k_hat, _ = logical(q_hat, k_hat, None, page_table, page_size,
+                                  k_scale)
         return select_blocks_plain(
             q_hat, k_hat, cur_len, d=d, k_blocks=k_blocks,
             block_size=block_size, scale=scale, local_window=local_window,
             sliding_window=sliding_window)
+    code = _build.storage_args("select_blocks", k_hat, None,
+                               k_scale is not None)[0]
     out = torch.empty((b, n_kv, k_blocks), dtype=torch.int32,
                       device=q_hat.device)
     table, n_tab = _build.table_arg(page_table, q_hat.device)
-    ptrs = _build.cuda_args("select_blocks", q_hat=q_hat, k_hat=k_hat,
-                            cur_len=cur_len.to(torch.int32), table=table,
-                            out=out)
-    _launch("loki_select_blocks", select_blocks, ptrs, q_hat, k_hat,
+    ptrs = (_build.cuda_args("select_blocks", q_hat=q_hat, k_hat=k_hat,
+                             cur_len=cur_len.to(torch.int32), table=table)
+            + _build.scale_ptrs("select_blocks", q_hat.device, k_scale)
+            + _build.cuda_args("select_blocks", out=out))
+    _launch("loki_select_blocks", select_blocks, ptrs, q_hat, k_hat, code,
             (b, s_len, n_kv, g, kdim, d, block_size, k_blocks, n_tab,
              page_size), (scale, local_window, sliding_window))
     return out

@@ -18,9 +18,13 @@ Output:    (B, Hkv, G, D) in q_hat's dtype; all arithmetic in float32.
 
 Paged mode: ``page_table (B, n_tab)`` and ``page_size`` (a multiple of
 ``block_size``) make the caches pools read through the table; the logical
-length is ``n_tab * page_size``. The wrappers launch the kernels for CUDA
-tensors and run the plain versions (over the gathered logical view when
-paged) for CPU tensors; nothing falls back from one to the other.
+length is ``n_tab * page_size``. Quantized pools (int8, fp8-e4m3) come
+with their (n_pages,) float32 ``k_scale``/``v_scale``: the kernels
+dequantize each row as they read it (code -> float32 * page scale, then
+the dot; V likewise before p·V), the plain versions the gathered view. The
+wrappers launch the kernels for CUDA tensors and run the plain versions
+(over the gathered logical view when paged) for CPU tensors; nothing falls
+back from one to the other.
 
 The full decode's kernel is split-KV: each (slot, kv-head)'s live block
 range is cut into ``n_split`` equal shares (``split_blocks``, the device's
@@ -45,7 +49,7 @@ import torch
 
 from repro_torch.core.attention import decode_full
 from repro_torch.kernels import _build
-from repro_torch.serving.paged_cache import gather_logical, unscaled
+from repro_torch.serving.paged_cache import check_scales, gather_logical_dq
 
 NEG_INF = -1e30
 
@@ -68,16 +72,17 @@ def cache_args(k_hat, block_size: int, page_table, page_size: int) -> int:
     return s_len
 
 
-def logical(q_hat, k_hat, v, page_table, page_size: int):
+def logical(q_hat, k_hat, v, page_table, page_size: int, k_scale=None,
+            v_scale=None):
     """(q_hat, k, v) with pooled caches gathered to their logical
-    (B,S,Hkv,·) views (``v`` may be None); contiguous caches pass."""
+    (B,S,Hkv,·) views, dequantized through the per-page scales of a
+    quantized pool (``v`` may be None); contiguous caches pass."""
     if page_table is None:
         return q_hat, k_hat, v
-    k_hat = gather_logical(k_hat, page_table, page_size)
+    k_hat = gather_logical_dq(k_hat, k_scale, page_table, page_size)
     if v is not None:
-        v = gather_logical(v, page_table, page_size)
+        v = gather_logical_dq(v, v_scale, page_table, page_size)
     return q_hat, k_hat, v
-
 
 
 def attend_blocks_plain(q_hat, k_hat, v, blk_idx, cur_len, *, block_size,
@@ -159,13 +164,14 @@ def split_blocks(cur_len, n_blocks: int, block_size: int, n_split: int,
 
 def full_decode_split_plain(q_hat, k_hat, v, cur_len, *, block_size, scale,
                             n_split, sliding_window=0, page_table=None,
-                            page_size: int = 0):
+                            page_size: int = 0, k_scale=None, v_scale=None):
     """Plain torch version of the split-KV full decode: each split's float32
     partial (acc, m, l) over its share of the live tokens, with the online
     softmax's guards, then the log-sum-exp merge (alpha = 0 for an empty
     partial, the 1e-30 floor). Not on any serving path: the tests and the
     card's checks hold the kernel's arithmetic with it."""
-    q_hat, k_hat, v = logical(q_hat, k_hat, v, page_table, page_size)
+    q_hat, k_hat, v = logical(q_hat, k_hat, v, page_table, page_size,
+                              k_scale, v_scale)
     b, n_kv, g, w = q_hat.shape
     s_len = k_hat.shape[1]
     cur = cur_len.to(q_hat.device).long()
@@ -266,13 +272,15 @@ def share_partials_plain(q_hat, k_hat, v, sel, valid, cur_len, *,
 
 def grouped_cluster_plain(q_hat, k_hat, v, blk_idx, cur_len, *, block_size,
                           scale, n_cta, sliding_window=0, page_table=None,
-                          page_size: int = 0, scale_dot=False):
+                          page_size: int = 0, scale_dot=False, k_scale=None,
+                          v_scale=None):
     """Plain torch version of block_sparse_attention_grouped's cluster
     form with n_cta CTAs per (slot, kv-head): the entries of blk_idx in
     [0, S / bs) kept in list order (-1 and others contribute nothing),
     then ``share_partials_plain``. Not on any serving path: the tests and
     the card's checks hold the kernel's arithmetic with it."""
-    q_hat, k_hat, v = logical(q_hat, k_hat, v, page_table, page_size)
+    q_hat, k_hat, v = logical(q_hat, k_hat, v, page_table, page_size,
+                              k_scale, v_scale)
     nb = k_hat.shape[1] // block_size
     blk = blk_idx.to(q_hat.device).long()
     valid = (blk >= 0) & (blk < nb)
@@ -313,32 +321,43 @@ def _sm_count(device) -> int:
 
 _FN: dict = {}
 # pointers, then int arguments, then float + int tail of each launcher
-_ARITY = {"loki_block_sparse_attention_grouped": (7, 12),
-          "loki_full_decode": (7, 12)}
+# (csrc/gather_attention.cuh)
+_ARITY = {"loki_block_sparse_attention_grouped": (9, 12),
+          "loki_full_decode": (9, 12)}
 # argument and result types of the library's shape queries
 _QUERIES = {"loki_grouped_cluster_info": ([ctypes.c_int] * 10
                                           + [ctypes.c_void_p], ctypes.c_int),
             "loki_head_cluster_info": ([ctypes.c_int] * 8
                                        + [ctypes.c_void_p], ctypes.c_int),
             "loki_attend_smem_bytes": ([ctypes.c_int] * 6,
-                                       ctypes.c_longlong)}
+                                       ctypes.c_longlong),
+            "loki_full_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_longlong)}
 
 
-def _query(name):
-    fn = _FN.get(name)
+def _fn(lib: str, name: str):
+    """Launcher or query ``name`` of the built library ``lib``, typed."""
+    fn = _FN.get((lib, name))
     if fn is None:
-        fn = getattr(_build.load("gather_attention"), name)
-        fn.argtypes, fn.restype = _QUERIES[name]
-        _FN[name] = fn
+        fn = getattr(_build.load(lib), name)
+        if name in _QUERIES:
+            fn.argtypes, fn.restype = _QUERIES[name]
+        else:
+            n_ptrs, n_ints = _ARITY[name]
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                           + [ctypes.c_int] * n_ints
+                           + [ctypes.c_float, ctypes.c_int,
+                              ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        _FN[(lib, name)] = fn
     return fn
 
 
-def _plan(info_call, kv_bf16, g, kdim, dim, n_sel, tok) -> dict:
+def _plan(lib, info_call, code, g, kdim, dim, n_sel, tok) -> dict:
     info = (ctypes.c_longlong * 3)()
     _build.check(info_call(info), "cluster info")
     return dict(C=int(info[0]), smem=int(info[1]), max_clusters=int(info[2]),
-                smem_layout=int(_query("loki_attend_smem_bytes")(
-                    kv_bf16, g, kdim, dim, n_sel, tok)))
+                smem_layout=int(_fn(lib, "loki_attend_smem_bytes")(
+                    code, g, kdim, dim, n_sel, tok)))
 
 
 def attend_plan(q_hat, k_hat, v, blk_idx, *, block_size: int = 128,
@@ -352,23 +371,21 @@ def attend_plan(q_hat, k_hat, v, blk_idx, *, block_size: int = 128,
     b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
     s_len = cache_args(k_hat, block_size, page_table, page_size)
     n_sel = blk_idx.shape[-1]
-    kv_bf16 = _build.dtype_code(k_hat, "k_hat")
-    return _plan(lambda info: _query("loki_grouped_cluster_info")(
-        _build.dtype_code(q_hat, "q_hat"), kv_bf16, b, s_len, n_kv, g, kdim,
-        dim, block_size, n_sel, info), kv_bf16, g, kdim, dim, n_sel,
-        tok=4)
+    code, _, lib = _build.storage(k_hat, "k_hat")
+    return _plan(lib, lambda info: _fn(lib, "loki_grouped_cluster_info")(
+        _build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g, kdim,
+        dim, block_size, n_sel, info), code, g, kdim, dim, n_sel, tok=4)
 
 
-def _lib(name):
-    fn = _FN.get(name)
-    if fn is None:
-        n_ptrs, n_ints = _ARITY[name]
-        fn = getattr(_build.load("gather_attention"), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN[name] = fn
-    return fn
+def full_plan(q_hat, k_hat, v, *, block_size: int = 128) -> dict:
+    """paged_full_decode's launch at these CUDA tensors' shapes: the split
+    count ``n_split`` and ``smem_layout``, the library's
+    ``loki_full_smem_bytes`` (the split kernel's dynamic shared memory).
+    For chip_smoke's log and checks."""
+    b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
+    code, _, lib = _build.storage(k_hat, "k_hat")
+    return dict(smem_layout=int(_fn(lib, "loki_full_smem_bytes")(
+        code, g, kdim, dim)))
 
 
 def _widths(q_hat, k_hat, v):
@@ -386,31 +403,32 @@ def block_sparse_attention_grouped(q_hat, k_hat, v, blk_idx, cur_len, *,
                                    k_scale=None, v_scale=None):
     """GQA-batched sparse attention over a group-shared block selection.
     (B,Hkv,G,W),(B,S,Hkv,W),(B,S,Hkv,D),(B,Hkv,n_sel),(B,) -> (B,Hkv,G,D),
-    or pooled caches with ``page_table``/``page_size``. Default scale
-    ``D**-0.5``."""
-    unscaled(k_scale, v_scale)
+    or pooled caches with ``page_table``/``page_size`` (and their per-page
+    ``k_scale``/``v_scale`` when quantized). Default scale ``D**-0.5``."""
+    check_scales(k_hat, k_scale, v_scale, page_table, page_size)
     b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
     s_len = cache_args(k_hat, block_size, page_table, page_size)
     n_sel = blk_idx.shape[-1]
     scale = float(scale if scale is not None else dim ** -0.5)
     if not q_hat.is_cuda:
         return attend_blocks_plain(
-            *logical(q_hat, k_hat, v, page_table, page_size), blk_idx,
-            cur_len, block_size=block_size, scale=scale,
-            sliding_window=sliding_window)
+            *logical(q_hat, k_hat, v, page_table, page_size, k_scale,
+                     v_scale), blk_idx, cur_len, block_size=block_size,
+            scale=scale, sliding_window=sliding_window)
     out = torch.empty((b, n_kv, g, dim), dtype=q_hat.dtype,
                       device=q_hat.device)
     table, n_tab = _build.table_arg(page_table, q_hat.device)
-    ptrs = _build.cuda_args("block_sparse_attention_grouped", q_hat=q_hat,
-                            k_hat=k_hat, v=v,
-                            blk_idx=blk_idx.to(torch.int32),
-                            cur_len=cur_len.to(torch.int32), table=table,
-                            out=out)
-    rc = _lib("loki_block_sparse_attention_grouped")(
-        *ptrs, _build.dtype_code(q_hat, "q_hat"),
-        _build.dtype_code(k_hat, "k_hat"), b, s_len, n_kv, g, kdim, dim,
-        block_size, n_sel, n_tab, page_size, scale, sliding_window,
-        _build.stream_of(q_hat))
+    kernel = "block_sparse_attention_grouped"
+    code, _, lib = _build.storage_args(kernel, k_hat, v, k_scale is not None)
+    ptrs = (_build.cuda_args(kernel, q_hat=q_hat, k_hat=k_hat, v=v,
+                             blk_idx=blk_idx.to(torch.int32),
+                             cur_len=cur_len.to(torch.int32), table=table)
+            + _build.scale_ptrs(kernel, q_hat.device, k_scale, v_scale)
+            + _build.cuda_args(kernel, out=out))
+    rc = _fn(lib, "loki_block_sparse_attention_grouped")(
+        *ptrs, _build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g,
+        kdim, dim, block_size, n_sel, n_tab, page_size, scale,
+        sliding_window, _build.stream_of(q_hat))
     _build.check(rc, "block_sparse_attention_grouped")
     block_sparse_attention_grouped.launches += 1
     return out
@@ -423,20 +441,22 @@ def paged_full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
                       scale=None, sliding_window: int = 0, page_table=None,
                       page_size: int = 0, k_scale=None, v_scale=None):
     """Full-attention decode streamed over the live blocks only (the
-    ``full`` policy's kernel), contiguous or paged.
+    ``full`` policy's kernel), contiguous or paged (with per-page
+    ``k_scale``/``v_scale`` when quantized).
     (B,Hkv,G,W),(B,S,Hkv,W),(B,S,Hkv,D),(B,) -> (B,Hkv,G,D) in q_hat's
     dtype. Default scale ``D**-0.5``; cur_len >= 1 per row. On the card
     the live blocks are split ``full_decode_n_split`` ways and merged in
     the same launcher call, through a float32 scratch of
     (B, Hkv, n_split, G, D + 2)."""
-    unscaled(k_scale, v_scale)
+    check_scales(k_hat, k_scale, v_scale, page_table, page_size)
     b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
     s_len = cache_args(k_hat, block_size, page_table, page_size)
     scale = float(scale if scale is not None else dim ** -0.5)
     if not q_hat.is_cuda:
         return full_decode_plain(
-            *logical(q_hat, k_hat, v, page_table, page_size), cur_len,
-            scale=scale, sliding_window=sliding_window)
+            *logical(q_hat, k_hat, v, page_table, page_size, k_scale,
+                     v_scale), cur_len, scale=scale,
+            sliding_window=sliding_window)
     out = torch.empty((b, n_kv, g, dim), dtype=q_hat.dtype,
                       device=q_hat.device)
     n_split = full_decode_n_split(s_len // block_size, b * n_kv,
@@ -444,14 +464,16 @@ def paged_full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
     part = torch.empty((b, n_kv, n_split, g, dim + 2), dtype=torch.float32,
                        device=q_hat.device)
     table, n_tab = _build.table_arg(page_table, q_hat.device)
-    ptrs = _build.cuda_args("paged_full_decode", q_hat=q_hat, k_hat=k_hat,
-                            v=v, cur_len=cur_len.to(torch.int32),
-                            table=table, out=out, part=part)
-    rc = _lib("loki_full_decode")(
-        *ptrs, _build.dtype_code(q_hat, "q_hat"),
-        _build.dtype_code(k_hat, "k_hat"), b, s_len, n_kv, g, kdim, dim,
-        block_size, n_tab, page_size, n_split, scale, sliding_window,
-        _build.stream_of(q_hat))
+    kernel = "paged_full_decode"
+    code, _, lib = _build.storage_args(kernel, k_hat, v, k_scale is not None)
+    ptrs = (_build.cuda_args(kernel, q_hat=q_hat, k_hat=k_hat, v=v,
+                             cur_len=cur_len.to(torch.int32), table=table)
+            + _build.scale_ptrs(kernel, q_hat.device, k_scale, v_scale)
+            + _build.cuda_args(kernel, out=out, part=part))
+    rc = _fn(lib, "loki_full_decode")(
+        *ptrs, _build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g,
+        kdim, dim, block_size, n_tab, page_size, n_split, scale,
+        sliding_window, _build.stream_of(q_hat))
     _build.check(rc, "paged_full_decode")
     paged_full_decode.launches += 1
     return out
@@ -525,7 +547,8 @@ def head_plan(q_hat, k_hat, blk_idx, *, block_size: int = 128) -> dict:
     fm = int(key_strides(k_hat)[2] != 1)
     n_sel = blk_idx.shape[1]
     kv_bf16 = _build.dtype_code(k_hat, "k_hat")
-    return _plan(lambda info: _query("loki_head_cluster_info")(
+    lib = "gather_attention"
+    return _plan(lib, lambda info: _fn(lib, "loki_head_cluster_info")(
         _build.dtype_code(q_hat, "q_hat"), kv_bf16, bh, k_hat.shape[1], dim,
         block_size, n_sel, fm, info), kv_bf16, 1, dim, dim, n_sel,
         tok=16 // k_hat.element_size())

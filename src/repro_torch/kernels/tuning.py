@@ -13,7 +13,9 @@ The budget is the kernels' real dynamic shared memory against the H100's
 per-block opt-in limit: the select kernel stages every value as float32,
 so the cache dtype does not enter its budget; the split-KV full decode,
 the fused cluster kernels and the grouped attention copy cache rows as
-they are stored, so theirs depend on it. ``TUNED`` pins measured shapes;
+they are stored, so theirs depend on it. One-byte storage (int8, fp8) is
+always scaled: each of its attention ring stages also holds the stage's
+tokens' K and V page scales (float32). ``TUNED`` pins measured shapes;
 it stays empty until shapes have been measured on the card.
 """
 from __future__ import annotations
@@ -55,6 +57,16 @@ def _round16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
+def split_stage_bytes(*, kdim: int, dim: int, itemsize: int,
+                      tok: int = SPLIT_TOK) -> int:
+    """One warp's attention ring stage (``split_stage_bytes`` in
+    csrc/decode_common.cuh): ``tok`` K̂ and V rows in the storage dtype,
+    rows padded to 4 elements, then for one-byte (scaled) storage the
+    tokens' K and V page scales."""
+    scales = 2 * tok * 4 if itemsize == 1 else 0
+    return _round16(tok * (_pad4(kdim) + _pad4(dim)) * itemsize + scales)
+
+
 def score_tokens(*, d: int, bs: int, itemsize: int) -> tuple:
     """(tokens per score chunk, bytes per staged token row) of the fused
     kernels: a row is the leading d features rounded up to 16 bytes plus
@@ -80,8 +92,8 @@ def fused_smem_bytes(*, nb: int, k_blocks: int, g: int, kdim: int,
     fixed = (_round16(4 * g * _pad4(kdim)) + _round16(4 * nb)
              + _round16(4 * k_blocks) + _round16(2 * SPLIT_WARPS * 8))
     score_ring = SPLIT_WARPS * SCORE_STAGES * tok * row
-    attn_ring = SPLIT_WARPS * SPLIT_STAGES * _round16(
-        SPLIT_TOK * (_pad4(kdim) + _pad4(dim)) * itemsize)
+    attn_ring = SPLIT_WARPS * SPLIT_STAGES * split_stage_bytes(
+        kdim=kdim, dim=dim, itemsize=itemsize)
     merge = 4 * (SPLIT_WARPS + 1) * g * (dim + 2)
     return fixed + _round16(max(score_ring, attn_ring, merge, 4 * nb))
 
@@ -95,8 +107,8 @@ def attend_smem_bytes(*, n_sel: int, g: int, kdim: int, dim: int,
     dtype, which the warp merge and the CTA's partial ((SPLIT_WARPS + 1)
     G (D + 2) float32) reuse. The launchers compute the same
     (``loki_attend_smem_bytes``, csrc/gather_attention.cu)."""
-    ring = SPLIT_WARPS * SPLIT_STAGES * _round16(
-        tok * (_pad4(kdim) + _pad4(dim)) * itemsize)
+    ring = SPLIT_WARPS * SPLIT_STAGES * split_stage_bytes(
+        kdim=kdim, dim=dim, itemsize=itemsize, tok=tok)
     merge = 4 * (SPLIT_WARPS + 1) * g * (dim + 2)
     return (_round16(4 * g * _pad4(kdim)) + _round16(4 * n_sel)
             + _round16(max(ring, merge)))
@@ -104,12 +116,13 @@ def attend_smem_bytes(*, n_sel: int, g: int, kdim: int, dim: int,
 
 def full_smem_bytes(*, g: int, kdim: int, dim: int, itemsize: int) -> int:
     """paged_full_decode (split-KV): the scaled float32 query (G, W) and
-    each warp's ring of SPLIT_STAGES stages of SPLIT_TOK K̂ and V rows in
-    the cache dtype (rows padded to 4 elements); the warps' log-sum-exp
-    merge, (G, D + 2) float32 each, reuses the ring. It does not grow with
-    smax or the block size."""
-    ring = SPLIT_WARPS * SPLIT_STAGES * _round16(
-        SPLIT_TOK * (_pad4(kdim) + _pad4(dim)) * itemsize)
+    each warp's ring of SPLIT_STAGES stages (``split_stage_bytes``); the
+    warps' log-sum-exp merge, (G, D + 2) float32 each, reuses the ring. It
+    does not grow with smax or the block size. The launcher computes the
+    same (``full_layout``, exported as ``loki_full_smem_bytes``,
+    csrc/gather_attention.cuh)."""
+    ring = SPLIT_WARPS * SPLIT_STAGES * split_stage_bytes(
+        kdim=kdim, dim=dim, itemsize=itemsize)
     merge = 4 * SPLIT_WARPS * g * (dim + 2)
     return _round16(4 * g * _pad4(kdim)) + max(ring, merge)
 

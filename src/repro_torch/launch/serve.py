@@ -4,14 +4,22 @@
         --policy loki_block --requests 4 --max-new 16 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
         --policy full --page-size 16 --n-pages 33 --prefill-chunk 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --policy loki_block --layout int8:pca:r=16 --device cpu
 
 Builds the dense slot engine (``--engine dense``) or the paged engine
 (``--engine paged``: a page pool of ``--n-pages`` pages of
 ``--page-size`` tokens, prompts prefilled ``--prefill-chunk`` tokens at a
 time) with the selected attention policy, calibrates the PCA transforms
-for the Loki policies on synthetic batches, and reports throughput over a
-synthetic request stream. Runs on the card unless ``--device cpu`` is
-given.
+for the Loki policies (and for pages stored in the PCA basis) on synthetic
+batches, and reports throughput over a synthetic request stream. Runs on
+the card unless ``--device cpu`` is given.
+
+``--layout`` sets the paged engine's page layout in ``PageLayout.parse``
+syntax, ``dtype[:basis][:r=N]``: storage fp32 | fp16 | bf16 | int8 | fp8
+(int8 and fp8 pages carry per-page float32 scales), basis native | pca,
+and a latent key rank r under pca (e.g. ``int8:pca:r=32``); empty is the
+default fp32 native layout.
 
 Every knob lives in :class:`ServeConfig`; the flags are thin aliases.
 ``warm_steps > 0`` raises (the port has no training yet). ``--full``
@@ -29,7 +37,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PageLayout
 from repro_torch.core import pca as PCA
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.models import lm
@@ -60,6 +68,10 @@ class PagedSection:
     page_size: Optional[int] = None
     n_pages: Optional[int] = None
     prefill_chunk: int = 32
+    layout: str = ""               # PageLayout.parse spec; "" = default
+
+    def page_layout(self) -> PageLayout:
+        return PageLayout.parse(self.layout) if self.layout else PageLayout()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +93,8 @@ class ServeConfig:
                 policy=a.policy, k_f=a.k_f, d_f=a.d_f, backend=a.backend,
                 n_slots=a.n_slots, smax=a.smax),
             paged=PagedSection(page_size=a.page_size, n_pages=a.n_pages,
-                               prefill_chunk=a.prefill_chunk),
+                               prefill_chunk=a.prefill_chunk,
+                               layout=a.layout),
             admission=a.admission, requests=a.requests, max_new=a.max_new,
             warm_steps=a.warm_steps, seed=a.seed, device=a.device)
 
@@ -91,6 +104,9 @@ class ServeConfig:
         if self.engine.policy != "full":
             cfg = cfg.with_policy(self.engine.policy, k_f=self.engine.k_f,
                                   d_f=self.engine.d_f)
+        lay = self.paged.page_layout()
+        if lay != PageLayout():
+            cfg = cfg.with_layout(lay)
         return cfg
 
     def check(self) -> None:
@@ -98,6 +114,9 @@ class ServeConfig:
         if self.engine.kind not in ("dense", "paged"):
             raise ValueError(f"engine kind {self.engine.kind!r}; use "
                              "'dense' or 'paged'")
+        if self.paged.layout and self.engine.kind != "paged":
+            raise ValueError("--layout sets the paged engine's page layout; "
+                             "use --engine paged")
         if self.warm_steps:
             raise NotImplementedError(
                 "warm_steps > 0 needs training, not ported yet (ROADMAP "
@@ -119,9 +138,11 @@ class ServeConfig:
 def calibrated_params(cfg: ModelConfig, data: SyntheticLM, *, seed: int,
                       device):
     """Random weights from ``seed`` with PCA projections calibrated on two
-    synthetic batches and installed, as the JAX launcher does."""
+    synthetic batches and installed, as the JAX launcher does: for the
+    Loki policies and for pages stored in the PCA basis."""
     params = lm.init(cfg, seed=seed, device=device)
-    if cfg.attn_policy() in ("loki", "loki_block"):
+    if cfg.attn_policy() in ("loki", "loki_block") or \
+            cfg.page_layout.basis == "pca":
         batches = [data.batch_at(1000 + i)["tokens"] for i in range(2)]
         calib = PCA.calibrate_model(params, cfg, batches)
         params = PCA.install_projections(params, calib, "pre")
@@ -152,6 +173,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-pages", type=int, default=None,
                     help="paged engine: pool pages incl. the trash page "
                          "(default: every slot at its page bound)")
+    ap.add_argument("--layout", default="",
+                    help="paged engine's PageLayout spec "
+                         "'dtype[:basis][:r=N]': dtype fp32|fp16|bf16|int8|"
+                         "fp8, basis native|pca, latent rank r (pca only); "
+                         "e.g. 'int8:pca:r=32'. Empty = fp32 native")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="paged engine: prompt tokens per prefill chunk")
     ap.add_argument("--admission", default="strict",
@@ -173,6 +199,11 @@ def main(argv=None):
                                   temperature=0.22))
     params = calibrated_params(cfg, data, seed=sc.seed, device=device)
     eng = sc.build_engine(params, cfg)
+    if sc.engine.kind == "paged":
+        lay = cfg.page_layout
+        print(f"layout: {lay.describe()} — {eng.bytes_per_page} B/page/layer"
+              + (" (per-page f32 scales beside the table)"
+                 if lay.quantized else ""))
     reqs = [Request(rid=i,
                     prompt=data.batch_at(4000 + i)["tokens"][0, :24 + 4 * i],
                     max_new=sc.max_new)

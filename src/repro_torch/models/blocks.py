@@ -145,34 +145,56 @@ def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
     proj = p["pca"]
     cur_len = positions + 1                       # cache incl. new token
     sw = cfg.sliding_window if sliding_window is None else sliding_window
+    paged = page_table is not None
+    lay = cfg.page_layout
     if _stores_pca(policy):
         _, k_store = loki.project_qk(q, k, proj)
+    elif paged and lay.basis == "pca":
+        # latent-basis pages for full / exact_topk: store k̂ = k·P and
+        # rotate q at read time (exact at full rank, Lemma 4.1)
+        k_store = torch.einsum("bhd,hde->bhe", k, proj.to(k.dtype))
     else:
         k_store = k
-    paged = page_table is not None
+    scales = {}
     if paged:
-        PC.write_token_rows(cache["k"], k_store, page_table, positions,
-                            page_size)
-        PC.write_token_rows(cache["v"], v, page_table, positions, page_size)
+        # the pool's width is the stored key width: rank-r truncation
+        k_store = k_store[..., :cache["k"].shape[-1]]
+        for name, new in (("k", k_store), ("v", v)):
+            if lay.quantized:
+                PC.write_token_rows_q(cache[name], cache[name + "_scale"],
+                                      new, page_table, positions, page_size,
+                                      qmax=lay.qmax)
+            else:
+                PC.write_token_rows(cache[name], new, page_table, positions,
+                                    page_size)
+        if lay.quantized:
+            scales = dict(k_scale=cache["k_scale"], v_scale=cache["v_scale"])
     else:
         _write_cache(cache["k"], k_store, pos_len)
         _write_cache(cache["v"], v, pos_len)
-    pargs = dict(page_table=page_table, page_size=page_size)
+    pargs = dict(page_table=page_table, page_size=page_size, **scales)
+
+    # queries follow the storage basis; hd**-0.5 stays the logit scale
+    # when the stored key width is the latent rank r < hd
+    q_read = q
+    if paged and lay.basis == "pca" and policy in ("full", "exact_topk"):
+        qg = q.reshape(b, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, hd)
+        qh = torch.einsum("bhgd,hde->bhge", qg, proj.to(q.dtype))
+        q_read = qh[..., :lay.k_width(hd)].reshape(b, cfg.n_heads, -1)
 
     if policy == "full":
-        out = dispatch.full_paged_decode(q, cache["k"], cache["v"], cur_len,
-                                         backend=cfg.loki.backend,
+        out = dispatch.full_paged_decode(q_read, cache["k"], cache["v"],
+                                         cur_len, backend=cfg.loki.backend,
                                          block_size=cfg.loki.block_size,
                                          sliding_window=sw,
                                          logit_scale=hd ** -0.5, **pargs)
     elif policy == "exact_topk":
-        out = dispatch.exact_topk_paged_decode(q, cache["k"], cache["v"],
-                                               cur_len, cfg.loki,
+        out = dispatch.exact_topk_paged_decode(q_read, cache["k"],
+                                               cache["v"], cur_len, cfg.loki,
                                                logit_scale=hd ** -0.5,
                                                **pargs)
     elif policy == "loki":
-        kc, vc = dispatch.gathered(cache["k"], cache["v"], page_table,
-                                    page_size)
+        kc, vc = dispatch.gathered(cache["k"], cache["v"], **pargs)
         out = loki.loki_decode(q, kc, vc, cur_len, proj, cfg.loki,
                                sliding_window=sw)
     elif policy == "loki_block":
@@ -238,20 +260,29 @@ def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
                          "engine's one-shot prefill")
     proj = p["pca"]
     hd = cfg.resolved_head_dim
-    pca_store = _stores_pca(policy)
+    lay = cfg.page_layout
+    pca_store = _stores_pca(policy) or lay.basis == "pca"
     k_store = (torch.einsum("bshd,hde->bshe", k, proj.to(k.dtype))
                if pca_store else k)
-    PC.write_chunk_rows(cache["k"], k_store[0], table_row, pos_start,
-                        page_size, n_valid=n_valid)
-    PC.write_chunk_rows(cache["v"], v[0], table_row, pos_start, page_size,
-                        n_valid=n_valid)
-    klog = PC.gather_logical(cache["k"], table_row[None], page_size)
-    vlog = PC.gather_logical(cache["v"], table_row[None], page_size)
+    kw = cache["k"].shape[-1]          # the pool's (stored) key width
+    k_store = k_store[..., :kw]
+    for name, new in (("k", k_store[0]), ("v", v[0])):
+        if lay.quantized:
+            PC.write_chunk_rows_q(cache[name], cache[name + "_scale"], new,
+                                  table_row, pos_start, page_size,
+                                  n_valid=n_valid, qmax=lay.qmax)
+        else:
+            PC.write_chunk_rows(cache[name], new, table_row, pos_start,
+                                page_size, n_valid=n_valid)
+    klog = PC.gather_logical_dq(cache["k"], cache.get("k_scale"),
+                                table_row[None], page_size)
+    vlog = PC.gather_logical_dq(cache["v"], cache.get("v_scale"),
+                                table_row[None], page_size)
     sl = klog.shape[1]
     scale = hd ** -0.5
     qg = A._group(q, cfg.n_kv_heads)                       # (1,C,Hkv,G,D)
     q_pref = (torch.einsum("bchgd,hde->bchge", qg, proj.to(q.dtype))
-              if pca_store else qg)
+              if pca_store else qg)[..., :kw]
     # prefix scores against the cached (storage-basis) keys ...
     scores = torch.einsum("bchgd,bshd->bhgcs", (q_pref * scale).float(),
                           klog.float())

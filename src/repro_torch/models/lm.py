@@ -22,10 +22,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PageLayout
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.serving import cache_spec as CS
+from repro_torch.serving import paged_cache as PC
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -213,22 +214,39 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     axis, no batch dim; requests map logical positions to pool rows through
     per-slot page tables. Memory follows the page budget, not
     n_slots * smax. ``n_slots`` sizes per-slot state, which the dense
-    family has none of. The reference's tiered pool (``device_pages``)
-    is not ported yet (ROADMAP queue 1 item 7)."""
+    family has none of.
+
+    The layout (``cfg.page_layout``) sets the pools' storage dtype and the
+    key width W (rank r under the pca basis); the default layout keeps the
+    caller's ``dtype``, as the reference does. Quantized layouts (int8,
+    fp8) add (L, n_pages) float32 ``k_scale``/``v_scale`` sidecars, zero
+    until a page is written. The reference's tiered pool (``device_pages``)
+    is not ported yet (ROADMAP queue 1 item 7); like the reference it
+    refuses quantized layouts."""
     check_family(cfg)
     CS.assert_pageable(cfg)
     B.check_policy(cfg)
+    spec = CS.layer_specs(cfg)[0].attn
+    lay = spec.layout
     if device_pages is not None:
+        if lay.quantized:
+            raise ValueError("tiered pools require a non-quantized "
+                             "PageLayout (per-page scale RMW is not "
+                             "replay-idempotent)")
         raise NotImplementedError("tiered KV pools are not ported yet "
                                   "(ROADMAP queue 1 item 7)")
-    spec = CS.layer_specs(cfg)[0].attn
+    pdt = dtype if lay == PageLayout() else PC.STORAGE_DTYPE[lay.dtype]
     dev = resolve_device(device)
     rows = n_pages * page_size
     lead = (cfg.n_layers, rows, spec.n_kv_heads)
-    return {"layers": {"attn": {
-        "k": torch.zeros(lead + (spec.k_width,), dtype=dtype, device=dev),
-        "v": torch.zeros(lead + (spec.head_dim,), dtype=dtype,
-                         device=dev)}}}
+    attn = {"k": torch.zeros(lead + (spec.k_width,), dtype=pdt, device=dev),
+            "v": torch.zeros(lead + (spec.head_dim,), dtype=pdt,
+                             device=dev)}
+    if lay.quantized:
+        for name in ("k_scale", "v_scale"):
+            attn[name] = torch.zeros((cfg.n_layers, n_pages),
+                                     dtype=torch.float32, device=dev)
+    return {"layers": {"attn": attn}}
 
 
 @torch.no_grad()

@@ -7,12 +7,15 @@ The port carries one component kind so far:
 
   PagedAttn  growable page-table K/V in the shared pool
              ((n_pages * page_size, Hkv, W) per layer, no batch dim); a
-             request holds ceil(len / page_size) pages.
+             request holds ceil(len / page_size) pages. Its PageLayout
+             sets the storage dtype (fp32, fp16, bf16, int8, fp8), the key
+             basis (native or pca), the stored key width W (rank r under
+             pca) and, for int8 and fp8, per-page float32 scales.
 
 The reference's WindowPagedAttn, StateSlot and CrossAttnStatic (sliding
 window, recurrent and encoder families) come with the other families
-(ROADMAP queue 1 item 8); page layouts other than the default (fp32
-storage, native basis, no scales) with item 6. Both raise here.
+(ROADMAP queue 1 item 8), and per-layer ranks (``page_ranks``) with them.
+Both raise here.
 """
 from __future__ import annotations
 
@@ -40,6 +43,11 @@ class PagedAttn:
     def k_width(self) -> int:
         return self.layout.k_width(self.head_dim)
 
+    def bytes_per_page(self, page_size: int) -> int:
+        """K and V bytes of one page of one layer (the scales aside)."""
+        return page_size * self.layout.bytes_per_page_row(self.head_dim,
+                                                          self.n_kv_heads)
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
@@ -64,11 +72,10 @@ def _check_ported(cfg: ModelConfig) -> None:
             f"{cfg.arch}: only dense full-attention layers page in the port "
             "so far (window, state and cross-attention components: ROADMAP "
             "queue 1 item 8)")
-    if cfg.page_layout != PageLayout() or cfg.page_ranks is not None:
+    if cfg.page_ranks is not None:
         raise NotImplementedError(
-            f"page layout {cfg.page_layout.describe()} is not ported yet; "
-            "the port pages fp32 native keys without scales (ROADMAP queue "
-            "1 item 6)")
+            "per-layer page ranks (page_ranks) are not ported yet; they "
+            "serve the families of ROADMAP queue 1 item 8")
 
 
 def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:

@@ -13,11 +13,17 @@ Physical page 0 is the trash page: freed and idle slots point their whole
 table at it, so the batched decode step's unconditional write lands there
 instead of in pages reallocated to other requests.
 
+Quantized page layouts (int8, fp8-e4m3) store pool rows as codes with one
+float32 amax scale per physical page, in (n_pages,) sidecars beside the
+pools (K and V scales apart). Every write re-derives the page's scale from
+its valid prefix and re-quantizes the page (read-modify-write), as the
+reference does.
+
 Two layers, as in the reference: torch helpers over the pools (writes are
 in place, where the JAX code returns an updated array), and the host-side
 refcounted ``PagePool`` the scheduler drives. The reference's prefix
 index, LRU, tiers and ``FetchQueue`` are not ported yet (ROADMAP queue 1
-item 7), nor are quantized page codes (item 6).
+item 7).
 """
 from __future__ import annotations
 
@@ -27,14 +33,38 @@ import torch
 
 TRASH_PAGE = 0
 
+#: PageLayout.dtype -> torch storage dtype of the physical pool
+STORAGE_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
+                 "bf16": torch.bfloat16, "int8": torch.int8,
+                 "fp8": torch.float8_e4m3fn}
 
-def unscaled(k_scale, v_scale) -> None:
-    """Refuse per-page scales: the quantized page layouts they belong to
-    are not ported yet."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "per-page scales (quantized page layouts) are not ported yet "
-            "(ROADMAP queue 1 item 6)")
+#: scale floor: all-zero (fresh) pages divide safely
+QUANT_EPS = 1e-8
+
+
+def check_scales(pool, k_scale, v_scale, page_table, page_size: int, *,
+                 need_v: bool = True) -> bool:
+    """Check per-page scale arguments as the reference kernels assert them
+    and return whether the call is scaled: scales only with a paged pool,
+    ``k_scale`` and ``v_scale`` together (``need_v``; select_blocks takes
+    ``k_scale`` alone), each a float32 vector of one entry per page of
+    ``pool`` (R rows = n_pages * page_size)."""
+    given = [s for s in (k_scale, v_scale) if s is not None]
+    if not given:
+        return False
+    if page_table is None:
+        raise ValueError("per-page scales require paged caches "
+                         "(page_table and page_size)")
+    if k_scale is None or (need_v and v_scale is None):
+        raise ValueError("k_scale and v_scale come together "
+                         "(a quantized layout scales both pools)")
+    n_pages = pool.shape[0] // page_size
+    for s in given:
+        if s.shape != (n_pages,) or s.dtype != torch.float32:
+            raise ValueError(f"a page scale must be ({n_pages},) float32, "
+                             f"one entry per pool page; got "
+                             f"{tuple(s.shape)} {s.dtype}")
+    return True
 
 
 # ---------------------------------------------------------- pool helpers
@@ -63,6 +93,118 @@ def token_rows(page_table, pos, page_size: int):
     page = (pos // page_size).clamp(0, page_table.shape[1] - 1)
     pid = torch.gather(page_table.long(), 1, page[:, None])[:, 0]
     return pid * page_size + pos % page_size
+
+
+def gather_scales(scales, page_table, page_size: int):
+    """Per logical-row dequantization scale: scales (n_pages,) float32,
+    page_table (B, max_pages) -> (B, max_pages * page_size)."""
+    s = scales[page_table.to(scales.device).long()]
+    return s.repeat_interleave(page_size, dim=1)
+
+
+def gather_logical_dq(pool, scales, page_table, page_size: int):
+    """``gather_logical`` and dequantization: the float32 logical view of
+    a quantized pool, code -> float32 * page scale. ``scales=None`` is the
+    plain gather, so callers hold one code path per layout."""
+    rows = gather_logical(pool, page_table, page_size)
+    if scales is None:
+        return rows
+    s = gather_scales(scales, page_table, page_size)
+    return rows.float() * s[:, :, None, None]
+
+
+def quantize_rows(x, scale, dtype, qmax: float):
+    """float32 rows -> codes at a page scale (broadcast against x). Integer
+    codes round half to even and clip to +-qmax, as the reference does;
+    fp8 codes clip to +-qmax too (the reference's conversion turns stale
+    rows past a page's valid prefix that overflow into NaN, which poisons
+    the page's next scale; the port saturates them, PERF.md / ROADMAP
+    queue 3). Valid rows never exceed qmax, so their codes agree."""
+    y = x / scale
+    if not dtype.is_floating_point:
+        y = torch.round(y)
+    return y.clamp(-qmax, qmax).to(dtype)
+
+
+def _page_scale(rows_f32, n_valid, qmax: float):
+    """amax / qmax over each page's valid prefix: rows_f32 (N, ps, H, W),
+    n_valid (N,) -> (N,) float32."""
+    ps = rows_f32.shape[1]
+    m = torch.arange(ps, device=rows_f32.device)[None] < n_valid[:, None]
+    amax = torch.where(m[:, :, None, None], rows_f32.abs(),
+                       0.0).amax(dim=(1, 2, 3))
+    # times the reciprocal (a Python scalar multiplies a float32 tensor at
+    # float32), as the reference's compiled write computes amax / qmax; no
+    # device tensor is built from the host, so a decode step stays free of
+    # host syncs
+    return amax.clamp(min=QUANT_EPS) * (1.0 / qmax)
+
+
+def _rmw_pages(pool, scales, page, new_rows, take, n_valid, page_size,
+               qmax):
+    """Read-modify-write of N whole pages at once: page (N,) physical ids;
+    new_rows (N, ps, H, W) and take (N, ps) the rows to overlay; n_valid
+    (N,) the valid prefix each new scale covers. Pages are dequantized at
+    their old scale, overlaid, re-scaled and re-quantized. Entries that
+    share a page (dead slots on the trash page) leave it undefined; no
+    live read touches the trash page."""
+    rows = page[:, None] * page_size + torch.arange(page_size,
+                                                    device=page.device)
+    dq = pool[rows].float() * scales[page][:, None, None, None]
+    dq = torch.where(take[:, :, None, None], new_rows.float(), dq)
+    scale = _page_scale(dq, n_valid, qmax)
+    pool[rows] = quantize_rows(dq, scale[:, None, None, None], pool.dtype,
+                               qmax)
+    scales[page] = scale
+
+
+def write_token_rows_q(pool, scales, new, page_table, pos, page_size: int,
+                       *, qmax: float):
+    """Quantized decode-step write, in place: new (B, Hkv, W) at logical
+    positions pos (B,). Each slot's current page is read-modified-written
+    with its scale re-derived over the valid prefix [0, pos % ps + 1); all
+    slots at once (the reference loops over them, and its dead slots
+    rewrite the trash page in turn). Returns (pool, scales)."""
+    ps = page_size
+    pos = pos.to(pool.device).long()
+    table = page_table.to(pool.device).long()
+    lpage = (pos // ps).clamp(0, table.shape[1] - 1)
+    page = torch.gather(table, 1, lpage[:, None])[:, 0]
+    off = pos % ps
+    take = torch.arange(ps, device=pool.device)[None] == off[:, None]
+    new_rows = new[:, None].expand(-1, ps, -1, -1)
+    _rmw_pages(pool, scales, page, new_rows, take, off + 1, ps, qmax)
+    return pool, scales
+
+
+def write_chunk_rows_q(pool, scales, new, table_row, pos_start: int,
+                       page_size: int, *, n_valid: Optional[int] = None,
+                       qmax: float):
+    """Quantized chunked-prefill write (one request), in place: new (C,
+    Hkv, W) at logical ``pos_start + [0, C)``; rows at or past ``n_valid``
+    (final-chunk padding) are never written. Every page the chunk spans is
+    read-modified-written at once; a spanned page that receives no valid
+    row (or lies past the table) is diverted to the trash page, so live
+    pages are never re-quantized for nothing. Returns (pool, scales)."""
+    ps = page_size
+    c = new.shape[0]
+    nv = c if n_valid is None else n_valid
+    dev = pool.device
+    table_row = table_row.to(dev).long()
+    max_pages = table_row.shape[0]
+    span = (c + ps - 1) // ps + 1                # the reference's bound
+    lpage = pos_start // ps + torch.arange(span, device=dev)
+    g0 = lpage * ps                              # each page's logical start
+    ci = g0[:, None] + torch.arange(ps, device=dev) - pos_start
+    take = (ci >= 0) & (ci < nv)                 # (span, ps) page row -> chunk
+    in_range = lpage < max_pages
+    page = torch.where(take.any(1) & in_range,
+                       table_row[lpage.clamp(max=max_pages - 1)],
+                       TRASH_PAGE)
+    new_rows = new.to(dev)[ci.clamp(0, c - 1)]   # (span, ps, H, W)
+    n_page = (pos_start + nv - g0).clamp(0, ps)
+    _rmw_pages(pool, scales, page, new_rows, take, n_page, ps, qmax)
+    return pool, scales
 
 
 def write_token_rows(pool, new, page_table, pos, page_size: int):

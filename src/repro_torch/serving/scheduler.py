@@ -521,9 +521,23 @@ class PagedServingEngine:
               rng: Optional[torch.Generator] = None) -> None:
         self.run_until_done(max_ticks, rng)
 
+    @property
+    def bytes_per_page(self) -> int:
+        """K and V bytes of one page of one layer under the layout (the
+        per-page scales of a quantized layout aside)."""
+        return CS.layer_specs(self.cfg)[0].attn.bytes_per_page(
+            self.page_size)
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device bytes of every layer's pools and scale sidecars."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.cache["layers"]["attn"].values())
+
     def stats(self) -> Dict[str, Any]:
         return {"engine": "paged", "ticks": self.ticks,
                 "layout": self.cfg.page_layout.describe(),
+                "bytes_per_page": self.bytes_per_page,
                 "n_decode_steps": self.n_decode_steps,
                 "n_prefill_chunks": self.n_prefill_chunks,
                 "n_prefill_computed_tokens": self.n_prefill_computed_tokens,

@@ -257,9 +257,10 @@ def test_plan_decode_budget():
 
 
 def test_paged_and_quantized_arguments_raise():
-    """Paged pools are taken now; per-page scales (quantized layouts) are
-    not ported yet, and a page size the block does not divide is refused
-    (a block must not straddle two pages)."""
+    """A page size the block does not divide is refused (a block must not
+    straddle two pages), and so are per-page scales the reference kernels
+    assert against: scales on a contiguous cache, k_scale without v_scale,
+    and a scale whose length is not the pool's page count."""
     q, k, v, cur = _t(*_inputs(1, 1, 1, 32, 16, 16, seed=0, cur=[3]))
     table = torch.zeros((1, 2), dtype=torch.int32)
     pool = k[0]                                  # (R, Hkv, W) = (32, 1, 16)
@@ -267,16 +268,21 @@ def test_paged_and_quantized_arguments_raise():
         fused_decode.fused_loki_decode(q, pool, v[0], cur, d=8, k_blocks=1,
                                        block_size=16, page_table=table,
                                        page_size=8)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="require paged caches"):
         fused_decode.select_blocks(q, k, cur, d=8, k_blocks=1,
                                    block_size=16, k_scale=torch.ones(2))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="require paged caches"):
         gather_attention.block_sparse_attention_grouped(
             q, k, v, torch.zeros((1, 1, 1), dtype=torch.int32), cur,
             block_size=16, v_scale=torch.ones(2))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gather_attention.paged_full_decode(q, k, v, cur, block_size=16,
+    with pytest.raises(ValueError, match="come together"):
+        gather_attention.paged_full_decode(q, pool, v[0], cur, block_size=16,
+                                           page_table=table, page_size=16,
                                            k_scale=torch.ones(2))
+    with pytest.raises(ValueError, match="one entry per pool page"):
+        fused_decode.fused_exact_topk_decode(
+            q, pool, v[0], cur, k_blocks=1, block_size=16, page_table=table,
+            page_size=16, k_scale=torch.ones(3), v_scale=torch.ones(3))
 
 
 def test_cpu_tensors_never_launch():
