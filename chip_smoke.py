@@ -647,6 +647,38 @@ def bounds(case, sel, sel_exact):
     }
 
 
+def library_calls(q, k, v, cur, sel, bs, sw, scale):
+    """paged_full_decode's and block_sparse_attention_grouped's functions
+    as one scaled_dot_product_attention call each over a logical
+    (B, S, Hkv, ·) cache: full attention of the same queries under the
+    live-token mask (also the paper's yardstick, not the same function,
+    for the sparse kernels), and attention under a boolean mask of the
+    selected blocks' live tokens. The views and masks (and the query in
+    the cache's dtype) are built here, outside any timed window; each
+    call returns (B, Hkv, G, D)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, Hkv, G, W = q.shape
+    qs = q.reshape(B, Hkv * G, 1, W).to(k.dtype)
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    if G > 1:
+        kt = kt.repeat_interleave(G, dim=1)
+        vt = vt.repeat_interleave(G, dim=1)
+    pos = torch.arange(k.shape[1], device=k.device)
+    mask = (pos[None, :] < cur[:, None].long())[:, None, None, :]
+    sel_mask = selected_tokens(sel, cur, bs, k.shape[1], sw)
+    if G > 1:
+        sel_mask = sel_mask.repeat_interleave(G, dim=1)
+    sel_mask = sel_mask[:, :, None, :]
+    shape = (B, Hkv, G, v.shape[-1])
+    return {
+        "paged_full_decode": lambda: sdpa(
+            qs, kt, vt, attn_mask=mask, scale=scale).reshape(shape),
+        "block_sparse_attention_grouped": lambda: sdpa(
+            qs, kt, vt, attn_mask=sel_mask, scale=scale).reshape(shape),
+    }
+
+
 def time_kernels(results):
     """Each kernel contiguous and paged, its plain version and, for the
     full decode, the one PyTorch call that computes the same function, at
@@ -674,33 +706,14 @@ def time_kernels(results):
         "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode_plain(
             q, k, v, cur, **ex_kw),
     }
-    # full attention of the same queries over the same live cache, one
-    # library call: the same function as paged_full_decode, and the
-    # paper's yardstick (not the same function) for the sparse kernels
-    B, Hkv, G, D = q.shape
-    qs = q.reshape(B, Hkv * G, 1, D).to(k.dtype)
-    kt = k.transpose(1, 2).contiguous()
-    vt = v.transpose(1, 2).contiguous()
-    if G > 1:
-        kt = kt.repeat_interleave(G, dim=1)
-        vt = vt.repeat_interleave(G, dim=1)
-    pos = torch.arange(k.shape[1], device=DEV)
-    mask = (pos[None, :] < cur[:, None].long())[:, None, None, :]
-    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kt, vt, attn_mask=mask, scale=kw["scale"]))
-    # block_sparse_attention_grouped's function as one library call: SDPA
-    # under a boolean mask of the selected blocks' live tokens, built (with
-    # the views) outside the timed window
-    sel_mask = selected_tokens(sel, cur, case["bs"], k.shape[1],
-                               case["sw"])
-    if G > 1:
-        sel_mask = sel_mask.repeat_interleave(G, dim=1)
-    sel_mask = sel_mask[:, :, None, :]
-    grouped_sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kt, vt, attn_mask=sel_mask, scale=kw["scale"])
+    B, Hkv = q.shape[:2]
+    lib_calls = library_calls(q, k, v, cur, sel, case["bs"], case["sw"],
+                              kw["scale"])
+    sdpa_ms = time_ms(lib_calls["paged_full_decode"])
     lib = {"paged_full_decode": sdpa_ms,
-           "block_sparse_attention_grouped": time_ms(grouped_sdpa)}
-    lib_err = float((grouped_sdpa().reshape(B, Hkv, G, -1).float()
+           "block_sparse_attention_grouped": time_ms(
+               lib_calls["block_sparse_attention_grouped"])}
+    lib_err = float((lib_calls["block_sparse_attention_grouped"]().float()
                      - kern["block_sparse_attention_grouped"]().float())
                     .abs().max())
     bnd = bounds(case, sel, main["sel_exact"])
@@ -973,7 +986,9 @@ def check_layouts(results):
     and exact selections: so select_blocks' block maxima are the fused
     kernels' bits), shared memory equal to tuning's at every storage; then
     each timed (CUDA events, L2 flushed, median of 20) beside its plain
-    version and its bound at the storage bytes."""
+    version, its bound at the storage bytes and, for fp16 pools, the
+    library call of the same function (``library_calls`` over the fp16
+    view; int8 and fp8 modes have none)."""
     from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import gather_attention as GA
 
@@ -1079,6 +1094,20 @@ def check_layouts(results):
                     float((g32 - w32).abs().max()) if g32.numel() else 0.0)
             e["select_blocks"] = 0.0          # indices equal off near-ties
             bnd = layout_bounds(lc, sel_k, sel_kx)
+            # fp16 pools carry no scales: one SDPA call over the fp16
+            # logical view computes the full decode's function, and one
+            # under the selected tokens' mask the grouped kernel's. An int8
+            # or fp8 pool needs its dequantizing multiply first, so no
+            # single library call computes those modes (library_ms null).
+            lib, lib_err = {}, {}
+            if lc["ks"] is None:
+                calls = library_calls(q, lk, lv, cur, sel_k, lc["bs"], 0,
+                                      lc["scale"])
+                for n, f in calls.items():
+                    lib[n] = time_ms(f) if DEV == "cuda" else float("nan")
+                    lib_err[n] = float((f().float() - got[n].float())
+                                       .abs().max())
+                del calls
             for name in KERNELS:
                 # a CPU rehearsal has no events to time with
                 ms = time_ms(kern[name]) if DEV == "cuda" else float("nan")
@@ -1087,8 +1116,15 @@ def check_layouts(results):
                 key = f"{name}[{tag}]"
                 timing[key] = dict(ms=ms, plain_ms=plain_ms,
                                    bound_ms=bnd[name][0],
-                                   bound_by=bnd[name][1], library_ms=None)
+                                   bound_by=bnd[name][1],
+                                   library_ms=lib.get(name))
                 errs[key] = e[name]
+            if lib:
+                log(f"layouts: {lc['name']}: scaled_dot_product_attention "
+                    f"over the fp16 logical view (library call of the same "
+                    f"function): "
+                    + "; ".join(f"{n} {lib[n]:.4f} ms, max |d| to the "
+                                f"kernel {lib_err[n]:.3e}" for n in lib))
             plans_all[tag] = {n: {k: p.get(k) for k in ("C", "smem",
                                                          "max_clusters")}
                               for n, p in plans.items()}
@@ -2447,19 +2483,19 @@ def prefill_flash(results, params, cfg, smax=4096):
 # --------------------------------------------------------------------- main
 
 SOURCES = {
-    "fused_loki_decode": ("src/repro_torch/csrc/fused_decode.cuh",
+    "fused_loki_decode": ("src/repro_torch/csrc/fused_decode.cu",
                           "src/repro/kernels/fused_decode.py:248",
                           "paged_loki_block"),
-    "select_blocks": ("src/repro_torch/csrc/fused_decode.cuh",
+    "select_blocks": ("src/repro_torch/csrc/fused_decode.cu",
                       "src/repro/kernels/fused_decode.py:439",
                       "decode_step"),
     "block_sparse_attention_grouped": (
-        "src/repro_torch/csrc/gather_attention.cuh",
+        "src/repro_torch/csrc/gather_attention.cu",
         "src/repro/kernels/gather_attention.py:368", "decode_step"),
-    "paged_full_decode": ("src/repro_torch/csrc/gather_attention.cuh",
+    "paged_full_decode": ("src/repro_torch/csrc/gather_attention.cu",
                           "src/repro/kernels/gather_attention.py:215",
                           "paged_full"),
-    "fused_exact_topk_decode": ("src/repro_torch/csrc/fused_decode.cuh",
+    "fused_exact_topk_decode": ("src/repro_torch/csrc/fused_decode.cu",
                                 "src/repro/kernels/fused_decode.py:328",
                                 "paged_exact_topk"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2496,6 +2532,9 @@ LAYOUT_PATHS = {
     ("fused_exact_topk_decode", "int8:pca:r=32"): "paged_int8pca_exact_topk",
     ("fused_loki_decode", "fp8"): "paged_fp8_loki_block",
 }
+#: the paths whose pools hold int8 or fp8 codes (their decode kernels run
+#: those storage modes only)
+LAYOUT_RUNS = set(LAYOUT_PATHS.values())
 
 
 def ptxas_summary(text):
@@ -2535,6 +2574,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.serving import paged_cache as PC
 
     t_start = time.perf_counter()
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -2545,9 +2585,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     secs = _build.build_all()
-    log(f"build: {len(_build.SOURCES)} CUDA sources built with nvcc "
+    log(f"build: {len(_build.LIBRARIES)} CUDA libraries built with nvcc "
         f"(sm_90a) in {secs:.1f} s")
-    for name in _build.SOURCES:
+    for name in _build.LIBRARIES:
         text = _build.build_log(name)
         with open(os.path.join(out_dir, f"ptxas_{name}.log"), "w") as fh:
             fh.write(text)
@@ -2588,8 +2628,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": path,
             "launches": launches.get(path, {}).get(name, 0),
+            # a decode kernel's float32 and bfloat16 modes: every path but
+            # those that run a storage mode of its own (listed there)
             "launches_by_path": {p: c.get(name, 0)
-                                 for p, c in launches.items()},
+                                 for p, c in launches.items()
+                                 if name not in KERNELS
+                                 or p not in LAYOUT_RUNS},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
@@ -2605,20 +2649,21 @@ def main() -> int:
     for key, t in results["layout_timing"].items():
         name, tag = key[:-1].split("[")
         path = LAYOUT_PATHS.get((name, tag))
-        lib = "decode_" + tag.split(":")[0]
+        storage = str(PC.STORAGE_DTYPE[tag.split(":")[0]])[len("torch."):]
+        _, fused_lib, attn_lib = _build.STORAGE[storage]
+        lib = fused_lib if "fused_decode" in SOURCES[name][0] else attn_lib
         kernels.append({
             "name": key, "route": "cuda", "source": SOURCES[name][0],
-            "library": f"src/repro_torch/csrc/{lib}.cu",
+            "library": f"{lib} ({' '.join(_build.LIBRARIES[lib][1])})",
             "replaces": SCALED_BODIES[name] if not tag.startswith("fp16")
             else SOURCES[name][1], "path": path,
             "launches": launches.get(path, {}).get(name, 0) if path else 0,
-            "launches_by_path": {p: c.get(name, 0)
-                                 for p, c in launches.items()
-                                 if p.startswith(("paged_int8", "paged_fp8",
-                                                  "paged_bf16"))},
+            # only the path that runs this storage mode launched it
+            "launches_by_path": ({path: launches.get(path, {}).get(name, 0)}
+                                 if path else {}),
             "max_abs_err": results["layout_errs"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "build_s": secs,

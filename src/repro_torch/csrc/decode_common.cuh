@@ -81,12 +81,6 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
 __device__ __forceinline__ void store_f(__half* p, float x) {
   *p = __float2half_rn(x);
 }
-__device__ __forceinline__ void store_f(int8_t* p, float x) {
-  *p = (int8_t)__float2int_rn(x);
-}
-__device__ __forceinline__ void store_f(__nv_fp8_e4m3* p, float x) {
-  *p = __nv_fp8_e4m3(x);
-}
 
 // two fp8-e4m3 codes (the low byte first) as float32
 __device__ __forceinline__ float2 fp8x2_to_f2(uint32_t u) {
@@ -418,7 +412,9 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
 // rows are resolved first, walking the blocks, so a paged chunk does one
 // page-table read per block it touches, before any copy is issued. Scaled
 // storage also copies each token's page scales, K then V (a chunk may
-// straddle two pages), 4 bytes each, by lanes 0 .. 2 * SPLIT_TOK - 1.
+// straddle two pages), 4 bytes each, by lanes 0 .. 2 * SPLIT_TOK - 1; its
+// rows always go by 16-byte copies (storage_ok), so it has no element by
+// element fill.
 template <typename TK>
 __device__ void split_fill(uint8_t* stage, const TK* __restrict__ k,
                            const TK* __restrict__ v, const BlockRows& rows,
@@ -464,7 +460,7 @@ __device__ void split_fill(uint8_t* stage, const TK* __restrict__ k,
       for (int i = lane; i < vp; i += 32)
         cp_async16(vs + u * D + i * E, v + rk[u] * D + i * E);
     }
-  } else {
+  } else if constexpr (!Store<TK>::scaled) {  // scaled: vec always
     const int Wp = pad4(W), Dp = pad4(D);
 #pragma unroll
     for (int u = 0; u < SPLIT_TOK; ++u) {
@@ -944,10 +940,16 @@ cudaError_t by_query(int q_bf16, const Args& a) {
   return q_bf16 ? F<__nv_bfloat16, TK>::run(a) : F<float, TK>::run(a);
 }
 
+// The storage types a build covers: -DLOKI_STORAGE_F16, _I8 or _F8 one
+// each (kernels/_build.py LIBRARIES), none of them float32 and bfloat16
+// (LOKI_STORAGE_WIDE).
+#if !defined(LOKI_STORAGE_F16) && !defined(LOKI_STORAGE_I8) && \
+    !defined(LOKI_STORAGE_F8)
+#define LOKI_STORAGE_WIDE
+#endif
+
 // Run F<TQ, TK>::run(a) for the launch's query dtype (float32 or bfloat16)
-// and cache storage code, over the storage types this library is built
-// for: LOKI_STORAGE_WIDE (float32, bfloat16), LOKI_STORAGE_F16,
-// LOKI_STORAGE_I8 or LOKI_STORAGE_F8, defined before the include. Any
+// and cache storage code, over the storage types this build covers. Any
 // other code is refused.
 template <template <typename, typename> class F, typename Args>
 cudaError_t by_storage(int q_bf16, int kv, const Args& a) {

@@ -1,11 +1,12 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<name>-<hash>.so`` with
-a plain C interface (no PyTorch headers, so a build takes seconds). The
-hash covers the source, every ``csrc/*.cuh`` header and the flags, so an
-edited source rebuilds and an unchanged one is reused. ``build_all`` starts
-one nvcc per source together. Nothing builds at import time: the first
-CUDA launch of a kernel builds its library.
+Each library of ``LIBRARIES`` (a ``csrc/<source>.cu`` and its defines)
+becomes ``build/repro_torch/<name>-<hash>.so`` with a plain C interface
+(no PyTorch headers, so a build takes seconds). The hash covers the
+source, every ``csrc/*.cuh`` header, the defines and the flags, so an
+edited source rebuilds and an unchanged one is reused. ``build_all``
+starts one nvcc per library together. Nothing builds at import time: the
+first CUDA launch of a kernel builds its library.
 """
 from __future__ import annotations
 
@@ -20,8 +21,19 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_decode", "gather_attention", "approx_scores",
-           "flash_attention", "decode_fp16", "decode_int8", "decode_fp8")
+#: library -> (source in csrc/, its defines). The decode kernels' two
+#: sources build once for float32 and bfloat16 caches and once for each
+#: other storage (decode_common.cuh by_storage), so the storages' nvcc runs
+#: go side by side and each library holds one storage's instantiations.
+LIBRARIES = {
+    "fused_decode": ("fused_decode", ()),
+    "gather_attention": ("gather_attention", ()),
+    "approx_scores": ("approx_scores", ()),
+    "flash_attention": ("flash_attention", ()),
+    **{f"{src}_{tag}": (src, (f"-DLOKI_STORAGE_{tag.upper()}",))
+       for tag in ("f16", "i8", "f8")
+       for src in ("fused_decode", "gather_attention")},
+}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,11 +54,12 @@ def nvcc() -> str:
 
 
 def _digest(name: str) -> str:
+    src, defines = LIBRARIES[name]
     h = hashlib.sha256()
-    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for p in [CSRC / f"{src}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join(FLAGS + list(defines)).encode())
     return h.hexdigest()[:16]
 
 
@@ -55,7 +68,7 @@ def lib_path(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start nvcc on one source; None when its library exists already."""
+    """Start nvcc on one library; None when it exists already."""
     out = lib_path(name)
     if out.exists():
         return None
@@ -63,7 +76,8 @@ def _start(name: str):
     # build under a private name, then rename: a concurrent loader never
     # sees a half-written library
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src, defines = LIBRARIES[name]
+    cmd = [nvcc(), *FLAGS, *defines, "-o", str(tmp), str(CSRC / f"{src}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, out, tmp
@@ -76,13 +90,15 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
+        src, defines = LIBRARIES[name]
+        raise RuntimeError(f"nvcc failed on csrc/{src}.cu "
+                           f"{' '.join(defines)} (exit {proc.returncode}):"
+                           f"\n{log}")
     os.replace(tmp, out)
 
 
-def build_all(names: List[str] = list(SOURCES)) -> float:
-    """Build every named source, one nvcc each, all started together.
+def build_all(names: List[str] = list(LIBRARIES)) -> float:
+    """Build every named library, one nvcc each, all started together.
     Returns the wall seconds it took (0 when all were built already)."""
     t0 = time.perf_counter()
     procs = {n: _start(n) for n in names}
@@ -116,7 +132,7 @@ def sass(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library ``name`` of LIBRARIES, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
@@ -145,14 +161,12 @@ def dtype_code(t, what: str) -> int:
 
 
 #: cache storage of the decode kernels 1-5 -> (launcher code, library of
-#: fused_decode's launchers, library of gather_attention's). float32 and
-#: bfloat16 caches build with their sources; each other storage has a
-#: source of its own (csrc/decode_<dtype>.cu), so the builds run apart.
+#: fused_decode's launchers, library of gather_attention's)
 STORAGE = {"float32": (0, "fused_decode", "gather_attention"),
            "bfloat16": (1, "fused_decode", "gather_attention"),
-           "float16": (2, "decode_fp16", "decode_fp16"),
-           "int8": (3, "decode_int8", "decode_int8"),
-           "float8_e4m3fn": (4, "decode_fp8", "decode_fp8")}
+           "float16": (2, "fused_decode_f16", "gather_attention_f16"),
+           "int8": (3, "fused_decode_i8", "gather_attention_i8"),
+           "float8_e4m3fn": (4, "fused_decode_f8", "gather_attention_f8")}
 #: storage codes whose pools carry per-page float32 scales
 SCALED_CODES = (3, 4)
 

@@ -196,7 +196,7 @@ def fused_exact_topk_decode_plain(q_hat, k_hat, v, cur_len, *, k_blocks,
 
 
 _FN: dict = {}
-# pointers, then int arguments, of each launcher (csrc/fused_decode.cuh)
+# pointers, then int arguments, of each launcher (csrc/fused_decode.cu)
 _ARITY = {"loki_fused_decode": (8, 13, 2),
           "loki_fused_exact_topk_decode": (8, 12, 1),
           "loki_select_blocks": (6, 12, 2)}

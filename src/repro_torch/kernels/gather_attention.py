@@ -321,7 +321,7 @@ def _sm_count(device) -> int:
 
 _FN: dict = {}
 # pointers, then int arguments, then float + int tail of each launcher
-# (csrc/gather_attention.cuh)
+# (csrc/gather_attention.cu)
 _ARITY = {"loki_block_sparse_attention_grouped": (9, 12),
           "loki_full_decode": (9, 12)}
 # argument and result types of the library's shape queries

@@ -119,8 +119,8 @@ def full_smem_bytes(*, g: int, kdim: int, dim: int, itemsize: int) -> int:
     each warp's ring of SPLIT_STAGES stages (``split_stage_bytes``); the
     warps' log-sum-exp merge, (G, D + 2) float32 each, reuses the ring. It
     does not grow with smax or the block size. The launcher computes the
-    same (``full_layout``, exported as ``loki_full_smem_bytes``,
-    csrc/gather_attention.cuh)."""
+    same (``split_smem_bytes``, exported as ``loki_full_smem_bytes``,
+    csrc/gather_attention.cu)."""
     ring = SPLIT_WARPS * SPLIT_STAGES * split_stage_bytes(
         kdim=kdim, dim=dim, itemsize=itemsize)
     merge = 4 * SPLIT_WARPS * g * (dim + 2)

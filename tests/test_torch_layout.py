@@ -8,10 +8,12 @@ plain-cluster forms of the five decode kernels meet the JAX kernels in
 interpret mode on a shuffled pool with a ragged table whose dead tail
 points at the trash page, at fp16, int8 and fp8. The model's paged entry
 points meet ``repro.models.lm`` under four layouts and the three paged
-policies (never a JAX engine: its engines race, ROADMAP queue 3).
+policies, logits and the pools each side wrote (never a JAX engine: its
+engines race, ROADMAP queue 3).
 Tolerance rtol = atol = 2e-5, the kernels' own.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -279,17 +281,76 @@ def _sync(tcache, jcache):
             t.copy_(torch.from_numpy(a.copy()))
 
 
+#: one code step of a storage, relative to the code's magnitude (the
+#: float storages: an ulp is at most |x| * 2**-mantissa bits) and its least
+#: step (fp8's subnormal step); int8 steps by 1
+CODE_STEP = {"fp8": (2.0 ** -3, 2.0 ** -9), "fp16": (2.0 ** -10, 2.0 ** -24),
+             "bf16": (2.0 ** -7, 2.0 ** -126)}
+
+
+def _check_writes(tcache, jcache, layout, written):
+    """The pools the port's model path wrote (PCA rotation, rank cut,
+    whole-page re-quantization) against the reference's, dequantized
+    through both packages' ``gather_logical_dq``: each slot's first
+    ``written[b]`` positions, per layer, within one code step at the
+    page's scale (the keys feeding the two writers differ in their last
+    float32 bits, so a value on a rounding boundary rounds apart) plus
+    what the two page scales' own difference moves the largest code by;
+    the scales themselves at TOL. fp16 pools also take 2**-11 of their
+    largest value (their chunk's attention weights round to fp16)."""
+    dt = layout.split(":")[0]
+    tab = TABLES[:len(written)]
+    mask = np.arange(tab.shape[1] * PSZ)[None, :] < np.asarray(written)[:, None]
+    tatt, jatt = tcache["layers"]["attn"], jcache["layers"]["attn"]
+    for kind in ("k", "v"):
+        tsc, jsc = tatt.get(f"{kind}_scale"), jatt.get(f"{kind}_scale")
+        for layer in range(tatt[kind].shape[0]):
+            ts = None if tsc is None else tsc[layer]
+            js = None if jsc is None else jsc[layer]
+            got = PC.gather_logical_dq(tatt[kind][layer], ts,
+                                       torch.from_numpy(tab), PSZ)
+            got = got.float().numpy()[mask]
+            want = np.asarray(JPC.gather_logical_dq(
+                jatt[kind][layer], js, jnp.asarray(tab), PSZ),
+                np.float32)[mask]
+            if js is None:
+                rel, least = CODE_STEP[dt]
+                tol = np.maximum(np.abs(want) * rel, least)
+            else:
+                s_j = np.asarray(JPC.gather_scales(js, jnp.asarray(tab),
+                                                   PSZ))[mask][:, None, None]
+                s_t = PC.gather_scales(ts, torch.from_numpy(tab),
+                                       PSZ).numpy()[mask][:, None, None]
+                np.testing.assert_allclose(s_t, s_j, **TOL)
+                code = np.abs(want) / s_j
+                step = (np.ones_like(code) if dt == "int8" else
+                        np.maximum(code * CODE_STEP[dt][0], CODE_STEP[dt][1]))
+                tol = (step * np.maximum(s_t, s_j)
+                       + QMAX[dt] * np.abs(s_t - s_j))
+            if dt == "fp16":
+                # a chunk's fp16 attention weights round apart upstream (the
+                # chunk logits' 2**-11, test below): one such rounding of
+                # the layer's largest value moves every later layer's rows
+                tol = tol + 2.0 ** -11 * np.abs(want).max()
+            bad = np.abs(got - want) > tol
+            assert not bad.any(), (
+                f"{kind} pool, layer {layer}: {int(bad.sum())} of {bad.size} "
+                f"written values differ by more than one code step (max "
+                f"|d| {float(np.abs(got - want).max()):.3e})")
+
+
 @pytest.mark.parametrize("layout,policy", LAYOUT_CASES)
 def test_paged_layout_logits_match_jax(layout, policy):
     """Two prompts prefilled chunk by chunk into shuffled pages at the
     layout, then a batched decode step with an idle slot on the trash
-    page: logits of the live rows vs ``repro.models.lm``. Each call starts
-    from JAX's pools, copied bit for bit: the two packages' keys differ in
-    their last float32 bits (RMSNorm and the projections sum in other
-    orders), and storage rounding (a page re-quantized at a new scale, a
-    bf16 row) would let such a difference flip a stored code and carry it
-    into every later step. The pools' bits after each call are held by
-    the writers' own test above. A prefill chunk at fp16 storage rounds
+    page: logits of the live rows vs ``repro.models.lm`` (jitted, its
+    Pallas kernels in interpret mode), and after each call the pools each
+    package wrote, within one code step (``_check_writes``). Each call
+    starts from JAX's pools, copied bit for bit: the two packages' keys
+    differ in their last float32 bits (RMSNorm and the projections sum in
+    other orders), and storage rounding (a page re-quantized at a new
+    scale, a bf16 row) would let such a difference flip a stored code and
+    carry it into every later step. A prefill chunk at fp16 storage rounds
     its attention weights to fp16 before p·V, as the reference does, so a
     float32 weight within an ulp of an fp16 rounding boundary rounds apart
     in the two packages: its chunk logits are held to one fp16 ulp
@@ -302,36 +363,45 @@ def test_paged_layout_logits_match_jax(layout, policy):
         assert t.shape == jcache["layers"]["attn"][name].shape
         assert str(t.dtype).split(".")[-1] == \
             str(jcache["layers"]["attn"][name].dtype)
+    jprefill = jax.jit(functools.partial(jlm.prefill_chunk, cfg=jcfg,
+                                         page_size=PSZ))
+    jdecode = jax.jit(functools.partial(jlm.decode_step, cfg=jcfg,
+                                        page_size=PSZ))
     chunk_tol = (dict(rtol=2 ** -11, atol=2 ** -11)
                  if layout.startswith("fp16") else TOL)
     rng = np.random.RandomState(9)
     prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32)
                for n in PROMPTS]
+    written = [0, 0]
     for slot, prompt in enumerate(prompts):
         for start in range(0, len(prompt) - 1, CHUNK):
             nv = min(CHUNK, len(prompt) - 1 - start)
             chunk = np.zeros((1, CHUNK), np.int32)
             chunk[0, :nv] = prompt[start:start + nv]
             _sync(tcache, jcache)
-            jl, jcache = jlm.prefill_chunk(
-                params, jcfg, jcache, jnp.asarray(chunk), jnp.int32(start),
-                jnp.int32(nv), jnp.asarray(TABLES[slot:slot + 1]), PSZ)
+            jl, jcache = jprefill(
+                params, cache=jcache, tokens=jnp.asarray(chunk),
+                pos_start=jnp.int32(start), n_valid=jnp.int32(nv),
+                page_table=jnp.asarray(TABLES[slot:slot + 1]))
             tl, tcache = lm.prefill_chunk(
                 tparams, cfg, tcache, torch.from_numpy(chunk), start, nv,
                 torch.from_numpy(TABLES[slot:slot + 1]), PSZ)
             np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                        **chunk_tol)
+            written[slot] = start + nv
+            _check_writes(tcache, jcache, layout, written)
     tok = np.array([p[-1] for p in prompts] + [0], np.int32)
     pos = np.array([len(p) - 1 for p in prompts] + [0], np.int32)
     _sync(tcache, jcache)
-    jl, _ = jlm.decode_step(params, jcfg, jcache, jnp.asarray(tok),
-                            jnp.asarray(pos), page_table=jnp.asarray(TABLES),
-                            page_size=PSZ)
-    tl, _ = lm.decode_step(tparams, cfg, tcache, torch.from_numpy(tok),
-                           torch.from_numpy(pos),
-                           page_table=torch.from_numpy(TABLES),
-                           page_size=PSZ)
+    jl, jcache = jdecode(params, cache=jcache, token=jnp.asarray(tok),
+                         pos_len=jnp.asarray(pos),
+                         page_table=jnp.asarray(TABLES))
+    tl, tcache = lm.decode_step(tparams, cfg, tcache, torch.from_numpy(tok),
+                                torch.from_numpy(pos),
+                                page_table=torch.from_numpy(TABLES),
+                                page_size=PSZ)
     np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2], **TOL)
+    _check_writes(tcache, jcache, layout, [len(p) for p in prompts])
 
 
 def test_paged_engine_serves_a_quantized_latent_layout():
