@@ -11,21 +11,23 @@ Phases, each of which fails the run on any error:
              block_sparse_attention_grouped, paged_full_decode,
              fused_exact_topk_decode) at llama2-7b and qwen2.5-3b decode
              shapes (plus a sliding-window, a head_dim-256 and a
-             short-cur_len case, fp32 and bf16 caches), the three cluster
-             kernels (the two fused ones and
-             block_sparse_attention_grouped) also against their plain
-             cluster form at the launcher's own cluster size and against
-             themselves (two calls bit for bit), with the launcher's
-             shared memory equal to tuning.fused_smem_bytes or
-             tuning.attend_smem_bytes and its clusters resident; each
-             kernel's paged form bit for bit against its contiguous form
+             short-cur_len case, fp32 and bf16 caches), the four cluster
+             kernels (the two fused ones, select_blocks and
+             block_sparse_attention_grouped) also against themselves (two
+             calls bit for bit) and, but for select_blocks, against their
+             plain cluster form at the launcher's own cluster size, with
+             the launcher's shared memory equal to tuning.fused_smem_bytes,
+             select_smem_bytes or attend_smem_bytes and its clusters
+             resident; each kernel's paged form bit for bit against its
+             contiguous form
              on the same logical data (shuffled page tables with a
              trash-page row);
              the per-head pipeline's three (block_max_scores,
              block_max_scores_fm, block_sparse_attention) at llama2-7b's
              decode step flattened per head (bf16 q over fp32 K/V, fp32,
              bf16), head_dim 256 and short cur_len (dead-block ties), the
-             two layouts bit for bit (block_sparse_attention also over
+             two layouts bit for bit and two block_max_scores calls bit
+             for bit (block_sparse_attention also over
              K̂ᵀ in place, each layout against its plain cluster form at
              the launcher's C, with its plan checked as above, and two
              calls bit for bit); flash_attention at the llama2-7b
@@ -300,7 +302,8 @@ def checked_plan(what, ask, want_smem, nb, rows):
 def fused_plans(case):
     """The cluster launchers' plans at a case (``checked_plan``):
     fused_loki_decode (d), fused_exact_topk_decode (d = W) against
-    tuning.fused_smem_bytes, and block_sparse_attention_grouped over the
+    tuning.fused_smem_bytes, select_blocks (d) against
+    tuning.select_smem_bytes, and block_sparse_attention_grouped over the
     case's k_blocks entries against tuning.attend_smem_bytes."""
     from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import gather_attention as GA
@@ -320,6 +323,13 @@ def fused_plans(case):
             lambda: F.cluster_plan(q, k, v, d=d, k_blocks=kb,
                                    block_size=case["bs"]),
             want, nb, B * Hkv)
+    plans["select_blocks"] = checked_plan(
+        f"{case['name']}: select_blocks",
+        lambda: F.select_plan(q, k, d=case["d"], k_blocks=kb,
+                              block_size=case["bs"]),
+        tuning.select_smem_bytes(nb=nb, g=G, kdim=W, d=case["d"],
+                                 bs=case["bs"], itemsize=k.element_size()),
+        nb, B * Hkv)
     idx = torch.zeros((B, Hkv, kb), dtype=torch.int32, device=DEV)
     plans["block_sparse_attention_grouped"] = checked_plan(
         f"{case['name']}: block_sparse_attention_grouped",
@@ -331,9 +341,10 @@ def fused_plans(case):
 
 def check_kernels(results):
     """Each of the five kernels against its plain version on every case;
-    the three cluster kernels (the fused ones and the grouped attention)
-    also against their plain cluster form at the launcher's own C, and
-    against a second call, bit for bit."""
+    the four cluster kernels (the fused ones, select_blocks and the grouped
+    attention) also against a second call, bit for bit, and but for
+    select_blocks (whose selection does not depend on C) against their
+    plain cluster form at the launcher's own C."""
     from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import gather_attention as GA
 
@@ -357,6 +368,7 @@ def check_kernels(results):
                      q, k, v, cur, **kw),
                  "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode(
                      q, k, v, cur, **ex_kw),
+                 "select_blocks": lambda: F.select_blocks(q, k, cur, **kw),
                  "block_sparse_attention_grouped": lambda:
                      GA.block_sparse_attention_grouped(q, k, v, sel_p, cur,
                                                        **att_kw)}
@@ -406,7 +418,8 @@ def check_kernels(results):
         for kname, call in fused.items():
             again = call()
             sync()
-            if not torch.equal(again, runs[kname][0]):
+            first = sel_k if kname == "select_blocks" else runs[kname][0]
+            if not torch.equal(again, first):
                 raise AssertionError(f"{case['name']}: {kname}: two calls "
                                      "differ")
         atol, rtol = tolerance(q.dtype)
@@ -436,7 +449,8 @@ def check_kernels(results):
             f"-1 sentinels {int((sel_p < 0).sum())}; max|err| "
             + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
             + f" (atol {atol}, rtol {rtol}; cluster kernels also vs their "
-            f"plain cluster form, and two calls bit for bit); clusters: "
+            f"plain cluster form but select_blocks, and two calls bit for "
+            f"bit); clusters: "
             + ", ".join(f"{n} C {p['C']}, {p['smem']} B shared, "
                         f"{p['max_clusters']} resident"
                         for n, p in plans.items())
@@ -878,8 +892,8 @@ def layout_calls(lc, sel, sel_x):
 
 def layout_plans(lc):
     """The launchers' shared memory at a layout case, each equal to its
-    tuning mirror (the fused and grouped ones through ``checked_plan``,
-    with C and residency; the full decode's through
+    tuning mirror (the fused, select and grouped ones through
+    ``checked_plan``, with C and residency; the full decode's through
     ``loki_full_smem_bytes``)."""
     from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import gather_attention as GA
@@ -899,6 +913,12 @@ def layout_plans(lc):
             tuning.fused_smem_bytes(nb=nb, k_blocks=lc["kb"], g=G, kdim=W,
                                     dim=D, bs=lc["bs"], d=d, itemsize=isz),
             nb, B * Hkv)
+    plans["select_blocks"] = checked_plan(
+        f"{lc['name']}: select_blocks",
+        lambda: F.select_plan(q, k, d=lc["d"], k_blocks=lc["kb"],
+                              block_size=lc["bs"], **pg),
+        tuning.select_smem_bytes(nb=nb, g=G, kdim=W, d=lc["d"], bs=lc["bs"],
+                                 itemsize=isz), nb, B * Hkv)
     idx = torch.zeros((B, Hkv, lc["kb"]), dtype=torch.int32, device=DEV)
     plans["block_sparse_attention_grouped"] = checked_plan(
         f"{lc['name']}: block_sparse_attention_grouped",
@@ -1229,6 +1249,7 @@ def check_head_kernels(results):
         kw = dict(d=d, block_size=bs, scale=q.shape[-1] ** -0.5)
         kT = k.transpose(1, 2).contiguous()          # feature-major copy
         blk = AS.block_max_scores(q, k, cur, **kw)
+        blk_again = AS.block_max_scores(q, k, cur, **kw)
         blk_fm = ASF.block_max_scores_fm(q, kT, cur, **kw)
         blk_p = AS.block_max_scores_plain(q, k, cur, **kw)
         blk_fm_p = ASF.block_max_scores_fm_plain(q, kT, cur, **kw)
@@ -1250,6 +1271,9 @@ def check_head_kernels(results):
         if DEV == "cuda" and not torch.equal(blk_fm, blk):
             raise AssertionError(f"{case['name']}: feature-major block "
                                  "maxima differ from token-major ones")
+        if not torch.equal(blk_again, blk):
+            raise AssertionError(f"{case['name']}: block_max_scores: two "
+                                 "calls differ")
         ties = near_tie_rows(blk_p, kb)
         sel = topk_lower_index(blk_p, kb)[1]
         diff = (topk_lower_index(blk, kb)[1] != sel).any(-1)
@@ -1305,8 +1329,8 @@ def check_head_kernels(results):
         live_blocks = (cur.long() + bs - 1) // bs
         log(f"kernels: {case['name']}: block maxima max|err| "
             f"{errs['block_max_scores']:.3e} (fm "
-            f"{errs['block_max_scores_fm']:.3e}, fm == token-major bit for "
-            f"bit), dead blocks "
+            f"{errs['block_max_scores_fm']:.3e}, fm == token-major and two "
+            f"token-major calls bit for bit), dead blocks "
             f"{int(dead.sum())}; selections equal in {int((~diff).sum())}/"
             f"{diff.numel()} rows (near-ties {int(ties.sum())}, rows choosing "
             f"dead blocks {int((live_blocks < kb).sum())}); "
@@ -2540,7 +2564,8 @@ LAYOUT_RUNS = set(LAYOUT_PATHS.values())
 def ptxas_summary(text):
     """A ptxas -v log in a few lines: the kernel count, the register range
     and the kernels that spill; each tensor-core flash kernel and each
-    instantiation of the two block-list cluster kernels on its own line;
+    instantiation of the two block-list cluster kernels, the select_blocks
+    cluster kernel and the token-major block_max_scores on its own line;
     any line about wgmma (a serialised wgmma would show there)."""
     kernels, out, name = [], [], None
     for line in text.splitlines():
@@ -2553,7 +2578,8 @@ def ptxas_summary(text):
         elif "Used" in line and "registers" in line and name:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             kernels.append((name, regs, spill))
-            if re.match(r"(flash_tc|grouped_cluster|head_cluster)", name):
+            if re.match(r"(flash_tc|grouped_cluster|head_cluster|"
+                        r"select_cluster|block_max_scores_kernel)", name):
                 out.append(f"{name}: {regs} registers, {spill} B spilled")
             name = None
         if "wgmma" in line or "warpgroup" in line:

@@ -16,32 +16,76 @@
 // 1800..3100, d = 32 of D = 128, fp32: about 40 MB, 12 us at 3.35 TB/s)
 // and do 2 flops per element read. The design reads nothing else: dead
 // blocks are written as -1e30 without a load, and only the d-slice of a
-// live row is touched. Token-major: a thread owns a token and reads its d
-// contiguous features with 16 B (fp32) or 8 B (bf16) vector loads, so a
-// warp's loads fill whole 128 B lines. Feature-major: a thread owns a
-// token and walks the d feature rows, so neighbouring threads read
-// neighbouring tokens of one row: each load of a warp is one coalesced
-// 128 B (fp32) line. The TPU's layout reason (lane tiling, DESIGN.md
-// §3.1) does not exist here; only the output matters.
+// live row is touched.
 //
-// Grid: one CTA of THREADS threads per (row, run of blocks), the run
-// covering RUN_TOKENS tokens (at least one block). Each thread scores its
-// tokens into shared memory; then warp w reduces blocks w, w + NWARPS, ...
-// of the run (a warp max). Both layouts sum q̂[f]·K̂[s, f] for f = 0..d-1
-// in the same order with one FMA each and scale after the dot (as the TPU
-// kernels do), so they give bit-identical maxima on the same data.
+// Token-major (block_max_scores_kernel): the fused kernels' score stream
+// (score_range in decode_common.cuh) at Hkv = 1, G = 1, W = D and no page
+// table. A CTA of 4 warps takes a run of blocks of one row (RUN_TOKENS
+// tokens; 4 CTAs per row, 512 CTAs at the main shape) and streams the
+// leading d features of the run's live tokens through a per-warp two-stage
+// ring of 16-byte cp.async copies, lanes across a token's features (one
+// warp instruction covers 4 fp32 tokens); lane i scores token i from
+// shared memory with one fma per feature, then times scale (SCALE_DOT),
+// and each chunk's warp max goes to the run's block maxima by an exact
+// shared atomic max.
+//
+// Feature-major (block_max_scores_fm_kernel): one CTA of THREADS threads
+// per (row, run of blocks); a thread owns a token and walks the d feature
+// rows, so neighbouring threads read neighbouring tokens of one row: each
+// load of a warp is one coalesced 128 B (fp32) line. Each thread scores
+// its tokens into shared memory; then warp w reduces blocks w, w + NWARPS,
+// ... of the run (a warp max). The TPU's layout reason (lane tiling,
+// DESIGN.md §3.1) does not exist here; only the output matters.
+//
+// Both sum q̂[f]·K̂[s, f] for f = 0..d-1 from 0 in the same order with one
+// fma each and scale after the dot (as the TPU kernels do), and a block
+// maximum is exact whatever order it is taken in, so the two give
+// bit-identical maxima on the same data.
 #include "decode_common.cuh"
 
 namespace loki {
 
 constexpr int RUN_TOKENS = 1024;  // tokens per CTA (a whole number of blocks)
 
-template <typename TQ, typename TK, bool FM>
-__global__ void __launch_bounds__(THREADS)
+template <typename TQ, typename TK>
+__global__ void __launch_bounds__(SPLIT_THREADS)
 block_max_scores_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
                         const int* __restrict__ cur_len,
                         float* __restrict__ out, int S, int D, int d, int bs,
                         int blocks_per_cta, float scale, int vec) {
+  extern __shared__ float4 smem4[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem4);
+  const ScoreLayout L = score_layout<TK>(1, d, d, bs, blocks_per_cta);
+  float* qs = reinterpret_cast<float*>(base + L.qs);          // d
+  float* blkmax = reinterpret_cast<float*>(base + L.blkmax);  // the run
+  const int r = blockIdx.y, tid = threadIdx.x;
+  const int nb = S / bs;
+  const int j0 = blockIdx.x * blocks_per_cta;
+  const int nblk = min(blocks_per_cta, nb - j0);
+  const int ln = cur_len[r];
+  load_query_padded(q + (int64_t)r * D, qs, 1, d, 1.f);
+  for (int j = tid; j < nblk; j += SPLIT_THREADS) blkmax[j] = NEG_INF;
+  __syncthreads();
+
+  // row r of the (BH, S, D) cache is batch row r of a contiguous one
+  const BlockRows rows{nullptr, 0, 1, S, bs, nullptr, nullptr};
+  score_range<TK, 1, true>(k, rows, r, 0, 1, D, d, bs, L.tok, L.row_bytes,
+                           qs, 0, 1, scale,
+                           j0 * bs, min((j0 + nblk) * bs, ln), ln, 0,
+                           blkmax, j0, base + L.ring, vec != 0);
+  __syncthreads();
+  // a block with no live position stays exactly NEG_INF
+  for (int j = tid; j < nblk; j += SPLIT_THREADS)
+    out[(int64_t)r * nb + j0 + j] = blkmax[j];
+}
+
+template <typename TQ, typename TK>
+__global__ void __launch_bounds__(THREADS)
+block_max_scores_fm_kernel(const TQ* __restrict__ q,
+                           const TK* __restrict__ k,
+                           const int* __restrict__ cur_len,
+                           float* __restrict__ out, int S, int D, int d,
+                           int bs, int blocks_per_cta, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                       // d
   float* sc = qs + d;                     // blocks_per_cta * bs
@@ -60,24 +104,9 @@ block_max_scores_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
     float acc = NEG_INF;
     if (s < ln) {
       acc = 0.f;
-      if (FM) {
-        const TK* col = kr + s;           // K̂ᵀ[r, f, s] at f * S + s
-        for (int f = 0; f < d; ++f)
-          acc = fmaf(qs[f], to_f(col[(int64_t)f * S]), acc);
-      } else if (vec) {
-        const TK* row = kr + (int64_t)s * D;
-        for (int f = 0; f < d; f += 4) {
-          float kv[4];
-          load4(row + f, kv);
-          acc = fmaf(qs[f], kv[0], acc);
-          acc = fmaf(qs[f + 1], kv[1], acc);
-          acc = fmaf(qs[f + 2], kv[2], acc);
-          acc = fmaf(qs[f + 3], kv[3], acc);
-        }
-      } else {
-        const TK* row = kr + (int64_t)s * D;
-        for (int f = 0; f < d; ++f) acc = fmaf(qs[f], to_f(row[f]), acc);
-      }
+      const TK* col = kr + s;             // K̂ᵀ[r, f, s] at f * S + s
+      for (int f = 0; f < d; ++f)
+        acc = fmaf(qs[f], to_f(col[(int64_t)f * S]), acc);
       acc *= scale;
     }
     sc[i] = acc;
@@ -109,27 +138,44 @@ struct Launch {
            S >= bs && S % bs == 0;
   }
   int blocks_per_cta() const { return bs >= RUN_TOKENS ? 1 : RUN_TOKENS / bs; }
+  dim3 grid() const {
+    const int bpc = blocks_per_cta();
+    return dim3((S / bs + bpc - 1) / bpc, BH);
+  }
 };
 
-template <bool FM>
+template <typename TQ, typename TK>
 struct Scores {
-  template <typename TQ, typename TK>
-  struct By {
-    static cudaError_t run(const Launch& a) {
-      const int bpc = a.blocks_per_cta();
-      const int nb = a.S / a.bs;
-      const size_t smem = sizeof(float) * ((size_t)a.d + (size_t)bpc * a.bs);
-      auto kern = block_max_scores_kernel<TQ, TK, FM>;
-      cudaError_t err = allow_smem(kern, smem);
-      if (err != cudaSuccess) return err;
-      const int vec = (a.d % 4 == 0) && (a.D % 4 == 0);
-      kern<<<dim3((nb + bpc - 1) / bpc, a.BH), THREADS, smem, a.stream>>>(
-          static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
-          static_cast<const int*>(a.cur_len), static_cast<float*>(a.out),
-          a.S, a.D, a.d, a.bs, bpc, a.scale, vec);
-      return cudaGetLastError();
-    }
-  };
+  static cudaError_t run(const Launch& a) {
+    const int bpc = a.blocks_per_cta();
+    const ScoreLayout L = score_layout<TK>(1, a.d, a.d, a.bs, bpc);
+    auto kern = block_max_scores_kernel<TQ, TK>;
+    cudaError_t err = allow_smem(kern, L.total);
+    if (err != cudaSuccess) return err;
+    // 16-byte copies need rows of whole 16-byte pieces
+    const int vec = (a.D * sizeof(TK)) % 16 == 0;
+    kern<<<a.grid(), SPLIT_THREADS, L.total, a.stream>>>(
+        static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
+        static_cast<const int*>(a.cur_len), static_cast<float*>(a.out), a.S,
+        a.D, a.d, a.bs, bpc, a.scale, vec);
+    return cudaGetLastError();
+  }
+};
+
+template <typename TQ, typename TK>
+struct ScoresFm {
+  static cudaError_t run(const Launch& a) {
+    const int bpc = a.blocks_per_cta();
+    const size_t smem = sizeof(float) * ((size_t)a.d + (size_t)bpc * a.bs);
+    auto kern = block_max_scores_fm_kernel<TQ, TK>;
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<a.grid(), THREADS, smem, a.stream>>>(
+        static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
+        static_cast<const int*>(a.cur_len), static_cast<float*>(a.out), a.S,
+        a.D, a.d, a.bs, bpc, a.scale);
+    return cudaGetLastError();
+  }
 };
 
 }  // namespace loki
@@ -146,7 +192,7 @@ extern "C" int loki_block_max_scores(const void* q, const void* k,
   const Launch a{q, k, cur_len, out, BH, S, D, d, bs, scale,
                  static_cast<cudaStream_t>(stream)};
   if (!a.ok()) return (int)cudaErrorInvalidValue;
-  return (int)by_dtype<Scores<false>::By>(q_bf16, k_bf16, a);
+  return (int)by_dtype<Scores>(q_bf16, k_bf16, a);
 }
 
 // The feature-major entry: k is K̂ᵀ (BH, D, S); d % 8 == 0 as in the TPU
@@ -159,5 +205,5 @@ extern "C" int loki_block_max_scores_fm(const void* q, const void* k_T,
   const Launch a{q, k_T, cur_len, out, BH, S, D, d, bs, scale,
                  static_cast<cudaStream_t>(stream)};
   if (!a.ok() || d % 8 != 0) return (int)cudaErrorInvalidValue;
-  return (int)by_dtype<Scores<true>::By>(q_bf16, k_bf16, a);
+  return (int)by_dtype<ScoresFm>(q_bf16, k_bf16, a);
 }

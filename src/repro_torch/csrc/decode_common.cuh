@@ -1,21 +1,23 @@
 // Shared device code of the Loki decode kernels (fused_decode.cu,
-// gather_attention.cu): float conversion, warp reductions, the logical
-// block -> cache row map, the one-CTA score -> select phase
-// (select_blocks), and the split-KV streaming body that every attention
-// kernel shares: a per-warp cp.async ring over small chunks of any token
-// ranges, a per-warp online softmax, the 4-warp log-sum-exp merge, the
-// log-sum-exp merge of per-CTA partials, and attend_share, the attention
-// over a list of blocks by one thread-block cluster (the fused kernels'
-// phases 3-4, block_sparse_attention_grouped and block_sparse_attention),
-// with the host's cluster-size rule and residency query.
+// gather_attention.cu, approx_scores.cu): float conversion, warp
+// reductions, the logical block -> cache row map, the score stream (a
+// per-warp cp.async ring of token rows, lane i scoring token i, block
+// maxima by an exact shared atomic max) and the cluster select that the
+// fused kernels, select_blocks and block_max_scores run, and the split-KV
+// streaming body that every attention kernel shares: a per-warp cp.async
+// ring over small chunks of any token ranges, a per-warp online softmax,
+// the 4-warp log-sum-exp merge, the log-sum-exp merge of per-CTA partials,
+// and attend_share, the attention over a list of blocks by one
+// thread-block cluster (the fused kernels' phases 3-4,
+// block_sparse_attention_grouped and block_sparse_attention), with the
+// host's cluster-size rule and residency query.
 //
 // Layout (the JAX package's model-native one):
 //   q_hat  (B, Hkv, G, W)   grouped PCA-basis queries, W = stored key width
 //   k_hat  (B, S, Hkv, W)   key cache in the PCA basis, or the paged pool
 //                           (R, Hkv, W) read through a page table
 //   v      (B, S, Hkv, D)   value cache, or the pool (R, Hkv, D)
-// The one-CTA phase stages every value as float32 in shared memory; the
-// split-KV rings copy cache rows as they are stored.
+// The rings copy cache rows as they are stored.
 //
 // Storage: fp32, bf16 and fp16 caches hold values; int8 and fp8-e4m3
 // (quantized page layouts) hold codes with one float32 scale per pool page
@@ -200,121 +202,6 @@ inline bool storage_ok(const void* table, const void* ksc, const void* vsc,
   const bool wide = sizeof(TK) == 4 || std::is_same<TK, __nv_bfloat16>::value;
   return ksc == nullptr && vsc == nullptr && (wide || vec);
 }
-
-// Phases 1-2 of the TPU kernel's _score_and_select.
-//
-// Phase 1 streams the leading-d slice of every live block's keys. A warp
-// takes one block, each lane one token at a time, and reads the token's d
-// contiguous features itself (d = 32 fp32 is one 128 B line). The score of
-// a token is the max over the G heads of q̂[:d]·k̂[:d]; positions outside
-// cur_len (or the sliding window) are NEG_INF, and the local window's live
-// positions get +1e4. Only the block maximum survives, in scores[nb].
-// Streaming stops at the last live block, ceil(cur_len / bs): dead blocks
-// are all NEG_INF and can never be selected.
-//
-// A quantized cache's codes are dequantized by the block's page scale
-// before the dot, element by element.
-//
-// Phase 2: warp 0 runs k_blocks rounds of argmax-and-suppress over
-// scores[] (ties to the lower index, lax.top_k's order) and writes the
-// winners to sel[], or -1 once no block with a finite maximum is left.
-template <typename TK>
-__device__ void score_and_select(const TK* __restrict__ k, const float* qs,
-                                 float* scores, int* sel,
-                                 const BlockRows& rows, int b, int h, int ln,
-                                 int Hkv, int G, int W, int d, int bs, int nb,
-                                 int kb, int local_window, int sliding_window,
-                                 bool vec) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int j = tid; j < nb; j += blockDim.x) scores[j] = NEG_INF;
-  const int lo = sliding_window > 0 ? max(ln - sliding_window, 0) / bs : 0;
-  const int hi = min(nb, (ln + bs - 1) / bs);
-  __syncthreads();
-
-  for (int j = lo + warp; j < hi; j += NWARPS) {
-    float best = NEG_INF;
-    const int64_t row0 = rows.first_row(b, j);
-    float ks = 1.f;
-    if constexpr (Store<TK>::scaled) ks = rows.ksc[rows.page(b, j)];
-    for (int i = lane; i < bs; i += 32) {
-      const int pos = j * bs + i;
-      bool live = pos < ln;
-      if (sliding_window > 0) live = live && pos >= ln - sliding_window;
-      if (!live) continue;
-      const TK* row = k + ((row0 + i) * Hkv + h) * (int64_t)W;
-      float acc[MAXG];
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
-      if (vec) {
-        for (int f = 0; f < d; f += 4) {
-          float kv[4];
-          load4(row + f, kv);
-          if constexpr (Store<TK>::scaled) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) kv[e] *= ks;
-          }
-#pragma unroll
-          for (int g = 0; g < MAXG; ++g) {
-            if (g < G) {
-              const float* qg = qs + g * W + f;
-              acc[g] = fmaf(qg[0], kv[0], acc[g]);
-              acc[g] = fmaf(qg[1], kv[1], acc[g]);
-              acc[g] = fmaf(qg[2], kv[2], acc[g]);
-              acc[g] = fmaf(qg[3], kv[3], acc[g]);
-            }
-          }
-        }
-      } else {
-        for (int f = 0; f < d; ++f) {
-          float kv = to_f(row[f]);
-          if constexpr (Store<TK>::scaled) kv *= ks;
-#pragma unroll
-          for (int g = 0; g < MAXG; ++g)
-            if (g < G) acc[g] = fmaf(qs[g * W + f], kv, acc[g]);
-        }
-      }
-      float s = NEG_INF;
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < G) s = fmaxf(s, acc[g]);
-      // max(a + c, b + c) == max(a, b) + c under monotone rounding, so the
-      // boost after the group max equals the TPU kernel's boost before it
-      if (local_window > 0 && pos >= ln - local_window) s += 1e4f;
-      best = fmaxf(best, s);
-    }
-    best = warp_max(best);
-    if (lane == 0) scores[j] = best;
-  }
-  __syncthreads();
-
-  if (warp == 0) {
-    bool exhausted = false;
-    for (int t = 0; t < kb; ++t) {
-      float bv = NEG_INF;
-      int bi = 0x7fffffff;
-      if (!exhausted) {
-        for (int j = lane; j < nb; j += 32) {
-          const float v = scores[j];
-          if (v > bv || (v == bv && j < bi)) { bv = v; bi = j; }
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(FULL, bv, o);
-          const int oi = __shfl_xor_sync(FULL, bi, o);
-          if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-        }
-      }
-      const bool valid = !exhausted && bv > NEG_INF * 0.5f;
-      if (lane == 0) {
-        sel[t] = valid ? bi : -1;
-        if (valid) scores[bi] = NEG_INF;
-      }
-      exhausted = !valid;
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-}
-
 
 // ------------------------------------------------ split-KV streaming body
 
@@ -795,6 +682,330 @@ __device__ __forceinline__ BlockShare block_share(int ln, int nb, int bs,
   r.first = r.lo + s * r.per;
   r.end = min(r.hi, r.first + r.per);
   return r;
+}
+
+// ---------------------------------- the score stream and the cluster select
+
+// Phases 1-2 of the TPU kernels' _score_and_select, shared by the fused
+// cluster kernels, the select_blocks cluster kernel (fused_decode.cu) and
+// the per-head block_max_scores (approx_scores.cu), so all give one set of
+// block maxima bits.
+
+constexpr int SCORE_STAGES = 2;
+constexpr int SCORE_MAX_TOK = 32;     // one token per lane
+// a score stage: 32 tokens of d = 32 fp32 (128 B + 16 B of padding each)
+constexpr int SCORE_STAGE_BYTES = 32 * 144;
+// the H100's per-block dynamic shared memory with the opt-in attribute
+constexpr size_t SMEM_LIMIT = 227 * 1024;
+
+// Bytes of one staged token row of the score stream: its leading d
+// features in the cache dtype rounded up to 16 B, plus 16 B so that lanes
+// reading neighbouring rows with 16-byte loads hit distinct banks.
+template <typename TK>
+__host__ __device__ inline int score_row_bytes(int d) {
+  return (int)round16((size_t)d * sizeof(TK)) + 16;
+}
+
+// Where a score stage holds its block's K scale (scaled storage): the
+// padding after the first row's d features
+template <typename TK>
+__host__ __device__ inline size_t score_scale_at(int d) {
+  return round16((size_t)d * sizeof(TK));
+}
+
+// Tokens per score chunk: the largest power of two <= 32 that divides bs
+// (so a chunk never straddles two blocks) and keeps a stage within
+// SCORE_STAGE_BYTES (at least one token).
+__host__ __device__ inline int score_tokens(int row_bytes, int bs) {
+  int t = SCORE_MAX_TOK;
+  while (t > 1 && (t * row_bytes > SCORE_STAGE_BYTES || bs % t != 0)) t >>= 1;
+  return t;
+}
+
+// Maximum of a shared float and v, exact for all non-NaN values: the
+// float order is the int order for non-negative floats and the reversed
+// unsigned order for negative ones.
+__device__ __forceinline__ void atomic_max_f(float* p, float v) {
+  if (v >= 0.f)
+    atomicMax(reinterpret_cast<int*>(p), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
+}
+
+// Copy the leading d features of the live tokens of score chunk c
+// (positions c * T .. c * T + T - 1 within [t_lo, t_hi), all in one block)
+// into a ring stage, one row of ``rs`` bytes per token, then commit one
+// cp.async group. 16-byte copies run across a token's features; rows
+// whose width is not a 16-byte multiple are copied element by element.
+// Scaled storage: lane 0 also copies the block's K scale into the padding
+// after the first row's features (score_scale_at).
+template <typename TK>
+__device__ __forceinline__ void score_fill(
+    uint8_t* stage, const TK* __restrict__ k, const BlockRows& rows, int b,
+    int h, int Hkv, int W, int d, int bs, int T, int rs, int c, int t_lo,
+    int t_hi, bool vec, int lane) {
+  const int c0 = c * T;
+  const int p0 = max(c0, t_lo), p1 = min(c0 + T, t_hi);
+  const int blk = c0 / bs;
+  const int64_t r0 = rows.first_row(b, blk) - (int64_t)blk * bs;
+  if constexpr (Store<TK>::scaled)
+    if (lane == 0)
+      cp_async4(stage + score_scale_at<TK>(d), rows.ksc + rows.page(b, blk));
+  if (vec) {
+    constexpr int E = 16 / sizeof(TK);
+    const int ppt = (d + E - 1) / E;              // 16 B pieces per token
+    const int n = (p1 - p0) * ppt;
+    for (int i = lane; i < n; i += 32) {
+      const int u = i / ppt, pc = i - u * ppt, p = p0 + u;
+      cp_async16(stage + (size_t)(p - c0) * rs + pc * 16,
+                 k + ((r0 + p) * Hkv + h) * (int64_t)W + pc * E);
+    }
+  } else {
+    const int n = (p1 - p0) * d;
+    for (int i = lane; i < n; i += 32) {
+      const int u = i / d, f = i - u * d, p = p0 + u;
+      reinterpret_cast<TK*>(stage + (size_t)(p - c0) * rs)[f] =
+          k[((r0 + p) * Hkv + h) * (int64_t)W + f];
+    }
+  }
+  cp_async_commit();
+}
+
+// max over the G heads of q̂[:d]·k̂[:d] for one staged token row, each dot
+// summed from 0 in feature order with one fma per feature (scaled storage:
+// each code times the block's scale ks first). SCALE_DOT: each head's dot
+// times dot_scale before the max (block_max_scores scales after the dot,
+// as its TPU kernel does; the others pass a scaled query).
+template <typename TK, int GM, bool SCALE_DOT = false>
+__device__ __forceinline__ float score_token(const uint8_t* row,
+                                             const float* qs, int Wp, int G,
+                                             int d, float ks,
+                                             float dot_scale) {
+  const TK* kr = reinterpret_cast<const TK*>(row);
+  constexpr int E = 16 / sizeof(TK);
+  float acc[GM];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) acc[g] = 0.f;
+  int f = 0;
+  for (; f + E <= d; f += E) {
+    float kv[E];
+    load16(kr + f, kv);
+    if constexpr (Store<TK>::scaled) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) kv[e] *= ks;
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[g] = fmaf(qs[g * Wp + f + e], kv[e], acc[g]);
+  }
+  for (; f < d; ++f) {
+    float kv = to_f(kr[f]);
+    if constexpr (Store<TK>::scaled) kv *= ks;
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G) acc[g] = fmaf(qs[g * Wp + f], kv, acc[g]);
+  }
+  float s = NEG_INF;
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+    if (g < G) s = fmaxf(s, SCALE_DOT ? acc[g] * dot_scale : acc[g]);
+  return s;
+}
+
+// qs[g * pad4(W) + c] = q[g * W + c] * scale, 0 in the padding, for one
+// (b, h)'s (G, W) query tile
+template <typename TQ>
+__device__ __forceinline__ void load_query_padded(const TQ* __restrict__ q,
+                                                  float* qs, int G, int W,
+                                                  float scale) {
+  const int Wp = pad4(W);
+  for (int i = threadIdx.x; i < G * Wp; i += blockDim.x) {
+    const int g = i / Wp, c = i % Wp;
+    qs[i] = c < W ? to_f(q[g * W + c]) * scale : 0.f;
+  }
+}
+
+// The live tokens [first, end) of a CTA's share of the blocks: from its
+// first block (or the sliding window's start, if later) to its last
+// block's end or cur_len.
+__device__ __forceinline__ int2 share_tokens(const BlockShare& sh, int bs,
+                                             int ln, int sliding_window) {
+  int t_lo = sh.first * bs;
+  if (sliding_window > 0) t_lo = max(t_lo, ln - sliding_window);
+  return make_int2(t_lo, min(sh.end * bs, ln));
+}
+
+// Phase 1: score the live tokens [t_lo, t_hi) of row (b, h) into the
+// block maxima, blkmax[blk - blk0] for block blk (the caller sets them to
+// NEG_INF first; they stay so for a block with no token here). The range's
+// T-token chunks (T divides bs) go to the 4 warps in turn, warp w taking
+// chunks w, w + 4, ...; each warp streams its chunks through its own
+// two-stage ring in ``rings`` (SCORE_STAGES x T x rs bytes per warp) of
+// 16-byte cp.async copies, lanes across a token's features (d = 32 fp32:
+// 8 lanes a token, 4 tokens per warp instruction), the next chunk in
+// flight while lane i scores token i of this one from shared memory
+// (score_token). The +1e4 local-window boost goes after the group max,
+// then a warp max and one exact shared atomic max per chunk. Ends with
+// every copy landed; the caller synchronises before reading blkmax.
+template <typename TK, int GM, bool SCALE_DOT = false>
+__device__ __forceinline__ void score_range(
+    const TK* __restrict__ k, const BlockRows& rows, int b, int h, int Hkv,
+    int W, int d, int bs, int T, int rs, const float* qs, int Wp, int G,
+    float dot_scale, int t_lo, int t_hi, int ln, int local_window,
+    float* blkmax, int blk0, uint8_t* rings, bool vec) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c_first = t_lo / T;
+  const int n_ch = t_hi > t_lo ? (t_hi + T - 1) / T - c_first : 0;
+  const int my_n =
+      n_ch > warp ? (n_ch - warp + SPLIT_WARPS - 1) / SPLIT_WARPS : 0;
+  const size_t stage = (size_t)T * rs;
+  uint8_t* ring = rings + (size_t)warp * SCORE_STAGES * stage;
+  auto chunk = [&](int j) { return c_first + warp + j * SPLIT_WARPS; };
+#pragma unroll
+  for (int j = 0; j < SCORE_STAGES - 1; ++j) {
+    if (j < my_n)
+      score_fill(ring + j * stage, k, rows, b, h, Hkv, W, d, bs, T, rs,
+                 chunk(j), t_lo, t_hi, vec, lane);
+    else
+      cp_async_commit();
+  }
+  for (int j = 0; j < my_n; ++j) {
+    const int jn = j + SCORE_STAGES - 1;
+    if (jn < my_n)
+      score_fill(ring + (jn % SCORE_STAGES) * stage, k, rows, b, h, Hkv, W,
+                 d, bs, T, rs, chunk(jn), t_lo, t_hi, vec, lane);
+    else
+      cp_async_commit();
+    cp_async_wait<SCORE_STAGES - 1>();
+    __syncwarp();
+    const int c = chunk(j), pos = c * T + lane;
+    const uint8_t* st = ring + (j % SCORE_STAGES) * stage;
+    float ks = 1.f;
+    if constexpr (Store<TK>::scaled)
+      ks = *reinterpret_cast<const float*>(st + score_scale_at<TK>(d));
+    float s = NEG_INF;
+    if (lane < T && pos >= t_lo && pos < t_hi) {
+      s = score_token<TK, GM, SCALE_DOT>(st + (size_t)lane * rs, qs, Wp, G,
+                                         d, ks, dot_scale);
+      // max(a + c, b + c) == max(a, b) + c under monotone rounding, so
+      // the boost after the group max equals the TPU kernel's boost
+      // before it
+      if (local_window > 0 && pos >= ln - local_window) s += 1e4f;
+    }
+    s = warp_max(s);
+    if (lane == 0) atomic_max_f(blkmax + c * T / bs - blk0, s);
+    __syncwarp();                     // the stage is refilled next round
+  }
+  cp_async_wait<0>();
+}
+
+// (value, index) pairs: the larger value wins, ties to the lower index
+__device__ __forceinline__ void argmax_take(float& bv, int& bi, float ov,
+                                            int oi) {
+  if (ov > bv || (ov == bv && oi < bi)) {
+    bv = ov;
+    bi = oi;
+  }
+}
+
+// Phase 2 of a cluster kernel, after every CTA scored its share ``sh`` of
+// the row's blocks into its own blkmax (score_range): cluster.sync(); each
+// CTA assembles the whole row of block maxima in ``row`` from the entries'
+// owners through distributed shared memory, then runs the same k_blocks
+// rounds of argmax-and-suppress over it (all 4 warps, one CTA barrier a
+// round; ties to the lower index), so all C CTAs find the same winners
+// with no broadcast. ``row`` is either nb free floats (the fused kernels'
+// shared region), or blkmax itself: each CTA then fills in only the
+// entries its peers own, and a second cluster.sync() keeps every CTA's
+// own entries unsuppressed until its peers have read them. win(t, bi)
+// runs in thread 0 for winner t; returns the number of winners with a
+// finite maximum (the same in every thread). wv, wi: 2 x 4 (value, index)
+// pairs of shared scratch.
+template <typename Win>
+__device__ __forceinline__ int cluster_select(float* blkmax, float* row,
+                                              const BlockShare& sh, int nb,
+                                              int kb, float* wv, int* wi,
+                                              Win win) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool in_place = row == blkmax;
+  cluster.sync();                     // every CTA's block maxima, final
+  for (int j = tid; j < nb; j += SPLIT_THREADS) {
+    const bool live = j >= sh.lo && j < sh.hi;
+    const int owner = live ? (j - sh.lo) / sh.per : rank;
+    if (!in_place)
+      row[j] = live ? *cluster.map_shared_rank(blkmax + j, owner) : NEG_INF;
+    else if (owner != rank)
+      row[j] = *cluster.map_shared_rank(blkmax + j, owner);
+  }
+  if (in_place)
+    cluster.sync();                   // every peer's entries read
+  else
+    __syncthreads();
+  int nv = kb;                        // winners with a finite maximum
+  for (int t = 0; t < kb; ++t) {
+    // thread tid alone reads and suppresses entries j = tid (mod 128)
+    float bv = NEG_INF;
+    int bi = 0x7fffffff;
+    for (int j = tid; j < nb; j += SPLIT_THREADS)
+      argmax_take(bv, bi, row[j], j);
+    for (int o = 16; o > 0; o >>= 1)
+      argmax_take(bv, bi, __shfl_xor_sync(FULL, bv, o),
+                  __shfl_xor_sync(FULL, bi, o));
+    float* rv = wv + (t & 1) * SPLIT_WARPS;   // two buffers: one barrier
+    int* ri = wi + (t & 1) * SPLIT_WARPS;     // per round
+    if (lane == 0) {
+      rv[warp] = bv;
+      ri[warp] = bi;
+    }
+    __syncthreads();
+    bv = rv[0];
+    bi = ri[0];
+    for (int w = 1; w < SPLIT_WARPS; ++w) argmax_take(bv, bi, rv[w], ri[w]);
+    if (!(bv > NEG_INF * 0.5f)) {     // the same in every thread
+      nv = t;
+      break;
+    }
+    if (tid == bi % SPLIT_THREADS) row[bi] = NEG_INF;
+    if (tid == 0) win(t, bi);
+  }
+  return nv;
+}
+
+// Byte offsets of a score kernel's dynamic shared memory (select_blocks;
+// block_max_scores at G = 1, W = d): the float32 query (G x pad4(W)), n
+// block maxima, the argmax exchange (2 rounds x 4 warps (value, index)),
+// then the 4 warps' score rings (SCORE_STAGES stages of tok rows of
+// row_bytes). A row too long to fit beside the rings halves the chunk
+// until it does (the block maxima do not depend on the chunk).
+// kernels/tuning.py select_smem_bytes mirrors it.
+struct ScoreLayout {
+  size_t qs, blkmax, wsel, ring, total;
+  int row_bytes, tok;
+};
+
+template <typename TK>
+__host__ __device__ inline ScoreLayout score_layout(int G, int W, int d,
+                                                    int bs, int n) {
+  ScoreLayout L;
+  L.row_bytes = score_row_bytes<TK>(d);
+  L.tok = score_tokens(L.row_bytes, bs);
+  size_t off = 0;
+  L.qs = off;
+  off += round16(sizeof(float) * G * pad4(W));
+  L.blkmax = off;
+  off += round16(sizeof(float) * n);
+  L.wsel = off;
+  off += round16(2 * SPLIT_WARPS * (sizeof(float) + sizeof(int)));
+  L.ring = off;
+  const size_t per_tok = (size_t)SPLIT_WARPS * SCORE_STAGES * L.row_bytes;
+  while (L.tok > 1 && off + per_tok * L.tok > SMEM_LIMIT) L.tok >>= 1;
+  L.total = off + per_tok * L.tok;
+  return L;
 }
 
 // ------------------------------------- attention over a list, one cluster

@@ -25,18 +25,18 @@
 // CTAs of 4 warps per (kv-head, slot), C picked on the host from shapes
 // only (about 4 CTAs per SM, 1 <= C <= min(8, S / bs); cluster_size in
 // decode_common.cuh), so the host never reads cur_len. In one launch:
-//   1. score: CTA r takes an equal share of the live block range [lo, hi)
+//   1. score (score_range in decode_common.cuh): CTA r takes an equal share of the live block range [lo, hi)
 //      (block_share, the full decode's split rule) and streams the leading
 //      d features of its live tokens through a per-warp two-stage ring of
 //      16-byte cp.async copies, lanes across a token's features (d = 32
 //      fp32: 8 lanes a token, 4 tokens per warp instruction), in chunks of
 //      up to 32 tokens that never straddle a block. Lane i then scores
 //      token i of the chunk from shared memory, summing q̂[:d]·k̂[:d] in
-//      feature order (the order select_blocks uses, so the block maxima
-//      are bit-identical to it and to every C); the group max, the +1e4
+//      feature order (so the block maxima are bit-identical at every C
+//      and chunk size); the group max, the +1e4
 //      local-window boost after it, and a warp max go to the CTA's own
 //      (nb,) row of block maxima through a shared atomic max (exact).
-//   2. select: cluster.sync(); every CTA reads the live entries of the row
+//   2. select (cluster_select): cluster.sync(); every CTA reads the live entries of the row
 //      from their owners through distributed shared memory and runs the
 //      same k_blocks rounds of argmax-and-suppress (all 4 warps, one CTA
 //      barrier a round; ties to the lower index, -1 once no finite maximum
@@ -72,8 +72,18 @@
 // registers and slowed it, so attend_share streams each share in one
 // pass.
 //
-// select_blocks keeps the one-CTA body (score_and_select): one block of
-// 256 threads per (kv-head, batch) pair.
+// select_blocks runs phases 1-2 alone (select_cluster_kernel): the same
+// grid, C, shares, score_range and cluster_select, so its block maxima and
+// winners are the fused kernels' bits; it selects in place over each
+// CTA's own row of block maxima (a second cluster.sync() instead of a copy
+// of the row), and CTA rank 0 writes the (B, Hkv, kb) int32 winners, -1
+// once no finite maximum is left. Shared memory (score_layout, exported as
+// loki_select_smem_bytes, mirrored by kernels/tuning.py select_smem_bytes):
+// the scaled query, the block-maxima row, the argmax exchange and the 4
+// warps' score rings, 37,568 B at the main shape. ptxas: 48-64 registers,
+// 8 B spilled at G <= 16 over a bf16 cache, none elsewhere. A deeper score
+// ring (3 or 4 stages, or 4 stages of 16-token chunks) was no faster here
+// or in block_max_scores, and its shared memory slowed the fused kernels.
 //
 // Paged mode: with a page table the caches are the serving engine's pools
 // (R, Hkv, ·) with no batch dimension, and every block read resolves its
@@ -85,8 +95,7 @@
 // scales, paged only) run the same bodies: the score stream copies the
 // codes raw and lane 0 copies the block's K scale into the padding of the
 // stage's first row; each token's dot dequantizes code by code (code *
-// scale, then the fma), in the order select_blocks uses, so their block
-// maxima stay bit-identical; the attention phase carries each token's K and
+// scale, then the fma); the attention phase carries each token's K and
 // V scales in its ring stage (decode_common.cuh split_fill). At
 // int8:pca:r=32 a token's score row is 32 B and its attention row 160 B,
 // against 128 B and 1 KB for the fp32 cache.
@@ -97,55 +106,6 @@
 #include "decode_common.cuh"
 
 namespace loki {
-
-template <typename TQ, typename TK>
-__global__ void __launch_bounds__(THREADS)
-select_blocks_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
-                     const int* __restrict__ cur_len, BlockRows rows,
-                     int* __restrict__ out, int Hkv, int G, int W, int d,
-                     int bs, int nb, int kb, float scale, int local_window,
-                     int sliding_window, int vec) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  float* qs = smem;                                   // G*W
-  float* scores = qs + G * W;                         // nb
-  const int ln = cur_len[b];
-  const size_t bh = (size_t)b * Hkv + h;
-  load_query(q + bh * G * W, qs, G * W, scale);
-  score_and_select(k, qs, scores, out + bh * kb, rows, b, h, ln, Hkv, G, W,
-                   d, bs, nb, kb, local_window, sliding_window, vec != 0);
-}
-
-// ------------------------------------------------- the fused cluster kernel
-
-constexpr int SCORE_STAGES = 2;
-constexpr int SCORE_MAX_TOK = 32;     // one token per lane
-// a score stage: 32 tokens of d = 32 fp32 (128 B + 16 B of padding each)
-constexpr int SCORE_STAGE_BYTES = 32 * 144;
-
-// Bytes of one staged token row of the score stream: its leading d
-// features in the cache dtype rounded up to 16 B, plus 16 B so that lanes
-// reading neighbouring rows with 16-byte loads hit distinct banks.
-template <typename TK>
-__host__ __device__ inline int score_row_bytes(int d) {
-  return (int)round16((size_t)d * sizeof(TK)) + 16;
-}
-
-// Where a score stage holds its block's K scale (scaled storage): the
-// padding after the first row's d features
-template <typename TK>
-__host__ __device__ inline size_t score_scale_at(int d) {
-  return round16((size_t)d * sizeof(TK));
-}
-
-// Tokens per score chunk: the largest power of two <= 32 that divides bs
-// (so a chunk never straddles two blocks) and keeps a stage within
-// SCORE_STAGE_BYTES (at least one token).
-__host__ __device__ inline int score_tokens(int row_bytes, int bs) {
-  int t = SCORE_MAX_TOK;
-  while (t > 1 && (t * row_bytes > SCORE_STAGE_BYTES || bs % t != 0)) t >>= 1;
-  return t;
-}
 
 // Byte offsets of the fused kernel's dynamic shared memory. ``uni`` holds,
 // in turn, the 4 warps' score rings, the selection's copy of the block
@@ -187,105 +147,6 @@ __host__ __device__ inline FusedLayout fused_layout(int G, int W, int D,
   return L;
 }
 
-// Maximum of a shared float and v, exact for all non-NaN values: the
-// float order is the int order for non-negative floats and the reversed
-// unsigned order for negative ones.
-__device__ __forceinline__ void atomic_max_f(float* p, float v) {
-  if (v >= 0.f)
-    atomicMax(reinterpret_cast<int*>(p), __float_as_int(v));
-  else
-    atomicMin(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
-}
-
-// Copy the leading d features of the live tokens of score chunk c
-// (positions c * T .. c * T + T - 1 within [t_lo, t_hi), all in one block)
-// into a ring stage, one row of ``rs`` bytes per token, then commit one
-// cp.async group. 16-byte copies run across a token's features; rows
-// whose width is not a 16-byte multiple are copied element by element.
-// Scaled storage: lane 0 also copies the block's K scale into the padding
-// after the first row's features (score_scale_at).
-template <typename TK>
-__device__ __forceinline__ void score_fill(
-    uint8_t* stage, const TK* __restrict__ k, const BlockRows& rows, int b,
-    int h, int Hkv, int W, int d, int bs, int T, int rs, int c, int t_lo,
-    int t_hi, bool vec, int lane) {
-  const int c0 = c * T;
-  const int p0 = max(c0, t_lo), p1 = min(c0 + T, t_hi);
-  const int blk = c0 / bs;
-  const int64_t r0 = rows.first_row(b, blk) - (int64_t)blk * bs;
-  if constexpr (Store<TK>::scaled)
-    if (lane == 0)
-      cp_async4(stage + score_scale_at<TK>(d), rows.ksc + rows.page(b, blk));
-  if (vec) {
-    constexpr int E = 16 / sizeof(TK);
-    const int ppt = (d + E - 1) / E;              // 16 B pieces per token
-    const int n = (p1 - p0) * ppt;
-    for (int i = lane; i < n; i += 32) {
-      const int u = i / ppt, pc = i - u * ppt, p = p0 + u;
-      cp_async16(stage + (size_t)(p - c0) * rs + pc * 16,
-                 k + ((r0 + p) * Hkv + h) * (int64_t)W + pc * E);
-    }
-  } else {
-    const int n = (p1 - p0) * d;
-    for (int i = lane; i < n; i += 32) {
-      const int u = i / d, f = i - u * d, p = p0 + u;
-      reinterpret_cast<TK*>(stage + (size_t)(p - c0) * rs)[f] =
-          k[((r0 + p) * Hkv + h) * (int64_t)W + f];
-    }
-  }
-  cp_async_commit();
-}
-
-// max over the G heads of q̂[:d]·k̂[:d] for one staged token row, each dot
-// summed in feature order as score_and_select sums it (scaled storage:
-// each code times the block's scale ks first, as there)
-template <typename TK, int GM>
-__device__ __forceinline__ float score_token(const uint8_t* row,
-                                             const float* qs, int Wp, int G,
-                                             int d, float ks) {
-  const TK* kr = reinterpret_cast<const TK*>(row);
-  constexpr int E = 16 / sizeof(TK);
-  float acc[GM];
-#pragma unroll
-  for (int g = 0; g < GM; ++g) acc[g] = 0.f;
-  int f = 0;
-  for (; f + E <= d; f += E) {
-    float kv[E];
-    load16(kr + f, kv);
-    if constexpr (Store<TK>::scaled) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) kv[e] *= ks;
-    }
-#pragma unroll
-    for (int g = 0; g < GM; ++g)
-      if (g < G)
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          acc[g] = fmaf(qs[g * Wp + f + e], kv[e], acc[g]);
-  }
-  for (; f < d; ++f) {
-    float kv = to_f(kr[f]);
-    if constexpr (Store<TK>::scaled) kv *= ks;
-#pragma unroll
-    for (int g = 0; g < GM; ++g)
-      if (g < G) acc[g] = fmaf(qs[g * Wp + f], kv, acc[g]);
-  }
-  float s = NEG_INF;
-#pragma unroll
-  for (int g = 0; g < GM; ++g)
-    if (g < G) s = fmaxf(s, acc[g]);
-  return s;
-}
-
-// (value, index) pairs: the larger value wins, ties to the lower index
-__device__ __forceinline__ void argmax_take(float& bv, int& bi, float ov,
-                                            int oi) {
-  if (ov > bv || (ov == bv && oi < bi)) {
-    bv = ov;
-    bi = oi;
-  }
-}
-
 template <typename TQ, typename TK, int GM, int DC>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 fused_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
@@ -301,114 +162,33 @@ fused_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
   const int h = blockIdx.x, b = blockIdx.y;
   const int rank = (int)cluster.block_rank();
   const int C = (int)cluster.num_blocks();
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
   const FusedLayout L = fused_layout<TK>(G, W, D, d, bs, nb, kb);
-  const int Wp = pad4(W);
   const size_t bh = (size_t)b * Hkv + h;
-  float* qs = reinterpret_cast<float*>(base + L.qs);        // G x Wp
+  float* qs = reinterpret_cast<float*>(base + L.qs);        // G x pad4(W)
   float* blkmax = reinterpret_cast<float*>(base + L.blkmax); // nb
   int* sel = reinterpret_cast<int*>(base + L.sel);           // kb
   float* wv = reinterpret_cast<float*>(base + L.wsel);       // 2 x warps
   int* wi = reinterpret_cast<int*>(wv + 2 * SPLIT_WARPS);
   uint8_t* uni = base + L.uni;
 
-  for (int i = tid; i < G * Wp; i += SPLIT_THREADS) {
-    const int g = i / Wp, c = i % Wp;
-    qs[i] = c < W ? to_f(q[(bh * G + g) * W + c]) * scale : 0.f;
-  }
+  load_query_padded(q + bh * G * W, qs, G, W, scale);
   for (int j = tid; j < nb; j += SPLIT_THREADS) blkmax[j] = NEG_INF;
   const int ln = cur_len[b];
   const BlockShare sh = block_share(ln, nb, bs, sliding_window, rank, C);
   __syncthreads();
 
   // ---- 1. score this CTA's share of the live blocks
-  {
-    int t_lo = sh.first * bs;
-    if (sliding_window > 0) t_lo = max(t_lo, ln - sliding_window);
-    const int t_hi = min(sh.end * bs, ln);
-    const int T = L.tok, rs = L.row_bytes;
-    const int c_first = t_lo / T;
-    const int n_ch = t_hi > t_lo ? (t_hi + T - 1) / T - c_first : 0;
-    const int my_n = n_ch > warp
-                         ? (n_ch - warp + SPLIT_WARPS - 1) / SPLIT_WARPS
-                         : 0;
-    const size_t stage = (size_t)T * rs;
-    uint8_t* ring = uni + (size_t)warp * SCORE_STAGES * stage;
-    auto chunk = [&](int j) { return c_first + warp + j * SPLIT_WARPS; };
-#pragma unroll
-    for (int j = 0; j < SCORE_STAGES - 1; ++j) {
-      if (j < my_n)
-        score_fill(ring + j * stage, k, rows, b, h, Hkv, W, d, bs, T, rs,
-                   chunk(j), t_lo, t_hi, vec_k != 0, lane);
-      else
-        cp_async_commit();
-    }
-    for (int j = 0; j < my_n; ++j) {
-      const int jn = j + SCORE_STAGES - 1;
-      if (jn < my_n)
-        score_fill(ring + (jn % SCORE_STAGES) * stage, k, rows, b, h, Hkv, W,
-                   d, bs, T, rs, chunk(jn), t_lo, t_hi, vec_k != 0, lane);
-      else
-        cp_async_commit();
-      cp_async_wait<SCORE_STAGES - 1>();
-      __syncwarp();
-      const int c = chunk(j), pos = c * T + lane;
-      const uint8_t* st = ring + (j % SCORE_STAGES) * stage;
-      float ks = 1.f;
-      if constexpr (Store<TK>::scaled)
-        ks = *reinterpret_cast<const float*>(st + score_scale_at<TK>(d));
-      float s = NEG_INF;
-      if (lane < T && pos >= t_lo && pos < t_hi) {
-        s = score_token<TK, GM>(st + (size_t)lane * rs, qs, Wp, G, d, ks);
-        // max(a + c, b + c) == max(a, b) + c under monotone rounding, so
-        // the boost after the group max equals the TPU kernel's boost
-        // before it
-        if (local_window > 0 && pos >= ln - local_window) s += 1e4f;
-      }
-      s = warp_max(s);
-      if (lane == 0) atomic_max_f(blkmax + c * T / bs, s);
-      __syncwarp();                   // the stage is refilled next round
-    }
-    cp_async_wait<0>();
-  }
-  cluster.sync();                     // every CTA's block maxima, final
+  const int2 t = share_tokens(sh, bs, ln, sliding_window);
+  score_range<TK, GM>(k, rows, b, h, Hkv, W, d, bs, L.tok, L.row_bytes, qs,
+                      pad4(W), G, 1.f, t.x, t.y, ln, local_window, blkmax,
+                      0, uni, vec_k != 0);
 
-  // ---- 2. select: the same k_blocks winners in every CTA of the cluster
-  float* row = reinterpret_cast<float*>(uni);
-  for (int j = tid; j < nb; j += SPLIT_THREADS) {
-    float x = NEG_INF;
-    if (j >= sh.lo && j < sh.hi)
-      x = *cluster.map_shared_rank(blkmax + j, (j - sh.lo) / sh.per);
-    row[j] = x;
-  }
-  __syncthreads();
-  int nv = kb;                        // winners with a finite maximum
-  for (int t = 0; t < kb; ++t) {
-    // thread tid alone reads and suppresses entries j = tid (mod 128)
-    float bv = NEG_INF;
-    int bi = 0x7fffffff;
-    for (int j = tid; j < nb; j += SPLIT_THREADS)
-      argmax_take(bv, bi, row[j], j);
-    for (int o = 16; o > 0; o >>= 1)
-      argmax_take(bv, bi, __shfl_xor_sync(FULL, bv, o),
-                  __shfl_xor_sync(FULL, bi, o));
-    float* rv = wv + (t & 1) * SPLIT_WARPS;   // two buffers: one barrier
-    int* ri = wi + (t & 1) * SPLIT_WARPS;     // per round
-    if (lane == 0) {
-      rv[warp] = bv;
-      ri[warp] = bi;
-    }
-    __syncthreads();
-    bv = rv[0];
-    bi = ri[0];
-    for (int w = 1; w < SPLIT_WARPS; ++w) argmax_take(bv, bi, rv[w], ri[w]);
-    if (!(bv > NEG_INF * 0.5f)) {     // the same in every thread
-      nv = t;
-      break;
-    }
-    if (tid == bi % SPLIT_THREADS) row[bi] = NEG_INF;
-    if (tid == 0) sel[t] = bi;
-  }
+  // ---- 2. select: the same k_blocks winners in every CTA of the cluster,
+  // over a copy of the row in the shared region
+  const int nv = cluster_select(blkmax, reinterpret_cast<float*>(uni), sh,
+                                nb, kb, wv, wi,
+                                [&](int i, int bi) { sel[i] = bi; });
 
   // ---- 3-4. attend this CTA's share of the winners, merge in rank 0
   attend_share<TQ, TK, SPLIT_TOK, false, false, GM, DC>(
@@ -418,6 +198,53 @@ fused_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
                    vec_kv != 0, lane);
       },
       ln, G, W, D, bs, sliding_window, 1.f, out + bh * G * D);
+}
+
+// ------------------------------------------ the select_blocks cluster kernel
+
+// Phases 1-2 of the fused kernel alone (the same score_range and
+// cluster_select), selecting in place over each CTA's own block-maxima row
+// (score_layout: no copy of the row, so the longest rows the two-kernel
+// plan takes fit); CTA rank 0 writes the winners to out[b, h, :] as it
+// finds them, then -1 for the rest.
+template <typename TQ, typename TK, int GM>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+select_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
+                      const int* __restrict__ cur_len, BlockRows rows,
+                      int* __restrict__ out, int Hkv, int G, int W, int d,
+                      int bs, int nb, int kb, float scale, int local_window,
+                      int sliding_window, int vec_k) {
+  extern __shared__ float4 smem4[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
+  const int tid = threadIdx.x;
+  const ScoreLayout L = score_layout<TK>(G, W, d, bs, nb);
+  const size_t bh = (size_t)b * Hkv + h;
+  float* qs = reinterpret_cast<float*>(base + L.qs);        // G x pad4(W)
+  float* blkmax = reinterpret_cast<float*>(base + L.blkmax); // nb
+  float* wv = reinterpret_cast<float*>(base + L.wsel);       // 2 x warps
+  int* wi = reinterpret_cast<int*>(wv + 2 * SPLIT_WARPS);
+
+  load_query_padded(q + bh * G * W, qs, G, W, scale);
+  for (int j = tid; j < nb; j += SPLIT_THREADS) blkmax[j] = NEG_INF;
+  const int ln = cur_len[b];
+  const BlockShare sh = block_share(ln, nb, bs, sliding_window, rank, C);
+  __syncthreads();
+
+  const int2 t = share_tokens(sh, bs, ln, sliding_window);
+  score_range<TK, GM>(k, rows, b, h, Hkv, W, d, bs, L.tok, L.row_bytes, qs,
+                      pad4(W), G, 1.f, t.x, t.y, ln, local_window, blkmax,
+                      0, base + L.ring, vec_k != 0);
+  int* o = out + bh * kb;
+  const int nv = cluster_select(blkmax, blkmax, sh, nb, kb, wv, wi,
+                                [&](int i, int bi) {
+                                  if (rank == 0) o[i] = bi;
+                                });
+  if (rank == 0)
+    for (int i = nv + tid; i < kb; i += SPLIT_THREADS) o[i] = -1;
 }
 
 // The host side of one launch: shapes, the page table, the per-page scales
@@ -477,21 +304,6 @@ struct Fused {
   }
 };
 
-template <typename TQ, typename TK>
-cudaError_t launch_select(const Launch& a) {
-  const int nb = a.S / a.bs;
-  const size_t smem = sizeof(float) * ((size_t)a.G * a.W + nb);
-  auto kern = select_blocks_kernel<TQ, TK>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(a.Hkv, a.B), THREADS, smem, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
-      static_cast<const int*>(a.cur_len), a.rows(), static_cast<int*>(a.out),
-      a.Hkv, a.G, a.W, a.d, a.bs, nb, a.kb, a.scale, a.local_window,
-      a.sliding_window, a.vec());
-  return cudaGetLastError();
-}
-
 inline bool shape_ok(const Launch& a) {
   return a.G >= 1 && a.G <= MAXG && a.W >= 1 && a.W <= MAXDIM && a.D >= 1 &&
          a.D <= MAXDIM && a.d >= 1 && a.d <= a.W && a.bs >= 1 &&
@@ -501,11 +313,26 @@ inline bool shape_ok(const Launch& a) {
 
 template <typename TQ, typename TK>
 struct Select {
+  template <int GM>
+  static cudaError_t go(const Launch& a) {
+    const int nb = a.S / a.bs;
+    const ScoreLayout L = score_layout<TK>(a.G, a.W, a.d, a.bs, nb);
+    const int C = cluster_size(nb, a.B * a.Hkv, sm_count());
+    const int vec_k = (a.W * sizeof(TK)) % 16 == 0;
+    return launch_cluster(
+        select_cluster_kernel<TQ, TK, GM>, a.Hkv, a.B, C, L.total, a.stream,
+        a.info, static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
+        static_cast<const int*>(a.cur_len), a.rows(),
+        static_cast<int*>(a.out), a.Hkv, a.G, a.W, a.d, a.bs, nb, a.kb,
+        a.scale, a.local_window, a.sliding_window, vec_k);
+  }
   static cudaError_t run(const Launch& a) {
     if (!storage_ok<TK>(a.table, a.ksc, nullptr, false,
                         (a.W * sizeof(TK)) % 16 == 0))
       return cudaErrorInvalidValue;
-    return launch_select<TQ, TK>(a);
+    if (a.G == 1) return go<1>(a);
+    if (a.G <= 4) return go<4>(a);
+    return go<MAXG>(a);
   }
 };
 
@@ -595,5 +422,34 @@ extern "C" int loki_select_blocks(const void* q, const void* k,
                       local_window, sliding_window,
                       static_cast<cudaStream_t>(stream), nullptr};
   if (!shape_ok(a)) return (int)cudaErrorInvalidValue;
+  return (int)by_storage<Select>(q_bf16, kv, a);
+}
+
+// select_blocks' dynamic shared memory in bytes at a shape and storage
+// code; kernels/tuning.py select_smem_bytes must give the same.
+extern "C" long long loki_select_smem_bytes(int kv, int G, int W, int d,
+                                            int bs, int nb) {
+  return with_storage(kv, [&](auto* tag) {
+    using TK = std::remove_pointer_t<decltype(tag)>;
+    return (long long)score_layout<TK>(G, W, d, bs, nb).total;
+  });
+}
+
+// What a select_blocks launch at this shape would use, without launching:
+// info[0] the cluster size C, info[1] the dynamic shared memory in bytes,
+// info[2] cudaOccupancyMaxActiveClusters for that kernel, memory and C. A
+// scaled storage is asked as if paged (the kernel takes it only so).
+extern "C" int loki_select_cluster_info(int q_bf16, int kv, int B, int S,
+                                        int Hkv, int G, int W, int d, int bs,
+                                        int kb, long long* info) {
+  static const int table = 0;
+  static const float scale1 = 1.f;
+  const bool scaled = kv == KV_I8 || kv == KV_F8;
+  const Launch a{nullptr, nullptr, nullptr, nullptr,
+                      scaled ? &table : nullptr, scaled ? &scale1 : nullptr,
+                      nullptr, nullptr, B, S, Hkv, G, W, W, d, bs, kb,
+                      scaled ? 1 : 0, scaled ? S : 0, 1.f, 0, 0, nullptr,
+                      info};
+  if (!shape_ok(a) || info == nullptr) return (int)cudaErrorInvalidValue;
   return (int)by_storage<Select>(q_bf16, kv, a);
 }

@@ -42,10 +42,13 @@ On the card the two fused kernels run as one cluster of C CTAs per (slot,
 kv-head): CTA r scores share r of the live blocks (``split_blocks``), every
 CTA runs the same top-k over the whole row of block maxima, CTA r attends
 share r of the winners (``winner_shares``) and CTA 0 merges the C partials
-by log-sum-exp in rank order. ``fused_cluster_size`` (in
-``gather_attention``, shared with the block-list kernels) is the
-launcher's rule for C (shapes only); ``fused_cluster_plain`` repeats the
-cluster form's arithmetic in torch for the tests and the card's checks.
+by log-sum-exp in rank order. select_blocks runs the first two phases
+alone, on the same clusters, and CTA 0 writes the winners; its block
+maxima and winners are the fused kernels' bits at any C.
+``fused_cluster_size`` (in ``gather_attention``, shared with the
+block-list kernels) is the launchers' rule for C (shapes only);
+``fused_cluster_plain`` repeats the cluster form's arithmetic in torch for
+the tests and the card's checks.
 """
 from __future__ import annotations
 
@@ -200,11 +203,15 @@ _FN: dict = {}
 _ARITY = {"loki_fused_decode": (8, 13, 2),
           "loki_fused_exact_topk_decode": (8, 12, 1),
           "loki_select_blocks": (6, 12, 2)}
-# argument and result types of the library's two shape queries
+# argument and result types of the library's shape queries
 _QUERIES = {"loki_fused_cluster_info": ([ctypes.c_int] * 11
                                         + [ctypes.c_void_p], ctypes.c_int),
             "loki_fused_smem_bytes": ([ctypes.c_int] * 8,
-                                      ctypes.c_longlong)}
+                                      ctypes.c_longlong),
+            "loki_select_cluster_info": ([ctypes.c_int] * 10
+                                         + [ctypes.c_void_p], ctypes.c_int),
+            "loki_select_smem_bytes": ([ctypes.c_int] * 6,
+                                       ctypes.c_longlong)}
 
 
 def _fn(lib: str, name: str):
@@ -224,6 +231,17 @@ def _fn(lib: str, name: str):
     return fn
 
 
+def _plan(lib, info_name, info_args, smem_name, smem_args) -> dict:
+    """A cluster launcher's plan asked from library ``lib``: C, shared
+    memory and resident clusters from ``info_name``, and ``smem_layout``
+    from the layout query ``smem_name``."""
+    info = (ctypes.c_longlong * 3)()
+    _build.check(_fn(lib, info_name)(*info_args, info), info_name)
+    return dict(C=int(info[0]), smem=int(info[1]),
+                max_clusters=int(info[2]),
+                smem_layout=int(_fn(lib, smem_name)(*smem_args)))
+
+
 def cluster_plan(q_hat, k_hat, v, *, d: int, k_blocks: int,
                  block_size: int = 128, page_table=None,
                  page_size: int = 0) -> dict:
@@ -238,16 +256,30 @@ def cluster_plan(q_hat, k_hat, v, *, d: int, k_blocks: int,
                                                k_blocks, page_table,
                                                page_size)
     code, lib, _ = _build.storage(k_hat, "k_hat")
-    info = (ctypes.c_longlong * 3)()
-    _build.check(_fn(lib, "loki_fused_cluster_info")(
-        _build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g, kdim,
-        v.shape[-1], d, block_size, k_blocks, info), "fused cluster info")
-    smem = _fn(lib, "loki_fused_smem_bytes")
-    return dict(C=int(info[0]), smem=int(info[1]),
-                max_clusters=int(info[2]),
-                smem_layout=int(smem(code, g, kdim, v.shape[-1], d,
-                                     block_size, s_len // block_size,
-                                     k_blocks)))
+    dim = v.shape[-1]
+    return _plan(lib, "loki_fused_cluster_info",
+                 (_build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g,
+                  kdim, dim, d, block_size, k_blocks),
+                 "loki_fused_smem_bytes",
+                 (code, g, kdim, dim, d, block_size, s_len // block_size,
+                  k_blocks))
+
+
+def select_plan(q_hat, k_hat, *, d: int, k_blocks: int,
+                block_size: int = 128, page_table=None,
+                page_size: int = 0) -> dict:
+    """``cluster_plan`` for select_blocks' launcher: ``C``, ``smem``,
+    ``max_clusters`` and ``smem_layout`` (the library's
+    ``loki_select_smem_bytes``). For chip_smoke's log and checks."""
+    b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
+                                               k_blocks, page_table,
+                                               page_size)
+    code, lib, _ = _build.storage(k_hat, "k_hat")
+    return _plan(lib, "loki_select_cluster_info",
+                 (_build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g,
+                  kdim, d, block_size, k_blocks),
+                 "loki_select_smem_bytes",
+                 (code, g, kdim, d, block_size, s_len // block_size))
 
 
 def _shape(q_hat, k_hat, block_size, k_blocks, page_table, page_size):
@@ -340,7 +372,9 @@ def select_blocks(q_hat, k_hat, cur_len, *, d: int, k_blocks: int,
                   page_size: int = 0, k_scale=None):
     """Fused score+select: (B,Hkv,G,W),(B,S,Hkv,W) or pooled (with the K
     pool's ``k_scale`` when quantized),(B,) -> (B,Hkv,kb) int32 logical
-    block indices, group-shared, ``-1`` for exhausted entries."""
+    block indices, group-shared, ``-1`` for exhausted entries. On the card:
+    one launch of ``fused_cluster_size`` CTAs per (slot, kv-head), as one
+    cluster (``select_plan``)."""
     check_scales(k_hat, k_scale, None, page_table, page_size, need_v=False)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
                                                k_blocks, page_table,

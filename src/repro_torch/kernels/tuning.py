@@ -10,10 +10,8 @@ paged call whose page size the plan's block does not divide gets no plan
 either (the dispatcher checks; a block must not straddle two pages).
 
 The budget is the kernels' real dynamic shared memory against the H100's
-per-block opt-in limit: the select kernel stages every value as float32,
-so the cache dtype does not enter its budget; the split-KV full decode,
-the fused cluster kernels and the grouped attention copy cache rows as
-they are stored, so theirs depend on it. One-byte storage (int8, fp8) is
+per-block opt-in limit: every kernel's rings copy cache rows as they are
+stored, so each budget depends on the cache dtype. One-byte storage (int8, fp8) is
 always scaled: each of its attention ring stages also holds the stage's
 tokens' K and V page scales (float32). ``TUNED`` pins measured shapes;
 it stays empty until shapes have been measured on the card.
@@ -35,16 +33,12 @@ TUNED: dict = {}
 _BS_CANDIDATES = (128, 64, 32, 16, 8)
 
 
-def select_smem_bytes(*, nb: int, g: int, kdim: int) -> int:
-    """select_blocks: the scaled query (G, W) and the block-maxima row."""
-    return 4 * (g * kdim + nb)
-
-
 #: the split-KV body of the full decode and the fused kernels
 #: (csrc/decode_common.cuh): warps per CTA, tokens per ring stage, ring
 #: stages per warp
 SPLIT_WARPS, SPLIT_TOK, SPLIT_STAGES = 4, 4, 2
-#: the fused kernels' score stream (csrc/fused_decode.cu): ring stages per
+#: the score stream of the fused kernels, select_blocks and
+#: block_max_scores (csrc/decode_common.cuh score_range): ring stages per
 #: warp, tokens per chunk at most (one a lane), bytes per stage at most
 SCORE_STAGES, SCORE_MAX_TOK, SCORE_STAGE_BYTES = 2, 32, 32 * 144
 
@@ -96,6 +90,24 @@ def fused_smem_bytes(*, nb: int, k_blocks: int, g: int, kdim: int,
         kdim=kdim, dim=dim, itemsize=itemsize)
     merge = 4 * (SPLIT_WARPS + 1) * g * (dim + 2)
     return fixed + _round16(max(score_ring, attn_ring, merge, 4 * nb))
+
+
+def select_smem_bytes(*, nb: int, g: int, kdim: int, d: int, bs: int,
+                      itemsize: int) -> int:
+    """select_blocks' cluster kernel: the scaled float32 query, the (nb,)
+    block-maxima row (it selects in place, no copy of the row), the argmax
+    exchange (2 x 4 warps), then the 4 warps' score rings of
+    ``score_tokens`` rows, the chunk halved while the whole exceeds
+    SMEM_LIMIT (the block maxima do not depend on it). The launcher
+    computes the same (``loki_select_smem_bytes``, csrc/decode_common.cuh
+    score_layout)."""
+    tok, row = score_tokens(d=d, bs=bs, itemsize=itemsize)
+    fixed = (_round16(4 * g * _pad4(kdim)) + _round16(4 * nb)
+             + _round16(2 * SPLIT_WARPS * 8))
+    while tok > 1 and fixed + SPLIT_WARPS * SCORE_STAGES * tok * row \
+            > SMEM_LIMIT:
+        tok //= 2
+    return fixed + SPLIT_WARPS * SCORE_STAGES * tok * row
 
 
 def attend_smem_bytes(*, n_sel: int, g: int, kdim: int, dim: int,
@@ -182,7 +194,8 @@ def plan_decode(smax: int, dim: int, g: int, d: int, block_size: int,
     if fused_smem_bytes(nb=nb, k_blocks=nb, g=g, kdim=dim, dim=dim, bs=bs,
                         d=d, itemsize=itemsize) <= SMEM_LIMIT:
         return KernelPlan("fused", bs)
-    if (select_smem_bytes(nb=nb, g=g, kdim=dim) <= SMEM_LIMIT
+    if (select_smem_bytes(nb=nb, g=g, kdim=dim, d=d, bs=bs,
+                          itemsize=itemsize) <= SMEM_LIMIT
             and attend_smem_bytes(n_sel=nb, g=g, kdim=dim, dim=dim,
                                   itemsize=itemsize) <= SMEM_LIMIT):
         return KernelPlan("two_kernel", bs)

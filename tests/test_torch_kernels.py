@@ -247,6 +247,18 @@ def test_plan_decode_budget():
     assert tuning.fused_smem_bytes(**main, d=32, itemsize=2) == \
         736 + 4 * 2 * 32 * 80
     assert tuning.score_tokens(d=32, bs=8, itemsize=4) == (8, 144)
+    assert tuning.score_tokens(d=32, bs=128, itemsize=4) == (32, 144)
+    # select_blocks' cluster kernel (csrc/decode_common.cuh, score_layout)
+    # at the main path's shape: query 512 B, block-maxima row 128 B, argmax
+    # exchange 64 B, then the 4 warps' score rings (2 stages of 32 tokens
+    # of 144 B); it selects in place, so no copy of the row
+    assert tuning.select_smem_bytes(nb=32, g=1, kdim=128, d=32, bs=128,
+                                    itemsize=4) == \
+        512 + 128 + 64 + 4 * 2 * 32 * 144
+    # int8 codes at rank 32: 32 tokens of 48 B a stage
+    assert tuning.select_smem_bytes(nb=32, g=1, kdim=32, d=32, bs=128,
+                                    itemsize=1) == \
+        128 + 128 + 64 + 4 * 2 * 32 * 48
     # a score row too long for the fused kernel's shared memory
     big = tuning.plan_decode(2 ** 22, 256, 16, 64, 128)
     assert big == tuning.KernelPlan("two_kernel", 128)
@@ -254,6 +266,34 @@ def test_plan_decode_budget():
     assert tuning.plan_decode(4096, 512, 1, 32, 128) is None       # D > 256
     assert tuning.plan_decode(100, 128, 1, 32, 128) is None        # no bs
     assert tuning.plan_decode(96, 64, 2, 16, 128).block_size == 32
+
+
+# (smax, dim, G, d, itemsize) -> the plan before select_blocks became a
+# cluster kernel, which it must keep
+ROUTES = {
+    "main": ((4096, 128, 1, 32, 4), ("fused", 128)),
+    "two_kernel": ((2 ** 22, 256, 16, 64, 4), ("two_kernel", 128)),
+    # select_blocks fits only with 16-token score chunks
+    "halved_chunk": ((49152 * 128, 128, 1, 32, 4), ("two_kernel", 128)),
+    "none": ((2 ** 24, 256, 16, 64, 4), None),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_plan_decode_routes_as_before(case):
+    (smax, dim, g, d, isz), want = ROUTES[case]
+    plan = tuning.plan_decode(smax, dim, g, d, 128, itemsize=isz)
+    assert (plan and (plan.variant, plan.block_size)) == want
+    nb = smax // 128
+    sel = tuning.select_smem_bytes(nb=nb, g=g, kdim=dim, d=d, bs=128,
+                                   itemsize=isz)
+    tok, row = tuning.score_tokens(d=d, bs=128, itemsize=isz)
+    fixed = 4 * g * dim + 4 * nb + 64
+    if case == "halved_chunk":
+        assert fixed + 4 * 2 * tok * row > tuning.SMEM_LIMIT
+        assert sel == fixed + 4 * 2 * (tok // 2) * row <= tuning.SMEM_LIMIT
+    elif want is not None:
+        assert sel == fixed + 4 * 2 * tok * row <= tuning.SMEM_LIMIT
 
 
 def test_paged_and_quantized_arguments_raise():
