@@ -21,7 +21,12 @@ Phases, each of which fails the run on any error:
              resident; each kernel's paged form bit for bit against its
              contiguous form
              on the same logical data (shuffled page tables with a
-             trash-page row);
+             trash-page row); the five kernels' storage modes (fp16, int8,
+             fp8, native and at PCA rank 32, on pools the port's writers
+             fill) against their plain versions and plain split or
+             cluster forms, the pairs against the fused kernels bit for
+             bit, their shared memory against tuning's, then untimed at
+             qwen2.5-3b G=8 (int8:pca:r=32) and a 1000-token window (fp8);
              the per-head pipeline's three (block_max_scores,
              block_max_scores_fm, block_sparse_attention) at llama2-7b's
              decode step flattened per head (bf16 q over fp32 K/V, fp32,
@@ -41,7 +46,8 @@ Phases, each of which fails the run on any error:
              two block-list kernels beside SDPA under a mask of the
              selected tokens; the cluster kernels with their cluster size,
              shared memory and resident clusters, the fused ones beside
-             the full decode on the same cache);
+             the full decode on the same cache; each storage mode beside
+             the same kernel's fp32 mode, its bound and, at fp16, SDPA);
   3. dense   llama2-7b at full width through the dense engine with
              loki_block (4 long prompts, 16 new tokens each), then full
              and exact_topk through it, the launch counters of each run
@@ -317,7 +323,7 @@ def fused_plans(case):
                     ("fused_exact_topk_decode", W)):
         want = tuning.fused_smem_bytes(nb=nb, k_blocks=kb, g=G, kdim=W,
                                        dim=v.shape[-1], bs=case["bs"], d=d,
-                                       itemsize=k.element_size())
+                                       storage=tuning.storage_of(k))
         plans[name] = checked_plan(
             f"{case['name']}: {name}",
             lambda: F.cluster_plan(q, k, v, d=d, k_blocks=kb,
@@ -328,14 +334,15 @@ def fused_plans(case):
         lambda: F.select_plan(q, k, d=case["d"], k_blocks=kb,
                               block_size=case["bs"]),
         tuning.select_smem_bytes(nb=nb, g=G, kdim=W, d=case["d"],
-                                 bs=case["bs"], itemsize=k.element_size()),
+                                 bs=case["bs"],
+                                 storage=tuning.storage_of(k)),
         nb, B * Hkv)
     idx = torch.zeros((B, Hkv, kb), dtype=torch.int32, device=DEV)
     plans["block_sparse_attention_grouped"] = checked_plan(
         f"{case['name']}: block_sparse_attention_grouped",
         lambda: GA.attend_plan(q, k, v, idx, block_size=case["bs"]),
         tuning.attend_smem_bytes(n_sel=kb, g=G, kdim=W, dim=v.shape[-1],
-                                 itemsize=k.element_size()), nb, B * Hkv)
+                                 storage=tuning.storage_of(k)), nb, B * Hkv)
     return plans
 
 
@@ -353,7 +360,8 @@ def check_kernels(results):
         W = k.shape[-1]
         kw, ex_kw = kernel_kw(case), kernel_kw(case, exact=True)
         plans = fused_plans(case)
-        full_smem = full_smem_checked(case["name"], q, k, v)["smem"]
+        full_smem = full_smem_checked(case["name"], q, k, v,
+                                      case["bs"])["smem"]
         att_kw = dict(block_size=case["bs"], scale=kw["scale"],
                       sliding_window=case["sw"])
         # select_blocks at the fused kernel's scale, so all three share
@@ -760,7 +768,8 @@ def time_kernels(results):
         log(f"timing: {name} launches clusters of C = {plan['C']} CTAs "
             f"({B * Hkv * plan['C']} CTAs of 128 threads), "
             f"{plan['smem']} B dynamic shared memory each, "
-            f"cudaOccupancyMaxActiveClusters {plan['max_clusters']}; "
+            f"cudaOccupancyMaxActiveClusters {plan['max_clusters']}, "
+            f"{plan['ctas_per_sm']} CTAs resident per SM; "
             f"{t['ms']:.4f} / {t['paged_ms']:.4f} ms contiguous / paged = "
             f"{t['ms'] / t['bound_ms']:.2f}x / "
             f"{t['paged_ms'] / t['bound_ms']:.2f}x its bound, "
@@ -778,11 +787,14 @@ def time_kernels(results):
                - out.numel() * out.element_size())
     del out
     n_split = full_split(case["bs"], k.shape[1], B * Hkv)
+    fp = GA.full_plan(q, k, v, block_size=case["bs"])
     log(f"timing: paged_full_decode splits each (slot, kv-head)'s live "
         f"blocks {n_split} ways by its wrapper's rule ({B * Hkv * n_split} "
         f"CTAs on {torch.cuda.get_device_properties(0).multi_processor_count}"
-        f" SMs); one call's device memory beyond its output (the float32 "
-        f"partials): {scratch} B")
+        f" SMs; chunks of {fp['tokens']} tokens, {fp['stage']} B a ring "
+        f"stage, {fp['smem']} B shared memory, {fp['ctas_per_sm']} CTAs "
+        f"resident per SM); one call's device memory beyond its output (the "
+        f"float32 partials): {scratch} B")
     results.setdefault("timing", {}).update(timing)
     results["sdpa_ms"] = sdpa_ms
     del results["paged"]
@@ -801,14 +813,15 @@ def layout_tag(dtype, rank):
     return dtype + (f":pca:r={rank}" if rank else "")
 
 
-def layout_case(case, dtype, rank, ps=128, seed=0):
-    """The main case's caches stored at a page layout: a shuffled pool of
+def layout_case(case, dtype, rank, ps=128, seed=0, label="llama2-7b"):
+    """A kernel case's caches stored at a page layout: a shuffled pool of
     ``ps``-token pages (plus an idle row on the trash page, cur_len 1), K
     cut to its leading ``rank`` features (0: all), written by the port's
     own pool writers: int8 and fp8 through write_chunk_rows_q (codes and
     per-page scales), fp16 through write_chunk_rows. The dict holds the
-    query, lengths, table, pools and scales, and the dequantized logical
-    views (``lk``, ``lv``) the plain versions read."""
+    query, lengths, table, pools and scales, the dequantized logical views
+    (``lk``, ``lv``) the plain versions read, and the case's block size,
+    k_blocks, windows and name (``label`` and the layout)."""
     from repro_torch.configs.base import PageLayout
     from repro_torch.kernels import gather_attention as GA
     from repro_torch.serving import paged_cache as PC
@@ -840,11 +853,11 @@ def layout_case(case, dtype, rank, ps=128, seed=0):
     cur2 = torch.cat([cur, torch.ones(1, dtype=cur.dtype, device=DEV)])
     _, lk, lv = GA.logical(q2, pools[0], pools[1], table, ps, scales[0],
                            scales[1])
-    return dict(name=f"llama2-7b {layout_tag(dtype, rank)}", dtype=dtype,
+    return dict(name=f"{label} {layout_tag(dtype, rank)}", dtype=dtype,
                 rank=rank, W=W, ps=ps, q=q2, cur=cur2, table=table,
                 k=pools[0], v=pools[1], ks=scales[0], vs=scales[1], lk=lk,
                 lv=lv, bs=case["bs"], d=min(case["d"], W), kb=case["kb"],
-                lw=case["lw"], sw=0, scale=v.shape[-1] ** -0.5)
+                lw=case["lw"], sw=case["sw"], scale=v.shape[-1] ** -0.5)
 
 
 def layout_calls(lc, sel, sel_x):
@@ -858,9 +871,10 @@ def layout_calls(lc, sel, sel_x):
     pg = dict(page_table=lc["table"], page_size=lc["ps"])
     sc = dict(k_scale=lc["ks"], v_scale=lc["vs"])
     base = dict(k_blocks=lc["kb"], block_size=lc["bs"], scale=lc["scale"],
-                sliding_window=0)
+                sliding_window=lc["sw"])
     kw = dict(base, d=lc["d"], local_window=lc["lw"])
-    att = dict(block_size=lc["bs"], scale=lc["scale"], sliding_window=0)
+    att = dict(block_size=lc["bs"], scale=lc["scale"],
+               sliding_window=lc["sw"])
     kern = {
         "fused_loki_decode": lambda: F.fused_loki_decode(q, k, v, cur, **kw,
                                                          **pg, **sc),
@@ -883,7 +897,7 @@ def layout_calls(lc, sel, sel_x):
         "block_sparse_attention_grouped": lambda: GA.attend_blocks_plain(
             q, lk, lv, sel, cur, **att),
         "paged_full_decode": lambda: GA.full_decode_plain(
-            q, lk, lv, cur, scale=lc["scale"]),
+            q, lk, lv, cur, scale=lc["scale"], sliding_window=lc["sw"]),
         "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode_plain(
             q, lk, lv, cur, **base),
     }
@@ -900,7 +914,7 @@ def layout_plans(lc):
     from repro_torch.kernels import tuning
     q, k, v = lc["q"], lc["k"], lc["v"]
     B, Hkv, G, W = q.shape
-    D, isz = v.shape[-1], k.element_size()
+    D, st = v.shape[-1], tuning.storage_of(k)
     nb = lc["table"].shape[1] * lc["ps"] // lc["bs"]
     pg = dict(page_table=lc["table"], page_size=lc["ps"])
     plans = {}
@@ -911,39 +925,45 @@ def layout_plans(lc):
             lambda: F.cluster_plan(q, k, v, d=d, k_blocks=lc["kb"],
                                    block_size=lc["bs"], **pg),
             tuning.fused_smem_bytes(nb=nb, k_blocks=lc["kb"], g=G, kdim=W,
-                                    dim=D, bs=lc["bs"], d=d, itemsize=isz),
+                                    dim=D, bs=lc["bs"], d=d, storage=st),
             nb, B * Hkv)
     plans["select_blocks"] = checked_plan(
         f"{lc['name']}: select_blocks",
         lambda: F.select_plan(q, k, d=lc["d"], k_blocks=lc["kb"],
                               block_size=lc["bs"], **pg),
         tuning.select_smem_bytes(nb=nb, g=G, kdim=W, d=lc["d"], bs=lc["bs"],
-                                 itemsize=isz), nb, B * Hkv)
+                                 storage=st), nb, B * Hkv)
     idx = torch.zeros((B, Hkv, lc["kb"]), dtype=torch.int32, device=DEV)
     plans["block_sparse_attention_grouped"] = checked_plan(
         f"{lc['name']}: block_sparse_attention_grouped",
         lambda: GA.attend_plan(q, k, v, idx, block_size=lc["bs"], **pg),
         tuning.attend_smem_bytes(n_sel=lc["kb"], g=G, kdim=W, dim=D,
-                                 itemsize=isz), nb, B * Hkv)
-    plans["paged_full_decode"] = full_smem_checked(lc["name"], q, k, v)
+                                 storage=st), nb, B * Hkv)
+    plans["paged_full_decode"] = full_smem_checked(lc["name"], q, k, v,
+                                                   lc["bs"])
     return plans
 
 
-def full_smem_checked(what, q, k, v):
-    """paged_full_decode's shared memory as its library computes it
-    (``loki_full_smem_bytes``), asserted equal to tuning.full_smem_bytes."""
+def full_smem_checked(what, q, k, v, bs):
+    """paged_full_decode's plan as its library gives it (``full_plan``:
+    tokens per chunk, stage bytes, shared memory, resident CTAs per SM),
+    its shared memory and its layout query's (``loki_full_smem_bytes``)
+    asserted equal to tuning.full_smem_bytes, its stage to
+    tuning.split_stage_bytes, at least one CTA resident per SM."""
     from repro_torch.kernels import gather_attention as GA
     from repro_torch.kernels import tuning
     B, Hkv, G, W = q.shape
-    want = tuning.full_smem_bytes(g=G, kdim=W, dim=v.shape[-1],
-                                  itemsize=k.element_size())
+    D, st = v.shape[-1], tuning.storage_of(k)
+    want = tuning.full_smem_bytes(g=G, kdim=W, dim=D, storage=st)
     if DEV != "cuda":
         return dict(smem=want)
-    got = GA.full_plan(q, k, v)["smem_layout"]
-    if got != want:
-        raise AssertionError(f"{what}: paged_full_decode shared memory "
-                             f"{got} B != tuning.full_smem_bytes {want}")
-    return dict(smem=got)
+    plan = GA.full_plan(q, k, v, block_size=bs)
+    stage = tuning.split_stage_bytes(kdim=W, dim=D, storage=st)
+    if not plan["smem"] == plan["smem_layout"] == want \
+            or plan["stage"] != stage or plan["ctas_per_sm"] < 1:
+        raise AssertionError(f"{what}: paged_full_decode plan {plan} != "
+                             f"tuning.full_smem_bytes {want}, stage {stage}")
+    return plan
 
 
 def layout_bounds(lc, sel, sel_x):
@@ -995,16 +1015,23 @@ def layout_bounds(lc, sel, sel_x):
     }
 
 
+#: correctness-only layout cases beside the timed main ones, each a
+#: (kernel_cases() index, storage, rank): the narrow body at G = 8
+#: (qwen2.5-3b) and under a sliding window whose start cuts a block
+LAYOUT_CHECKS = ((3, "int8", 32), (5, "fp8", 0))
+
+
 def check_layouts(results):
     """The five kernels' storage modes (fp16; int8 and fp8 with per-page
     scales) on pools the port's own writers fill, at the main case, native
-    and at rank 32: each against its plain version on the dequantized view
-    at tolerance(bf16) (select_blocks: indices equal on rows without a
-    near-tie), the cluster kernels against their plain cluster form at the
-    launcher's C, the full decode against its plain splits, the pair
-    select_blocks + grouped equal to the fused kernels bit for bit (Loki
-    and exact selections: so select_blocks' block maxima are the fused
-    kernels' bits), shared memory equal to tuning's at every storage; then
+    and at rank 32, then untimed at the LAYOUT_CHECKS cases: each against
+    its plain version on the dequantized view at tolerance(q's dtype)
+    (select_blocks: indices equal on rows without a near-tie), the cluster
+    kernels against their plain cluster form at the launcher's C, the full
+    decode against its plain splits, the pair select_blocks + grouped
+    equal to the fused kernels bit for bit (Loki and exact selections: so
+    select_blocks' block maxima are the fused kernels' bits), shared
+    memory equal to tuning's at every storage; then, at the main case,
     each timed (CUDA events, L2 flushed, median of 20) beside its plain
     version, its bound at the storage bytes and, for fp16 pools, the
     library call of the same function (``library_calls`` over the fp16
@@ -1012,161 +1039,196 @@ def check_layouts(results):
     from repro_torch.kernels import fused_decode as F
     from repro_torch.kernels import gather_attention as GA
 
-    main = kernel_cases()[0]
+    cases = kernel_cases()
+    todo = [(cases[0], dtype, rank, True) for dtype in LAYOUT_STORAGE
+            for rank in LAYOUT_RANKS]
+    todo += [(cases[i], dtype, rank, False)
+             for i, dtype, rank in LAYOUT_CHECKS]
     timing, errs, plans_all = {}, {}, {}
-    for dtype in LAYOUT_STORAGE:
-        for rank in LAYOUT_RANKS:
-            lc = layout_case(main, dtype, rank, seed=rank + len(dtype))
-            tag = layout_tag(dtype, rank)
-            q, cur, lk, lv = lc["q"], lc["cur"], lc["lk"], lc["lv"]
-            plans = layout_plans(lc)
-            W = lc["W"]
-            sels = {}
-            for what, d, lw in (("loki", lc["d"], lc["lw"]), ("exact", W, 0)):
-                kw = dict(d=d, local_window=lw, k_blocks=lc["kb"],
-                          block_size=lc["bs"], scale=lc["scale"])
-                ties = near_tie_rows(F.block_scores_plain(
-                    q, lk, cur, d=d, block_size=lc["bs"], scale=lc["scale"],
-                    local_window=lw), lc["kb"])
-                sel_k = F.select_blocks(q, lc["k"], cur, **kw,
-                                        page_table=lc["table"],
-                                        page_size=lc["ps"], k_scale=lc["ks"])
-                sel_p = F.select_blocks_plain(q, lk, cur, **kw)
-                sync()
-                diff = (sel_k != sel_p).any(-1)
-                if (diff & ~ties).any():
-                    raise AssertionError(
-                        f"{lc['name']}: select_blocks ({what}) indices "
-                        f"differ in {int((diff & ~ties).sum())} rows with no "
-                        "near-tie")
-                sels[what] = (sel_k, sel_p, ~diff)
-            (sel_k, sel_p, agree), (sel_kx, _, agree_x) = (sels["loki"],
-                                                            sels["exact"])
-            kern, plain, kw, base = layout_calls(lc, sel_k, sel_kx)
-            got = {n: f() for n, f in kern.items()}
+    for case, dtype, rank, timed in todo:
+        lc = layout_case(case, dtype, rank, seed=rank + len(dtype),
+                         label=("llama2-7b" if timed else case["name"]))
+        tag = layout_tag(dtype, rank)
+        q, cur, lk, lv = lc["q"], lc["cur"], lc["lk"], lc["lv"]
+        plans = layout_plans(lc)
+        W, sw = lc["W"], lc["sw"]
+        sels = {}
+        for what, d, lw in (("loki", lc["d"], lc["lw"]), ("exact", W, 0)):
+            kw = dict(d=d, local_window=lw, k_blocks=lc["kb"],
+                      block_size=lc["bs"], scale=lc["scale"],
+                      sliding_window=sw)
+            ties = near_tie_rows(F.block_scores_plain(
+                q, lk, cur, d=d, block_size=lc["bs"], scale=lc["scale"],
+                local_window=lw, sliding_window=sw), lc["kb"])
+            sel_k = F.select_blocks(q, lc["k"], cur, **kw,
+                                    page_table=lc["table"],
+                                    page_size=lc["ps"], k_scale=lc["ks"])
+            sel_p = F.select_blocks_plain(q, lk, cur, **kw)
             sync()
-            # the pairs, bit for bit: the grouped kernel over select_blocks'
-            # list is the fused kernel
-            for fused, pair in (("fused_loki_decode",
-                                 "block_sparse_attention_grouped"),
-                                ("fused_exact_topk_decode", "exact pair")):
-                if not torch.equal(got[fused], got[pair]):
-                    raise AssertionError(
-                        f"{lc['name']}: select_blocks + grouped differs from "
-                        f"{fused} (max |d| "
-                        f"{float((got[fused] - got[pair]).float().abs().max()):.3e})")
-            pg = dict(page_table=lc["table"], page_size=lc["ps"],
-                      k_scale=lc["ks"], v_scale=lc["vs"])
-            att = dict(block_size=lc["bs"], scale=lc["scale"])
-            runs = {
-                "fused_loki_decode": (got["fused_loki_decode"],
-                                      plain["fused_loki_decode"](), agree),
-                "fused_loki_decode (cluster)": (
-                    got["fused_loki_decode"],
-                    F.fused_cluster_plain(
-                        q, lc["k"], lc["v"], cur, **kw, **pg,
-                        n_cta=plans["fused_loki_decode"]["C"]), agree),
-                "fused_exact_topk_decode": (
-                    got["fused_exact_topk_decode"],
-                    plain["fused_exact_topk_decode"](), agree_x),
-                "fused_exact_topk_decode (cluster)": (
-                    got["fused_exact_topk_decode"],
-                    F.fused_cluster_plain(
-                        q, lc["k"], lc["v"], cur, **base, d=W,
-                        local_window=0, **pg,
-                        n_cta=plans["fused_exact_topk_decode"]["C"]),
-                    agree_x),
-                "block_sparse_attention_grouped": (
-                    GA.block_sparse_attention_grouped(
-                        q, lc["k"], lc["v"], sel_p, cur, **att, **pg),
-                    GA.attend_blocks_plain(q, lk, lv, sel_p, cur, **att),
-                    None),
-                "block_sparse_attention_grouped (cluster)": (
-                    GA.block_sparse_attention_grouped(
-                        q, lc["k"], lc["v"], sel_p, cur, **att, **pg),
-                    GA.grouped_cluster_plain(
-                        q, lc["k"], lc["v"], sel_p, cur, **att, **pg,
-                        n_cta=plans["block_sparse_attention_grouped"]["C"]),
-                    None),
-                "paged_full_decode": (got["paged_full_decode"],
-                                      plain["paged_full_decode"](), None),
-                "paged_full_decode (splits)": (
-                    got["paged_full_decode"],
-                    GA.full_decode_split_plain(
-                        q, lc["k"], lc["v"], cur, **att, **pg,
-                        n_split=full_split(lc["bs"],
-                                           lk.shape[1],
-                                           q.shape[0] * q.shape[1])), None),
-            }
-            atol, rtol = tolerance(q.dtype)
-            e = {}
-            for kname, (g, w, rows) in runs.items():
-                g32, w32 = g.float(), w.float()
-                if rows is not None:
-                    g32, w32 = g32[rows], w32[rows]
-                if not torch.isfinite(g32).all():
-                    raise AssertionError(f"{lc['name']}: {kname} non-finite")
-                torch.testing.assert_close(
-                    g32, w32, atol=atol, rtol=rtol,
-                    msg=lambda m: f"{lc['name']}: {kname}: {m}")
-                e[kname.split(" ")[0]] = max(
-                    e.get(kname.split(" ")[0], 0.0),
-                    float((g32 - w32).abs().max()) if g32.numel() else 0.0)
-            e["select_blocks"] = 0.0          # indices equal off near-ties
-            bnd = layout_bounds(lc, sel_k, sel_kx)
-            # fp16 pools carry no scales: one SDPA call over the fp16
-            # logical view computes the full decode's function, and one
-            # under the selected tokens' mask the grouped kernel's. An int8
-            # or fp8 pool needs its dequantizing multiply first, so no
-            # single library call computes those modes (library_ms null).
-            lib, lib_err = {}, {}
-            if lc["ks"] is None:
-                calls = library_calls(q, lk, lv, cur, sel_k, lc["bs"], 0,
-                                      lc["scale"])
-                for n, f in calls.items():
-                    lib[n] = time_ms(f) if DEV == "cuda" else float("nan")
-                    lib_err[n] = float((f().float() - got[n].float())
-                                       .abs().max())
-                del calls
+            diff = (sel_k != sel_p).any(-1)
+            if (diff & ~ties).any():
+                raise AssertionError(
+                    f"{lc['name']}: select_blocks ({what}) indices "
+                    f"differ in {int((diff & ~ties).sum())} rows with no "
+                    "near-tie")
+            sels[what] = (sel_k, sel_p, ~diff)
+        (sel_k, sel_p, agree), (sel_kx, _, agree_x) = (sels["loki"],
+                                                        sels["exact"])
+        kern, plain, kw, base = layout_calls(lc, sel_k, sel_kx)
+        got = {n: f() for n, f in kern.items()}
+        sync()
+        # the pairs, bit for bit: the grouped kernel over select_blocks'
+        # list is the fused kernel
+        for fused, pair in (("fused_loki_decode",
+                             "block_sparse_attention_grouped"),
+                            ("fused_exact_topk_decode", "exact pair")):
+            if not torch.equal(got[fused], got[pair]):
+                gap = float((got[fused] - got[pair]).float().abs().max())
+                raise AssertionError(
+                    f"{lc['name']}: select_blocks + grouped differs from "
+                    f"{fused} (max |d| {gap:.3e})")
+        pg = dict(page_table=lc["table"], page_size=lc["ps"],
+                  k_scale=lc["ks"], v_scale=lc["vs"])
+        att = dict(block_size=lc["bs"], scale=lc["scale"], sliding_window=sw)
+        grouped_p = GA.block_sparse_attention_grouped(
+            q, lc["k"], lc["v"], sel_p, cur, **att, **pg)
+        runs = {
+            "fused_loki_decode": (got["fused_loki_decode"],
+                                  plain["fused_loki_decode"](), agree),
+            "fused_loki_decode (cluster)": (
+                got["fused_loki_decode"],
+                F.fused_cluster_plain(
+                    q, lc["k"], lc["v"], cur, **kw, **pg,
+                    n_cta=plans["fused_loki_decode"]["C"]), agree),
+            "fused_exact_topk_decode": (
+                got["fused_exact_topk_decode"],
+                plain["fused_exact_topk_decode"](), agree_x),
+            "fused_exact_topk_decode (cluster)": (
+                got["fused_exact_topk_decode"],
+                F.fused_cluster_plain(
+                    q, lc["k"], lc["v"], cur, **base, d=W,
+                    local_window=0, **pg,
+                    n_cta=plans["fused_exact_topk_decode"]["C"]),
+                agree_x),
+            "block_sparse_attention_grouped": (
+                grouped_p, GA.attend_blocks_plain(q, lk, lv, sel_p, cur,
+                                                  **att), None),
+            "block_sparse_attention_grouped (cluster)": (
+                grouped_p,
+                GA.grouped_cluster_plain(
+                    q, lc["k"], lc["v"], sel_p, cur, **att, **pg,
+                    n_cta=plans["block_sparse_attention_grouped"]["C"]),
+                None),
+            "paged_full_decode": (got["paged_full_decode"],
+                                  plain["paged_full_decode"](), None),
+            "paged_full_decode (splits)": (
+                got["paged_full_decode"],
+                GA.full_decode_split_plain(
+                    q, lc["k"], lc["v"], cur, **att, **pg,
+                    n_split=full_split(lc["bs"], lk.shape[1],
+                                       q.shape[0] * q.shape[1])), None),
+        }
+        atol, rtol = tolerance(q.dtype)
+        e = {}
+        for kname, (g, w, rows) in runs.items():
+            g32, w32 = g.float(), w.float()
+            if rows is not None:
+                g32, w32 = g32[rows], w32[rows]
+            if not torch.isfinite(g32).all():
+                raise AssertionError(f"{lc['name']}: {kname} non-finite")
+            torch.testing.assert_close(
+                g32, w32, atol=atol, rtol=rtol,
+                msg=lambda m: f"{lc['name']}: {kname}: {m}")
+            e[kname.split(" ")[0]] = max(
+                e.get(kname.split(" ")[0], 0.0),
+                float((g32 - w32).abs().max()) if g32.numel() else 0.0)
+        e["select_blocks"] = 0.0          # indices equal off near-ties
+        plans_all[lc["name"]] = {
+            n: {k: p.get(k) for k in ("C", "smem", "max_clusters",
+                                      "ctas_per_sm", "tokens", "stage")
+                if k in p}
+            for n, p in plans.items()}
+        full = plans["paged_full_decode"]
+        log(f"layouts: {lc['name']}: pool {lc['k'].dtype} K width {W}, "
+            f"G {q.shape[2]}, window {sw}: indices equal in "
+            f"{int(agree.sum())}/{agree.numel()} rows (d={lc['d']}) and "
+            f"{int(agree_x.sum())}/{agree_x.numel()} (d={W}); pairs == "
+            f"fused kernels bit for bit; max|err| "
+            + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
+            + f" (atol {atol}, rtol {rtol}); shared memory "
+            + ", ".join(f"{n} {p['smem']} B" for n, p in plans.items()))
+        log(f"layouts: {lc['name']}: attention body: chunks of "
+            f"{full.get('tokens')} tokens, {full.get('stage')} B a ring "
+            f"stage; resident CTAs per SM: paged_full_decode "
+            f"{full.get('ctas_per_sm')}, "
+            + ", ".join(f"{n} {p.get('ctas_per_sm')}"
+                        for n, p in plans.items()
+                        if n != "paged_full_decode"))
+        if timed:
+            time_layout(lc, tag, kern, plain, got, sel_k, sel_kx, timing)
             for name in KERNELS:
-                # a CPU rehearsal has no events to time with
-                ms = time_ms(kern[name]) if DEV == "cuda" else float("nan")
-                plain_ms = (time_ms(plain[name], reps=5) if DEV == "cuda"
-                            else float("nan"))
-                key = f"{name}[{tag}]"
-                timing[key] = dict(ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bnd[name][0],
-                                   bound_by=bnd[name][1],
-                                   library_ms=lib.get(name))
-                errs[key] = e[name]
-            if lib:
-                log(f"layouts: {lc['name']}: scaled_dot_product_attention "
-                    f"over the fp16 logical view (library call of the same "
-                    f"function): "
-                    + "; ".join(f"{n} {lib[n]:.4f} ms, max |d| to the "
-                                f"kernel {lib_err[n]:.3e}" for n in lib))
-            plans_all[tag] = {n: {k: p.get(k) for k in ("C", "smem",
-                                                         "max_clusters")}
-                              for n, p in plans.items()}
-            log(f"layouts: {lc['name']}: pool {lc['k'].dtype} K width {W}, "
-                f"indices equal in {int(agree.sum())}/{agree.numel()} rows "
-                f"(d={lc['d']}) and {int(agree_x.sum())}/{agree_x.numel()} "
-                f"(d={W}); pairs == fused kernels bit for bit; max|err| "
-                + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
-                + f" (atol {atol}, rtol {rtol}); shared memory "
-                + ", ".join(f"{n} {p['smem']} B" for n, p in plans.items()))
-            log(f"layouts: {lc['name']}: ms (bound, plain) "
-                + "; ".join(f"{n} {timing[f'{n}[{tag}]']['ms']:.4f} "
-                            f"({timing[f'{n}[{tag}]']['bound_ms']:.4f} by "
-                            f"{timing[f'{n}[{tag}]']['bound_by']}, "
-                            f"{timing[f'{n}[{tag}]']['plain_ms']:.4f})"
-                            for n in KERNELS))
-            del lc, lk, lv, got, runs
-            if DEV == "cuda":
-                torch.cuda.empty_cache()
+                errs[f"{name}[{tag}]"] = e[name]
+        del lc, lk, lv, got, runs, grouped_p
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
     results["layout_timing"] = timing
     results["layout_errs"] = errs
     results["layout_plans"] = plans_all
+
+
+def time_layout(lc, tag, kern, plain, got, sel, sel_x, timing):
+    """A main layout case's five kernels timed (CUDA events, L2 flushed,
+    median of 20) beside their plain versions, their bounds at the storage
+    bytes and, for an fp16 pool, the library call of the same function
+    (one SDPA over the fp16 logical view; an int8 or fp8 pool needs its
+    dequantizing multiply first, so no single library call computes those
+    modes: library_ms null), into ``timing`` by "kernel[layout]"."""
+    q, cur, lk, lv = lc["q"], lc["cur"], lc["lk"], lc["lv"]
+    bnd = layout_bounds(lc, sel, sel_x)
+    lib, lib_err = {}, {}
+    if lc["ks"] is None:
+        calls = library_calls(q, lk, lv, cur, sel, lc["bs"], 0, lc["scale"])
+        for n, f in calls.items():
+            lib[n] = time_ms(f) if DEV == "cuda" else float("nan")
+            lib_err[n] = float((f().float() - got[n].float()).abs().max())
+        del calls
+        log(f"layouts: {lc['name']}: scaled_dot_product_attention over the "
+            f"fp16 logical view (library call of the same function): "
+            + "; ".join(f"{n} {lib[n]:.4f} ms, max |d| to the kernel "
+                        f"{lib_err[n]:.3e}" for n in lib))
+    for name in KERNELS:
+        # a CPU rehearsal has no events to time with
+        ms = time_ms(kern[name]) if DEV == "cuda" else float("nan")
+        plain_ms = (time_ms(plain[name], reps=5) if DEV == "cuda"
+                    else float("nan"))
+        timing[f"{name}[{tag}]"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bnd[name][0],
+            bound_by=bnd[name][1], library_ms=lib.get(name))
+    log(f"layouts: {lc['name']}: ms (bound, plain) "
+        + "; ".join(f"{n} {timing[f'{n}[{tag}]']['ms']:.4f} "
+                    f"({timing[f'{n}[{tag}]']['bound_ms']:.4f} by "
+                    f"{timing[f'{n}[{tag}]']['bound_by']}, "
+                    f"{timing[f'{n}[{tag}]']['plain_ms']:.4f})"
+                    for n in KERNELS))
+
+
+def log_storage_against_fp32(results):
+    """Each storage mode's time beside the same kernel's fp32 mode on the
+    same case (the fp32 pool, paged, from time_kernels), its ratio to its
+    bound and, for the full decode's fp16 modes, to the SDPA call over the
+    fp16 view."""
+    fp32 = results["timing"]
+    for key, t in results["layout_timing"].items():
+        name = key.split("[")[0]
+        ref = fp32[name]["paged_ms"]
+        lib = t["library_ms"]
+        log(f"storage: {key} {t['ms']:.4f} ms against fp32 {ref:.4f} ms "
+            f"({t['ms'] / ref:.2f}x), {t['ms'] / t['bound_ms']:.2f}x its "
+            f"bound {t['bound_ms']:.4f} ms"
+            + (f", {t['ms'] / lib:.2f}x SDPA over the fp16 view "
+               f"({lib:.4f} ms)" if lib is not None and name in (
+                   "paged_full_decode", "block_sparse_attention_grouped")
+               else ""))
 
 
 # ------------------------------------------- per-head pipeline and flash
@@ -1219,7 +1281,7 @@ def head_plans(case, kT, sel):
     q, k = case["q"], case["k"]
     bh, dim = q.shape
     want = tuning.attend_smem_bytes(n_sel=sel.shape[1], g=1, kdim=dim,
-                                    dim=dim, itemsize=k.element_size(),
+                                    dim=dim, storage=tuning.storage_of(k),
                                     tok=16 // k.element_size())
     return {lay: checked_plan(
         f"{case['name']}: block_sparse_attention {lay}",
@@ -1656,24 +1718,24 @@ def policy_cfg(cfg, policy):
 
 def planned_kernels(cfg, smax: int, policy: str):
     """The kernels the planner picks for one decode step of ``policy`` at
-    the config's page layout (its key width and storage itemsize; the
-    dense engine's caches and the default layout are float32)."""
-    from repro_torch.configs.base import LAYOUT_ITEMSIZE
+    the config's page layout (its key width and storage type; the dense
+    engine's caches and the default layout are float32)."""
     from repro_torch.core import dispatch
     from repro_torch.kernels import tuning
+    from repro_torch.serving import paged_cache as PC
     hd = cfg.resolved_head_dim
     g = cfg.n_heads // cfg.n_kv_heads
     bs = cfg.loki.block_size
     kd = cfg.page_layout.k_width(hd)
-    isz = LAYOUT_ITEMSIZE[cfg.page_layout.dtype]
+    st = str(PC.STORAGE_DTYPE[cfg.page_layout.dtype]).removeprefix("torch.")
     if policy == "full":
-        plan = tuning.plan_full_decode(smax, hd, g, kd, bs, itemsize=isz)
+        plan = tuning.plan_full_decode(smax, hd, g, kd, bs, storage=st)
         return plan, ("paged_full_decode",)
     if policy == "exact_topk":
-        plan = tuning.plan_decode(smax, hd, g, kd, bs, itemsize=isz)
+        plan = tuning.plan_decode(smax, hd, g, kd, bs, storage=st)
         fused = "fused_exact_topk_decode"
     else:
-        plan, _ = dispatch.decode_plan(cfg.loki, smax, hd, g, kd, isz)
+        plan, _ = dispatch.decode_plan(cfg.loki, smax, hd, g, kd, st)
         fused = "fused_loki_decode"
     if plan is None:
         raise AssertionError(f"no kernel plan for {policy} at smax {smax}")
@@ -2636,6 +2698,7 @@ def main() -> int:
     check_flash(results)
     check_head_raises()
     time_kernels(results)
+    log_storage_against_fp32(results)
     time_head_kernels(results)
     log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
     if args.only != "kernels":

@@ -134,12 +134,13 @@ def _token_fallback(q_rope, k_hat_cache, v_cache, cur_len, proj, cfg, *,
 
 
 def decode_plan(cfg: LokiConfig, smax: int, dim: int, g: int, kd: int,
-                itemsize: int):
+                storage: str):
     """(plan, d) of a loki_block decode step: the kernel plan (None when no
-    kernel takes the shape) and the approximate-score width."""
+    kernel takes the shape) and the approximate-score width; ``storage``
+    the cache's storage type (``tuning.storage_of``)."""
     d = min(max(int(cfg.d_f * dim), 8), kd)
     return tuning.plan_decode(smax, dim, g, d, cfg.block_size,
-                              itemsize=itemsize), d
+                              storage=storage), d
 
 
 def _grouped_query(q, n_kv: int, width: int):
@@ -174,7 +175,8 @@ def loki_block_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
     if logit_scale is None and kd < dim:
         # rank-r keys: the softmax temperature is set by the true head_dim
         logit_scale = dim ** -0.5
-    plan, d = decode_plan(cfg, smax, dim, g, kd, k_hat_cache.element_size())
+    plan, d = decode_plan(cfg, smax, dim, g, kd,
+                          tuning.storage_of(k_hat_cache))
     plan = _page_fits(plan, page_table, page_size)
     fb_args = dict(sliding_window=sliding_window, logit_scale=logit_scale)
     pargs = dict(page_table=page_table, page_size=page_size)
@@ -248,7 +250,7 @@ def full_paged_decode(q, k_cache, v_cache, cur_len, *, backend: str = "auto",
     if backend == "pallas":
         plan = _page_fits(tuning.plan_full_decode(
             smax, dim, g, kd, block_size,
-            itemsize=k_cache.element_size()), page_table, page_size)
+            storage=tuning.storage_of(k_cache)), page_table, page_size)
         if plan is None and q.is_cuda:
             raise _no_plan("full", smax, dim, g, kd, page_size)
     qargs = dict(k_scale=k_scale, v_scale=v_scale)
@@ -296,7 +298,7 @@ def exact_topk_paged_decode(q, k_cache, v_cache, cur_len, cfg: LokiConfig,
     # the exact score pass reads the full stored width: plan with d = kd
     plan = _page_fits(tuning.plan_decode(
         smax, dim, g, kd, cfg.block_size,
-        itemsize=k_cache.element_size()), page_table, page_size)
+        storage=tuning.storage_of(k_cache)), page_table, page_size)
     if plan is None:
         if q.is_cuda:
             raise _no_plan("exact_topk", smax, dim, g, kd, page_size)

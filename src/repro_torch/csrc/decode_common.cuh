@@ -3,11 +3,15 @@
 // reductions, the logical block -> cache row map, the score stream (a
 // per-warp cp.async ring of token rows, lane i scoring token i, block
 // maxima by an exact shared atomic max) and the cluster select that the
-// fused kernels, select_blocks and block_max_scores run, and the split-KV
-// streaming body that every attention kernel shares: a per-warp cp.async
-// ring over small chunks of any token ranges, a per-warp online softmax,
-// the 4-warp log-sum-exp merge, the log-sum-exp merge of per-CTA partials,
-// and attend_share, the attention over a list of blocks by one
+// fused kernels, select_blocks and block_max_scores run, and the two
+// split-KV streaming bodies that every attention kernel shares: the wide
+// body (fp32 and bf16 caches; stream_chunks: a per-warp cp.async ring over
+// 4-token chunks of any token ranges, a token's scores as warp sums) and
+// the narrow body (fp16, int8 and fp8 caches; stream_narrow: chunks sized
+// in bytes that never leave a block, lanes across tokens for the scores),
+// each with a per-warp online softmax; then the 4-warp log-sum-exp merge,
+// the log-sum-exp merge of per-CTA partials, and attend_share /
+// attend_share_narrow, the attention over a list of blocks by one
 // thread-block cluster (the fused kernels' phases 3-4,
 // block_sparse_attention_grouped and block_sparse_attention), with the
 // host's cluster-size rule and residency query.
@@ -21,13 +25,16 @@
 //
 // Storage: fp32, bf16 and fp16 caches hold values; int8 and fp8-e4m3
 // (quantized page layouts) hold codes with one float32 scale per pool page
-// for K and one for V (BlockRows::ksc, vsc; paged only). Every kernel
+// for K and one for V (BlockRows::ksc, vsc; paged only). The score stream
 // dequantizes a row as it reads it: code -> float32 * page scale, element
-// by element, then the dot (and V likewise before p·V), the order the TPU
-// kernels use (repro/kernels/fused_decode.py:104-108). The rings copy the
-// codes as raw bytes; a stage of the split-KV ring carries its tokens' K
-// and V scales beside the rows, the score ring the block's K scale in the
-// padding of its first row.
+// by element, then the dot, the order the TPU kernels use
+// (repro/kernels/fused_decode.py:104-108), so its block maxima are the
+// plain path's bits. The narrow attention body folds the scales instead:
+// a chunk lies in one block, so in one page, and a token's score is
+// (q·codes) * K scale, its p·V weight p * V scale. The rings copy the
+// codes as raw bytes; a narrow stage carries its page's K and V scales
+// after its rows, the score ring the block's K scale in the padding of
+// its first row.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -95,6 +102,17 @@ __device__ __forceinline__ void i8x4_to_f(uint32_t u, float* o) {
   const char4 c = *reinterpret_cast<const char4*>(&u);
   o[0] = (float)c.x; o[1] = (float)c.y; o[2] = (float)c.z; o[3] = (float)c.w;
 }
+// The same values without the conversion unit (an eighth of the FMA rate
+// on Hopper), for the narrow attention body: code + 128 (the byte ^ 0x80)
+// becomes the low mantissa byte of 2^23 by one byte permute, and 2^23 +
+// 128 is subtracted, exactly.
+__device__ __forceinline__ void i8x4_to_f_exact(uint32_t u, float* o) {
+  const uint32_t x = u ^ 0x80808080u;
+  o[0] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7540)) - 8388736.f;
+  o[1] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7541)) - 8388736.f;
+  o[2] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7542)) - 8388736.f;
+  o[3] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7543)) - 8388736.f;
+}
 
 // four consecutive elements; the caller guarantees their alignment (16 B
 // fp32, 8 B bf16 / fp16, 4 B int8 / fp8)
@@ -117,7 +135,7 @@ __device__ __forceinline__ void load4(const __half* p, float* o) {
   o[0] = a.x; o[1] = a.y; o[2] = c.x; o[3] = c.y;
 }
 __device__ __forceinline__ void load4(const int8_t* p, float* o) {
-  i8x4_to_f(*reinterpret_cast<const uint32_t*>(p), o);
+  i8x4_to_f_exact(*reinterpret_cast<const uint32_t*>(p), o);
 }
 __device__ __forceinline__ void load4(const __nv_fp8_e4m3* p, float* o) {
   const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
@@ -215,17 +233,68 @@ __host__ __device__ inline size_t round16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-// one warp's ring stage: TOK rows of K̂ then of V in the cache dtype, rows
-// padded to 4 elements (a feature-major K̂ stage holds the same elements),
-// then for scaled storage the TOK tokens' K scales and their V scales
-template <typename TK, int TOK = SPLIT_TOK>
-__host__ __device__ inline size_t split_scales_offset(int W, int D) {
-  return (size_t)TOK * (pad4(W) + pad4(D)) * sizeof(TK);
-}
+// one warp's ring stage of the wide body: TOK rows of K̂ then of V in the
+// cache dtype, rows padded to 4 elements (a feature-major K̂ stage holds
+// the same elements)
 template <typename TK, int TOK = SPLIT_TOK>
 __host__ __device__ inline size_t split_stage_bytes(int W, int D) {
-  return round16(split_scales_offset<TK, TOK>(W, D) +
-                 (Store<TK>::scaled ? 2 * TOK * sizeof(float) : 0));
+  return round16((size_t)TOK * (pad4(W) + pad4(D)) * sizeof(TK));
+}
+
+// Whether a storage type streams through the narrow attention body
+// (stream_narrow) rather than the wide one (stream_chunks).
+template <typename TK>
+struct Narrow {
+  static constexpr bool value =
+      Store<TK>::scaled || std::is_same<TK, __half>::value;
+};
+
+// The narrow body's chunks are sized in bytes: a stage holds at most
+// NARROW_STAGE_BYTES of K and V rows as stored (32 tokens of
+// int8:pca:r=32, 32 + 128 one-byte codes each: about the 4 KB of a wide
+// fp32 stage), and one token per lane at most.
+constexpr int NARROW_STAGE_BYTES = 5120;
+constexpr int NARROW_MAX_TOK = 32;
+
+// Tokens per narrow stage: the largest power of two <= NARROW_MAX_TOK whose
+// K and V rows fit NARROW_STAGE_BYTES (at least 1). The ring is sized for
+// it (a layout short of room may halve it); a launch streams narrow_chunk
+// tokens at a time.
+__host__ __device__ inline int narrow_tokens(int W, int D, int size) {
+  int t = NARROW_MAX_TOK;
+  while (t > 1 && t * (W + D) * size > NARROW_STAGE_BYTES) t >>= 1;
+  return t;
+}
+// A launch's chunk: a stage's ``tok`` tokens cut to the largest power of
+// two that divides bs, so that a chunk never leaves its block (nor its
+// page).
+__host__ __device__ inline int narrow_chunk(int tok, int bs) {
+  const int p = bs & -bs;
+  return tok < p ? tok : p;
+}
+// Bytes between two staged K rows: whole 16-byte pieces, an odd number of
+// them, so that the lanes of neighbouring tokens reading the same piece
+// fall in distinct bank groups (as the score ring's 144-byte rows do).
+__host__ __device__ inline int narrow_k_pitch(int W, int size) {
+  return (((W * size + 15) / 16) | 1) * 16;
+}
+// One warp's narrow stage: ``tok`` K rows at narrow_k_pitch, as many V
+// rows of D codes, then for scaled storage the chunk's page's K and V
+// scales (16 bytes).
+template <typename TK>
+__host__ __device__ inline size_t narrow_stage_bytes(int W, int D, int tok) {
+  return (size_t)tok * (narrow_k_pitch(W, sizeof(TK)) +
+                        round16((size_t)D * sizeof(TK))) +
+         (Store<TK>::scaled ? 16 : 0);
+}
+// A stage of the attention ring of either body (TOK: the wide body's
+// chunk; the narrow body sizes its own)
+template <typename TK, int TOK = SPLIT_TOK>
+__host__ __device__ inline size_t attn_stage_bytes(int W, int D) {
+  if constexpr (Narrow<TK>::value)
+    return narrow_stage_bytes<TK>(W, D, narrow_tokens(W, D, sizeof(TK)));
+  else
+    return split_stage_bytes<TK, TOK>(W, D);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -293,48 +362,32 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
   }
 }
 
-// Copy the K̂ and V rows of tokens pos0 .. pos0 + SPLIT_TOK - 1 (those below
-// t1) into a warp's ring stage, then commit one cp.async group (empty when
-// nothing was issued, so the group count stays in step). The tokens' cache
-// rows are resolved first, walking the blocks, so a paged chunk does one
-// page-table read per block it touches, before any copy is issued. Scaled
-// storage also copies each token's page scales, K then V (a chunk may
-// straddle two pages), 4 bytes each, by lanes 0 .. 2 * SPLIT_TOK - 1; its
-// rows always go by 16-byte copies (storage_ok), so it has no element by
-// element fill.
+// The wide body's fill: copy the K̂ and V rows of tokens pos0 .. pos0 +
+// SPLIT_TOK - 1 (those below t1) into a warp's ring stage, then commit one
+// cp.async group (empty when nothing was issued, so the group count stays
+// in step). The tokens' cache rows are resolved first, walking the blocks,
+// so a paged chunk does one page-table read per block it touches, before
+// any copy is issued.
 template <typename TK>
 __device__ void split_fill(uint8_t* stage, const TK* __restrict__ k,
                            const TK* __restrict__ v, const BlockRows& rows,
                            int b, int h, int Hkv, int W, int D, int bs,
                            int pos0, int t1, bool vec, int lane) {
+  static_assert(!Narrow<TK>::value, "narrow storage: NarrowSrc::fill");
   TK* ks = reinterpret_cast<TK*>(stage);
   TK* vs = ks + SPLIT_TOK * pad4(W);
   const int n_tok = min(SPLIT_TOK, t1 - pos0);
   int64_t rk[SPLIT_TOK];              // (cache row) * Hkv + h per token
   int blk = pos0 / bs, off = pos0 % bs;
   int64_t base = rows.first_row(b, blk);
-  int my_page = 0;                    // scaled: lane's token's page
-  if constexpr (Store<TK>::scaled) my_page = rows.page(b, blk);
 #pragma unroll
   for (int u = 0; u < SPLIT_TOK; ++u) {
     if (off == bs) {
       ++blk;
       off = 0;
-      if (u < n_tok) {
-        base = rows.first_row(b, blk);
-        if constexpr (Store<TK>::scaled)
-          if ((lane & (SPLIT_TOK - 1)) >= u) my_page = rows.page(b, blk);
-      }
+      if (u < n_tok) base = rows.first_row(b, blk);
     }
     rk[u] = (base + off++) * Hkv + h;
-  }
-  if constexpr (Store<TK>::scaled) {
-    float* sc = reinterpret_cast<float*>(
-        stage + split_scales_offset<TK>(W, D));
-    const int u = lane & (SPLIT_TOK - 1);
-    if (lane < 2 * SPLIT_TOK && u < n_tok)
-      cp_async4(sc + lane,
-                (lane < SPLIT_TOK ? rows.ksc : rows.vsc) + my_page);
   }
   if (vec) {
     constexpr int E = 16 / sizeof(TK);             // elements per 16 B
@@ -347,7 +400,7 @@ __device__ void split_fill(uint8_t* stage, const TK* __restrict__ k,
       for (int i = lane; i < vp; i += 32)
         cp_async16(vs + u * D + i * E, v + rk[u] * D + i * E);
     }
-  } else if constexpr (!Store<TK>::scaled) {  // scaled: vec always
+  } else {
     const int Wp = pad4(W), Dp = pad4(D);
 #pragma unroll
     for (int u = 0; u < SPLIT_TOK; ++u) {
@@ -442,22 +495,21 @@ struct WarpSoftmax {
   }
 };
 
-// Stream a warp's ``my_n`` chunks through its two-stage ring and fold each
-// into ``st``. ``chunk_at(j)`` gives the warp's j-th chunk as int2 {first
-// token, end of its range}: the chunk is tokens first .. first + TOK - 1
-// below the end; ``fill(stage, first, end)`` copies it into a stage and
-// commits one cp.async group. The next chunk's K̂ and V rows are in flight
-// (16-byte cp.async) while the warp computes on this one; no CTA barrier in
-// the loop. qs: the float32 query, G x Wp. A token's score is the warp sum
-// of q·k̂ over the lanes' columns, each lane summing its 4 (8) columns in
-// order, times ``dot_scale`` when SCALE_DOT (the per-head kernel scales
-// after the dot, as its TPU kernel does; the others pass a scaled query).
+// The wide body (fp32 and bf16 caches): stream a warp's ``my_n`` chunks
+// through its two-stage ring and fold each into ``st``. ``chunk_at(j)``
+// gives the warp's j-th chunk as int2 {first token, end of its range}: the
+// chunk is tokens first .. first + TOK - 1 below the end; ``fill(stage,
+// first, end)`` copies it into a stage and commits one cp.async group.
+// The next chunk's K̂ and V rows are in flight (16-byte cp.async) while the
+// warp computes on this one; no CTA barrier in the loop. qs: the float32
+// query, G x Wp. A token's score is the warp sum of q·k̂ over the lanes'
+// columns, each lane summing its 4 (8) columns in order, times
+// ``dot_scale`` when SCALE_DOT (the per-head kernel scales after the dot,
+// as its TPU kernel does; the others pass a scaled query).
 // FM: the K̂ stage is feature-major (head_fill); the lanes then read their
 // features' pieces and sum in the same order, so both layouts give the
-// same bits. Scaled storage: each K and V element is multiplied by its
-// token's page scale (from the stage) before the dot and before p·V. Ends
-// with every copy landed; the caller synchronises the CTA before reusing
-// the ring.
+// same bits. Ends with every copy landed; the caller synchronises the CTA
+// before reusing the ring.
 template <typename TK, int TOK = SPLIT_TOK, bool FM = false,
           bool SCALE_DOT = false, int GM, int DC, typename ChunkAt,
           typename Fill>
@@ -467,6 +519,7 @@ __device__ __forceinline__ void stream_chunks(
     Fill fill, float dot_scale, int lane) {
   static_assert(!FM || TOK * sizeof(TK) == 16,
                 "a feature's chunk is one 16-byte piece");
+  static_assert(!Narrow<TK>::value, "narrow storage: stream_narrow");
   const int Wp = pad4(W), Dp = pad4(D);
 #pragma unroll
   for (int j = 0; j < SPLIT_STAGES - 1; ++j) {
@@ -492,10 +545,6 @@ __device__ __forceinline__ void stream_chunks(
     const TK* ks =
         reinterpret_cast<const TK*>(my_ring + (j % SPLIT_STAGES) * stage_bytes);
     const TK* vs = ks + TOK * Wp;
-    // scaled storage: the TOK tokens' K scales, then their V scales
-    const float* ssc = reinterpret_cast<const float*>(
-        reinterpret_cast<const uint8_t*>(ks) +
-        split_scales_offset<TK, TOK>(W, D));
     const int2 cj = chunk_at(j);
     const int n_tok = min(TOK, cj.y - cj.x);        // >= 1
     // feature-major: this lane's 4 * DC features, TOK tokens each
@@ -541,10 +590,6 @@ __device__ __forceinline__ void stream_chunks(
             } else {
               load4(ks + u * Wp + c, kv);
             }
-            if constexpr (Store<TK>::scaled) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) kv[e] *= ssc[u];
-            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) p = fmaf(qf[4 * jj + e], kv[e], p);
           }
@@ -583,10 +628,6 @@ __device__ __forceinline__ void stream_chunks(
         if (c < Dp) {
           float vv[4];
           load4(vs + u * Dp + c, vv);
-          if constexpr (Store<TK>::scaled) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) vv[e] *= ssc[TOK + u];
-          }
 #pragma unroll
           for (int g = 0; g < GM; ++g)
             if (g < G)
@@ -594,6 +635,244 @@ __device__ __forceinline__ void stream_chunks(
               for (int e = 0; e < 4; ++e)
                 st.acc[g][4 * jj + e] =
                     fmaf(sc[g][u], vv[e], st.acc[g][4 * jj + e]);
+        }
+      }
+    }
+    __syncwarp();                     // the stage is refilled next round
+  }
+  cp_async_wait<0>();
+}
+
+// ------------------------------------------------ the narrow attention body
+
+// A launch's narrow chunks over stages of ``tok`` tokens: T = narrow_chunk
+// tokens (2^lt), the staged K and V rows' pitches, the stage size
+// (narrow_stage_bytes) and the 16-byte pieces of a K and of a V row.
+struct NarrowGeom {
+  int T, lt, kpitch, vpitch, kp, vp;
+  size_t stage;
+};
+
+template <typename TK>
+__device__ __forceinline__ NarrowGeom narrow_geom(int W, int D, int bs,
+                                                  int tok) {
+  NarrowGeom g;
+  g.T = narrow_chunk(tok, bs);
+  g.lt = __ffs(g.T) - 1;
+  g.kpitch = narrow_k_pitch(W, sizeof(TK));
+  g.vpitch = D * (int)sizeof(TK);
+  g.kp = W * (int)sizeof(TK) / 16;
+  g.vp = g.vpitch / 16;
+  g.stage = narrow_stage_bytes<TK>(W, D, tok);
+  return g;
+}
+
+// 16-byte cp.async copies of n rows of ``pieces`` pieces each, row u read
+// from src + u * stride (elements) and written to dst + u * pitch (bytes):
+// the 32 lanes across the (row, piece) pairs, lane i taking pairs i, i +
+// 32, ...
+template <typename TK>
+__device__ __forceinline__ void copy_rows16(uint8_t* dst, int pitch,
+                                            const TK* __restrict__ src,
+                                            int64_t stride, int n,
+                                            int pieces, int lane) {
+  constexpr int E = 16 / sizeof(TK);
+  const int du = 32 / pieces, dp = 32 - du * pieces;
+  int u = lane / pieces, p = lane - u * pieces;
+  while (u < n) {
+    cp_async16(dst + u * pitch + p * 16, src + u * stride + p * E);
+    u += du;
+    p += dp;
+    if (p >= pieces) {
+      p -= pieces;
+      ++u;
+    }
+  }
+}
+
+// The narrow body's source: row (b, h) of the caches k and v. fill copies
+// a chunk's tokens pos0 .. pos0 + n - 1 (n = min(T, t1 - pos0), all in
+// pos0's block, so in one page) into a warp's stage after one page-table
+// read: the rows by 16-byte cp.async, the lanes across (token, piece)
+// pairs, and for scaled storage the page's K and V scales by lanes 0 and
+// 1 after the V rows; then one cp.async group.
+template <typename TK>
+struct NarrowSrc {
+  const TK* __restrict__ k;
+  const TK* __restrict__ v;
+  BlockRows rows;
+  int b, h, Hkv, W, D, bs;
+
+  __device__ __forceinline__ void fill(uint8_t* stage, const NarrowGeom& ng,
+                                       int pos0, int t1, int lane) const {
+    const int blk = pos0 / bs, n = min(ng.T, t1 - pos0);
+    const int pg = rows.table == nullptr ? 0 : rows.page(b, blk);
+    const int64_t r0 =                // the cache row of token pos0
+        rows.table == nullptr
+            ? (int64_t)b * rows.S + pos0
+            : ((int64_t)pg * rows.bpp + blk % rows.bpp) * bs +
+                  (pos0 - blk * bs);
+    uint8_t* vs = stage + (size_t)ng.T * ng.kpitch;
+    if constexpr (Store<TK>::scaled)
+      if (lane < 2)
+        cp_async4(vs + (size_t)ng.T * ng.vpitch + 4 * lane,
+                  (lane == 0 ? rows.ksc : rows.vsc) + pg);
+    copy_rows16(stage, ng.kpitch, k + (r0 * Hkv + h) * W, (int64_t)Hkv * W,
+                n, ng.kp, lane);
+    copy_rows16(vs, ng.vpitch, v + (r0 * Hkv + h) * D, (int64_t)Hkv * D, n,
+                ng.vp, lane);
+    cp_async_commit();
+  }
+};
+
+// A staged 16-byte piece of codes as float32 for the narrow body: load16,
+// but int8 through i8x4_to_f_exact (the score stream keeps i8x4_to_f).
+template <typename TK>
+__device__ __forceinline__ void narrow_load16(const TK* p, float* o) {
+  load16(p, o);
+}
+template <>
+__device__ __forceinline__ void narrow_load16(const int8_t* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  i8x4_to_f_exact(u.x, o);
+  i8x4_to_f_exact(u.y, o + 4);
+  i8x4_to_f_exact(u.z, o + 8);
+  i8x4_to_f_exact(u.w, o + 12);
+}
+
+// The narrow body (fp16, int8 and fp8 caches): stream a warp's ``my_n``
+// chunks of ``src`` through its two-stage ring and fold each into ``st``,
+// as stream_chunks does, but with chunks of ng.T tokens that never leave a
+// block (``chunk_at(j)``: {first token, end of its block's live tokens})
+// and the lanes across tokens for the scores. Lane u + T s takes token u's
+// pieces s, s + L, ... (L = 32 / T lanes a token), summing q·codes for
+// each head piece by piece in feature order; xor shuffles add the L
+// lanes' sums and the page's K scale multiplies the dot. The online
+// softmax then takes one max and one sum across the T tokens' lanes per
+// chunk and head, and one expf a lane. p·V keeps the lanes across the D
+// columns (4 * lane + 128 * jj, the wide body's, so merge_warps serves
+// both): each token's p times the page's V scale is broadcast from its
+// lane, once per token and head. Rows past the chunk's end hold stale
+// bytes: their scores are replaced by -1e30 and their V rows never read. Ends with every copy landed; the caller
+// synchronises the CTA before reusing the ring.
+template <typename TK, int GM, int DC, typename ChunkAt>
+__device__ __forceinline__ void stream_narrow(
+    WarpSoftmax<GM, DC>& st, const float* qs, uint8_t* my_ring,
+    const NarrowGeom& ng, const NarrowSrc<TK>& src, int G, int my_n,
+    ChunkAt chunk_at, int lane) {
+  static_assert(Narrow<TK>::value, "wide storage: stream_chunks");
+  constexpr int E = 16 / sizeof(TK);
+  const int W = src.W, D = src.D;
+  const int Wp = pad4(W), T = ng.T, L = 32 / T;
+  const int u = lane & (T - 1), s = lane >> ng.lt;   // token, its share
+#pragma unroll
+  for (int j = 0; j < SPLIT_STAGES - 1; ++j) {
+    if (j < my_n) {
+      const int2 c = chunk_at(j);
+      src.fill(my_ring + j * ng.stage, ng, c.x, c.y, lane);
+    } else {
+      cp_async_commit();
+    }
+  }
+
+  for (int j = 0; j < my_n; ++j) {
+    const int jn = j + SPLIT_STAGES - 1;             // the chunk to prefetch
+    if (jn < my_n) {
+      const int2 c = chunk_at(jn);
+      src.fill(my_ring + (jn % SPLIT_STAGES) * ng.stage, ng, c.x, c.y, lane);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<SPLIT_STAGES - 1>();
+    __syncwarp();
+
+    const uint8_t* stg = my_ring + (j % SPLIT_STAGES) * ng.stage;
+    const uint8_t* vs = stg + (size_t)T * ng.kpitch;
+    float ksc = 1.f, vsc = 1.f;
+    if constexpr (Store<TK>::scaled) {
+      const float2 sc =
+          *reinterpret_cast<const float2*>(vs + (size_t)T * ng.vpitch);
+      ksc = sc.x;
+      vsc = sc.y;
+    }
+    const int2 cj = chunk_at(j);
+    const int n_tok = min(T, cj.y - cj.x);          // >= 1
+    // this lane's part of its token's G dots
+    float x[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) x[g] = 0.f;
+    const TK* kr = reinterpret_cast<const TK*>(stg + (size_t)u * ng.kpitch);
+    for (int p = s; p < ng.kp; p += L) {
+      float kv[E];
+      narrow_load16(kr + p * E, kv);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+          const float4* q4 =
+              reinterpret_cast<const float4*>(qs + g * Wp + p * E);
+#pragma unroll
+          for (int e = 0; e < E / 4; ++e) {
+            const float4 qv = q4[e];
+            x[g] = fmaf(qv.x, kv[4 * e], x[g]);
+            x[g] = fmaf(qv.y, kv[4 * e + 1], x[g]);
+            x[g] = fmaf(qv.z, kv[4 * e + 2], x[g]);
+            x[g] = fmaf(qv.w, kv[4 * e + 3], x[g]);
+          }
+        }
+      }
+    }
+    // online softmax of each head over the chunk (the TPU kernel's guards)
+    float pv[GM];                     // p * V scale of this lane's token
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      pv[g] = 0.f;
+      if (g < G) {
+        for (int o = T; o < 32; o <<= 1)
+          x[g] += __shfl_xor_sync(FULL, x[g], o);
+        const float sc = u < n_tok ? x[g] * ksc : NEG_INF;
+        float bm = sc;
+        for (int o = T >> 1; o > 0; o >>= 1)
+          bm = fmaxf(bm, __shfl_xor_sync(FULL, bm, o));
+        const float m_new = fmaxf(st.m[g], bm);
+        const float m_safe = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
+        const float alpha = st.m[g] > NEG_INF * 0.5f
+                                ? expf(fminf(st.m[g] - m_safe, 0.f))
+                                : 0.f;
+        const float p = sc > NEG_INF * 0.5f ? expf(sc - m_safe) : 0.f;
+        float sum = p;
+        for (int o = T >> 1; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(FULL, sum, o);
+        st.l[g] = st.l[g] * alpha + sum;
+        st.m[g] = m_new;
+#pragma unroll
+        for (int e = 0; e < 4 * DC; ++e) st.acc[g][e] *= alpha;
+        pv[g] = p * vsc;
+      }
+    }
+#pragma unroll 4
+    for (int t = 0; t < n_tok; ++t) {
+      const TK* vr = reinterpret_cast<const TK*>(vs + (size_t)t * ng.vpitch);
+      float vv[DC][4];
+#pragma unroll
+      for (int jj = 0; jj < DC; ++jj) {
+        const int c = 4 * lane + 128 * jj;
+        if (c < D) {
+          load4(vr + c, vv[jj]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) vv[jj][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+          const float pt = __shfl_sync(FULL, pv[g], t);
+#pragma unroll
+          for (int jj = 0; jj < DC; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              st.acc[g][4 * jj + e] =
+                  fmaf(pt, vv[jj][e], st.acc[g][4 * jj + e]);
         }
       }
     }
@@ -1028,6 +1307,37 @@ __device__ __forceinline__ int keep_valid(const int* __restrict__ idx, int n,
   return nv;
 }
 
+// The end of a cluster's attention: once every ring is free, the CTA's 4
+// warps merge into its partial (merge_warps; G x (D + 2) float32 after the
+// warps' scratch in ``uni``); after cluster.sync() rank 0 reads the C
+// partials through distributed shared memory and merges them by
+// log-sum-exp in rank order into out (G x D in TQ); the last
+// cluster.sync() keeps the peers' partials alive until it has.
+template <typename TQ, int GM, int DC>
+__device__ __forceinline__ void cluster_merge(const WarpSoftmax<GM, DC>& st,
+                                              uint8_t* uni, int G, int D,
+                                              int rank, int C,
+                                              TQ* __restrict__ out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  __syncthreads();                    // every ring is free: merge there
+  float* mw = reinterpret_cast<float*>(uni);
+  float* part = mw + SPLIT_WARPS * G * (D + 2);
+  merge_warps(st, mw, part, G, D);
+
+  cluster.sync();                     // every CTA's partial, written
+  if (rank == 0) {
+    for (int i = tid; i < G * D; i += SPLIT_THREADS) {
+      const int g = i / D, c = i % D;
+      store_f(out + i,
+              merge_partials(
+                  [&](int s) { return cluster.map_shared_rank(part, s); }, C,
+                  g, c, D));
+    }
+  }
+  cluster.sync();                     // peers' partials read
+}
+
 // Phases 3-4 of a cluster kernel. CTA r of the C in its cluster attends
 // share r of the nv blocks in sel[0 .. nv) (list order, each in [0, nb)):
 // entries [r * per, (r + 1) * per), per = ceil(nv / C), trailing shares
@@ -1036,14 +1346,10 @@ __device__ __forceinline__ int keep_valid(const int* __restrict__ idx, int n,
 // TOK-token chunks are numbered block after block and warp w takes chunks
 // w, w + 4, ...; a chunk's block is found by walking the share's list (a
 // few entries), so no table is built. Each warp streams its chunks
-// (stream_chunks) through its ring in ``uni``; the CTA merges its 4 warps
-// into its partial (merge_warps; G x (D + 2) float32 after the warps'
-// scratch in ``uni``); after cluster.sync() rank 0 reads the C partials
-// through distributed shared memory and merges them by log-sum-exp in rank
-// order into out (G x D in TQ). A CTA with no chunk adds m = -1e30, l = 0.
-// The caller writes sel and the query before the call (the first barrier
-// here orders them, and frees ``uni``); the last cluster.sync() keeps the
-// peers' partials alive until rank 0 has read them.
+// (stream_chunks, the wide body) through its ring in ``uni``; then
+// cluster_merge. A CTA with no chunk adds m = -1e30, l = 0. The caller
+// writes sel and the query before the call (the first barrier here orders
+// them, and frees ``uni``).
 template <typename TQ, typename TK, int TOK, bool FM, bool SCALE_DOT, int GM,
           int DC, typename Fill>
 __device__ __forceinline__ void attend_share(
@@ -1086,31 +1392,70 @@ __device__ __forceinline__ void attend_share(
         return make_int2(t.x + c * TOK, t.y);
       },
       fill, dot_scale, lane);
-  __syncthreads();                    // every ring is free: merge there
-  float* mw = reinterpret_cast<float*>(uni);
-  float* part = mw + SPLIT_WARPS * G * (D + 2);
-  merge_warps(st, mw, part, G, D);
+  cluster_merge(st, uni, G, D, rank, C, out);
+}
 
-  cluster.sync();                     // every CTA's partial, written
-  if (rank == 0) {
-    for (int i = tid; i < G * D; i += SPLIT_THREADS) {
-      const int g = i / D, c = i % D;
-      store_f(out + i,
-              merge_partials(
-                  [&](int s) { return cluster.map_shared_rank(part, s); }, C,
-                  g, c, D));
-    }
-  }
-  cluster.sync();                     // peers' partials read
+// attend_share for the narrow storage types (fp16, int8, fp8): the same
+// shares of sel and the same merges, but each block's live tokens cut into
+// chunks of ng.T tokens from its first live token, so a chunk never leaves
+// its block, streamed by stream_narrow through stages of ``tok`` tokens
+// from row (b, h) of k and v.
+template <typename TQ, typename TK, int GM, int DC>
+__device__ __forceinline__ void attend_share_narrow(
+    const int* sel, int nv, const float* qs, uint8_t* uni, int tok,
+    const TK* __restrict__ k, const TK* __restrict__ v,
+    const BlockRows& rows, int b, int h, int Hkv, int ln, int G, int W, int D,
+    int bs, int sliding_window, TQ* __restrict__ out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int per = (nv + C - 1) / C;
+  const int s0 = rank * per, n_mine = max(0, min(nv, s0 + per) - s0);
+  const int* mine = sel + s0;
+  const NarrowGeom ng = narrow_geom<TK>(W, D, bs, tok);
+  const auto span = [&](int blk) {
+    int t0 = blk * bs;
+    if (sliding_window > 0) t0 = max(t0, ln - sliding_window);
+    return make_int2(t0, min(blk * bs + bs, ln));
+  };
+  const auto n_chunks = [&](int2 t) {
+    return t.y > t.x ? (t.y - t.x + ng.T - 1) >> ng.lt : 0;
+  };
+  __syncthreads();                    // sel and qs written, uni free
+  int n_ch = 0;
+  for (int i = 0; i < n_mine; ++i) n_ch += n_chunks(span(mine[i]));
+  const int my_n =
+      n_ch > warp ? (n_ch - warp + SPLIT_WARPS - 1) / SPLIT_WARPS : 0;
+  WarpSoftmax<GM, DC> st;
+  st.init();
+  stream_narrow<TK>(
+      st, qs, uni + (size_t)warp * SPLIT_STAGES * ng.stage, ng,
+      NarrowSrc<TK>{k, v, rows, b, h, Hkv, W, D, bs}, G, my_n,
+      [&](int j) {
+        int c = warp + j * SPLIT_WARPS, i = 0;
+        int2 t = span(mine[0]);
+        for (int n = n_chunks(t); c >= n; n = n_chunks(t)) {
+          c -= n;
+          t = span(mine[++i]);
+        }
+        return make_int2(t.x + c * ng.T, t.y);
+      },
+      lane);
+  cluster_merge(st, uni, G, D, rank, C, out);
 }
 
 // Byte offsets of the dynamic shared memory of block_sparse_attention and
 // block_sparse_attention_grouped: the float32 query (G x pad4(W)) and the
 // kept block list (n_sel ints), then one region for the 4 warps' rings,
-// which the warp merge and the CTA's partial reuse. kernels/tuning.py
+// which the warp merge and the CTA's partial reuse: TOK-token stages of
+// the wide body, or ``tok``-token ones of the narrow body (narrow_tokens,
+// halved while a long list leaves the ring too little room, so the
+// longest lists the two-kernel plan takes still fit). kernels/tuning.py
 // attend_smem_bytes mirrors it.
 struct AttendLayout {
   size_t qs, sel, uni, total;
+  int tok;
 };
 
 template <typename TK, int TOK>
@@ -1123,10 +1468,21 @@ __host__ __device__ inline AttendLayout attend_layout(int G, int W, int D,
   L.sel = off;
   off += round16(sizeof(int) * (size_t)n_sel);
   L.uni = off;
-  const size_t ring =
-      (size_t)SPLIT_WARPS * SPLIT_STAGES * split_stage_bytes<TK, TOK>(W, D);
   const size_t merge = sizeof(float) * (SPLIT_WARPS + 1) * G * (D + 2);
-  L.total = off + round16(ring > merge ? ring : merge);
+  const auto total = [&](size_t stage) {
+    const size_t ring = (size_t)SPLIT_WARPS * SPLIT_STAGES * stage;
+    return off + round16(ring > merge ? ring : merge);
+  };
+  if constexpr (Narrow<TK>::value) {
+    L.tok = narrow_tokens(W, D, sizeof(TK));
+    while (L.tok > 1 &&
+           total(narrow_stage_bytes<TK>(W, D, L.tok)) > SMEM_LIMIT)
+      L.tok >>= 1;
+    L.total = total(narrow_stage_bytes<TK>(W, D, L.tok));
+  } else {
+    L.tok = TOK;
+    L.total = total(split_stage_bytes<TK, TOK>(W, D));
+  }
   return L;
 }
 
@@ -1253,9 +1609,10 @@ inline cudaError_t max_clusters(const void* kern,
 
 // Launch ``kern`` on grid (gx, gy, C) as clusters of C CTAs along z, each
 // SPLIT_THREADS threads with ``smem`` bytes of dynamic shared memory; or,
-// when ``info`` is not null, only report info[0] = C, info[1] = smem and
-// info[2] = cudaOccupancyMaxActiveClusters. A cluster that cannot be
-// resident never launches: no fallback.
+// when ``info`` is not null, only report info[0] = C, info[1] = smem,
+// info[2] = cudaOccupancyMaxActiveClusters and info[3] =
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor (resident CTAs per SM). A
+// cluster that cannot be resident never launches: no fallback.
 template <typename... Params, typename... Args>
 cudaError_t launch_cluster(void (*kern)(Params...), int gx, int gy, int C,
                            size_t smem, cudaStream_t stream, long long* info,
@@ -1282,7 +1639,11 @@ cudaError_t launch_cluster(void (*kern)(Params...), int gx, int gy, int C,
     info[0] = C;
     info[1] = (long long)smem;
     info[2] = n_clusters;
-    return cudaSuccess;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        SPLIT_THREADS, smem);
+    info[3] = per_sm;
+    return err;
   }
   if (n_clusters < 1) return cudaErrorInvalidConfiguration;
   err = cudaLaunchKernelEx(&cfg, kern, args...);

@@ -44,7 +44,9 @@
 //   3. attend (attend_share in decode_common.cuh, which
 //      block_sparse_attention_grouped runs too): CTA r takes an equal share
 //      of the winners (2 of 8 at C = 4) and streams their live tokens
-//      through the full decode's warp ring (stream_chunks: 4-token chunks,
+//      through the full decode's warp ring (fp32, bf16: stream_chunks,
+//      4-token chunks; fp16, int8, fp8: attend_share_narrow and
+//      stream_narrow, chunks sized in bytes that never leave a block;
 //      16-byte cp.async, per-warp online softmax), then merges its 4 warps
 //      (merge_warps) into a partial (acc[G, D], m, l) in its own shared
 //      memory.
@@ -92,13 +94,16 @@
 // outputs are bit-identical.
 //
 // Quantized pools (int8, fp8-e4m3 codes with per-page float32 K and V
-// scales, paged only) run the same bodies: the score stream copies the
-// codes raw and lane 0 copies the block's K scale into the padding of the
-// stage's first row; each token's dot dequantizes code by code (code *
-// scale, then the fma); the attention phase carries each token's K and
-// V scales in its ring stage (decode_common.cuh split_fill). At
-// int8:pca:r=32 a token's score row is 32 B and its attention row 160 B,
-// against 128 B and 1 KB for the fp32 cache.
+// scales, paged only): the score stream copies the codes raw and lane 0
+// copies the block's K scale into the padding of the stage's first row;
+// each token's dot dequantizes code by code (code * scale, then the fma),
+// so the block maxima are the plain path's. The attention phase runs the
+// narrow body (as over fp16 pools): each chunk lies in one page, its stage
+// carries that page's K and V scales, and they are folded in once per
+// token ((q·codes) * K scale; p * V scale before p·V). At int8:pca:r=32 a
+// token's score row is 32 B and its attention row 160 B, against 128 B
+// and 1 KB for the fp32 cache; the attention ring (32 tokens a stage) is
+// then the largest use of the shared region, 45,536 B in all.
 //
 // Requires cur_len >= 1 per row (the decode invariant: the new token is in
 // the cache already); it is not checked here, to keep the hot path free of
@@ -136,7 +141,7 @@ __host__ __device__ inline FusedLayout fused_layout(int G, int W, int D,
   const size_t score_ring =
       (size_t)SPLIT_WARPS * SCORE_STAGES * L.tok * L.row_bytes;
   const size_t attn_ring =
-      (size_t)SPLIT_WARPS * SPLIT_STAGES * split_stage_bytes<TK>(W, D);
+      (size_t)SPLIT_WARPS * SPLIT_STAGES * attn_stage_bytes<TK>(W, D);
   const size_t merge = sizeof(float) * (SPLIT_WARPS + 1) * G * (D + 2);
   const size_t row = sizeof(float) * nb;
   size_t u = score_ring;
@@ -191,13 +196,19 @@ fused_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
                                 [&](int i, int bi) { sel[i] = bi; });
 
   // ---- 3-4. attend this CTA's share of the winners, merge in rank 0
-  attend_share<TQ, TK, SPLIT_TOK, false, false, GM, DC>(
-      sel, nv, qs, uni, split_stage_bytes<TK>(W, D),
-      [&](uint8_t* stage, int pos0, int t1) {
-        split_fill(stage, k, v, rows, b, h, Hkv, W, D, bs, pos0, t1,
-                   vec_kv != 0, lane);
-      },
-      ln, G, W, D, bs, sliding_window, 1.f, out + bh * G * D);
+  if constexpr (Narrow<TK>::value) {
+    attend_share_narrow<TQ, TK, GM, DC>(
+        sel, nv, qs, uni, narrow_tokens(W, D, sizeof(TK)), k, v, rows, b, h,
+        Hkv, ln, G, W, D, bs, sliding_window, out + bh * G * D);
+  } else {
+    attend_share<TQ, TK, SPLIT_TOK, false, false, GM, DC>(
+        sel, nv, qs, uni, split_stage_bytes<TK>(W, D),
+        [&](uint8_t* stage, int pos0, int t1) {
+          split_fill(stage, k, v, rows, b, h, Hkv, W, D, bs, pos0, t1,
+                     vec_kv != 0, lane);
+        },
+        ln, G, W, D, bs, sliding_window, 1.f, out + bh * G * D);
+  }
 }
 
 // ------------------------------------------ the select_blocks cluster kernel

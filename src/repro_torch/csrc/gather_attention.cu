@@ -32,17 +32,36 @@
 // row: 134 MB, 40 us at 3.35 TB/s). The TPU kernels walked the blocks as a
 // sequential grid axis (or a fori_loop) with the softmax state in scratch.
 // One CTA per row, walking its blocks, is 128 CTAs on 132 SMs at that
-// shape, so all three split each row's work over several CTAs, and all
-// three stream through the same body (decode_common.cuh): each of a CTA's
-// 4 warps streams its own chunks of 4 tokens (8 for the per-head kernel
-// over bf16) through a private two-stage shared-memory ring filled by
-// 16-byte cp.async (the next chunk's K̂ and V rows in flight while the
-// warp computes on this one; no CTA barrier in the loop; stream_chunks):
-// lanes hold 4 columns (8 at D > 128), a token's G scores are warp sums,
-// and the warp keeps its own (G,) online softmax and (G, D) accumulators
-// in registers. The 4 warps then merge by log-sum-exp in shared memory
-// (merge_warps). Widths whose rows are not 16-byte multiples are copied
-// element by element into the same ring.
+// shape, so all three split each row's work over several CTAs. Over fp32
+// and bf16 caches all three stream through the wide body
+// (decode_common.cuh stream_chunks): each of a CTA's 4 warps streams its
+// own chunks of 4 tokens (8 for the per-head kernel over bf16) through a
+// private two-stage shared-memory ring filled by 16-byte cp.async (the
+// next chunk's K̂ and V rows in flight while the warp computes on this
+// one; no CTA barrier in the loop): lanes hold 4 columns (8 at D > 128), a
+// token's G scores are warp sums, and the warp keeps its own (G,) online
+// softmax and (G, D) accumulators in registers. Widths whose rows are not
+// 16-byte multiples are copied element by element into the same ring.
+//
+// Over fp16, int8 and fp8 caches (one library per storage, the grouped
+// kernel and the full decode only) the same warps and rings run the
+// narrow body (stream_narrow, NarrowSrc), which sizes its chunks in
+// bytes rather than tokens: a stage holds the largest power of two of
+// tokens, at most 32, whose K̂ and V rows fit 5 KB (32 tokens at
+// int8:pca:r=32, 160 B a token; 16 at int8 or fp8 native; 8 at fp16
+// native), cut to a divisor of bs, and a chunk runs from a block's first
+// live token and never leaves the block, so a chunk is one page: one
+// page-table read, one pair of page scales, and the rows by 16-byte
+// cp.async spread over all 32 lanes. Its scores run with the lanes across
+// tokens (32 / T lanes a token, one or a few xor shuffles), the K scale
+// multiplying each token's dot; the online softmax takes one max and one
+// sum per chunk and head; p·V keeps the lanes across the columns, each
+// token's p times the V scale broadcast from its lane. The wide body's
+// 4-token stages carried 0.6 KB at int8:pca:r=32 and paid a warp sum, an
+// expf and a scale multiply per element for every token, whatever the
+// storage; the wide body and its machine code are unchanged. Either body
+// ends in the same warp state, so the 4 warps merge by log-sum-exp in
+// shared memory (merge_warps) alike.
 //
 // block_sparse_attention_grouped and block_sparse_attention: one
 // thread-block cluster of C CTAs per row, (slot, kv-head) or (BH) row, C
@@ -56,10 +75,13 @@
 // the fused kernel's selection, shares and merge order, and gives its
 // bits. Shared memory (attend_layout, mirrored by kernels/tuning.py
 // attend_smem_bytes): the float32 query, the kept list, and the rings,
-// which the merges reuse: 33,312 B at llama2-7b's fp32 cache (n_sel 8). The per-head kernel reads K̂ through a row, a
-// token and a feature stride, so the feature-major pipeline reads the
-// selected blocks straight from K̂ᵀ (BH, D, S): each feature row's run of
-// a chunk's tokens is one 16-byte cp.async into a feature-major stage
+// which the merges reuse: 33,312 B at llama2-7b's fp32 cache (n_sel 8),
+// 45,344 B at int8:pca:r=32 (a list so long that the narrow ring no
+// longer fits beside it halves the narrow stage). The per-head kernel
+// reads K̂ through a row, a token and a feature stride, so the
+// feature-major pipeline reads the selected blocks straight from K̂ᵀ (BH,
+// D, S): each feature row's run of a chunk's tokens is one 16-byte
+// cp.async into a feature-major stage
 // (head_fill), from which each lane reads its own features' pieces, so
 // both layouts sum every dot in the same order and give the same bits.
 // Its scores are q̂·k̂ then * scale, the TPU kernel's order. Chunks of 8
@@ -70,7 +92,9 @@
 // (-O3, sm_90a): the grouped kernel at G <= 1, D <= 128 80-126 registers
 // (16 B spilled over an fp32 cache), G <= 4 115-128, G <= 16 at D > 128
 // 255 registers and 588-596 B of spill stores; the per-head kernel 55-95
-// registers, no spill.
+// registers, no spill. Over fp16, int8 and fp8 (the narrow body) the
+// grouped kernel at G <= 1 takes 40-64 registers (72-128 before it) and
+// the full decode 56-64 (90-94).
 //
 // full_decode is split-KV: grid (Hkv, B, n_split); split s takes an equal
 // share of the live block range [lo, hi), computed on the device from
@@ -80,19 +104,22 @@
 // second small kernel in the same launcher call merges the n_split
 // partials by log-sum-exp (alpha = 0 for an empty partial, the 1e-30
 // floor) into (B, Hkv, G, D). A split with no live block writes m = -1e30,
-// l = 0. Shared memory: the scaled query (G x W float32) + 4 warps x 2
-// stages x 4 tokens x (W + D) cache elements, the warp merge reusing the
-// ring: 32.5 KB at llama2-7b's fp32 cache, so its 512 CTAs are all
+// l = 0. The wide body's split streams 4-token chunks from its first live
+// token; the narrow body's the first block's chunks from there, then
+// T-aligned ones, so none leaves its block (a window's start may cut the
+// first). Shared memory: the scaled query (G x W float32) + 4 warps x 2
+// ring stages, the warp merge reusing the ring: 32.5 KB at llama2-7b's
+// fp32 cache (4 tokens x (W + D) floats a stage), so its 512 CTAs are all
 // resident at once: small chunks and many resident warps beat deeper rings
-// and longer chunks here (measured on an H100: PERF.md §6).
+// and longer chunks for the wide body (measured on an H100: PERF.md §6);
+// 44.3 KB at int8:pca:r=32 (32 tokens a stage).
 //
 // Paged mode (full decode, grouped): with a page table the caches are the
 // pools (R, Hkv, ·) and every block read resolves through BlockRows; S is
 // the logical length n_tab * page_size. Paged and contiguous run the same
 // shares, so their outputs are bit-identical. Quantized pools (int8, fp8
-// codes, per-page float32 K and V scales, paged only) stream through the
-// same rings, each stage carrying its tokens' scales (split_fill), and are
-// dequantized element by element before the dot and p·V; at
+// codes, per-page float32 K and V scales, paged only) take the narrow
+// body, its stages carrying their page's scales after the rows; at
 // int8:pca:r=32 a token's K and V rows are 160 B against 1 KB in fp32.
 #include "decode_common.cuh"
 
@@ -123,25 +150,31 @@ grouped_cluster_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
     qs[i] = c < W ? to_f(q[(bh * G + g) * W + c]) * scale : 0.f;
   }
   const int nv = keep_valid(blk_idx + bh * n_sel, n_sel, nb, sel);
-  attend_share<TQ, TK, SPLIT_TOK, false, false, GM, DC>(
-      sel, nv, qs, base + L.uni, split_stage_bytes<TK>(W, D),
-      [&](uint8_t* stage, int pos0, int t1) {
-        split_fill(stage, k, v, rows, b, h, Hkv, W, D, bs, pos0, t1,
-                   vec != 0, lane);
-      },
-      cur_len[b], G, W, D, bs, sliding_window, 1.f, out + bh * G * D);
+  if constexpr (Narrow<TK>::value) {
+    attend_share_narrow<TQ, TK, GM, DC>(
+        sel, nv, qs, base + L.uni, L.tok, k, v, rows, b, h, Hkv, cur_len[b],
+        G, W, D, bs, sliding_window, out + bh * G * D);
+  } else {
+    attend_share<TQ, TK, SPLIT_TOK, false, false, GM, DC>(
+        sel, nv, qs, base + L.uni, split_stage_bytes<TK>(W, D),
+        [&](uint8_t* stage, int pos0, int t1) {
+          split_fill(stage, k, v, rows, b, h, Hkv, W, D, bs, pos0, t1,
+                     vec != 0, lane);
+        },
+        cur_len[b], G, W, D, bs, sliding_window, 1.f, out + bh * G * D);
+  }
 }
 
 // ---------------------------------------------------- split-KV full decode
 
 // The split kernel's dynamic shared memory: the scaled float32 query (G x
-// pad4(W)), then the 4 warps' rings, which the warp merge (4 x G x (D + 2)
-// float32) reuses. Exported as loki_full_smem_bytes; kernels/tuning.py
-// full_smem_bytes mirrors it.
+// pad4(W)), then the 4 warps' rings (attn_stage_bytes), which the warp
+// merge (4 x G x (D + 2) float32) reuses. Exported as loki_full_smem_bytes;
+// kernels/tuning.py full_smem_bytes mirrors it.
 template <typename TK>
 inline size_t split_smem_bytes(int G, int W, int D) {
   const size_t ring = (size_t)SPLIT_WARPS * SPLIT_STAGES *
-                      split_stage_bytes<TK>(W, D);
+                      attn_stage_bytes<TK>(W, D);
   const size_t merge = sizeof(float) * SPLIT_WARPS * G * (D + 2);
   return round16(sizeof(float) * G * pad4(W)) + (ring > merge ? ring : merge);
 }
@@ -179,25 +212,51 @@ full_decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
   int t0 = sh.first * bs;
   if (sliding_window > 0) t0 = max(t0, ln - sliding_window);
   const int t1 = min(sh.end * bs, ln);
-  const int n_chunks = t1 > t0 ? (t1 - t0 + SPLIT_TOK - 1) / SPLIT_TOK : 0;
-  // warp w takes chunks w, w + SPLIT_WARPS, ...
-  const int my_n = n_chunks > warp
-                       ? (n_chunks - warp + SPLIT_WARPS - 1) / SPLIT_WARPS
-                       : 0;
-  __syncthreads();                                    // qs
-
   WarpSoftmax<GM, DC> st;
-  st.init();
-  stream_chunks<TK>(st, qs, my_ring, stage_bytes, G, W, D, my_n,
-                    [&](int j) {
-                      return make_int2(
-                          t0 + (warp + j * SPLIT_WARPS) * SPLIT_TOK, t1);
-                    },
-                    [&](uint8_t* stage, int pos0, int end) {
-                      split_fill(stage, k, v, rows, b, h, Hkv, W, D, bs,
-                                 pos0, end, vec != 0, lane);
-                    },
-                    1.f, lane);
+  if constexpr (Narrow<TK>::value) {
+    // chunks that never leave a block: the first block's from t0, then
+    // T-aligned ones (T divides bs), warp w taking chunks w, w + 4, ...
+    const NarrowGeom ng =
+        narrow_geom<TK>(W, D, bs, narrow_tokens(W, D, sizeof(TK)));
+    const int T = ng.T;
+    const int a = min((t0 / bs + 1) * bs, t1);   // the first block's end
+    const int n0 = t1 > t0 ? (a - t0 + T - 1) >> ng.lt : 0;
+    const int n_chunks = n0 + (t1 > a ? (t1 - a + T - 1) >> ng.lt : 0);
+    const int my_n = n_chunks > warp
+                         ? (n_chunks - warp + SPLIT_WARPS - 1) / SPLIT_WARPS
+                         : 0;
+    __syncthreads();                                  // qs
+    st.init();
+    stream_narrow<TK>(
+        st, qs, ring + (size_t)warp * SPLIT_STAGES * ng.stage, ng,
+        NarrowSrc<TK>{k, v, rows, b, h, Hkv, W, D, bs}, G, my_n,
+        [&](int j) {
+          const int c = warp + j * SPLIT_WARPS;
+          return c < n0 ? make_int2(t0 + c * T, a)
+                        : make_int2(a + (c - n0) * T, t1);
+        },
+        lane);
+  } else {
+    const int n_chunks =
+        t1 > t0 ? (t1 - t0 + SPLIT_TOK - 1) / SPLIT_TOK : 0;
+    // warp w takes chunks w, w + SPLIT_WARPS, ...
+    const int my_n = n_chunks > warp
+                         ? (n_chunks - warp + SPLIT_WARPS - 1) / SPLIT_WARPS
+                         : 0;
+    __syncthreads();                                  // qs
+
+    st.init();
+    stream_chunks<TK>(st, qs, my_ring, stage_bytes, G, W, D, my_n,
+                      [&](int j) {
+                        return make_int2(
+                            t0 + (warp + j * SPLIT_WARPS) * SPLIT_TOK, t1);
+                      },
+                      [&](uint8_t* stage, int pos0, int end) {
+                        split_fill(stage, k, v, rows, b, h, Hkv, W, D, bs,
+                                   pos0, end, vec != 0, lane);
+                      },
+                      1.f, lane);
+  }
   __syncthreads();                    // every ring is free: merge there
   merge_warps(st, reinterpret_cast<float*>(ring),
               part + (bh * n_split + sp) * G * (D + 2), G, D);
@@ -234,7 +293,7 @@ struct Launch {
   cudaStream_t stream;
   float* part;        // full decode: the splits' partials
   int n_split;
-  long long* info;    // grouped: not null = report (C, smem, clusters)
+  long long* info;    // not null: report the launch's plan, no launch
 
   BlockRows rows() const {
     return make_rows(table, n_tab, page_size, S, bs, ksc, vsc);
@@ -294,6 +353,18 @@ struct Full {
     auto kern = full_decode_split_kernel<TQ, TK, GM, DC>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
+    if (a.info != nullptr) {          // report, no launch
+      int per_sm = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kern, SPLIT_THREADS, smem);
+      a.info[0] = Narrow<TK>::value
+                      ? narrow_chunk(narrow_tokens(a.W, a.D, sizeof(TK)), a.bs)
+                      : SPLIT_TOK;
+      a.info[1] = (long long)attn_stage_bytes<TK>(a.W, a.D);
+      a.info[2] = (long long)smem;
+      a.info[3] = per_sm;
+      return err;
+    }
     kern<<<dim3(a.Hkv, a.B, a.n_split), SPLIT_THREADS, smem, a.stream>>>(
         static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k),
         static_cast<const TK*>(a.v), static_cast<const int*>(a.cur_len),
@@ -364,9 +435,9 @@ extern "C" int loki_grouped_cluster_info(int q_bf16, int kv, int B, int S,
 }
 
 // The attention kernels' dynamic shared memory in bytes at a shape and
-// storage code (attend_layout with ``tok``-token chunks: 4 for the grouped
-// kernel, 16 / element size for the per-head one); kernels/tuning.py
-// attend_smem_bytes must give the same.
+// storage code (attend_layout; ``tok`` the wide body's chunk: 4 for the
+// grouped kernel, 16 / element size for the per-head one; the narrow body
+// sizes its own); kernels/tuning.py attend_smem_bytes must give the same.
 extern "C" long long loki_attend_smem_bytes(int kv, int G, int W, int D,
                                             int n_sel, int tok) {
   return with_storage(kv, [&](auto* tag) -> long long {
@@ -406,6 +477,25 @@ extern "C" int loki_full_decode(const void* q, const void* k, const void* v,
                      static_cast<float*>(part), n_split, nullptr};
   if (!a.ok() || part == nullptr || n_split < 1 || n_split > S / bs)
     return (int)cudaErrorInvalidValue;
+  return (int)by_storage<Full>(q_bf16, kv, a);
+}
+
+// What a full-decode launch at this shape would use, without launching:
+// info[0] tokens per chunk, info[1] bytes per ring stage, info[2] the
+// split kernel's dynamic shared memory, info[3] its
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor at that memory (resident
+// CTAs per SM). A scaled storage is asked as if paged.
+extern "C" int loki_full_decode_info(int q_bf16, int kv, int G, int W, int D,
+                                     int bs, long long* info) {
+  static const int table = 0;
+  static const float scale1 = 1.f;
+  const bool scaled = kv == KV_I8 || kv == KV_F8;
+  const Launch a{nullptr, nullptr, nullptr, nullptr, nullptr,
+                 scaled ? &table : nullptr, scaled ? &scale1 : nullptr,
+                 scaled ? &scale1 : nullptr, nullptr, 1, bs, 1, G, W, D, bs,
+                 0, scaled ? 1 : 0, scaled ? bs : 0, 1.f, 0, nullptr,
+                 nullptr, 1, info};
+  if (!a.ok() || info == nullptr) return (int)cudaErrorInvalidValue;
   return (int)by_storage<Full>(q_bf16, kv, a);
 }
 

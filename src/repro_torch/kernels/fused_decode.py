@@ -29,10 +29,11 @@ multiple of ``block_size``.
 
 Quantized pools (int8, fp8-e4m3) come with their (n_pages,) float32
 ``k_scale``/``v_scale`` (select_blocks takes ``k_scale`` alone; paged
-only): every kernel dequantizes a row as it reads it, code -> float32 *
-page scale, then takes the dot (and likewise V before p·V); the plain
-versions dequantize the gathered view in the same order. fp16 pools carry
-no scales.
+only): the score pass dequantizes a row as it reads it, code -> float32 *
+page scale, then takes the dot, as the plain versions do over the
+gathered view (so the block maxima are theirs); the attention pass folds
+the page's scales in, (q·codes) * K scale and p * V scale before p·V.
+fp16 pools carry no scales.
 
 Default scales differ as in the JAX package: ``D**-0.5`` for the fused
 kernels, ``W**-0.5`` for select_blocks. The wrappers launch the kernels for
@@ -233,12 +234,12 @@ def _fn(lib: str, name: str):
 
 def _plan(lib, info_name, info_args, smem_name, smem_args) -> dict:
     """A cluster launcher's plan asked from library ``lib``: C, shared
-    memory and resident clusters from ``info_name``, and ``smem_layout``
-    from the layout query ``smem_name``."""
-    info = (ctypes.c_longlong * 3)()
+    memory, resident clusters and resident CTAs per SM from ``info_name``,
+    and ``smem_layout`` from the layout query ``smem_name``."""
+    info = (ctypes.c_longlong * 4)()
     _build.check(_fn(lib, info_name)(*info_args, info), info_name)
     return dict(C=int(info[0]), smem=int(info[1]),
-                max_clusters=int(info[2]),
+                max_clusters=int(info[2]), ctas_per_sm=int(info[3]),
                 smem_layout=int(_fn(lib, smem_name)(*smem_args)))
 
 
@@ -248,8 +249,10 @@ def cluster_plan(q_hat, k_hat, v, *, d: int, k_blocks: int,
     """What the fused launcher would use at these CUDA tensors' shapes
     (``d`` = W for the exact-top-k kernel), asked from the built library
     without a launch: the cluster size ``C``, the dynamic shared memory
-    ``smem`` (bytes) and ``max_clusters`` (cudaOccupancyMaxActiveClusters
-    at that memory and C), plus ``smem_layout``, the library's
+    ``smem`` (bytes), ``max_clusters`` (cudaOccupancyMaxActiveClusters at
+    that memory and C) and ``ctas_per_sm``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), plus ``smem_layout``,
+    the library's
     ``loki_fused_smem_bytes`` at the same shape. For chip_smoke's log and
     checks."""
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,

@@ -20,8 +20,9 @@ Paged mode: ``page_table (B, n_tab)`` and ``page_size`` (a multiple of
 ``block_size``) make the caches pools read through the table; the logical
 length is ``n_tab * page_size``. Quantized pools (int8, fp8-e4m3) come
 with their (n_pages,) float32 ``k_scale``/``v_scale``: the kernels
-dequantize each row as they read it (code -> float32 * page scale, then
-the dot; V likewise before p·V), the plain versions the gathered view. The
+stream the codes in chunks that never leave a page and fold its scales in
+((q·codes) * K scale, then p * V scale before p·V), the plain versions
+dequantize the gathered view. The
 wrappers launch the kernels for CUDA tensors and run the plain versions
 (over the gathered logical view when paged) for CPU tensors; nothing falls
 back from one to the other.
@@ -331,7 +332,9 @@ _QUERIES = {"loki_grouped_cluster_info": ([ctypes.c_int] * 10
                                        + [ctypes.c_void_p], ctypes.c_int),
             "loki_attend_smem_bytes": ([ctypes.c_int] * 6,
                                        ctypes.c_longlong),
-            "loki_full_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_longlong)}
+            "loki_full_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_longlong),
+            "loki_full_decode_info": ([ctypes.c_int] * 6
+                                      + [ctypes.c_void_p], ctypes.c_int)}
 
 
 def _fn(lib: str, name: str):
@@ -353,9 +356,10 @@ def _fn(lib: str, name: str):
 
 
 def _plan(lib, info_call, code, g, kdim, dim, n_sel, tok) -> dict:
-    info = (ctypes.c_longlong * 3)()
+    info = (ctypes.c_longlong * 4)()
     _build.check(info_call(info), "cluster info")
     return dict(C=int(info[0]), smem=int(info[1]), max_clusters=int(info[2]),
+                ctas_per_sm=int(info[3]),
                 smem_layout=int(_fn(lib, "loki_attend_smem_bytes")(
                     code, g, kdim, dim, n_sel, tok)))
 
@@ -365,8 +369,9 @@ def attend_plan(q_hat, k_hat, v, blk_idx, *, block_size: int = 128,
     """What block_sparse_attention_grouped's launcher would use at these
     CUDA tensors' shapes, asked from the built library without a launch:
     the cluster size ``C``, the dynamic shared memory ``smem`` (bytes),
-    ``max_clusters`` (cudaOccupancyMaxActiveClusters at that memory and C)
-    and ``smem_layout`` (the library's ``loki_attend_smem_bytes``). For
+    ``max_clusters`` (cudaOccupancyMaxActiveClusters at that memory and
+    C), ``ctas_per_sm`` (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
+    ``smem_layout`` (the library's ``loki_attend_smem_bytes``). For
     chip_smoke's log and checks."""
     b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
     s_len = cache_args(k_hat, block_size, page_table, page_size)
@@ -378,14 +383,23 @@ def attend_plan(q_hat, k_hat, v, blk_idx, *, block_size: int = 128,
 
 
 def full_plan(q_hat, k_hat, v, *, block_size: int = 128) -> dict:
-    """paged_full_decode's launch at these CUDA tensors' shapes: the split
-    count ``n_split`` and ``smem_layout``, the library's
-    ``loki_full_smem_bytes`` (the split kernel's dynamic shared memory).
-    For chip_smoke's log and checks."""
+    """paged_full_decode's launch at these CUDA tensors' shapes, asked from
+    the built library without a launch: ``tokens`` per chunk, ``stage``
+    bytes per ring stage, the split kernel's dynamic shared memory
+    ``smem`` and ``ctas_per_sm``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at that memory), and
+    ``smem_layout``, the library's ``loki_full_smem_bytes``. For
+    chip_smoke's log and checks."""
     b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
     code, _, lib = _build.storage(k_hat, "k_hat")
-    return dict(smem_layout=int(_fn(lib, "loki_full_smem_bytes")(
-        code, g, kdim, dim)))
+    info = (ctypes.c_longlong * 4)()
+    _build.check(_fn(lib, "loki_full_decode_info")(
+        _build.dtype_code(q_hat, "q_hat"), code, g, kdim, dim, block_size,
+        info), "loki_full_decode_info")
+    return dict(tokens=int(info[0]), stage=int(info[1]), smem=int(info[2]),
+                ctas_per_sm=int(info[3]),
+                smem_layout=int(_fn(lib, "loki_full_smem_bytes")(
+                    code, g, kdim, dim)))
 
 
 def _widths(q_hat, k_hat, v):

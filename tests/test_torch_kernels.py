@@ -238,14 +238,25 @@ def test_plan_decode_budget():
     # 4 warps' score rings (2 stages of 32 tokens of 144 B), attention
     # rings (2 stages of 4 x 256 fp32) and merge buffers
     main = dict(nb=32, k_blocks=8, g=1, kdim=128, dim=128, bs=128)
-    assert tuning.fused_smem_bytes(**main, d=32, itemsize=4) == \
+    assert tuning.fused_smem_bytes(**main, d=32, storage="float32") == \
         512 + 128 + 32 + 64 + 4 * 2 * 32 * 144
     # exact top-k scores all 128 features: 8 tokens of 528 B a stage
-    assert tuning.fused_smem_bytes(**main, d=128, itemsize=4) == \
+    assert tuning.fused_smem_bytes(**main, d=128, storage="float32") == \
         736 + 4 * 2 * 8 * 528
     # a bf16 cache: 32 tokens of 80 B a score stage, still the largest
-    assert tuning.fused_smem_bytes(**main, d=32, itemsize=2) == \
+    assert tuning.fused_smem_bytes(**main, d=32, storage="bfloat16") == \
         736 + 4 * 2 * 32 * 80
+    # narrow storage: the attention ring is the largest use of the region,
+    # 2 stages of 8 fp16 tokens (K rows of 17 16-byte pieces, V rows of
+    # 256 B) or 16 int8 tokens (9-piece K rows, 128 B V rows, 16 B of
+    # scales), where a bf16 cache's 4 tokens of 512 B stay below the score
+    # ring
+    assert tuning.fused_smem_bytes(**main, d=32, storage="float16") == \
+        736 + 4 * 2 * 8 * (272 + 256)
+    assert tuning.fused_smem_bytes(**main, d=32, storage="int8") == \
+        736 + 4 * 2 * (16 * (144 + 128) + 16)
+    assert tuning.narrow_tokens(kdim=128, dim=128, storage="float16") == 8
+    assert tuning.narrow_tokens(kdim=32, dim=128, storage="int8") == 32
     assert tuning.score_tokens(d=32, bs=8, itemsize=4) == (8, 144)
     assert tuning.score_tokens(d=32, bs=128, itemsize=4) == (32, 144)
     # select_blocks' cluster kernel (csrc/decode_common.cuh, score_layout)
@@ -253,11 +264,11 @@ def test_plan_decode_budget():
     # exchange 64 B, then the 4 warps' score rings (2 stages of 32 tokens
     # of 144 B); it selects in place, so no copy of the row
     assert tuning.select_smem_bytes(nb=32, g=1, kdim=128, d=32, bs=128,
-                                    itemsize=4) == \
+                                    storage="float32") == \
         512 + 128 + 64 + 4 * 2 * 32 * 144
     # int8 codes at rank 32: 32 tokens of 48 B a stage
     assert tuning.select_smem_bytes(nb=32, g=1, kdim=32, d=32, bs=128,
-                                    itemsize=1) == \
+                                    storage="int8") == \
         128 + 128 + 64 + 4 * 2 * 32 * 48
     # a score row too long for the fused kernel's shared memory
     big = tuning.plan_decode(2 ** 22, 256, 16, 64, 128)
@@ -268,32 +279,50 @@ def test_plan_decode_budget():
     assert tuning.plan_decode(96, 64, 2, 16, 128).block_size == 32
 
 
-# (smax, dim, G, d, itemsize) -> the plan before select_blocks became a
-# cluster kernel, which it must keep
+# (smax, dim, G, d, storage) -> the plan before select_blocks became a
+# cluster kernel and the narrow storages their own attention body, which
+# it must keep
 ROUTES = {
-    "main": ((4096, 128, 1, 32, 4), ("fused", 128)),
-    "two_kernel": ((2 ** 22, 256, 16, 64, 4), ("two_kernel", 128)),
+    "main": ((4096, 128, 1, 32, "float32"), ("fused", 128)),
+    "two_kernel": ((2 ** 22, 256, 16, 64, "float32"), ("two_kernel", 128)),
     # select_blocks fits only with 16-token score chunks
-    "halved_chunk": ((49152 * 128, 128, 1, 32, 4), ("two_kernel", 128)),
-    "none": ((2 ** 24, 256, 16, 64, 4), None),
+    "halved_chunk": ((49152 * 128, 128, 1, 32, "float32"),
+                     ("two_kernel", 128)),
+    "none": ((2 ** 24, 256, 16, 64, "float32"), None),
+    "int8_main": ((4096, 128, 1, 32, "int8"), ("fused", 128)),
+    "fp16_two_kernel": ((2 ** 22, 256, 16, 64, "float16"),
+                        ("two_kernel", 128)),
+    # the grouped kernel fits a 49152-block list beside its ring only with
+    # the narrow stage halved (from 16 int8 tokens to 8)
+    "narrow_halved": ((49152 * 128, 128, 4, 32, "int8"),
+                      ("two_kernel", 128)),
 }
 
 
 @pytest.mark.parametrize("case", list(ROUTES))
 def test_plan_decode_routes_as_before(case):
-    (smax, dim, g, d, isz), want = ROUTES[case]
-    plan = tuning.plan_decode(smax, dim, g, d, 128, itemsize=isz)
+    (smax, dim, g, d, storage), want = ROUTES[case]
+    plan = tuning.plan_decode(smax, dim, g, d, 128, storage=storage)
     assert (plan and (plan.variant, plan.block_size)) == want
     nb = smax // 128
     sel = tuning.select_smem_bytes(nb=nb, g=g, kdim=dim, d=d, bs=128,
-                                   itemsize=isz)
-    tok, row = tuning.score_tokens(d=d, bs=128, itemsize=isz)
+                                   storage=storage)
+    tok, row = tuning.score_tokens(d=d, bs=128,
+                                   itemsize=tuning.ITEMSIZE[storage])
     fixed = 4 * g * dim + 4 * nb + 64
     if case == "halved_chunk":
         assert fixed + 4 * 2 * tok * row > tuning.SMEM_LIMIT
         assert sel == fixed + 4 * 2 * (tok // 2) * row <= tuning.SMEM_LIMIT
     elif want is not None:
         assert sel == fixed + 4 * 2 * tok * row <= tuning.SMEM_LIMIT
+    if case == "narrow_halved":
+        att = dict(n_sel=nb, g=g, kdim=dim, dim=dim, storage=storage)
+        full = tuning.split_stage_bytes(kdim=dim, dim=dim, storage=storage)
+        half = tuning.split_stage_bytes(kdim=dim, dim=dim, storage=storage,
+                                        tok=8)
+        assert 4 * g * dim + 4 * nb + 4 * 2 * full > tuning.SMEM_LIMIT
+        assert tuning.attend_smem_bytes(**att) == \
+            4 * g * dim + 4 * nb + 4 * 2 * half <= tuning.SMEM_LIMIT
 
 
 def test_paged_and_quantized_arguments_raise():
@@ -689,16 +718,28 @@ def test_attend_smem_bytes_layout():
     ints (32 B), and the 4 warps' rings of 2 stages of 4 fp32 (or, per
     head, 8 bf16) tokens x (128 + 128), which the merges reuse."""
     main = dict(n_sel=8, g=1, kdim=128, dim=128)
-    assert tuning.attend_smem_bytes(**main, itemsize=4) == \
+    assert tuning.attend_smem_bytes(**main, storage="float32") == \
         512 + 32 + 4 * 2 * 4 * 256 * 4
-    assert tuning.attend_smem_bytes(**main, itemsize=2, tok=8) == \
-        tuning.attend_smem_bytes(**main, itemsize=4)
+    assert tuning.attend_smem_bytes(**main, storage="bfloat16", tok=8) == \
+        tuning.attend_smem_bytes(**main, storage="float32")
     # G 16 at D 256: the merge buffers (5 x 16 x 258 floats) outgrow the
     # rings; a list of every block of a 2**22-token cache still fits
     assert tuning.attend_smem_bytes(n_sel=8, g=16, kdim=256, dim=256,
-                                    itemsize=4) == 16384 + 32 + 5 * 16 * 258 * 4
+                                    storage="float32") == \
+        16384 + 32 + 5 * 16 * 258 * 4
     assert tuning.attend_smem_bytes(n_sel=2 ** 15, g=16, kdim=256, dim=256,
-                                    itemsize=4) <= tuning.SMEM_LIMIT
+                                    storage="float32") <= tuning.SMEM_LIMIT
+    # the narrow body's rings: fp16 in 8-token stages (K rows padded to 17
+    # 16-byte pieces), fp8 in 16-token ones (9-piece K rows, then the
+    # page's two scales in 16 B), int8:pca:r=32 in 32-token ones (3-piece
+    # K rows)
+    assert tuning.attend_smem_bytes(**main, storage="float16") == \
+        512 + 32 + 4 * 2 * 8 * (272 + 256)
+    assert tuning.attend_smem_bytes(**main, storage="float8_e4m3fn") == \
+        512 + 32 + 4 * 2 * (16 * (144 + 128) + 16)
+    assert tuning.attend_smem_bytes(n_sel=8, g=1, kdim=32, dim=128,
+                                    storage="int8") == \
+        128 + 32 + 4 * 2 * (32 * (48 + 128) + 16)
 
 
 EXACT = [(1, 0, False), (4, 0, False), (4, 40, False), (1, 0, True),
@@ -821,18 +862,23 @@ def test_plan_full_decode():
     # the split-KV kernel's shared memory (csrc/gather_attention.cu,
     # split_smem_bytes): the query + 4 warps x 2 stages x 4 rows of K̂ and
     # V in the cache dtype; llama2-7b's fp32 cache 32.5 KB
-    assert tuning.full_smem_bytes(g=1, kdim=128, dim=128, itemsize=4) == \
+    assert tuning.full_smem_bytes(g=1, kdim=128, dim=128,
+                                  storage="float32") == \
         512 + 4 * 2 * 4 * 256 * 4
-    assert tuning.full_smem_bytes(g=1, kdim=128, dim=128, itemsize=2) == \
+    assert tuning.full_smem_bytes(g=1, kdim=128, dim=128,
+                                  storage="bfloat16") == \
         512 + 4 * 2 * 4 * 256 * 2
     # the widest case the kernel takes fits the 227 KB limit, in any dtype;
     # there the warps' merge (16 x 258 floats each) outgrows the ring
-    widest = tuning.full_smem_bytes(g=16, kdim=256, dim=256, itemsize=4)
+    widest = tuning.full_smem_bytes(g=16, kdim=256, dim=256,
+                                    storage="float32")
     assert widest == 16 * 256 * 4 + 4 * 4 * 16 * 258 <= tuning.SMEM_LIMIT
-    assert tuning.plan_full_decode(4096, 256, 16, 256, 128, itemsize=4) == \
+    assert tuning.plan_full_decode(4096, 256, 16, 256, 128,
+                                   storage="float32") == \
         tuning.KernelPlan("stream", 128)
     # odd widths pad rows to 4 elements and the ring stage to 16 bytes
-    assert tuning.full_smem_bytes(g=2, kdim=30, dim=62, itemsize=2) == \
+    assert tuning.full_smem_bytes(g=2, kdim=30, dim=62,
+                                  storage="bfloat16") == \
         2 * 32 * 4 + 4 * 2 * (4 * (32 + 64) * 2)
     # exact_topk plans the fused kernel at d = kd, as JAX does
     assert tuning.plan_decode(4096, 128, 1, 128, 128) == \

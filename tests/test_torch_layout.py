@@ -219,23 +219,25 @@ def test_scaled_kernels_match_jax(layout, kernel):
 
 
 def test_scaled_stage_geometry():
-    """One-byte (scaled) storage adds each stage's 4 K and 4 V page
-    scales to the attention rings; the score ring keeps its layout (the
-    block's scale rides in row 0's padding)."""
-    assert tuning.split_stage_bytes(kdim=32, dim=128, itemsize=1) == \
-        4 * 160 + 32
-    assert tuning.split_stage_bytes(kdim=128, dim=128, itemsize=2) == \
-        4 * 256 * 2
-    assert tuning.full_smem_bytes(g=1, kdim=32, dim=128, itemsize=1) == \
-        128 + 4 * 2 * 672
+    """One-byte (scaled) storage streams through the narrow attention body:
+    at int8:pca:r=32 a stage holds 32 tokens (K rows of 3 16-byte pieces,
+    V rows of 128 B) and then the page's K and V scales (16 B); the score
+    ring keeps its layout (the block's scale rides in row 0's padding)."""
+    stage = 32 * (48 + 128) + 16
+    assert tuning.split_stage_bytes(kdim=32, dim=128, storage="int8") == \
+        stage
+    assert tuning.split_stage_bytes(kdim=128, dim=128,
+                                    storage="bfloat16") == 4 * 256 * 2
+    assert tuning.full_smem_bytes(g=1, kdim=32, dim=128, storage="int8") == \
+        128 + 4 * 2 * stage
     assert tuning.attend_smem_bytes(n_sel=8, g=1, kdim=32, dim=128,
-                                    itemsize=1) == 128 + 32 + 4 * 2 * 672
+                                    storage="int8") == 128 + 32 + 4 * 2 * stage
     assert tuning.score_tokens(d=32, bs=128, itemsize=1) == (32, 48)
-    # the fused kernels: the score ring (32 tokens of 48 B a stage) is the
-    # largest use of the shared region
+    # the fused kernels: the attention ring is now the largest use of the
+    # shared region, above the score ring (32 tokens of 48 B a stage)
     assert tuning.fused_smem_bytes(nb=32, k_blocks=8, g=1, kdim=32, dim=128,
-                                   bs=128, d=32, itemsize=1) == \
-        128 + 128 + 32 + 64 + 4 * 2 * 32 * 48
+                                   bs=128, d=32, storage="int8") == \
+        128 + 128 + 32 + 64 + 4 * 2 * stage
 
 
 # ------------------------------------------------------- the model
