@@ -30,9 +30,12 @@ Phases, each of which fails the run on any error:
              the per-head pipeline's three (block_max_scores,
              block_max_scores_fm, block_sparse_attention) at llama2-7b's
              decode step flattened per head (bf16 q over fp32 K/V, fp32,
-             bf16), head_dim 256 and short cur_len (dead-block ties), the
-             two layouts bit for bit and two block_max_scores calls bit
-             for bit (block_sparse_attention also over
+             bf16), head_dim 256 and short cur_len (dead-block ties),
+             S 390 at bs 30 and d 8 (the fm kernel's single tokens) and
+             cur_len inside a 16-byte bf16 piece, the two layouts bit for
+             bit, the fm launch's shared memory against
+             tuning.scores_fm_smem_bytes, and two block_max_scores calls
+             bit for bit (block_sparse_attention also over
              K̂ᵀ in place, each layout against its plain cluster form at
              the launcher's C, with its plan checked as above, and two
              calls bit for bit); flash_attention at the llama2-7b
@@ -1270,6 +1273,17 @@ def head_cases():
     yield make_head_case("per head short cur_len, dead-block ties",
                          **dict(llama, cur=[1, 100, 129, 300]),
                          kv_dtype=f32, q_dtype=f32, seed=25)
+    # block_max_scores_fm's edges: a run that does not start on a 16-byte
+    # piece (bs * 4 % 16 != 0, also S * 4: single tokens) at the least d;
+    # cur_len inside a 16-byte piece (8 bf16 tokens) and inside a run
+    yield make_head_case("per head S 390, bs 30, d 8 (fm single tokens)",
+                         BH=8, D=128, S=390, bs=30, d=8, kb=8, heads=2,
+                         cur=[390, 200, 31, 389], kv_dtype=f32,
+                         q_dtype=f32, seed=27)
+    yield make_head_case("per head cur_len inside a 16-byte piece, bf16",
+                         **dict(llama, BH=16, d=16, heads=4,
+                                cur=[1003, 2051, 517, 4093]),
+                         kv_dtype=bf16, q_dtype=bf16, seed=28)
 
 
 def head_plans(case, kT, sel):
@@ -1291,6 +1305,28 @@ def head_plans(case, kT, sel):
                         ("feature-major", kT.transpose(1, 2)))}
 
 
+def fm_plan_checked(case, q, kT):
+    """block_max_scores_fm's launch at a case (``fm_plan``), checked: its
+    shared memory equals tuning.scores_fm_smem_bytes, it reads 16-byte
+    pieces exactly where a run starts on one (bs times the item size a
+    multiple of 16), and a CTA fits on an SM."""
+    from repro_torch.kernels import approx_scores_fm as ASF
+    from repro_torch.kernels import tuning
+    bs, d = case["bs"], case["d"]
+    want = dict(vec=int(bs * kT.element_size() % 16 == 0),
+                smem=tuning.scores_fm_smem_bytes(
+                    bs=bs, storage=tuning.storage_of(kT)))
+    if DEV != "cuda":                 # a CPU rehearsal: no library to ask
+        return dict(want, ctas_per_sm=None, registers=None,
+                    local_bytes=None)
+    plan = ASF.fm_plan(q, kT, d=d, block_size=bs)
+    if any(plan[key] != val for key, val in want.items()) or \
+            plan["ctas_per_sm"] < 1:
+        raise AssertionError(f"{case['name']}: block_max_scores_fm launch "
+                             f"{plan} != {want} (tuning), or no CTA fits")
+    return plan
+
+
 def check_head_kernels(results):
     """block_max_scores, block_max_scores_fm and block_sparse_attention
     against their plain versions on every per-head case, and the ops
@@ -1310,6 +1346,7 @@ def check_head_kernels(results):
         bs, d, kb = case["bs"], case["d"], case["kb"]
         kw = dict(d=d, block_size=bs, scale=q.shape[-1] ** -0.5)
         kT = k.transpose(1, 2).contiguous()          # feature-major copy
+        fm = fm_plan_checked(case, q, kT)
         blk = AS.block_max_scores(q, k, cur, **kw)
         blk_again = AS.block_max_scores(q, k, cur, **kw)
         blk_fm = ASF.block_max_scores_fm(q, kT, cur, **kw)
@@ -1393,7 +1430,10 @@ def check_head_kernels(results):
             f"{errs['block_max_scores']:.3e} (fm "
             f"{errs['block_max_scores_fm']:.3e}, fm == token-major and two "
             f"token-major calls bit for bit), dead blocks "
-            f"{int(dead.sum())}; selections equal in {int((~diff).sum())}/"
+            f"{int(dead.sum())}; fm launch: 16-byte pieces {fm['vec']}, "
+            f"{fm['smem']} B shared (= tuning), {fm['registers']} "
+            f"registers, {fm['local_bytes']} B local, {fm['ctas_per_sm']} "
+            f"CTAs per SM; selections equal in {int((~diff).sum())}/"
             f"{diff.numel()} rows (near-ties {int(ties.sum())}, rows choosing "
             f"dead blocks {int((live_blocks < kb).sum())}); "
             f"block_sparse_attention max|err| "
@@ -2627,7 +2667,7 @@ def ptxas_summary(text):
     """A ptxas -v log in a few lines: the kernel count, the register range
     and the kernels that spill; each tensor-core flash kernel and each
     instantiation of the two block-list cluster kernels, the select_blocks
-    cluster kernel and the token-major block_max_scores on its own line;
+    cluster kernel and the two block_max_scores kernels on its own line;
     any line about wgmma (a serialised wgmma would show there)."""
     kernels, out, name = [], [], None
     for line in text.splitlines():
@@ -2641,7 +2681,8 @@ def ptxas_summary(text):
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             kernels.append((name, regs, spill))
             if re.match(r"(flash_tc|grouped_cluster|head_cluster|"
-                        r"select_cluster|block_max_scores_kernel)", name):
+                        r"select_cluster|block_max_scores_kernel|"
+                        r"block_max_scores_fm_kernel)", name):
                 out.append(f"{name}: {regs} registers, {spill} B spilled")
             name = None
         if "wgmma" in line or "warpgroup" in line:

@@ -4,10 +4,15 @@ plain version.
 Counterpart of ``repro.kernels.approx_scores_fm.block_max_scores_fm`` (the
 CUDA source is ``csrc/approx_scores.cu``, entry
 ``loki_block_max_scores_fm``): the output of ``approx_scores.
-block_max_scores`` from K̂ᵀ stored (BH, D, S). On the TPU the layout made
-the d-slice sublane-aligned (DESIGN.md §3.1); on Hopper its kernel reads
-neighbouring tokens of one feature row with neighbouring threads. The
-TPU kernel's contract stays: ``d % 8 == 0`` and ``S % block_size == 0``.
+block_max_scores`` from K̂ᵀ stored (BH, D, S), bit for bit on the card.
+On the TPU the layout made the d-slice sublane-aligned (DESIGN.md §3.1).
+On Hopper a feature row is contiguous in tokens: each thread of a CTA
+owns a 16-byte piece of its run (4 fp32 or 8 bf16 tokens) and reads it
+from the leading d feature rows, two groups of 8 rows in flight, so each
+row of a 1024-token fp32 run is one 4 KB stretch; pieces past cur_len
+and runs with no live token are not read. Where ``block_size`` times the item size
+is not a multiple of 16 the kernel scores single tokens instead. The TPU
+kernel's contract stays: ``d % 8 == 0`` and ``S % block_size == 0``.
 
   q_hat    (BH, D)      query in the PCA basis
   k_hat_T  (BH, D, S)   key cache in the PCA basis, feature-major
@@ -16,8 +21,11 @@ Output:    (BH, S / block_size) float32, as the token-major kernel.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.approx_scores import (check_blocks, check_query,
                                                launch, mask_block_max)
 
@@ -52,3 +60,24 @@ def block_max_scores_fm(q_hat, k_hat_T, cur_len, *, d: int,
 
 
 block_max_scores_fm.launches = 0
+
+
+def fm_plan(q_hat, k_hat_T, *, d: int, block_size: int = 128) -> dict:
+    """What block_max_scores_fm's launcher would use at these CUDA tensors'
+    shapes, asked from the built library without a launch: ``vec`` (16-byte
+    pieces, else single tokens), ``smem`` (dynamic shared memory, bytes;
+    ``tuning.scores_fm_smem_bytes``), ``ctas_per_sm``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), ``registers`` and
+    ``local_bytes`` (spills) a thread, ``blocks_per_cta``. For
+    chip_smoke's log and checks."""
+    bh, dim = q_hat.shape
+    fn = _build.load("approx_scores").loki_block_max_scores_fm_info
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_longlong * 6)()
+    _build.check(fn(_build.dtype_code(q_hat, "q_hat"),
+                    _build.dtype_code(k_hat_T, "k_hat_T"), bh,
+                    k_hat_T.shape[2], dim, d, block_size, info),
+                 "block_max_scores_fm info")
+    return dict(zip(("vec", "smem", "ctas_per_sm", "registers",
+                     "local_bytes", "blocks_per_cta"), map(int, info)))

@@ -113,6 +113,22 @@ def score_tokens(*, d: int, bs: int, itemsize: int) -> tuple:
     return tok, row
 
 
+
+#: block_max_scores_fm's run: 256 threads x one 16-byte piece of tokens
+#: each (csrc/approx_scores.cu FM_RUN_BYTES)
+FM_RUN_BYTES = 256 * 16
+
+
+def scores_fm_smem_bytes(*, bs: int, storage: str) -> int:
+    """block_max_scores_fm (the feature-major per-head block maxima): one
+    float32 score a token of the CTA's run, the whole blocks within
+    FM_RUN_BYTES of tokens (1024 float32, 2048 bfloat16; one block where
+    bs is longer). It does not depend on d: the query is read from device
+    memory. The launcher computes the same (``FmPlan``, reported by
+    ``loki_block_max_scores_fm_info``)."""
+    run = FM_RUN_BYTES // ITEMSIZE[storage]
+    return 4 * max(1, run // bs) * bs
+
 def fused_smem_bytes(*, nb: int, k_blocks: int, g: int, kdim: int,
                      dim: int, bs: int, d: int, storage: str) -> int:
     """The fused cluster kernels (fused_loki_decode; fused_exact_topk_decode

@@ -279,6 +279,21 @@ def test_plan_decode_budget():
     assert tuning.plan_decode(96, 64, 2, 16, 128).block_size == 32
 
 
+def test_scores_fm_smem_bytes():
+    """block_max_scores_fm's shared memory (csrc/approx_scores.cu FmPlan):
+    a float32 score a token of the run, 1024 float32 or 2048 bfloat16
+    tokens at the per-head main shape (8 or 16 blocks of 128), the whole
+    blocks within the run at bs 30, one block where it is longer."""
+    assert tuning.scores_fm_smem_bytes(bs=128, storage="float32") == \
+        4 * 1024
+    assert tuning.scores_fm_smem_bytes(bs=128, storage="bfloat16") == \
+        4 * 2048
+    assert tuning.scores_fm_smem_bytes(bs=30, storage="float32") == \
+        4 * 34 * 30
+    assert tuning.scores_fm_smem_bytes(bs=4096, storage="float32") == \
+        4 * 4096
+
+
 # (smax, dim, G, d, storage) -> the plan before select_blocks became a
 # cluster kernel and the narrow storages their own attention body, which
 # it must keep

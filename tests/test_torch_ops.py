@@ -109,7 +109,7 @@ def test_block_max_scores_matches_pallas(dtype):
 
 @pytest.mark.parametrize("bh,s,dim,bs,d", [
     (4, 256, 64, 64, 16), (2, 512, 128, 128, 32), (8, 256, 128, 64, 64),
-    (1, 384, 64, 128, 8),
+    (1, 384, 64, 128, 8), (2, 390, 64, 30, 8),
 ])
 def test_block_max_scores_fm_matches_ref_and_token_major(bh, s, dim, bs, d):
     q, k, _, _ = _decode_inputs(bh, s, dim, seed=bh * s, cur=[0])
