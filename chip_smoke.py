@@ -27,6 +27,10 @@ Phases, each of which fails the run on any error:
              cluster forms, the pairs against the fused kernels bit for
              bit, their shared memory against tuning's, then untimed at
              qwen2.5-3b G=8 (int8:pca:r=32) and a 1000-token window (fp8);
+             the five kernels at the batch widths of packed decode (B 1
+             and 2 at Hkv 32: clusters of 8, 16 and 8 full-decode splits)
+             at fp32 and int8:pca:r=32, paged, checked the same way, their
+             cluster plans resident;
              the per-head pipeline's three (block_max_scores,
              block_max_scores_fm, block_sparse_attention) at llama2-7b's
              decode step flattened per head (bf16 q over fp32 K/V, fp32,
@@ -67,7 +71,8 @@ Phases, each of which fails the run on any error:
              its recency window; the step's logits held against the plain
              per-head path; then a torch.profiler breakdown of one decode
              step and greedy agreement of a whole run with the plain path;
-  5. paged   the main path: the paged engine serves the same four prompts
+  5. paged   the main path: the paged engine at its defaults (prefix
+             cache on, gather-packed decode) serves the same four prompts
              at full width (fp32 pool, 128-token pages, 512-token prefill
              chunks) once each with loki_block (in a pool too small for
              all four, so it must preempt), full and exact_topk, counted
@@ -75,13 +80,23 @@ Phases, each of which fails the run on any error:
              policies and at fp8 and bf16 under loki_block, each a path
              of its own (paged_int8pca_loki_block, ...), with the same
              prompts, pool pages, chunking and preemption; decode tick
-             time, device idle share, pool bytes and host syncs per tick
-             of each (1 per decode tick asserted under each); after each
-             run one decode step of a freshly prefilled pool at its
-             layout, kernels against the plain versions through the same
-             dispatch (asserted) and against the fp32 layout (reported),
-             and at int8:pca:r=32 each layer's fused call repeated
-             through the pair, bit for bit (paged_int8pca_step);
+             time by step rows, device idle share, pool bytes, packed and
+             masked ticks, prefix hits and host syncs per tick of each (1
+             per decode tick asserted under each, packed ticks included);
+             after each run one decode step of a freshly prefilled pool
+             at its layout, kernels against the plain versions through
+             the same dispatch (asserted) and against the fp32 layout
+             (reported), and at int8:pca:r=32 each layer's fused call
+             repeated through the pair, bit for bit (paged_int8pca_step);
+             full once more with packed decode off (paged_full_masked,
+             greedy agreement reported); then a 2100-token system prompt
+             before four 300-token suffixes, request 0 first, in a
+             40-page pool, fp32 and int8:pca:r=32 (paged_prefix_loki_block,
+             paged_int8pca_prefix_loki_block): 6300 tokens served from
+             cached pages, 3 copy-on-write tails and no preemption
+             asserted, copy_cache_page on the engine's pools bit for bit,
+             greedy agreement with the same prompts unshared (the _off
+             paths);
   6. flash   the prefill-flash path: one 3072-token prompt through
              lm.prefill at full width, each layer's causal-attention q, k,
              v through ops.flash (counted), held against plain flash
@@ -816,9 +831,11 @@ def layout_tag(dtype, rank):
     return dtype + (f":pca:r={rank}" if rank else "")
 
 
-def layout_case(case, dtype, rank, ps=128, seed=0, label="llama2-7b"):
+def layout_case(case, dtype, rank, ps=128, seed=0, label="llama2-7b",
+                idle=True):
     """A kernel case's caches stored at a page layout: a shuffled pool of
-    ``ps``-token pages (plus an idle row on the trash page, cur_len 1), K
+    ``ps``-token pages (plus, with ``idle``, a row on the trash page,
+    cur_len 1), K
     cut to its leading ``rank`` features (0: all), written by the port's
     own pool writers: int8 and fp8 through write_chunk_rows_q (codes and
     per-page scales), fp16 through write_chunk_rows. The dict holds the
@@ -852,8 +869,12 @@ def layout_case(case, dtype, rank, ps=128, seed=0, label="llama2-7b"):
                                       ps, qmax=lay.qmax)
         pools.append(pool)
         scales.append(sc)
-    q2 = torch.cat([q, q[:1]])
-    cur2 = torch.cat([cur, torch.ones(1, dtype=cur.dtype, device=DEV)])
+    if idle:
+        q = torch.cat([q, q[:1]])
+        cur = torch.cat([cur, torch.ones(1, dtype=cur.dtype, device=DEV)])
+    else:
+        table = table[:B]
+    q2, cur2 = q, cur
     _, lk, lv = GA.logical(q2, pools[0], pools[1], table, ps, scales[0],
                            scales[1])
     return dict(name=f"{label} {layout_tag(dtype, rank)}", dtype=dtype,
@@ -1027,21 +1048,15 @@ LAYOUT_CHECKS = ((3, "int8", 32), (5, "fp8", 0))
 def check_layouts(results):
     """The five kernels' storage modes (fp16; int8 and fp8 with per-page
     scales) on pools the port's own writers fill, at the main case, native
-    and at rank 32, then untimed at the LAYOUT_CHECKS cases: each against
-    its plain version on the dequantized view at tolerance(q's dtype)
-    (select_blocks: indices equal on rows without a near-tie), the cluster
-    kernels against their plain cluster form at the launcher's C, the full
-    decode against its plain splits, the pair select_blocks + grouped
-    equal to the fused kernels bit for bit (Loki and exact selections: so
-    select_blocks' block maxima are the fused kernels' bits), shared
-    memory equal to tuning's at every storage; then, at the main case,
-    each timed (CUDA events, L2 flushed, median of 20) beside its plain
-    version, its bound at the storage bytes and, for fp16 pools, the
-    library call of the same function (``library_calls`` over the fp16
-    view; int8 and fp8 modes have none)."""
-    from repro_torch.kernels import fused_decode as F
-    from repro_torch.kernels import gather_attention as GA
-
+    and at rank 32, then untimed at the LAYOUT_CHECKS cases, each through
+    ``layout_checked`` (the pairs bit for bit against the fused kernels at
+    the Loki and exact selections, so select_blocks' block maxima are the
+    fused kernels' bits; shared memory equal to tuning's at every
+    storage); then, at the main case, each timed (CUDA events, L2
+    flushed, median of 20) beside its plain version, its bound at the
+    storage bytes and, for fp16 pools, the library call of the same
+    function (``library_calls`` over the fp16 view; int8 and fp8 modes
+    have none)."""
     cases = kernel_cases()
     todo = [(cases[0], dtype, rank, True) for dtype in LAYOUT_STORAGE
             for rank in LAYOUT_RANKS]
@@ -1052,131 +1067,192 @@ def check_layouts(results):
         lc = layout_case(case, dtype, rank, seed=rank + len(dtype),
                          label=("llama2-7b" if timed else case["name"]))
         tag = layout_tag(dtype, rank)
-        q, cur, lk, lv = lc["q"], lc["cur"], lc["lk"], lc["lv"]
-        plans = layout_plans(lc)
-        W, sw = lc["W"], lc["sw"]
-        sels = {}
-        for what, d, lw in (("loki", lc["d"], lc["lw"]), ("exact", W, 0)):
-            kw = dict(d=d, local_window=lw, k_blocks=lc["kb"],
-                      block_size=lc["bs"], scale=lc["scale"],
-                      sliding_window=sw)
-            ties = near_tie_rows(F.block_scores_plain(
-                q, lk, cur, d=d, block_size=lc["bs"], scale=lc["scale"],
-                local_window=lw, sliding_window=sw), lc["kb"])
-            sel_k = F.select_blocks(q, lc["k"], cur, **kw,
-                                    page_table=lc["table"],
-                                    page_size=lc["ps"], k_scale=lc["ks"])
-            sel_p = F.select_blocks_plain(q, lk, cur, **kw)
-            sync()
-            diff = (sel_k != sel_p).any(-1)
-            if (diff & ~ties).any():
-                raise AssertionError(
-                    f"{lc['name']}: select_blocks ({what}) indices "
-                    f"differ in {int((diff & ~ties).sum())} rows with no "
-                    "near-tie")
-            sels[what] = (sel_k, sel_p, ~diff)
-        (sel_k, sel_p, agree), (sel_kx, _, agree_x) = (sels["loki"],
-                                                        sels["exact"])
-        kern, plain, kw, base = layout_calls(lc, sel_k, sel_kx)
-        got = {n: f() for n, f in kern.items()}
-        sync()
-        # the pairs, bit for bit: the grouped kernel over select_blocks'
-        # list is the fused kernel
-        for fused, pair in (("fused_loki_decode",
-                             "block_sparse_attention_grouped"),
-                            ("fused_exact_topk_decode", "exact pair")):
-            if not torch.equal(got[fused], got[pair]):
-                gap = float((got[fused] - got[pair]).float().abs().max())
-                raise AssertionError(
-                    f"{lc['name']}: select_blocks + grouped differs from "
-                    f"{fused} (max |d| {gap:.3e})")
-        pg = dict(page_table=lc["table"], page_size=lc["ps"],
-                  k_scale=lc["ks"], v_scale=lc["vs"])
-        att = dict(block_size=lc["bs"], scale=lc["scale"], sliding_window=sw)
-        grouped_p = GA.block_sparse_attention_grouped(
-            q, lc["k"], lc["v"], sel_p, cur, **att, **pg)
-        runs = {
-            "fused_loki_decode": (got["fused_loki_decode"],
-                                  plain["fused_loki_decode"](), agree),
-            "fused_loki_decode (cluster)": (
-                got["fused_loki_decode"],
-                F.fused_cluster_plain(
-                    q, lc["k"], lc["v"], cur, **kw, **pg,
-                    n_cta=plans["fused_loki_decode"]["C"]), agree),
-            "fused_exact_topk_decode": (
-                got["fused_exact_topk_decode"],
-                plain["fused_exact_topk_decode"](), agree_x),
-            "fused_exact_topk_decode (cluster)": (
-                got["fused_exact_topk_decode"],
-                F.fused_cluster_plain(
-                    q, lc["k"], lc["v"], cur, **base, d=W,
-                    local_window=0, **pg,
-                    n_cta=plans["fused_exact_topk_decode"]["C"]),
-                agree_x),
-            "block_sparse_attention_grouped": (
-                grouped_p, GA.attend_blocks_plain(q, lk, lv, sel_p, cur,
-                                                  **att), None),
-            "block_sparse_attention_grouped (cluster)": (
-                grouped_p,
-                GA.grouped_cluster_plain(
-                    q, lc["k"], lc["v"], sel_p, cur, **att, **pg,
-                    n_cta=plans["block_sparse_attention_grouped"]["C"]),
-                None),
-            "paged_full_decode": (got["paged_full_decode"],
-                                  plain["paged_full_decode"](), None),
-            "paged_full_decode (splits)": (
-                got["paged_full_decode"],
-                GA.full_decode_split_plain(
-                    q, lc["k"], lc["v"], cur, **att, **pg,
-                    n_split=full_split(lc["bs"], lk.shape[1],
-                                       q.shape[0] * q.shape[1])), None),
-        }
-        atol, rtol = tolerance(q.dtype)
-        e = {}
-        for kname, (g, w, rows) in runs.items():
-            g32, w32 = g.float(), w.float()
-            if rows is not None:
-                g32, w32 = g32[rows], w32[rows]
-            if not torch.isfinite(g32).all():
-                raise AssertionError(f"{lc['name']}: {kname} non-finite")
-            torch.testing.assert_close(
-                g32, w32, atol=atol, rtol=rtol,
-                msg=lambda m: f"{lc['name']}: {kname}: {m}")
-            e[kname.split(" ")[0]] = max(
-                e.get(kname.split(" ")[0], 0.0),
-                float((g32 - w32).abs().max()) if g32.numel() else 0.0)
-        e["select_blocks"] = 0.0          # indices equal off near-ties
-        plans_all[lc["name"]] = {
-            n: {k: p.get(k) for k in ("C", "smem", "max_clusters",
-                                      "ctas_per_sm", "tokens", "stage")
-                if k in p}
-            for n, p in plans.items()}
-        full = plans["paged_full_decode"]
-        log(f"layouts: {lc['name']}: pool {lc['k'].dtype} K width {W}, "
-            f"G {q.shape[2]}, window {sw}: indices equal in "
-            f"{int(agree.sum())}/{agree.numel()} rows (d={lc['d']}) and "
-            f"{int(agree_x.sum())}/{agree_x.numel()} (d={W}); pairs == "
-            f"fused kernels bit for bit; max|err| "
-            + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
-            + f" (atol {atol}, rtol {rtol}); shared memory "
-            + ", ".join(f"{n} {p['smem']} B" for n, p in plans.items()))
-        log(f"layouts: {lc['name']}: attention body: chunks of "
-            f"{full.get('tokens')} tokens, {full.get('stage')} B a ring "
-            f"stage; resident CTAs per SM: paged_full_decode "
-            f"{full.get('ctas_per_sm')}, "
-            + ", ".join(f"{n} {p.get('ctas_per_sm')}"
-                        for n, p in plans.items()
-                        if n != "paged_full_decode"))
+        chk = layout_checked(lc)
+        plans_all[lc["name"]] = chk["plans"]
         if timed:
-            time_layout(lc, tag, kern, plain, got, sel_k, sel_kx, timing)
+            time_layout(lc, tag, chk["kern"], chk["plain"], chk["got"],
+                        chk["sel"], chk["sel_x"], timing)
             for name in KERNELS:
-                errs[f"{name}[{tag}]"] = e[name]
-        del lc, lk, lv, got, runs, grouped_p
+                errs[f"{name}[{tag}]"] = chk["errs"][name]
+        del lc, chk
         if DEV == "cuda":
             torch.cuda.empty_cache()
     results["layout_timing"] = timing
     results["layout_errs"] = errs
     results["layout_plans"] = plans_all
+
+
+#: the batch widths of gather-packed decode at 4 slots (buckets 1 and 2;
+#: 3 and 4 live slots run full width) and the layouts the paged runs
+#: reach them at: the engines' fp32 pool and int8:pca:r=32
+PACKED_WIDTHS = (1, 2)
+PACKED_LAYOUTS = (("fp32", 0), ("int8", 32))
+
+
+def check_packed_widths(results):
+    """Kernels 1-5 at the packed buckets' widths (llama2-7b: Hkv 32, D
+    128, S 4096, bs 128, d 32, k_blocks 8; bf16 queries; rows B * Hkv = 32
+    and 64 against the main case's 128), paged, at fp32 and
+    int8:pca:r=32, each through ``layout_checked`` as the layout cases
+    are, so a cluster of C CTAs that cannot be resident fails here and
+    not inside the engine. Logs C, the full decode's split count and the
+    resident clusters at each width."""
+    base = dict(Hkv=32, G=1, D=128, S=4096, bs=128, d=32, kb=8, lw=16, sw=0)
+    curs = {1: [3000], 2: [3000, 2500]}
+    out = {}
+    for B in PACKED_WIDTHS:
+        case = make_case(f"packed B={B}", B=B, **base, cur=curs[B],
+                         kv_dtype=torch.float32, q_dtype=torch.bfloat16,
+                         seed=20 + B)
+        for dtype, rank in PACKED_LAYOUTS:
+            lc = layout_case(case, dtype, rank, seed=30 + B + rank,
+                             label=f"packed B={B}", idle=False)
+            chk = layout_checked(lc)
+            n_split = full_split(lc["bs"], lc["lk"].shape[1],
+                                 B * base["Hkv"])
+            plans = chk["plans"]
+            out[lc["name"]] = dict(plans, n_split=n_split,
+                                   max_abs_err=chk["errs"])
+            log(f"packed widths: {lc['name']}: rows {B * base['Hkv']}: "
+                + ", ".join(f"{n} C {p['C']}, {p['max_clusters']} resident "
+                            "clusters" for n, p in plans.items() if "C" in p)
+                + f"; paged_full_decode {n_split} splits, "
+                f"{plans['paged_full_decode'].get('ctas_per_sm')} CTAs per "
+                "SM resident")
+            del lc, chk
+        del case
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    results["packed_widths"] = out
+
+
+def layout_checked(lc):
+    """The five kernels on one layout case (``layout_case``), each against
+    its plain version on the dequantized view at tolerance(q's dtype)
+    (select_blocks: indices equal on rows without a near-tie), the cluster
+    kernels against their plain cluster form at the launcher's C, the full
+    decode against its plain splits, the pairs select_blocks + grouped
+    equal to the fused kernels bit for bit, every launcher's plan checked
+    (``layout_plans``); logged. Returns the errors, the calls and their
+    outputs, the two selections and the plans."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+    q, cur, lk, lv = lc["q"], lc["cur"], lc["lk"], lc["lv"]
+    plans = layout_plans(lc)
+    W, sw = lc["W"], lc["sw"]
+    sels = {}
+    for what, d, lw in (("loki", lc["d"], lc["lw"]), ("exact", W, 0)):
+        kw = dict(d=d, local_window=lw, k_blocks=lc["kb"],
+                  block_size=lc["bs"], scale=lc["scale"],
+                  sliding_window=sw)
+        ties = near_tie_rows(F.block_scores_plain(
+            q, lk, cur, d=d, block_size=lc["bs"], scale=lc["scale"],
+            local_window=lw, sliding_window=sw), lc["kb"])
+        sel_k = F.select_blocks(q, lc["k"], cur, **kw,
+                                page_table=lc["table"],
+                                page_size=lc["ps"], k_scale=lc["ks"])
+        sel_p = F.select_blocks_plain(q, lk, cur, **kw)
+        sync()
+        diff = (sel_k != sel_p).any(-1)
+        if (diff & ~ties).any():
+            raise AssertionError(
+                f"{lc['name']}: select_blocks ({what}) indices "
+                f"differ in {int((diff & ~ties).sum())} rows with no "
+                "near-tie")
+        sels[what] = (sel_k, sel_p, ~diff)
+    (sel_k, sel_p, agree), (sel_kx, _, agree_x) = (sels["loki"],
+                                                    sels["exact"])
+    kern, plain, kw, base = layout_calls(lc, sel_k, sel_kx)
+    got = {n: f() for n, f in kern.items()}
+    sync()
+    # the pairs, bit for bit: the grouped kernel over select_blocks'
+    # list is the fused kernel
+    for fused, pair in (("fused_loki_decode",
+                         "block_sparse_attention_grouped"),
+                        ("fused_exact_topk_decode", "exact pair")):
+        if not torch.equal(got[fused], got[pair]):
+            gap = float((got[fused] - got[pair]).float().abs().max())
+            raise AssertionError(
+                f"{lc['name']}: select_blocks + grouped differs from "
+                f"{fused} (max |d| {gap:.3e})")
+    pg = dict(page_table=lc["table"], page_size=lc["ps"],
+              k_scale=lc["ks"], v_scale=lc["vs"])
+    att = dict(block_size=lc["bs"], scale=lc["scale"], sliding_window=sw)
+    grouped_p = GA.block_sparse_attention_grouped(
+        q, lc["k"], lc["v"], sel_p, cur, **att, **pg)
+    runs = {
+        "fused_loki_decode": (got["fused_loki_decode"],
+                              plain["fused_loki_decode"](), agree),
+        "fused_loki_decode (cluster)": (
+            got["fused_loki_decode"],
+            F.fused_cluster_plain(
+                q, lc["k"], lc["v"], cur, **kw, **pg,
+                n_cta=plans["fused_loki_decode"]["C"]), agree),
+        "fused_exact_topk_decode": (
+            got["fused_exact_topk_decode"],
+            plain["fused_exact_topk_decode"](), agree_x),
+        "fused_exact_topk_decode (cluster)": (
+            got["fused_exact_topk_decode"],
+            F.fused_cluster_plain(
+                q, lc["k"], lc["v"], cur, **base, d=W,
+                local_window=0, **pg,
+                n_cta=plans["fused_exact_topk_decode"]["C"]),
+            agree_x),
+        "block_sparse_attention_grouped": (
+            grouped_p, GA.attend_blocks_plain(q, lk, lv, sel_p, cur,
+                                              **att), None),
+        "block_sparse_attention_grouped (cluster)": (
+            grouped_p,
+            GA.grouped_cluster_plain(
+                q, lc["k"], lc["v"], sel_p, cur, **att, **pg,
+                n_cta=plans["block_sparse_attention_grouped"]["C"]),
+            None),
+        "paged_full_decode": (got["paged_full_decode"],
+                              plain["paged_full_decode"](), None),
+        "paged_full_decode (splits)": (
+            got["paged_full_decode"],
+            GA.full_decode_split_plain(
+                q, lc["k"], lc["v"], cur, **att, **pg,
+                n_split=full_split(lc["bs"], lk.shape[1],
+                                   q.shape[0] * q.shape[1])), None),
+    }
+    atol, rtol = tolerance(q.dtype)
+    e = {}
+    for kname, (g, w, rows) in runs.items():
+        g32, w32 = g.float(), w.float()
+        if rows is not None:
+            g32, w32 = g32[rows], w32[rows]
+        if not torch.isfinite(g32).all():
+            raise AssertionError(f"{lc['name']}: {kname} non-finite")
+        torch.testing.assert_close(
+            g32, w32, atol=atol, rtol=rtol,
+            msg=lambda m: f"{lc['name']}: {kname}: {m}")
+        e[kname.split(" ")[0]] = max(
+            e.get(kname.split(" ")[0], 0.0),
+            float((g32 - w32).abs().max()) if g32.numel() else 0.0)
+    e["select_blocks"] = 0.0          # indices equal off near-ties
+    full = plans["paged_full_decode"]
+    log(f"layouts: {lc['name']}: pool {lc['k'].dtype} K width {W}, "
+        f"G {q.shape[2]}, window {sw}: indices equal in "
+        f"{int(agree.sum())}/{agree.numel()} rows (d={lc['d']}) and "
+        f"{int(agree_x.sum())}/{agree_x.numel()} (d={W}); pairs == "
+        f"fused kernels bit for bit; max|err| "
+        + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
+        + f" (atol {atol}, rtol {rtol}); shared memory "
+        + ", ".join(f"{n} {p['smem']} B" for n, p in plans.items()))
+    log(f"layouts: {lc['name']}: attention body: chunks of "
+        f"{full.get('tokens')} tokens, {full.get('stage')} B a ring "
+        f"stage; resident CTAs per SM: paged_full_decode "
+        f"{full.get('ctas_per_sm')}, "
+        + ", ".join(f"{n} {p.get('ctas_per_sm')}"
+                    for n, p in plans.items()
+                    if n != "paged_full_decode"))
+    return dict(errs=e, kern=kern, plain=plain, got=got, sel=sel_k,
+                sel_x=sel_kx, plans={
+                    n: {k: p.get(k) for k in ("C", "smem", "max_clusters",
+                                              "ctas_per_sm", "tokens",
+                                              "stage") if k in p}
+                    for n, p in plans.items()})
 
 
 def time_layout(lc, tag, kern, plain, got, sel, sel_x, timing):
@@ -1954,11 +2030,18 @@ def device_busy_ms(fn, steps: int) -> float:
 
 
 #: the paged runs: (page layout, policy); "" is the default fp32 native
-#: layout, the main path's
+#: layout, the main path's. Each runs at the engine's defaults: prefix
+#: cache on (distinct prompts: hits only where a preempted request comes
+#: back to its own cached pages) and gather-packed decode
 PAGED_RUNS = (("", "loki_block"), ("", "full"), ("", "exact_topk"),
               ("int8:pca:r=32", "loki_block"), ("int8:pca:r=32", "full"),
               ("int8:pca:r=32", "exact_topk"), ("fp8", "loki_block"),
               ("bf16", "loki_block"))
+#: the shared-system-prompt runs (layout, policy): a PREFIX_LEN-token
+#: prefix (16 full pages and 52 tokens into the 17th) before four distinct
+#: SUFFIX_LEN-token suffixes, in PREFIX_POOL pages
+PREFIX_RUNS = (("", "loki_block"), ("int8:pca:r=32", "loki_block"))
+PREFIX_LEN, SUFFIX_LEN, PREFIX_POOL = 2100, 300, 40
 
 
 def paged_path(layout: str, policy: str) -> str:
@@ -1971,122 +2054,326 @@ def paged_path(layout: str, policy: str) -> str:
     return f"paged_{tag}_{policy}"
 
 
-def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
-                page_size=128, chunk=512, runs=PAGED_RUNS):
-    """The paged path: the paged engine serves the four prompts at full
-    width, once per (layout, policy) of ``runs``, counted on its own each
-    time. loki_block runs in a pool too small for all four
-    (``tight_pool``) and must preempt. A run at another layout than the
-    default is compared with the default layout's run of its policy
-    (greedy tokens, reported) and checked by ``layout_step`` (one decode
-    step, kernels against the plain path on the same pool)."""
+def packed_rows(n_live: int, n_slots: int) -> int:
+    """Rows of a decode step over ``n_live`` selected slots, as the
+    engine's ``_packed_order`` picks them: the power-of-two bucket, or
+    all ``n_slots`` (masked) when the bucket is not narrower."""
+    bucket = 1 << max(n_live - 1, 0).bit_length()
+    return bucket if bucket < n_slots else n_slots
+
+
+def drive_paged(path, eng, reqs, *, hold_first=False, max_ticks=400):
+    """Serve ``reqs`` through a paged engine as one path, counted on its
+    own. ``hold_first``: request 0 is submitted alone and the others once
+    it reaches DECODE (its prompt pages registered). Decode-only ticks are
+    timed by their step's rows (host clock around tick() and a
+    synchronise), but up to two of each width are profiled (device busy),
+    the first full-width one before anything else (a tight pool leaves
+    few); host syncs are counted in the first decode-only tick after it,
+    the first decode-only packed tick and the first prefill tick. Returns
+    the measurements, the launch counts and the engine's stats."""
     from repro_torch import kernels as K
+    from repro_torch.serving.lifecycle import Status, is_terminal
+    pending = list(reqs[1:]) if hold_first else []
+    for r in reqs[:1] if hold_first else reqs:
+        eng.submit(r)
+    n = eng.n_slots
+    tick_ms, busy, syncs = {}, {}, {}
+    # ---- the path: counts set to 0 just before, read just after
+    K.reset_launch_counts()
+    t_all = time.perf_counter()
+    while not all(is_terminal(r) for r in reqs):
+        if eng.ticks > max_ticks:
+            raise AssertionError(f"{path} did not finish in {max_ticks} "
+                                 "ticks")
+        if pending and reqs[0].status in (Status.DECODE, Status.DONE):
+            for r in pending:
+                eng.submit(r)
+            pending = []
+        chunks, steps = eng.n_prefill_chunks, eng.n_decode_steps
+        decode_only = not eng._queue and not eng._prefill_at
+        rows = packed_rows(int(eng.live.sum()), n) if eng.packed else n
+        if decode_only and rows == n and n not in busy:
+            busy[n] = [device_busy_ms(eng.tick, 1)]
+        elif decode_only and "decode" not in syncs:
+            syncs["decode"] = sync_count(eng.tick)
+        elif decode_only and rows < n and "packed" not in syncs:
+            syncs["packed"] = sync_count(eng.tick)
+        elif chunks and not decode_only and "prefill" not in syncs:
+            syncs["prefill"] = sync_count(eng.tick)
+        elif decode_only and len(busy.get(rows, ())) < 2:
+            busy.setdefault(rows, []).append(device_busy_ms(eng.tick, 1))
+        else:
+            t_tick = time.perf_counter()
+            eng.tick()
+            sync()
+            if eng.n_prefill_chunks == chunks \
+                    and eng.n_decode_steps > steps:
+                tick_ms.setdefault(rows, []).append(
+                    1e3 * (time.perf_counter() - t_tick))
+    sync()
+    wall = time.perf_counter() - t_all
+    counts = K.launch_counts()
+    # ---- end of the path
+    return dict(counts=counts, syncs=syncs, tick_ms=tick_ms, busy=busy,
+                wall=wall, stats=eng.stats())
+
+
+def paged_checked(path, reqs, run, planned, n_layers):
+    """A paged run's asserts: every request DONE, the planned kernel on
+    every layer of every decode step and no other, one host sync in a
+    decode tick, packed ticks included."""
+    bad = [r.rid for r in reqs if str(r.status) != "done"]
+    if bad:
+        raise AssertionError(f"{path}: requests not DONE: {bad}")
+    st, syncs = run["stats"], run["syncs"]
+    check_launches(path, run["counts"], planned, st["n_decode_steps"],
+                   n_layers)
+    for what in ("decode", "packed"):
+        if syncs.get(what, 1) != 1:
+            raise AssertionError(f"{path}: {syncs[what]} host syncs in a "
+                                 f"{what} tick, expected 1")
+    if "decode" not in syncs:
+        raise AssertionError(f"{path}: no decode-only tick")
+
+
+def paged_report(path, reqs, run, ref, ref_name, n_slots, **extra):
+    """One paged run's numbers (and their log lines): ticks, steps,
+    packed and masked ticks, rows saved, prefix hits and copies,
+    preemptions, whole-run and full-width decode tick times, device busy
+    and idle share, packed tick times by rows, host syncs, launches, and
+    greedy agreement with ``ref`` (reported, not asserted; None: no
+    reference). Device busy and idle share by step rows too (a width's
+    idle share against its own tick median)."""
+    st, pk = run["stats"], run["stats"]["packed"]
+    toks_out = sum(len(r.out) for r in reqs)
+    same = None if ref is None else sum(
+        a == b for r, want in zip(reqs, ref) for a, b in zip(r.out, want))
+    ms = run["tick_ms"]
+    by_rows = {r: statistics.median(v) for r, v in sorted(ms.items())}
+    busy_rows = {r: statistics.median(v)
+                 for r, v in sorted(run["busy"].items())}
+    idle_rows = {r: max(0.0, 1 - b / by_rows[r])
+                 for r, b in busy_rows.items() if r in by_rows}
+    tick = by_rows.get(n_slots, float("nan"))
+    busy = busy_rows.get(n_slots, float("nan"))
+    wall = run["wall"]
+    out = dict(
+        layout=st["layout"], ticks=st["ticks"],
+        decode_steps=st["n_decode_steps"],
+        prefill_chunks=st["n_prefill_chunks"],
+        n_packed_ticks=pk["n_packed_ticks"],
+        n_masked_ticks=pk["n_masked_ticks"],
+        packed_rows_saved=pk["n_rows_saved"],
+        prefix_hit_rate=st["prefix_hit_rate"],
+        n_prefix_hit_tokens=st["n_prefix_hit_tokens"],
+        n_cow_copies=st["n_cow_copies"], n_preempted=st["n_preempted"],
+        wall_s=wall, tok_per_s=toks_out / wall, decode_tick_ms=tick,
+        decode_tok_per_s=1e3 * n_slots / tick, device_busy_ms=busy,
+        idle_share=max(0.0, 1 - busy / tick),
+        decode_tick_ms_by_rows=by_rows, device_busy_ms_by_rows=busy_rows,
+        idle_share_by_rows=idle_rows,
+        host_syncs_per_tick=run["syncs"], launches=run["counts"],
+        greedy_equal_reference=same, greedy_reference=ref_name,
+        tokens=toks_out, **extra)
+    log(f"paged: {path} ({st['layout']}): {st['ticks']} ticks "
+        f"({st['n_decode_steps']} decode steps: {pk['n_packed_ticks']} "
+        f"packed, {pk['n_masked_ticks']} full width, "
+        f"{pk['n_rows_saved']} rows saved; {st['n_prefill_chunks']} "
+        f"prefill chunks), preempted {st['n_preempted']}, prefix hits "
+        f"{st['n_prefix_hit_tokens']} tokens (hit rate "
+        f"{st['prefix_hit_rate']:.3f}), copy-on-write "
+        f"{st['n_cow_copies']}; {toks_out} tokens in {wall:.2f} s -> "
+        f"{toks_out / wall:.1f} tok/s; full-width decode tick median "
+        f"{tick:.2f} ms -> {1e3 * n_slots / tick:.1f} tok/s at "
+        f"{n_slots} slots; decode tick median by rows "
+        + ", ".join(f"{r}: {t:.2f} ms" for r, t in by_rows.items())
+        + f"; device busy {busy:.2f} ms per full-width decode tick -> idle "
+        f"share {out['idle_share']:.3f}; busy (idle share) by rows "
+        + ", ".join(f"{r}: {b:.2f} ms ({idle_rows.get(r, float('nan')):.3f})"
+                    for r, b in busy_rows.items())
+        + f"; host syncs per tick {run['syncs']}")
+    log(f"paged: {path}: launches {run['counts']}"
+        + (f"; greedy tokens equal to {ref_name}'s in {same}/{toks_out} "
+           "(reported, not asserted)" if ref is not None else ""))
+    return out
+
+
+def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
+                page_size=128, chunk=512, runs=PAGED_RUNS,
+                prefix_runs=PREFIX_RUNS):
+    """The paged path: the paged engine at its defaults (prefix cache,
+    packed decode) serves the four prompts at full width, once per
+    (layout, policy) of ``runs``, counted on its own each time.
+    loki_block runs in a pool too small for all four (``tight_pool``) and
+    must preempt. A run at another layout than the default is compared
+    with the default layout's run of its policy (greedy tokens, reported)
+    and checked by ``layout_step`` (one decode step, kernels against the
+    plain path on the same pool). Then ``full`` once more with packed
+    decode off (``paged_full_masked``), and the shared-system-prompt runs
+    (``serve_prefix``)."""
     from repro_torch.configs.base import PageLayout
     from repro_torch.serving.engine import Request
-    from repro_torch.serving.lifecycle import is_terminal
     from repro_torch.serving.scheduler import PagedServingEngine
 
     lengths = [len(t) for t in toks]
     out, outs_fp32, ref_logits = {}, {}, {}
+
+    def run_one(path, pcfg, policy, n_pages, **kw):
+        plan, planned = planned_kernels(pcfg, smax, policy)
+        eng = PagedServingEngine(params, pcfg, n_slots=4, smax=smax,
+                                 page_size=page_size, n_pages=n_pages,
+                                 prefill_chunk=chunk, backend="auto",
+                                 device=DEV, **kw)
+        pool_bytes, page_bytes = eng.pool_bytes, eng.bytes_per_page
+        reqs = [Request(rid=i, prompt=t, max_new=MAX_NEW)
+                for i, t in enumerate(toks)]
+        run = drive_paged(path, eng, reqs)
+        del eng
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        paged_checked(path, reqs, run, planned, cfg.n_layers)
+        results.setdefault("launches", {})[path] = run["counts"]
+        return reqs, run, dict(plan=str(plan), policy=policy,
+                               n_pages=n_pages or 1 + 4 * (smax // page_size),
+                               pool_bytes=pool_bytes,
+                               bytes_per_page_layer=page_bytes)
+
     for layout, policy in runs:
         path = paged_path(layout, policy)
         pcfg = policy_cfg(cfg, policy)
         if layout:
             pcfg = pcfg.with_layout(PageLayout.parse(layout))
-        plan, planned = planned_kernels(pcfg, smax, policy)
         n_pages = (tight_pool(lengths, page_size, chunk)
                    if policy == "loki_block" else None)
-        eng = PagedServingEngine(params, pcfg, n_slots=4, smax=smax,
-                                 page_size=page_size, n_pages=n_pages,
-                                 prefill_chunk=chunk, backend="auto",
-                                 device=DEV)
-        pool_bytes, page_bytes = eng.pool_bytes, eng.bytes_per_page
-        reqs = [Request(rid=i, prompt=t, max_new=MAX_NEW)
-                for i, t in enumerate(toks)]
-        for r in reqs:
-            eng.submit(r)
-        decode_ms, busy, syncs = [], [], {}
-        # ---- the paged path: counts set to 0 just before, read just after
-        K.reset_launch_counts()
-        t_all = time.perf_counter()
-        while not all(is_terminal(r) for r in reqs):
-            if eng.ticks > 400:
-                raise AssertionError(f"{path} did not finish in 400 ticks")
-            chunks, steps = eng.n_prefill_chunks, eng.n_decode_steps
-            decode_only = not eng._queue and not eng._prefill_at
-            if decode_only and "decode" not in syncs:
-                syncs["decode"] = sync_count(eng.tick)
-            elif chunks and not decode_only and "prefill" not in syncs:
-                syncs["prefill"] = sync_count(eng.tick)
-            elif decode_only and len(decode_ms) >= 3 and len(busy) < 2:
-                busy.append(device_busy_ms(eng.tick, 1))
-            else:
-                t_tick = time.perf_counter()
-                eng.tick()
-                sync()
-                if eng.n_prefill_chunks == chunks \
-                        and eng.n_decode_steps > steps:
-                    decode_ms.append(1e3 * (time.perf_counter() - t_tick))
-        sync()
-        wall = time.perf_counter() - t_all
-        counts = K.launch_counts()
-        # ---- end of the paged path
-        st = eng.stats()
-        del eng
-        if DEV == "cuda":
-            torch.cuda.empty_cache()
-        bad = [r.rid for r in reqs if str(r.status) != "done"]
-        if bad:
-            raise AssertionError(f"{path}: requests not DONE: {bad}")
-        check_launches(path, counts, planned, st["n_decode_steps"],
-                       cfg.n_layers)
-        if syncs.get("decode") != 1:
-            raise AssertionError(f"{path}: {syncs.get('decode')} host syncs "
-                                 "in a decode tick, expected 1")
-        if policy == "loki_block" and st["n_preempted"] < 1:
+        reqs, run, info = run_one(path, pcfg, policy, n_pages)
+        if policy == "loki_block" and run["stats"]["n_preempted"] < 1:
             raise AssertionError(f"{path} in a {n_pages}-page pool did not "
                                  "preempt")
-        toks_out = sum(len(r.out) for r in reqs)
         if layout:
             ref, ref_name = outs_fp32[policy], "the fp32 native paged run"
         else:
             ref, ref_name = greedy[policy], "the dense engine"
             outs_fp32[policy] = [r.out for r in reqs]
-        same = sum(a == b for r, want in zip(reqs, ref)
-                   for a, b in zip(r.out, want))
-        tick = statistics.median(decode_ms) if decode_ms else float("nan")
-        busy_ms = statistics.median(busy) if busy else float("nan")
-        out[path] = dict(
-            layout=st["layout"], policy=policy, plan=str(plan),
-            n_pages=n_pages or 1 + 4 * (smax // page_size),
-            pool_bytes=pool_bytes, bytes_per_page_layer=page_bytes,
-            ticks=st["ticks"], decode_steps=st["n_decode_steps"],
-            prefill_chunks=st["n_prefill_chunks"],
-            n_preempted=st["n_preempted"], wall_s=wall,
-            tok_per_s=toks_out / wall, decode_tick_ms=tick,
-            decode_tok_per_s=4e3 / tick, device_busy_ms=busy_ms,
-            idle_share=max(0.0, 1 - busy_ms / tick),
-            host_syncs_per_tick=syncs, launches=counts,
-            greedy_equal_reference=same, greedy_reference=ref_name,
-            tokens=toks_out)
-        log(f"paged: {path} ({st['layout']}, {page_bytes} B/page/layer, "
-            f"pool {pool_bytes / 1e9:.3f} GB): {st['ticks']} ticks "
-            f"({st['n_decode_steps']} decode steps, "
-            f"{st['n_prefill_chunks']} prefill chunks of {chunk}), pool "
-            f"{out[path]['n_pages']} pages, preempted {st['n_preempted']}; "
-            f"{toks_out} tokens in {wall:.2f} s -> {toks_out / wall:.1f} "
-            f"tok/s; decode tick median {tick:.2f} ms -> {4e3 / tick:.1f} "
-            f"tok/s at 4 slots; device busy {busy_ms:.2f} ms per decode "
-            f"tick -> idle share {out[path]['idle_share']:.3f}; host syncs "
-            f"per tick {syncs}")
-        log(f"paged: {path}: launches {counts}; greedy tokens equal to "
-            f"{ref_name}'s in {same}/{toks_out} (reported, not asserted)")
-        results.setdefault("launches", {})[path] = counts
+        out[path] = paged_report(path, reqs, run, ref, ref_name, 4, **info)
         step = layout_step(results, params, pcfg, toks, policy, layout,
                            ref_logits, smax=smax, page_size=page_size,
                            chunk=chunk)
         out[path].update(step)
+    if "full" in outs_fp32:
+        # packed against masked under full: the split count follows the
+        # step's rows, so the card may round apart at float32 (the CPU
+        # plain path does not split); reported, not asserted
+        path = "paged_full_masked"
+        reqs, run, info = run_one(path, policy_cfg(cfg, "full"), "full",
+                                  None, packed=False)
+        splits = {rows: full_split(page_size, smax,
+                                   rows * cfg.n_kv_heads)
+                  for rows in (1, 2, 4)}
+        out[path] = paged_report(path, reqs, run, outs_fp32["full"],
+                                 "the packed paged_full run", 4,
+                                 n_split_by_rows=splits, **info)
+        log(f"paged: paged_full_decode splits by step rows {splits} "
+            f"(B x Hkv = rows x {cfg.n_kv_heads})")
     results["paged_serve"] = out
+    if prefix_runs:
+        serve_prefix(results, params, cfg, smax=smax, page_size=page_size,
+                     chunk=chunk, runs=prefix_runs)
+
+
+def prefix_prompts(vocab: int, n: int = 4):
+    """A PREFIX_LEN-token system prompt before ``n`` distinct
+    SUFFIX_LEN-token suffixes whose first tokens differ pairwise, so each
+    partial-tail match stops exactly at the prefix's end."""
+    import numpy as np
+    base = prompts(vocab, [PREFIX_LEN], seed=13)[0]
+    sfx = [np.array(t) for t in prompts(vocab, [SUFFIX_LEN] * n, seed=17)]
+    for i, t in enumerate(sfx):
+        t[0] = (97 * (i + 1)) % vocab
+    return [np.concatenate([base, t]).astype(np.int32) for t in sfx]
+
+
+def serve_prefix(results, params, cfg, *, smax, page_size, chunk,
+                 runs=PREFIX_RUNS, pool=PREFIX_POOL):
+    """The shared-system-prompt path, once per (layout, policy): request
+    0 alone, the other three once it decodes, in a ``pool``-page pool that
+    holds the run only shared. Asserts 3 x PREFIX_LEN prompt tokens served
+    from cached pages, 3 copy-on-write tails (request 0 still reads the
+    shared tail), no preemption, the planned launches and one host sync a
+    decode tick; then ``lm.copy_cache_page`` once more on the engine's
+    pools, equal to its source bit for bit (scales included). Greedy
+    tokens against the same prompts served with prefix_cache=False,
+    packed=False in the default pool first (``<path>_off``, counted on
+    its own too; reported)."""
+    from repro_torch.configs.base import PageLayout
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.scheduler import PagedServingEngine
+
+    toks = prefix_prompts(cfg.vocab)
+    n_slots = len(toks)
+    out = results.setdefault("paged_serve", {})
+    for layout, policy in runs:
+        path = paged_path(layout, "prefix_" + policy)
+        pcfg = policy_cfg(cfg, policy)
+        if layout:
+            pcfg = pcfg.with_layout(PageLayout.parse(layout))
+        plan, planned = planned_kernels(pcfg, smax, policy)
+        ref = None
+        for name, kw in ((path + "_off", dict(prefix_cache=False,
+                                              packed=False)),
+                         (path, dict(n_pages=pool))):
+            eng = PagedServingEngine(params, pcfg, n_slots=n_slots,
+                                     smax=smax, page_size=page_size,
+                                     prefill_chunk=chunk, backend="auto",
+                                     device=DEV, **kw)
+            info = dict(plan=str(plan), policy=policy,
+                        n_pages=eng.pool.n_pages, pool_bytes=eng.pool_bytes,
+                        bytes_per_page_layer=eng.bytes_per_page)
+            reqs = [Request(rid=i, prompt=t, max_new=MAX_NEW)
+                    for i, t in enumerate(toks)]
+            run = drive_paged(name, eng, reqs, hold_first=True)
+            paged_checked(name, reqs, run, planned, cfg.n_layers)
+            results.setdefault("launches", {})[name] = run["counts"]
+            if name == path:
+                want = dict(n_prefix_hit_tokens=3 * PREFIX_LEN,
+                            n_cow_copies=3, n_preempted=0)
+                got = {k: run["stats"][k] for k in want}
+                if got != want:
+                    raise AssertionError(f"{path}: {got}, expected {want}")
+                info["copy_cache_page_bit_equal"] = copy_page_checked(
+                    path, lm, pcfg, eng, page_size)
+            del eng
+            if DEV == "cuda":
+                torch.cuda.empty_cache()
+            out[name] = paged_report(
+                name, reqs, run, ref,
+                "the same prompts' unshared, masked run", n_slots, **info)
+            ref = [r.out for r in reqs]
+
+
+def copy_page_checked(path, lm, cfg, eng, page_size) -> bool:
+    """``lm.copy_cache_page`` on a finished engine's pools: a registered
+    (cached) page into a free one, every layer's K and V rows and, at a
+    quantized layout, the page's scales equal to the source's bit for
+    bit (asserted)."""
+    src = eng.pool.lru_page_ids()[0]
+    dst = eng.pool.free_page_ids()[0]
+    lm.copy_cache_page(cfg, eng.cache, src, dst, page_size)
+    sync()
+    attn = eng.cache["layers"]["attn"]
+    for name, t in attn.items():
+        if name.endswith("scale"):
+            a, b = t[:, dst], t[:, src]
+        else:
+            a = t[:, dst * page_size:(dst + 1) * page_size]
+            b = t[:, src * page_size:(src + 1) * page_size]
+        if not torch.equal(a, b):
+            raise AssertionError(f"{path}: copy_cache_page {src} -> {dst}: "
+                                 f"{name} differs from its source")
+    log(f"paged: {path}: copy_cache_page (page {src} -> {dst}, "
+        f"{sorted(attn)}) equal to its source bit for bit")
+    return True
 
 
 @contextlib.contextmanager
@@ -2660,7 +2947,8 @@ LAYOUT_PATHS = {
 }
 #: the paths whose pools hold int8 or fp8 codes (their decode kernels run
 #: those storage modes only)
-LAYOUT_RUNS = set(LAYOUT_PATHS.values())
+LAYOUT_RUNS = set(LAYOUT_PATHS.values()) | {
+    "paged_int8pca_prefix_loki_block", "paged_int8pca_prefix_loki_block_off"}
 
 
 def ptxas_summary(text):
@@ -2733,6 +3021,7 @@ def main() -> int:
     results = {}
     check_kernels(results)
     check_layouts(results)
+    check_packed_widths(results)
     check_paged(results)
     check_no_fallback()
     check_head_kernels(results)
@@ -2805,7 +3094,8 @@ def main() -> int:
                    "profile": results.get("profile"),
                    "fused_plans": results.get("fused_plans"),
                    "head_plans": results.get("head_plans"),
-                   "layout_plans": results.get("layout_plans")}, fh,
+                   "layout_plans": results.get("layout_plans"),
+                   "packed_widths": results.get("packed_widths")}, fh,
                   indent=1)
     log(card)                   # as nvidia-smi prints it: name, limit
     print(json.dumps({"kernels": kernels}))

@@ -6,6 +6,8 @@
         --policy full --page-size 16 --n-pages 33 --prefill-chunk 32
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
         --policy loki_block --layout int8:pca:r=16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --sched-policy priority --prefix-cache off --shed-after 2
 
 Builds the dense slot engine (``--engine dense``) or the paged engine
 (``--engine paged``: a page pool of ``--n-pages`` pages of
@@ -20,6 +22,12 @@ syntax, ``dtype[:basis][:r=N]``: storage fp32 | fp16 | bf16 | int8 | fp8
 (int8 and fp8 pages carry per-page float32 scales), basis native | pca,
 and a latent key rank r under pca (e.g. ``int8:pca:r=32``); empty is the
 default fp32 native layout.
+
+The paged engine's scheduler, with the reference's flags and defaults:
+``--sched-policy fifo|priority``, ``--prefill-budget`` and
+``--decode-budget`` (0: one chunk, every live slot), ``--prefix-cache
+on|off`` (on; bypassed with its reason for configs that cannot share
+pages) and ``--shed-after`` (0: never shed). Decode is gather-packed.
 
 Every knob lives in :class:`ServeConfig`; the flags are thin aliases.
 ``warm_steps > 0`` raises (the port has no training yet). ``--full``
@@ -75,9 +83,22 @@ class PagedSection:
 
 
 @dataclasses.dataclass(frozen=True)
+class SchedulerSection:
+    """The paged engine's tick policy: admission order, per-tick token
+    budgets, prefix sharing and shedding."""
+    policy: str = "fifo"           # fifo | priority
+    prefill_budget: int = 0        # prompt tok/tick (0 = one chunk)
+    decode_budget: int = 0         # live slots decoded/tick (0 = all)
+    prefix_cache: bool = True
+    shed_after: int = 0            # preemptions before SHED (0 = never)
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     engine: EngineSection = dataclasses.field(default_factory=EngineSection)
     paged: PagedSection = dataclasses.field(default_factory=PagedSection)
+    scheduler: SchedulerSection = dataclasses.field(
+        default_factory=SchedulerSection)
     admission: str = "strict"      # strict | lenient
     requests: int = 6
     max_new: int = 16
@@ -95,6 +116,11 @@ class ServeConfig:
             paged=PagedSection(page_size=a.page_size, n_pages=a.n_pages,
                                prefill_chunk=a.prefill_chunk,
                                layout=a.layout),
+            scheduler=SchedulerSection(
+                policy=a.sched_policy, prefill_budget=a.prefill_budget,
+                decode_budget=a.decode_budget,
+                prefix_cache=a.prefix_cache == "on",
+                shed_after=a.shed_after),
             admission=a.admission, requests=a.requests, max_new=a.max_new,
             warm_steps=a.warm_steps, seed=a.seed, device=a.device)
 
@@ -128,10 +154,15 @@ class ServeConfig:
                       backend=self.engine.backend, admission=self.admission,
                       device=self.device)
         if self.engine.kind == "paged":
+            sch = self.scheduler
             return PagedServingEngine(
                 params, cfg, page_size=self.paged.page_size,
                 n_pages=self.paged.n_pages,
-                prefill_chunk=self.paged.prefill_chunk, **common)
+                prefill_chunk=self.paged.prefill_chunk, policy=sch.policy,
+                prefill_budget=sch.prefill_budget or None,
+                decode_budget=sch.decode_budget or None,
+                prefix_cache=sch.prefix_cache,
+                shed_after=sch.shed_after or None, **common)
         return ServingEngine(params, cfg, **common)
 
 
@@ -180,6 +211,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "e.g. 'int8:pca:r=32'. Empty = fp32 native")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="paged engine: prompt tokens per prefill chunk")
+    ap.add_argument("--sched-policy", default="fifo",
+                    choices=["fifo", "priority"],
+                    help="paged engine's scheduling policy; priority "
+                         "admits by Request.priority and may preempt a "
+                         "lower class for a slot")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="paged engine: prompt tokens computed per tick "
+                         "(0 = one chunk per tick)")
+    ap.add_argument("--decode-budget", type=int, default=0,
+                    help="paged engine: live slots decoded per tick "
+                         "(0 = all)")
+    ap.add_argument("--prefix-cache", default="on", choices=["on", "off"],
+                    help="paged engine: share identical prompt-prefix "
+                         "pages across requests (bypassed for configs "
+                         "that cannot share pages)")
+    ap.add_argument("--shed-after", type=int, default=0,
+                    help="paged engine: preemptions a request survives "
+                         "before it is shed (terminal SHED with a "
+                         "retry-after hint); 0 = never shed")
     ap.add_argument("--admission", default="strict",
                     choices=["strict", "lenient"])
     ap.add_argument("--warm-steps", type=int, default=0)
@@ -204,6 +254,13 @@ def main(argv=None):
         print(f"layout: {lay.describe()} — {eng.bytes_per_page} B/page/layer"
               + (" (per-page f32 scales beside the table)"
                  if lay.quantized else ""))
+        share = ("on" if eng.prefix_caching else
+                 f"bypassed ({eng.prefix_cache_reason})"
+                 if sc.scheduler.prefix_cache else "off")
+        print(f"scheduler: policy={eng.policy.name} budgets="
+              f"{eng.budget.prefill_tokens}p/{eng.budget.decode_tokens}d "
+              f"tok/tick prefix-cache={share} packed={eng.packed} "
+              f"shed_after={eng.shed_after}")
     reqs = [Request(rid=i,
                     prompt=data.batch_at(4000 + i)["tokens"][0, :24 + 4 * i],
                     max_new=sc.max_new)
@@ -227,9 +284,12 @@ def main(argv=None):
     if sc.engine.kind == "paged":
         st = eng.stats()
         print(f"paged: {eng.pool.n_pages} pages of {eng.page_size}, "
-              f"preempted {st['n_preempted']}, decode steps "
-              f"{st['n_decode_steps']}, prefill chunks "
-              f"{st['n_prefill_chunks']}, host syncs {st['n_host_syncs']}")
+              f"preempted {st['n_preempted']}, shed {st['n_shed']}, "
+              f"decode steps {st['n_decode_steps']} "
+              f"({st['packed']['n_packed_ticks']} packed), prefill chunks "
+              f"{st['n_prefill_chunks']}, prefix hit rate "
+              f"{st['prefix_hit_rate']:.3f}, copy-on-write "
+              f"{st['n_cow_copies']}, host syncs {st['n_host_syncs']}")
     for r in reqs[:2]:
         print(f"  req{r.rid}: {r.out[:10]}")
     return reqs

@@ -11,6 +11,8 @@ leading L axis), and its entry points:
   prefill_chunk(params, cfg, cache, tokens, pos_start, n_valid,
                 page_table, page_size)             -> (logits, cache)
   decode_step(..., page_table=, page_size=)        -> (logits, cache)
+  decode_step(..., slot_idx=)                       packed rows
+  copy_cache_page(cfg, cache, src, dst, page_size)  -> cache (COW)
 
 Caches are updated in place where the JAX code donated them. Block
 composition: [attn, mlp]. Other families raise NotImplementedError.
@@ -174,6 +176,20 @@ def _layer_decode(p, c, x, pos_len, cfg: ModelConfig, *, page_table=None,
     return x + L.mlp_apply(p["mlp"], h, cfg)
 
 
+def _check_slot_idx(slot_idx, batch: int) -> None:
+    """``slot_idx`` of a packed step: (B,) integer slot ids, distinct and
+    non-negative (checked where that costs no host sync)."""
+    if (slot_idx.ndim != 1 or slot_idx.shape[0] != batch
+            or slot_idx.dtype.is_floating_point):
+        raise ValueError(f"slot_idx must be ({batch},) integer slot ids, "
+                         f"got {tuple(slot_idx.shape)} {slot_idx.dtype}")
+    if slot_idx.device.type == "cpu" and (
+            int(slot_idx.min()) < 0
+            or torch.unique(slot_idx).numel() != batch):
+        raise ValueError(f"slot_idx must hold distinct slot ids, got "
+                         f"{slot_idx.tolist()}")
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
                 page_table=None, page_size: int = 0, live=None,
@@ -183,15 +199,26 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
 
     With ``page_table (B, max_pages)``/``page_size`` the cache is the
     pooled layout of ``init_paged_cache`` and every layer's reads and
-    writes resolve through the table. The reference's ``live`` (StateSlot
-    families), ``slot_idx`` (packed decode), ``frame_table`` (tiered pool)
-    and rank-3 tables (page-table groups) are not ported yet (ROADMAP
-    queue 1 items 7-8) and raise."""
+    writes resolve through the table.
+
+    ``slot_idx (B,)`` integer, gather-packed decode: the batch rows are a
+    compaction of the engine's slots (distinct slot ids), and the table,
+    tokens and positions arrive packed. The dense family keeps no
+    per-slot state, so the reference's gather and scatter of per-slot
+    components is empty here: the pooled K/V is addressed through the
+    table alone. Distinctness is checked on a host tensor only (on the
+    card the check would cost a host sync).
+
+    The reference's ``live`` (StateSlot families), ``frame_table`` (tiered
+    pool) and rank-3 tables (page-table groups) are not ported yet
+    (ROADMAP queue 1 items 7-8) and raise."""
     check_family(cfg)
-    if live is not None or slot_idx is not None or frame_table is not None:
+    if live is not None or frame_table is not None:
         raise NotImplementedError(
-            "decode_step: live / slot_idx / frame_table are not ported yet "
-            "(ROADMAP queue 1 items 7-8)")
+            "decode_step: live / frame_table are not ported yet (ROADMAP "
+            "queue 1 items 7-8)")
+    if slot_idx is not None:
+        _check_slot_idx(slot_idx, token.shape[0])
     if page_table is not None and page_table.ndim != 2:
         raise NotImplementedError("page-table groups (rank-3 tables) are "
                                   "not ported yet (ROADMAP queue 1 item 7)")
@@ -286,3 +313,22 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, pos_start: int,
     x = L.norm_apply(params["final_norm"], x[:, n_valid - 1:n_valid])
     logits = L.unembed_apply(params["embed"], x, cfg)[:, 0]
     return logits, cache
+
+
+@torch.no_grad()
+def copy_cache_page(cfg: ModelConfig, cache, src_page: int, dst_page: int,
+                    page_size: int):
+    """Copy-on-write over a paged cache, in place: physical page ``src``'s
+    rows into ``dst`` in every layer's K and V pool, and the page's scales
+    when the layout is quantized (the codes dequantize as the donor's only
+    at the donor's scale). The scheduler calls it before a request that
+    shares a cached tail page writes into it; the page ids are host ints.
+    The reference's tiered frames are not ported (ROADMAP queue 1 item
+    7). Returns the cache."""
+    attn = cache["layers"]["attn"]
+    for name in ("k", "v"):
+        PC.copy_page_rows(attn[name], src_page, dst_page, page_size)
+    if cfg.page_layout.quantized:
+        for name in ("k_scale", "v_scale"):
+            PC.copy_page_scale(attn[name], src_page, dst_page)
+    return cache

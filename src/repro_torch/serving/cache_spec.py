@@ -33,7 +33,7 @@ UNPAGEABLE_POLICIES = ("h2o", "pcaattn")
 class PagedAttn:
     """Growable page-table K/V in the shared pool. ``shareable``: a full
     page's K/V depends only on the token prefix, so identical prompt
-    prefixes may share pages (prefix caching, not ported yet)."""
+    prefixes may share pages (prefix caching)."""
     n_kv_heads: int
     head_dim: int
     layout: PageLayout = dataclasses.field(default_factory=PageLayout)
@@ -96,6 +96,20 @@ def pageable(cfg: ModelConfig) -> Tuple[bool, str]:
         return False, (f"policy {cfg.attn_policy()!r} cannot rebuild exact "
                        "prefix attention from its cache; use the dense "
                        "engine")
+    return True, ""
+
+
+def prefix_shareable(cfg: ModelConfig) -> Tuple[bool, str]:
+    """Can prompt-prefix pages be shared across this config's requests?
+    (ok, reason). The engine bypasses prefix caching with the reason
+    instead of raising."""
+    if not has_paged_attn(cfg):
+        return False, "no paged-attention layers to share"
+    for s in layer_specs(cfg):
+        for name, comp in s.components:
+            if not comp.shareable:
+                return False, (f"{type(comp).__name__} ({name}) pins pages "
+                               "to one request")
     return True, ""
 
 

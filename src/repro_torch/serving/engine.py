@@ -38,6 +38,12 @@ class Request:
     deadline: Optional[Deadline] = None
     # times this request lost its slot to preemption (paged engine)
     n_preempts: int = 0
+    # scheduling class for the paged engine's priority policy: higher is
+    # admitted first and may preempt a strictly lower class for a slot
+    priority: int = 0
+    # set when the request is SHED: ticks after which resubmitting stops
+    # being hopeless (the paged engine's backlog at its decode budget)
+    retry_after: float = 0.0
 
 
 def context_cap(smax: int, gen_tokens: int) -> int:

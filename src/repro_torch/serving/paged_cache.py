@@ -21,17 +21,25 @@ reference does.
 
 Two layers, as in the reference: torch helpers over the pools (writes are
 in place, where the JAX code returns an updated array), and the host-side
-refcounted ``PagePool`` the scheduler drives. The reference's prefix
-index, LRU, tiers and ``FetchQueue`` are not ported yet (ROADMAP queue 1
-item 7).
+refcounted ``PagePool`` the scheduler drives, with its prefix-cache index
+over full prompt pages and the LRU of cached pages. The reference's
+tiers, ``FetchQueue`` and private (retained) entries are not ported yet
+(ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import collections
+import dataclasses
+import hashlib
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 TRASH_PAGE = 0
+
+#: chain-hash parent of a prompt's first page
+ROOT_KEY = b""
 
 #: PageLayout.dtype -> torch storage dtype of the physical pool
 STORAGE_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
@@ -232,17 +240,63 @@ def write_chunk_rows(pool, new, table_row, pos_start: int, page_size: int,
     return pool
 
 
+def copy_page_rows(pool, src_page: int, dst_page: int, page_size: int):
+    """Copy-on-write, in place: duplicate one physical page's rows inside
+    a pool (R, Hkv, W), or in every layer of a stacked pool (L, R, Hkv,
+    W). A request sharing a cached tail page copies it to a page of its
+    own before its first write, so the original stays intact for its
+    other readers and the index. Returns the pool."""
+    s, d = src_page * page_size, dst_page * page_size
+    pool[..., d:d + page_size, :, :] = pool[..., s:s + page_size, :, :]
+    return pool
+
+
+def copy_page_scale(scales, src_page: int, dst_page: int):
+    """COW of a quantized page's scale, in place ((n_pages,) or stacked
+    (L, n_pages)): the codes are copied verbatim, so the copy dequantizes
+    as its donor only if the scale rides along. Returns the scales."""
+    scales[..., dst_page] = scales[..., src_page]
+    return scales
+
+
 # ------------------------------------------------------------ allocator
 
+def page_key(parent: bytes, tokens) -> bytes:
+    """Chain hash of a full page of prompt tokens in its context:
+    ``parent`` is the preceding pages' key (ROOT_KEY for page 0), so equal
+    keys mean equal token prefixes end to end and position-dependent K/V
+    (rotary, the PCA storage basis) can be shared."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(parent)
+    h.update(np.ascontiguousarray(tokens, np.int32).tobytes())
+    return h.digest()
+
+
+@dataclasses.dataclass
+class CacheEntry:
+    """One registered (immutable, full) prompt page."""
+    page: int
+    key: bytes                 # chain hash including this page's tokens
+    parent: bytes              # chain hash of the preceding pages
+    tokens: np.ndarray         # this page's page_size token ids
+
+
 class PagePool:
-    """Host-side refcounted allocator over ``n_pages`` physical pages.
+    """Host-side refcounted allocator over ``n_pages`` physical pages,
+    with a prefix-cache index over full prompt pages.
 
     Page 0 is reserved (the trash page), so ``n_pages - 1`` pages are
-    usable. A page is free, or held with a refcount >= 1: ``alloc`` hands
-    out free pages at refcount 1, ``acquire`` adds a reference to a held
-    page, ``release`` drops one and returns the page to the free list at
-    zero. The reference's prefix index and LRU of cached pages are not
-    ported (ROADMAP queue 1 item 7), so a released page is free at once.
+    usable. A usable page's life:
+
+      free -> alloc() -> held (ref 1) -> acquire()/release() ref +-1
+        release to ref 0:  unregistered -> free
+                           registered   -> cached (LRU, evictable)
+      cached -> match_prefix() hit -> held again
+      cached -> eviction (alloc finds the free list short) -> free
+
+    ``free_pages`` counts the free list, ``cached_pages`` the registered
+    pages no request holds, ``available_pages`` both: what ``alloc`` can
+    produce. ``used_pages`` counts pages some request holds.
     """
 
     def __init__(self, n_pages: int, page_size: int):
@@ -252,6 +306,17 @@ class PagePool:
         self.page_size = page_size
         self._free: List[int] = list(range(1, n_pages))
         self._ref: Dict[int, int] = {}
+        # the prefix index over full prompt pages, three views of it
+        self._index: Dict[bytes, CacheEntry] = {}
+        self._children: Dict[bytes, List[CacheEntry]] = {}
+        self._by_page: Dict[int, CacheEntry] = {}
+        # registered pages at refcount 0, least recently released first
+        self._lru: "collections.OrderedDict[int, None]" = \
+            collections.OrderedDict()
+        self.n_lookups = 0
+        self.n_hits = 0
+        self.n_hit_tokens = 0
+        self.n_evicted = 0
 
     # ------------------------------------------------------- accounting
 
@@ -260,20 +325,39 @@ class PagePool:
         return len(self._free)
 
     @property
+    def cached_pages(self) -> int:
+        """Registered pages no request holds: prefix hits to be, and
+        reclaimable by ``alloc`` without preempting anyone."""
+        return len(self._lru)
+
+    @property
     def available_pages(self) -> int:
-        """What ``alloc`` can produce (free pages; no cached ones here)."""
-        return len(self._free)
+        """What ``alloc`` can produce: free plus cached pages."""
+        return len(self._free) + len(self._lru)
 
     @property
     def used_pages(self) -> int:
         """Pages some request holds a reference to."""
-        return (self.n_pages - 1) - len(self._free)
+        return (self.n_pages - 1) - len(self._free) - len(self._lru)
 
     def refcount(self, page: int) -> int:
         return self._ref.get(page, 0)
 
+    def is_registered(self, page: int) -> bool:
+        return page in self._by_page
+
+    def is_private(self, page: int) -> bool:
+        """Is this page a private (retained) entry? Never here: the
+        reference's ``register_private`` belongs to hybrid retention,
+        not ported (ROADMAP queue 1 item 7)."""
+        e = self._by_page.get(page)
+        return e is not None and e.key.startswith(b"priv:")
+
     def free_page_ids(self) -> List[int]:
         return list(self._free)
+
+    def lru_page_ids(self) -> List[int]:
+        return list(self._lru)
 
     def holders(self) -> Dict[int, int]:
         """page -> refcount for every held page (a copy)."""
@@ -282,33 +366,44 @@ class PagePool:
     # ------------------------------------------------------- alloc/free
 
     def alloc(self, n: int) -> Optional[List[int]]:
-        """n free pages at refcount 1, in free-list order, or None (and no
-        allocation) when fewer are free. ``alloc(0)`` returns ``[]``."""
+        """n pages at refcount 1, in free-list order, evicting cached
+        pages (least recently released first) when the free list is
+        short; None (and no allocation, no eviction) when fewer are
+        available. ``alloc(0)`` returns ``[]``."""
         if n == 0:
             return []
-        if n > len(self._free):
+        if n > self.available_pages:
             return None
+        while len(self._free) < n:
+            self._evict_one()
         taken, self._free = self._free[:n], self._free[n:]
         for p in taken:
             self._ref[p] = 1
         return taken
 
     def acquire(self, pages: List[int]) -> List[int]:
-        """One more reference on each of ``pages``, all held already.
-        Raises on the trash page or a page nobody holds."""
+        """One more reference on each of ``pages``, held or cached. Raises
+        on the trash page or a page nobody holds and the index does not
+        know."""
         for p in pages:
             if p == TRASH_PAGE:
                 raise ValueError("acquire of the reserved trash page")
-            if self._ref.get(p, 0) == 0:
+            if self._ref.get(p, 0) == 0 and p not in self._by_page:
                 raise ValueError(f"acquire of unheld page {p}")
         for p in pages:
-            self._ref[p] += 1
+            self._acquire_one(p)
         return pages
 
+    def _acquire_one(self, page: int) -> None:
+        self._ref[page] = self._ref.get(page, 0) + 1
+        self._lru.pop(page, None)
+
     def release(self, pages: List[int]) -> None:
-        """Drop one reference per listed page; a page at zero goes back to
-        the end of the free list. Raises, before changing anything, on the
-        trash page or a refcount underflow (a double free)."""
+        """Drop one reference per listed page. At zero a page goes back to
+        the end of the free list, or, when registered, to the MRU end of
+        the LRU (still a hit, evicted on demand). Raises, before changing
+        anything, on the trash page or a refcount underflow (a double
+        free)."""
         seen: Dict[int, int] = {}
         for p in pages:
             if p == TRASH_PAGE:
@@ -321,7 +416,103 @@ class PagePool:
             self._ref[p] -= 1
             if self._ref[p] == 0:
                 del self._ref[p]
-                self._free.append(p)
+                if p in self._by_page:
+                    self._lru[p] = None
+                else:
+                    self._free.append(p)
+
+    def _evict_one(self) -> None:
+        """Reclaim the least recently released cached page: drop its index
+        entry and hand the page to the free list."""
+        page, _ = self._lru.popitem(last=False)
+        self._drop_entry(self._by_page[page])
+        self._free.append(page)
+        self.n_evicted += 1
+
+    # ------------------------------------------------------ prefix cache
+
+    def register(self, page: int, parent: bytes, tokens) -> bytes:
+        """Publish a held, fully written prompt page under its chain hash
+        and return the key (the next page's ``parent``). A key already
+        indexed keeps its page (first writer wins); the caller's copy
+        stays private. Registered pages are immutable: the engine never
+        writes a row of one again (copy-on-write first)."""
+        toks = np.ascontiguousarray(tokens, np.int32)
+        if toks.shape[0] != self.page_size:
+            raise ValueError("register() needs exactly one full page of "
+                             f"tokens ({self.page_size}), got {toks.shape}")
+        key = page_key(parent, toks)
+        if key in self._index or page in self._by_page:
+            return key
+        if self._ref.get(page, 0) <= 0:
+            raise ValueError(f"register of unheld page {page}")
+        e = CacheEntry(page, key, parent, toks)
+        self._index[key] = e
+        self._children.setdefault(parent, []).append(e)
+        self._by_page[page] = e
+        return key
+
+    def match_prefix(self, tokens, max_tokens: int
+                     ) -> Tuple[List[int], int, bool, bytes]:
+        """The longest cached prefix of ``tokens[:max_tokens]``, acquired.
+
+        Walks the chain hash over full pages, then tries a partial tail:
+        the registered child of the last full hit whose first rows match
+        the most remaining tokens (a shared system prompt that ends inside
+        a page). Returns (pages, tokens matched, whether the last page is
+        a partial tail, the chain hash after the full matches: the parent
+        the caller registers its own next page under)."""
+        ps = self.page_size
+        toks = np.ascontiguousarray(tokens, np.int32)
+        pages: List[int] = []
+        n, parent = 0, ROOT_KEY
+        while n + ps <= max_tokens:
+            key = page_key(parent, toks[n:n + ps])
+            e = self._index.get(key)
+            if e is None:
+                break
+            self._acquire_one(e.page)
+            pages.append(e.page)
+            parent = key
+            n += ps
+        tail = False
+        rem = min(max_tokens - n, ps)
+        if rem > 0:
+            best, best_j = None, 0
+            for e in self._children.get(parent, ()):
+                j = int((e.tokens[:rem] == toks[n:n + rem]).cumprod().sum())
+                if j > best_j:
+                    best, best_j = e, j
+            if best is not None:
+                self._acquire_one(best.page)
+                pages.append(best.page)
+                n += best_j
+                tail = True
+        self.n_lookups += 1
+        if pages:
+            self.n_hits += 1
+        self.n_hit_tokens += n
+        return pages, n, tail, parent
+
+    def deregister(self, page: int) -> None:
+        """Drop a held page's index entry (no-op when unregistered): the
+        sole reader of a shared tail takes it over in place, since it is
+        about to overwrite rows of it."""
+        e = self._by_page.get(page)
+        if e is None:
+            return
+        if self._ref.get(page, 0) <= 0:
+            raise ValueError(f"deregister of unheld page {page}")
+        self._drop_entry(e)
+
+    def _drop_entry(self, e: CacheEntry) -> None:
+        """Remove an entry from the three views of the index."""
+        del self._by_page[e.page]
+        del self._index[e.key]
+        sibs = self._children[e.parent]
+        sibs.remove(e)
+        if not sibs:
+            del self._children[e.parent]
 
     @staticmethod
     def pages_for(n_tokens: int, page_size: int) -> int:

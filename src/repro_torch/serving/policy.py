@@ -1,5 +1,5 @@
 """Scheduling policy of the paged serving engine (counterpart of
-``repro.serving.policy``; FIFO only so far).
+``repro.serving.policy``): FIFO and priority classes.
 
 A policy is two total orders plus one capability flag:
 
@@ -15,8 +15,7 @@ A policy is two total orders plus one capability flag:
                               for its slot? (False for FIFO.)
 
 ``TickBudget`` holds the per-tick token caps: prompt tokens prefilled and
-live slots decoded. The reference's priority classes are not ported yet
-(ROADMAP queue 1 item 7).
+live slots decoded.
 """
 from __future__ import annotations
 
@@ -55,19 +54,32 @@ class FifoPolicy(SchedulerPolicy):
     pass
 
 
-POLICIES = {"fifo": FifoPolicy}
+class PriorityPolicy(SchedulerPolicy):
+    """Priority classes: a higher ``Request.priority`` is served first,
+    arrival order breaks ties inside a class (equal priorities are FIFO).
+    A waiter of a strictly higher class may preempt the least urgent
+    running request for its slot."""
+
+    name = "priority"
+    preempt_for_admission = True
+
+    def sort_key(self, req, arrival: int):
+        return (-req.priority, arrival)
+
+    def decode_key(self, req, arrival: int, last_tick: int):
+        return (-req.priority, last_tick, arrival)
+
+
+POLICIES = {"fifo": FifoPolicy, "priority": PriorityPolicy}
 
 
 def make_policy(policy) -> SchedulerPolicy:
-    """'fifo' | a SchedulerPolicy instance."""
+    """'fifo' | 'priority' | a SchedulerPolicy instance."""
     if isinstance(policy, SchedulerPolicy):
         return policy
-    if policy == "priority":
-        raise NotImplementedError("the priority policy is not ported yet "
-                                  "(ROADMAP queue 1 item 7)")
     try:
         return POLICIES[policy]()
     except KeyError:
         raise ValueError(
             f"unknown scheduler policy {policy!r}; have "
-            f"{list(POLICIES) + ['priority']}") from None
+            f"{list(POLICIES)}") from None

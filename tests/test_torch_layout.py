@@ -409,7 +409,8 @@ def test_paged_layout_logits_match_jax(layout, policy):
 def test_paged_engine_serves_a_quantized_latent_layout():
     """The paged engine at int8:pca:r=16 under loki_block: four requests
     through a pool too small for all at once finish, one host sync per
-    decode step, the pool freed and its stats naming the layout."""
+    decode step, every page reference returned and its stats naming the
+    layout."""
     _, cfg, _, tparams = _model("loki_block", "int8:pca:r=16")
     eng = PagedServingEngine(tparams, cfg, n_slots=2, smax=32, page_size=8,
                              prefill_chunk=8, n_pages=7, device="cpu")
@@ -426,5 +427,9 @@ def test_paged_engine_serves_a_quantized_latent_layout():
     assert st["n_host_syncs"] == st["n_decode_steps"] > 0
     assert st["layout"] == "int8:pca:r=16"
     assert st["bytes_per_page"] == 8 * cfg.n_kv_heads * (16 + 32)
-    assert eng.pool.free_pages == eng.pool.n_pages - 1
+    # every reference returned: registered prompt pages park in the
+    # prefix cache's LRU, the rest are free
+    assert eng.pool.used_pages == 0
+    assert eng.pool.free_pages + eng.pool.cached_pages == \
+        eng.pool.n_pages - 1
     assert not eng.page_table.any()

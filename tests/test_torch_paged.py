@@ -219,7 +219,7 @@ def test_paged_entry_points_refuse_what_is_not_ported():
         1, dtype=torch.int32)
     table = torch.zeros((1, 3), dtype=torch.int32)
     for kw in (dict(live=torch.ones(1, dtype=torch.bool)),
-               dict(slot_idx=tok), dict(frame_table=table)):
+               dict(frame_table=table)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.decode_step(params, cfg, cache, tok, pos, page_table=table,
                            page_size=8, **kw)
@@ -313,12 +313,12 @@ def test_paged_preemption_reproduces_greedy_outputs():
 
 def test_engine_refuses_unported_features_and_small_pools():
     params, cfg = _engine_model()
-    for kw in (dict(prefix_cache=True), dict(packed=True),
-               dict(device_pages=4), dict(shed_after=2), dict(audit=True)):
+    for kw in (dict(device_pages=4), dict(audit=True),
+               dict(faults=object()), dict(trace_guard=object())):
         with pytest.raises(NotImplementedError, match="item 7"):
             PagedServingEngine(params, cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="priority"):
-        PagedServingEngine(params, cfg, policy="priority", device="cpu")
+    with pytest.raises(ValueError, match="unknown scheduler policy"):
+        PagedServingEngine(params, cfg, policy="lifo", device="cpu")
     with pytest.raises(ValueError, match="cannot hold one full request"):
         PagedServingEngine(params, cfg, smax=64, page_size=8, n_pages=4,
                            device="cpu")
@@ -348,10 +348,23 @@ def test_engine_cancel_and_strict_admission():
     assert eng.pool.free_pages == eng.pool.n_pages - 1
 
 
-def test_serve_runs_the_paged_engine_on_cpu():
+def test_serve_runs_the_paged_engine_on_cpu(capsys):
     reqs = serve.main(["--engine", "paged", "--arch", "llama2-7b",
                        "--policy", "exact_topk", "--requests", "3",
                        "--max-new", "3", "--smax", "128", "--page-size",
                        "16", "--n-pages", "9", "--prefill-chunk", "16",
                        "--device", "cpu"])
     assert all(r.done and len(r.out) == 3 for r in reqs)
+    assert "prefix-cache=on" in capsys.readouterr().out
+    # the scheduler's flags, the reference's names
+    reqs = serve.main(["--engine", "paged", "--arch", "llama2-7b",
+                       "--policy", "full", "--requests", "3",
+                       "--max-new", "3", "--smax", "128", "--page-size",
+                       "16", "--n-pages", "9", "--prefill-chunk", "16",
+                       "--sched-policy", "priority", "--prefix-cache", "off",
+                       "--shed-after", "2", "--prefill-budget", "32",
+                       "--decode-budget", "2", "--device", "cpu"])
+    assert all(r.done and len(r.out) == 3 for r in reqs)
+    out = capsys.readouterr().out
+    assert "policy=priority" in out and "prefix-cache=off" in out
+    assert "budgets=32p/2d" in out and "shed_after=2" in out
