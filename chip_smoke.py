@@ -27,6 +27,12 @@ Phases, each of which fails the run on any error:
              cluster forms, the pairs against the fused kernels bit for
              bit, their shared memory against tuning's, then untimed at
              qwen2.5-3b G=8 (int8:pca:r=32) and a 1000-token window (fp8);
+             the tiered pair on the main case (select_blocks over a
+             sidecar of the pool's leading d columns == over the pool,
+             the grouped kernel through a frame table over a permuted
+             frame pool == through the page table, the pair == the fused
+             kernel, an unselected page on the trash frame changes
+             nothing; bit for bit);
              the five kernels at the batch widths of packed decode (B 1
              and 2 at Hkv 32: clusters of 8, 16 and 8 full-decode splits)
              at fp32 and int8:pca:r=32, paged, checked the same way, their
@@ -97,6 +103,24 @@ Phases, each of which fails the run on any error:
              asserted, copy_cache_page on the engine's pools bit for bit,
              greedy agreement with the same prompts unshared (the _off
              paths);
+  5b. tiered the tiered KV pool: a CUDA engine with kernel_fail in its
+             fault plan refuses to build; loki_block unpacked in a pool of
+             every slot at its page bound (paged_loki_block_masked, the
+             fused kernel), then the same prompts at 33 device frames
+             (paged_tiered_min, the least a request allows), at 65
+             (paged_tiered_half) and at 33 under the seeded fault plan
+             seed=7,dma_timeout=0.2,hbm_oom_on_promote=0.1
+             (paged_tiered_chaos), each with the auditor on every tick:
+             64/64 tokens equal to the single tier's, the chaos run's DONE
+             outputs equal to paged_tiered_min's with both sites fired,
+             demotions and promotions and no preemption, select_blocks and
+             block_sparse_attention_grouped on every layer of every decode
+             run and fused_loki_decode never, host syncs as the engine
+             counts them (decode runs and demotions); per decode step
+             runs, re-runs, deferrals, promotions, demotions and bytes each
+             way, the copies' rate on profiled ticks, prefetch hits, winner
+             against live pages a slot, device bytes against the single
+             tier's and the peak of pinned host buffers;
   6. flash   the prefill-flash path: one 3072-token prompt through
              lm.prefill at full width, each layer's causal-attention q, k,
              v through ops.flash (counted), held against plain flash
@@ -565,6 +589,86 @@ def check_paged(results):
         if "paged" not in results:
             results["paged"] = (q, cur, table, pk, pv, sel)
         del pk, pv, lk, lv
+
+
+def check_tiered_kernels(results, ps=128):
+    """The tiered pool's kernel pair on the main case (B 4 and an idle
+    row, 128-token pages), each asserted:
+      - select_blocks over a sidecar (the pool's leading d columns, a pool
+        of its own) with the scale D**-0.5 gives the indices it gives over
+        the pool itself;
+      - block_sparse_attention_grouped through a frame table over a
+        permuted frame pool equals the same call through the logical
+        table, bit for bit;
+      - the pair via the sidecar and the frames equals fused_loki_decode
+        over the single-tier pool, bit for bit;
+      - a HOST page no block selects (its entry sent to the trash frame,
+        whose rows are garbage) leaves the output unchanged, bit for bit.
+    Logs the winners' share of each slot's live pages on this data."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+    case = kernel_cases()[0]
+    q, cur, table, pk, pv, _, _ = paged_copy(case, ps, seed=ps)
+    kw, d = kernel_kw(case), case["d"]
+    pg = dict(page_table=table, page_size=ps)
+    lat = pk[..., :d].contiguous()
+    sel = F.select_blocks(q, pk, cur, **kw, **pg)
+    sel_lat = F.select_blocks(q[..., :d].contiguous(), lat, cur, **kw, **pg)
+    sync()
+    if not torch.equal(sel, sel_lat):
+        raise AssertionError("tiered: select_blocks over the sidecar "
+                             "differs from over the pool")
+    # frames: the pages permuted into a frame pool (frame 0 stays trash)
+    n_pages = pk.shape[0] // ps
+    gen = torch.Generator().manual_seed(5)
+    frame_of = torch.cat([torch.zeros(1, dtype=torch.long),
+                          torch.randperm(n_pages - 1, generator=gen) + 1])
+    frame_of = frame_of.to(DEV)
+    rows = (frame_of[:, None] * ps + torch.arange(ps, device=DEV)).reshape(-1)
+    fk, fv = torch.empty_like(pk), torch.empty_like(pv)
+    fk[rows], fv[rows] = pk, pv
+    ftable = frame_of[table.long()].to(torch.int32)
+    att = dict(block_size=case["bs"], scale=kw["scale"],
+               sliding_window=case["sw"], page_size=ps)
+    by_frames = GA.block_sparse_attention_grouped(q, fk, fv, sel_lat, cur,
+                                                  page_table=ftable, **att)
+    by_pages = GA.block_sparse_attention_grouped(q, pk, pv, sel_lat, cur,
+                                                 page_table=table, **att)
+    fused = F.fused_loki_decode(q, pk, pv, cur, **kw, **pg)
+    sync()
+    for what, a, b in (("through the frame table", by_frames, by_pages),
+                       ("the pair via sidecar and frames", by_frames, fused)):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"tiered: {what} differs (max |d| "
+                f"{float((a.float() - b.float()).abs().max()):.3e})")
+    # a page of slot 0 that no head's selection names: live if one exists
+    mp = table.shape[1]
+    chosen = set(sel[0].reshape(-1).tolist()) - {-1}
+    live = -(-int(cur[0]) // ps)
+    free = [j for j in range(mp) if j not in chosen]
+    j = next((j for j in free if j < live), free[0])
+    host = ftable.clone()
+    host[0, j] = 0                 # frame 0 holds the trash page's garbage
+    hidden = GA.block_sparse_attention_grouped(q, fk, fv, sel_lat, cur,
+                                               page_table=host, **att)
+    sync()
+    if not torch.equal(hidden, by_frames):
+        raise AssertionError(f"tiered: unselected HOST page {j} changed "
+                             "the output")
+    share = [len(set(sel[b].reshape(-1).tolist()) - {-1})
+             / -(-int(cur[b]) // ps) for b in range(len(cur) - 1)]
+    log(f"kernels: tiered pair at B {len(cur) - 1} (+ idle row), page {ps}:"
+        " select_blocks over the sidecar (W = d = "
+        f"{d}) == over the pool; grouped through a frame table over a "
+        "permuted frame pool == through the page table; the pair via "
+        "sidecar and frames == fused_loki_decode, bit for bit; an "
+        f"unselected {'live' if j < live else 'dead'} page {j} of slot 0 on "
+        "the trash frame leaves the output unchanged. Winners' share of "
+        "each slot's live pages (union over 32 heads x 8 blocks): "
+        + ", ".join(f"{x:.3f}" for x in share))
+    results["tiered_kernels"] = dict(winner_share=share, host_page=j,
+                                     host_page_live=j < live)
 
 
 def check_no_fallback():
@@ -2010,9 +2114,11 @@ def sync_count(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_busy_ms(fn, steps: int) -> float:
+def device_busy_ms(fn, steps: int, copies=None) -> float:
     """Device time per call of ``fn`` over ``steps`` calls, by
-    torch.profiler (kernels and copies only)."""
+    torch.profiler (kernels and copies only). ``copies``: a dict that
+    receives the ms per call of host-to-device and device-to-host copies
+    ("h2d", "d2h"), part of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2024,9 +2130,13 @@ def device_busy_ms(fn, steps: int) -> float:
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    return sum(dev_us(e) for e in prof.key_averages()
-               if dev_us(e) > 0 and e.device_type != DeviceType.CPU) \
-        / steps / 1e3
+    events = [e for e in prof.key_averages()
+              if dev_us(e) > 0 and e.device_type != DeviceType.CPU]
+    if copies is not None:
+        for key, tag in (("h2d", "Memcpy HtoD"), ("d2h", "Memcpy DtoH")):
+            copies[key] = sum(dev_us(e) for e in events
+                              if tag in e.key) / steps / 1e3
+    return sum(dev_us(e) for e in events) / steps / 1e3
 
 
 #: the paged runs: (page layout, policy); "" is the default fp32 native
@@ -2067,18 +2177,41 @@ def drive_paged(path, eng, reqs, *, hold_first=False, max_ticks=400):
     own. ``hold_first``: request 0 is submitted alone and the others once
     it reaches DECODE (its prompt pages registered). Decode-only ticks are
     timed by their step's rows (host clock around tick() and a
-    synchronise), but up to two of each width are profiled (device busy),
-    the first full-width one before anything else (a tight pool leaves
-    few); host syncs are counted in the first decode-only tick after it,
-    the first decode-only packed tick and the first prefill tick. Returns
-    the measurements, the launch counts and the engine's stats."""
+    synchronise), but up to two of each width are profiled (device busy;
+    on a tiered engine also the copies each way and the bytes the tick
+    moved), the first full-width one before anything else (a tight pool
+    leaves few); host syncs are counted in the first decode-only tick
+    after it, the first decode-only packed tick and the first prefill
+    tick, beside the syncs the engine counted there (its decode runs'
+    and demotions'). Returns the measurements, the launch counts and the
+    engine's stats."""
     from repro_torch import kernels as K
     from repro_torch.serving.lifecycle import Status, is_terminal
     pending = list(reqs[1:]) if hold_first else []
     for r in reqs[:1] if hold_first else reqs:
         eng.submit(r)
     n = eng.n_slots
-    tick_ms, busy, syncs = {}, {}, {}
+    tick_ms, busy, syncs, counted, copies = {}, {}, {}, {}, []
+
+    def engine_syncs():
+        return eng.n_host_syncs + eng.n_demote_syncs
+
+    def moved():
+        return eng.n_h2d_bytes, eng.n_d2h_bytes
+
+    def busy_tick(rows):
+        got, before = {}, moved()
+        busy.setdefault(rows, []).append(device_busy_ms(eng.tick, 1, got))
+        if eng.tiered:
+            after = moved()
+            copies.append(dict(got, h2d_bytes=after[0] - before[0],
+                               d2h_bytes=after[1] - before[1]))
+
+    def sync_tick(what):
+        before = engine_syncs()
+        syncs[what] = sync_count(eng.tick)
+        counted[what] = engine_syncs() - before
+
     # ---- the path: counts set to 0 just before, read just after
     K.reset_launch_counts()
     t_all = time.perf_counter()
@@ -2094,15 +2227,15 @@ def drive_paged(path, eng, reqs, *, hold_first=False, max_ticks=400):
         decode_only = not eng._queue and not eng._prefill_at
         rows = packed_rows(int(eng.live.sum()), n) if eng.packed else n
         if decode_only and rows == n and n not in busy:
-            busy[n] = [device_busy_ms(eng.tick, 1)]
+            busy_tick(n)
         elif decode_only and "decode" not in syncs:
-            syncs["decode"] = sync_count(eng.tick)
+            sync_tick("decode")
         elif decode_only and rows < n and "packed" not in syncs:
-            syncs["packed"] = sync_count(eng.tick)
+            sync_tick("packed")
         elif chunks and not decode_only and "prefill" not in syncs:
-            syncs["prefill"] = sync_count(eng.tick)
+            sync_tick("prefill")
         elif decode_only and len(busy.get(rows, ())) < 2:
-            busy.setdefault(rows, []).append(device_busy_ms(eng.tick, 1))
+            busy_tick(rows)
         else:
             t_tick = time.perf_counter()
             eng.tick()
@@ -2115,8 +2248,9 @@ def drive_paged(path, eng, reqs, *, hold_first=False, max_ticks=400):
     wall = time.perf_counter() - t_all
     counts = K.launch_counts()
     # ---- end of the path
-    return dict(counts=counts, syncs=syncs, tick_ms=tick_ms, busy=busy,
-                wall=wall, stats=eng.stats())
+    return dict(counts=counts, syncs=syncs, counted=counted,
+                tick_ms=tick_ms, busy=busy, copies=copies, wall=wall,
+                stats=eng.stats())
 
 
 def paged_checked(path, reqs, run, planned, n_layers):
@@ -2374,6 +2508,178 @@ def copy_page_checked(path, lm, cfg, eng, page_size) -> bool:
     log(f"paged: {path}: copy_cache_page (page {src} -> {dst}, "
         f"{sorted(attn)}) equal to its source bit for bit")
     return True
+
+
+#: the tiered runs: (path, device frames in requests' worth of pages, a
+#: FaultPlan spec); each with 1 + that many pages' frames (with the trash
+#: frame), 2 fetches in flight and the auditor on every tick, beside the
+#: single-tier pool of every slot at its page bound
+TIERED_RUNS = (("paged_tiered_min", 1, ""), ("paged_tiered_half", 2, ""),
+               ("paged_tiered_chaos", 1,
+                "seed=7,dma_timeout=0.2,hbm_oom_on_promote=0.1"))
+TIERED_PAIR = ("select_blocks", "block_sparse_attention_grouped")
+
+
+def tiered_checked(path, reqs, run, n_layers):
+    """A tiered run's asserts: every request DONE; on every decode run
+    select_blocks and block_sparse_attention_grouped on every layer, and
+    no other kernel (fused_loki_decode cannot split its reads across the
+    two pools); the host syncs PyTorch saw in each counted tick equal
+    those the engine counted (its decode runs' and demotions'), one at
+    least; demotions, promotions and no preemption."""
+    bad = [r.rid for r in reqs if str(r.status) != "done"]
+    if bad:
+        raise AssertionError(f"{path}: requests not DONE: {bad}")
+    st = run["stats"]
+    ti = st["tiered"]
+    check_launches(path, run["counts"], TIERED_PAIR, ti["n_decode_runs"],
+                   n_layers)
+    if run["syncs"] != run["counted"] or not run["counted"].get("decode"):
+        raise AssertionError(f"{path}: host syncs {run['syncs']}, the "
+                             f"engine counted {run['counted']}")
+    if not (ti["n_demoted"] > 0 and ti["n_promoted"] > 0
+            and st["n_preempted"] == 0):
+        raise AssertionError(f"{path}: demoted {ti['n_demoted']}, promoted "
+                             f"{ti['n_promoted']}, preempted "
+                             f"{st['n_preempted']}")
+
+
+def tiered_report(path, reqs, run, ref, n_slots, **info):
+    """A tiered run's numbers and log lines: paged_report's, then per
+    decode step the decode runs, re-runs and deferrals, promotions and
+    demotions, bytes each way and the copies' rate on the profiled ticks,
+    prefetch hits and sync fetches, winner against live pages a slot,
+    device bytes against the single tier's and the peak of pinned host
+    buffers."""
+    out = paged_report(path, reqs, run, ref, "the single-tier unpacked run",
+                       n_slots, **info)
+    ti = run["stats"]["tiered"]
+    steps = max(run["stats"]["n_decode_steps"], 1)
+    cp = run["copies"]
+    moved = {k: sum(c[f"{k}_bytes"] for c in cp) for k in ("h2d", "d2h")}
+    copy_ms = {k: sum(c[k] for c in cp) for k in ("h2d", "d2h")}
+    rate = {k: moved[k] / copy_ms[k] / 1e6 if copy_ms[k] else float("nan")
+            for k in moved}
+    per = dict(
+        runs=ti["n_decode_runs"] / steps, reruns=ti["n_decode_reruns"] / steps,
+        deferrals=ti["n_deferred"] / steps,
+        promotions=ti["n_promoted"] / steps, demotions=ti["n_demoted"] / steps,
+        h2d_bytes=ti["h2d_bytes"] / steps, d2h_bytes=ti["d2h_bytes"] / steps)
+    slots = max(ti["winner_slots"], 1)
+    win, live = ti["winner_pages"] / slots, ti["live_pages"] / slots
+    out.update(tiered=ti, per_decode_step=per, copy_gb_per_s=rate,
+               profiled_copies=cp, winner_pages_per_slot=win,
+               live_pages_per_slot=live,
+               winner_share=win / live if live else float("nan"))
+    log(f"tiered: {path}: per decode step {per['runs']:.2f} runs "
+        f"({per['reruns']:.2f} re-runs), {per['deferrals']:.2f} deferred "
+        f"slots, {per['promotions']:.2f} promotions, {per['demotions']:.2f} "
+        f"demotions, {per['h2d_bytes'] / 1e9:.3f} GB host-to-device and "
+        f"{per['d2h_bytes'] / 1e9:.3f} GB device-to-host ({steps} decode "
+        f"steps, {ti['n_decode_runs']} runs, totals {ti['h2d_bytes']} / "
+        f"{ti['d2h_bytes']} B); copies on the profiled ticks "
+        f"{moved['h2d']} B in {copy_ms['h2d']:.2f} ms -> "
+        f"{rate['h2d']:.2f} GB/s host-to-device, {moved['d2h']} B in "
+        f"{copy_ms['d2h']:.2f} ms -> {rate['d2h']:.2f} GB/s device-to-host;"
+        f" prefetch hit rate {ti['prefetch_hit_rate']:.3f} "
+        f"({ti['n_prefetch_hits']} hits, {ti['n_prefetch_misses']} misses),"
+        f" {ti['n_sync_fetches']} sync fetches, {ti['n_fetches_issued']} "
+        f"queued ({ti['n_sync_fallbacks']} copied again); winner pages "
+        f"{win:.2f} of {live:.2f} live pages a slot (share "
+        f"{out['winner_share']:.3f}); device bytes {info['device_bytes']} "
+        f"(frames + sidecar) against {info['single_tier_bytes']} single "
+        f"tier ({info['device_bytes'] / info['single_tier_bytes']:.3f}); "
+        f"peak pinned host buffers {ti['peak_host_bytes']} B; "
+        f"{ti['n_demote_syncs']} demotion syncs; whole run "
+        f"{run['wall']:.2f} s")
+    return out
+
+
+def serve_tiered(results, params, cfg, toks, *, smax=4096, page_size=128,
+                 chunk=512, runs=TIERED_RUNS):
+    """The tiered path: first the single-tier reference, loki_block
+    unpacked in a pool of every slot at its page bound
+    (``paged_loki_block_masked``, the fused kernel, counted on its own);
+    then each run of ``runs`` over the same prompts and logical pool,
+    counted on its own: the tiered runs without faults give the
+    reference's tokens, 64 of 64 (every step at 4 rows on both, so the
+    kernels' cluster sizes match), and the chaos run's DONE outputs equal
+    ``paged_tiered_min``'s with both tier sites fired. Before that a CUDA
+    engine with kernel_fail in its plan must refuse to build."""
+    from repro_torch.serving import faults as FI
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.scheduler import PagedServingEngine
+
+    kw = dict(n_slots=4, smax=smax, page_size=page_size, prefill_chunk=chunk,
+              backend="auto", device=DEV)
+    if DEV == "cuda":
+        try:
+            PagedServingEngine(params, cfg, faults=FI.FaultPlan(
+                at={"kernel_fail": {3}}), **kw)
+        except ValueError as e:
+            log(f"tiered: a CUDA engine with kernel_fail in its plan "
+                f"refuses: {e}")
+        else:
+            raise AssertionError("a CUDA engine accepted kernel_fail")
+    out = results.setdefault("paged_serve", {})
+    launches = results.setdefault("launches", {})
+    mp = smax // page_size
+
+    def requests():
+        return [Request(rid=i, prompt=t, max_new=MAX_NEW)
+                for i, t in enumerate(toks)]
+
+    path = "paged_loki_block_masked"
+    plan, planned = planned_kernels(cfg, smax, "loki_block")
+    eng = PagedServingEngine(params, cfg, packed=False, **kw)
+    single = eng.pool_bytes
+    info = dict(plan=str(plan), policy="loki_block", n_pages=eng.pool.n_pages,
+                pool_bytes=single)
+    reqs = requests()
+    run = drive_paged(path, eng, reqs)
+    del eng
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    paged_checked(path, reqs, run, planned, cfg.n_layers)
+    launches[path] = run["counts"]
+    out[path] = paged_report(path, reqs, run, None, None, 4, **info)
+    ref = [r.out for r in reqs]
+    done = {}
+    for path, mult, spec in runs:
+        fplan = FI.FaultPlan.parse(spec) if spec else None
+        eng = PagedServingEngine(params, cfg, device_pages=1 + mult * mp,
+                                 max_inflight=2, audit=True, faults=fplan,
+                                 **kw)
+        info = dict(policy="loki_block", n_pages=eng.pool.n_pages,
+                    device_pages=eng.pool.device_pages, faults=spec,
+                    device_bytes=eng.pool_bytes, single_tier_bytes=single)
+        reqs = requests()
+        run = drive_paged(path, eng, reqs)
+        del eng
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        tiered_checked(path, reqs, run, cfg.n_layers)
+        launches[path] = run["counts"]
+        outs = [r.out for r in reqs]
+        if fplan is None:
+            if outs != ref:
+                same = sum(a == b for o, w in zip(outs, ref)
+                           for a, b in zip(o, w))
+                raise AssertionError(f"{path}: {same}/{len(toks) * MAX_NEW} "
+                                     "tokens equal to the single tier's")
+            done[mult] = outs
+        else:
+            fired = dict(fplan.counts)
+            if not (fired.get("dma_timeout") and
+                    fired.get("hbm_oom_on_promote")):
+                raise AssertionError(f"{path}: tier sites fired {fired}")
+            if outs != done[mult]:
+                raise AssertionError(f"{path}: DONE outputs differ from the "
+                                     "fault-free tiered run's")
+            info["faults_fired"] = fired
+            log(f"tiered: {path}: faults fired {fired}, DONE outputs equal "
+                "to the fault-free run's")
+        out[path] = tiered_report(path, reqs, run, ref, 4, **info)
 
 
 @contextlib.contextmanager
@@ -2901,10 +3207,10 @@ SOURCES = {
                           "paged_loki_block"),
     "select_blocks": ("src/repro_torch/csrc/fused_decode.cu",
                       "src/repro/kernels/fused_decode.py:439",
-                      "decode_step"),
+                      "paged_tiered_min"),
     "block_sparse_attention_grouped": (
         "src/repro_torch/csrc/gather_attention.cu",
-        "src/repro/kernels/gather_attention.py:368", "decode_step"),
+        "src/repro/kernels/gather_attention.py:368", "paged_tiered_min"),
     "paged_full_decode": ("src/repro_torch/csrc/gather_attention.cu",
                           "src/repro/kernels/gather_attention.py:215",
                           "paged_full"),
@@ -3023,6 +3329,7 @@ def main() -> int:
     check_layouts(results)
     check_packed_widths(results)
     check_paged(results)
+    check_tiered_kernels(results)
     check_no_fallback()
     check_head_kernels(results)
     check_flash(results)
@@ -3036,6 +3343,8 @@ def main() -> int:
         log(f"dense paths done at {time.perf_counter() - t_start:.1f} s")
         serve_paged(results, params, cfg, toks, greedy)
         log(f"paged paths done at {time.perf_counter() - t_start:.1f} s")
+        serve_tiered(results, params, cfg, toks)
+        log(f"tiered paths done at {time.perf_counter() - t_start:.1f} s")
         prefill_flash(results, params, cfg)
     launches = results.get("launches", {})
 

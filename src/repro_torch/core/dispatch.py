@@ -15,6 +15,9 @@ per decode step, which implementation runs:
                      interpret mode does.
   backend="auto"   — "pallas" for CUDA tensors, "xla" on the CPU.
 
+``loki_tiered_decode`` is ``loki_block_decode`` over a tiered pool: the
+score pass over the latent sidecar, exact attention over device frames.
+
 On CPU tensors, shapes no kernel plan covers fall back to torch *with the
 kernels' group-shared selection*, so a backend choice is numerically
 consistent across shapes. CUDA tensors have no fallback: a shape no kernel
@@ -223,6 +226,85 @@ def loki_block_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
              scale=logit_scale, local_window=cfg.local_window,
              sliding_window=sliding_window, **pargs, **qargs)
     return out.reshape(b, h, dim)
+
+
+def loki_tiered_decode(q_rope, k_pool, v_pool, lat_pool, cur_len, proj,
+                       cfg: LokiConfig, *, page_table, frame_table,
+                       page_size: int, sliding_window: int = 0,
+                       logit_scale=None, token_granular: bool = False):
+    """Tiered Loki decode through the configured backend.
+
+    The score and top-k pass reads only the always-resident latent-K
+    sidecar ``lat_pool (R_log, Hkv, d)`` through the logical
+    ``page_table``; exact attention reads the winners' rows from the
+    frame pools ``k_pool``/``v_pool (R_dev, Hkv, ·)`` through
+    ``frame_table``. Returns (out (B,H,D), winners (B, max_pages) bool).
+
+    Routing mirrors ``loki_block_decode`` decision for decision (backend,
+    the planner's block size, group-shared selection where no plan fits
+    on the CPU, the token fallback), so a tiered engine selects the pages
+    its single-tier twin attends. With a plan, the kernel pair runs as it
+    is: ``select_blocks`` over the sidecar through the page table, then
+    ``block_sparse_attention_grouped`` over the frames through the frame
+    table; the fused kernel cannot split its reads across two pools, so
+    the tier always takes the pair (bit-equal to the fused kernel on the
+    card). The select kernel's default scale is its own width's, here d:
+    the call passes ``D**-0.5``, the scale the single tier scores with.
+    ``token_granular`` (the ``loki`` policy) is the plain token top-k, as
+    the single tier's ``loki`` is. A CUDA call no plan takes raises."""
+    b, h = q_rope.shape[0], q_rope.shape[1]
+    n_kv, kd = k_pool.shape[-2], k_pool.shape[-1]
+    dim = v_pool.shape[-1]
+    max_pages = page_table.shape[1]
+    smax = max_pages * page_size
+    g = h // n_kv
+    if logit_scale is None and kd < dim:
+        logit_scale = dim ** -0.5
+    common = dict(page_table=page_table, frame_table=frame_table,
+                  page_size=page_size, sliding_window=sliding_window,
+                  logit_scale=logit_scale)
+    args = (q_rope, k_pool, v_pool, lat_pool, cur_len, proj)
+    if token_granular:
+        return loki.loki_decode_tiered(*args, cfg, token_granular=True,
+                                       **common)
+    backend = resolve_backend(cfg.backend, _device_type(q_rope))
+    plan, d = decode_plan(cfg, smax, dim, g, kd, tuning.storage_of(k_pool))
+    plan = _page_fits(plan, page_table, page_size)
+    if backend == "xla":
+        if smax % cfg.block_size:
+            if plan is None:
+                return loki.loki_decode_tiered(*args, cfg,
+                                               token_granular=True, **common)
+            cfg = dataclasses.replace(cfg, block_size=plan.block_size)
+        return loki.loki_decode_tiered(*args, cfg, **common)
+    if plan is None:
+        if q_rope.is_cuda:
+            raise _no_plan("loki_block", smax, dim, g, d, page_size)
+        group = smax % cfg.block_size == 0 \
+            and page_size % cfg.block_size == 0
+        return loki.loki_decode_tiered(*args, cfg, group_select=group,
+                                       token_granular=not group, **common)
+
+    bs = plan.block_size
+    k_blocks = max(int(cfg.k_f * (smax // bs)), 1)
+    if sliding_window:
+        k_blocks = min(k_blocks, -(-sliding_window // bs) + 1)
+    q_hat = torch.einsum("bhgd,hde->bhge", _grouped_query(q_rope, n_kv, dim),
+                         proj.to(q_rope.dtype))[..., :kd].contiguous()
+    cur = _lengths(cur_len, b, q_rope.device)
+    scale = logit_scale if logit_scale is not None else dim ** -0.5
+    blk_idx = ops.select_blocks(q_hat[..., :d].contiguous(), lat_pool, cur,
+                                d=d, k_blocks=k_blocks, block_size=bs,
+                                scale=scale, local_window=cfg.local_window,
+                                sliding_window=sliding_window,
+                                page_table=page_table, page_size=page_size)
+    out = ops.block_sparse_attention_grouped(
+        q_hat, k_pool, v_pool, blk_idx, cur, block_size=bs, scale=scale,
+        sliding_window=sliding_window, page_table=frame_table,
+        page_size=page_size)
+    # a block lies in one page (the plan's block divides the page)
+    return out.reshape(b, h, dim), loki.winner_pages(
+        blk_idx.long() * bs, blk_idx >= 0, page_size, max_pages)
 
 
 def full_paged_decode(q, k_cache, v_cache, cur_len, *, backend: str = "auto",

@@ -178,3 +178,81 @@ def loki_decode_block(q_rope, k_hat_cache, v_cache, cur_len, proj,
     k_sel = gather_heads(k_hat_cache, idx)
     v_sel = gather_heads(v_cache, idx)
     return attend_selected(q_hat, k_sel, v_sel, valid, logit_scale=scale)
+
+
+def winner_pages(idx, valid, page_size: int, max_pages: int):
+    """(B, max_pages) bool: the logical pages holding a selected-and-valid
+    row of any head, from token indices idx (B, ...) and valid."""
+    b = idx.shape[0]
+    pages = torch.where(valid, idx // page_size, 0).reshape(b, -1)
+    hit = valid.reshape(b, -1).to(torch.int32)
+    win = torch.zeros((b, max_pages), dtype=torch.int32, device=idx.device)
+    return win.scatter_reduce_(1, pages.long(), hit, "amax").bool()
+
+
+def loki_decode_tiered(q_rope, k_pool, v_pool, lat_pool, cur_len, proj,
+                       cfg: LokiConfig, *, page_table, frame_table,
+                       page_size: int, sliding_window: int = 0,
+                       logit_scale=None, token_granular: bool = False,
+                       group_select: bool = False):
+    """Loki decode over a tiered page pool (plain torch, the reference's
+    ``loki_decode_tiered``).
+
+    The approximate score pass reads only the always-resident latent-K
+    sidecar ``lat_pool (R_log, Hkv, d)`` through the logical
+    ``page_table``: its rows are bitwise copies of the stored keys'
+    leading d columns, so the selection is the single-tier selection
+    whichever full-D pages are resident. Exact attention reads the winning
+    rows of the frame pools ``k_pool``/``v_pool (R_dev, Hkv, ·)`` through
+    ``frame_table`` (HOST pages resolve to the trash frame 0: finite
+    garbage, and the engine re-runs a slot that attended one).
+
+    Returns (out (B,H,D), winners (B, max_pages) bool): the logical pages
+    holding selected-and-valid rows. ``token_granular`` is
+    ``loki_decode``'s selection, ``group_select`` the kernels'
+    group-shared block selection, neither the per-head block selection of
+    ``loki_decode_block``."""
+    b, h, dim = q_rope.shape
+    max_pages = page_table.shape[1]
+    smax = max_pages * page_size
+    kd = k_pool.shape[-1]              # stored key width (latent rank <= D)
+    d = min(max(int(cfg.d_f * dim), 8), kd)
+    if lat_pool.shape[-1] != d:
+        raise ValueError(f"latent sidecar width {lat_pool.shape[-1]} != "
+                         f"score width {d}")
+    scale = logit_scale if logit_scale is not None else dim ** -0.5
+    q_hat = _rotate_query(q_rope, proj, kd)
+
+    # phase 1: score and select from the resident latent tier only
+    k_lat = gather_logical_dq(lat_pool, None, page_table, page_size)
+    approx = _masked_approx(q_hat, k_lat, cur_len, cfg, d, scale,
+                            sliding_window)
+    if token_granular:
+        idx, valid = select_topk(approx, cfg, cur_len, smax)
+    else:
+        bs = cfg.block_size
+        if smax % bs:
+            raise ValueError("cache length must be a multiple of block_size")
+        n_blocks = smax // bs
+        blk = approx.reshape(*approx.shape[:-1], n_blocks, bs).amax(-1)
+        k_blocks = max(int(cfg.k_f * n_blocks), 1)
+        if group_select:
+            blk_g = blk.amax(dim=2, keepdim=True)           # (B,Hkv,1,nb)
+            taken, bidx = topk_lower_index(blk_g, k_blocks)
+            bidx = bidx.expand(*blk.shape[:-1], k_blocks)
+            bvalid = (taken > NEG_INF / 2).expand(bidx.shape)
+        else:
+            taken, bidx = topk_lower_index(blk, k_blocks)   # (B,Hkv,G,kb)
+            bvalid = taken > NEG_INF / 2
+        tok = bidx[..., None] * bs + torch.arange(bs, device=bidx.device)
+        idx = tok.reshape(*tok.shape[:-2], k_blocks * bs)
+        valid = bvalid[..., None].expand(tok.shape).reshape(idx.shape)
+        valid = valid & (torch.gather(approx, -1, idx) > NEG_INF / 2)
+    winners = winner_pages(idx, valid, page_size, max_pages)
+
+    # phase 2: exact attention over the winners' rows, through the frames
+    k_dev = gather_logical_dq(k_pool, None, frame_table, page_size)
+    v_dev = gather_logical_dq(v_pool, None, frame_table, page_size)
+    out = attend_selected(q_hat, gather_heads(k_dev, idx),
+                          gather_heads(v_dev, idx), valid, logit_scale=scale)
+    return out, winners

@@ -8,6 +8,10 @@
         --policy loki_block --layout int8:pca:r=16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
         --sched-policy priority --prefix-cache off --shed-after 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --policy loki_block --smax 64 --page-size 16 --device-pages 5 \
+        --faults seed=7,dma_timeout=0.2,hbm_oom_on_promote=0.1 --audit \
+        --device cpu
 
 Builds the dense slot engine (``--engine dense``) or the paged engine
 (``--engine paged``: a page pool of ``--n-pages`` pages of
@@ -28,6 +32,11 @@ The paged engine's scheduler, with the reference's flags and defaults:
 ``--decode-budget`` (0: one chunk, every live slot), ``--prefix-cache
 on|off`` (on; bypassed with its reason for configs that cannot share
 pages) and ``--shed-after`` (0: never shed). Decode is gather-packed.
+``--device-pages N`` makes the pool tiered (N frames of full-D K/V on the
+card, the rest in pinned host buffers, a Loki policy only; 0: single
+tier) with ``--max-inflight`` fetches in flight (2); ``--faults`` takes a
+``FaultPlan.parse`` spec (empty: off) and ``--audit`` runs the invariant
+auditor after every tick. The run ends with the tiered pool's counters.
 
 Every knob lives in :class:`ServeConfig`; the flags are thin aliases.
 ``warm_steps > 0`` raises (the port has no training yet). ``--full``
@@ -49,6 +58,7 @@ from repro_torch.configs.base import ModelConfig, PageLayout
 from repro_torch.core import pca as PCA
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.models import lm
+from repro_torch.serving import faults as FI
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.lifecycle import summarize
 from repro_torch.serving.scheduler import PagedServingEngine
@@ -77,6 +87,8 @@ class PagedSection:
     n_pages: Optional[int] = None
     prefill_chunk: int = 32
     layout: str = ""               # PageLayout.parse spec; "" = default
+    device_pages: int = 0          # tiered pool: device frames; 0 = off
+    max_inflight: int = 2          # fetches in flight (tiered pool)
 
     def page_layout(self) -> PageLayout:
         return PageLayout.parse(self.layout) if self.layout else PageLayout()
@@ -91,6 +103,11 @@ class SchedulerSection:
     decode_budget: int = 0         # live slots decoded/tick (0 = all)
     prefix_cache: bool = True
     shed_after: int = 0            # preemptions before SHED (0 = never)
+    faults: str = ""               # FaultPlan.parse spec; "" = off
+    audit: bool = False            # invariant auditor after every tick
+
+    def fault_plan(self) -> Optional[FI.FaultPlan]:
+        return FI.FaultPlan.parse(self.faults) if self.faults else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,12 +132,14 @@ class ServeConfig:
                 n_slots=a.n_slots, smax=a.smax),
             paged=PagedSection(page_size=a.page_size, n_pages=a.n_pages,
                                prefill_chunk=a.prefill_chunk,
-                               layout=a.layout),
+                               layout=a.layout,
+                               device_pages=a.device_pages,
+                               max_inflight=a.max_inflight),
             scheduler=SchedulerSection(
                 policy=a.sched_policy, prefill_budget=a.prefill_budget,
                 decode_budget=a.decode_budget,
                 prefix_cache=a.prefix_cache == "on",
-                shed_after=a.shed_after),
+                shed_after=a.shed_after, faults=a.faults, audit=a.audit),
             admission=a.admission, requests=a.requests, max_new=a.max_new,
             warm_steps=a.warm_steps, seed=a.seed, device=a.device)
 
@@ -140,9 +159,12 @@ class ServeConfig:
         if self.engine.kind not in ("dense", "paged"):
             raise ValueError(f"engine kind {self.engine.kind!r}; use "
                              "'dense' or 'paged'")
-        if self.paged.layout and self.engine.kind != "paged":
-            raise ValueError("--layout sets the paged engine's page layout; "
-                             "use --engine paged")
+        if self.engine.kind != "paged" and (
+                self.paged.layout or self.paged.device_pages
+                or self.scheduler.faults or self.scheduler.audit):
+            raise ValueError("--layout, --device-pages, --faults and "
+                             "--audit set the paged engine; use --engine "
+                             "paged")
         if self.warm_steps:
             raise NotImplementedError(
                 "warm_steps > 0 needs training, not ported yet (ROADMAP "
@@ -162,7 +184,10 @@ class ServeConfig:
                 prefill_budget=sch.prefill_budget or None,
                 decode_budget=sch.decode_budget or None,
                 prefix_cache=sch.prefix_cache,
-                shed_after=sch.shed_after or None, **common)
+                shed_after=sch.shed_after or None,
+                faults=sch.fault_plan(), audit=sch.audit,
+                device_pages=self.paged.device_pages or None,
+                max_inflight=self.paged.max_inflight, **common)
         return ServingEngine(params, cfg, **common)
 
 
@@ -211,6 +236,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "e.g. 'int8:pca:r=32'. Empty = fp32 native")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="paged engine: prompt tokens per prefill chunk")
+    ap.add_argument("--device-pages", type=int, default=0,
+                    help="paged engine, tiered KV pool: full-D K/V frames "
+                         "kept on the card; pages beyond spill to pinned "
+                         "host buffers and come back through the fetch "
+                         "queue when Loki's selection attends them (0 = "
+                         "single tier; needs a loki policy)")
+    ap.add_argument("--max-inflight", type=int, default=2,
+                    help="paged engine: host-to-device fetches the tiered "
+                         "pool keeps in flight")
     ap.add_argument("--sched-policy", default="fifo",
                     choices=["fifo", "priority"],
                     help="paged engine's scheduling policy; priority "
@@ -230,6 +264,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged engine: preemptions a request survives "
                          "before it is shed (terminal SHED with a "
                          "retry-after hint); 0 = never shed")
+    ap.add_argument("--faults", default="",
+                    help="paged engine: deterministic fault plan "
+                         "(serving/faults.py), e.g. "
+                         "'seed=3,nan_logits=0.05,alloc_fail@7'; sites: "
+                         + ", ".join(FI.FaultPlan.SITES)
+                         + " (kernel_fail: CPU engines only)")
+    ap.add_argument("--audit", action="store_true",
+                    help="paged engine: run the pool/slot/table invariant "
+                         "auditor after every tick (raises AuditError on "
+                         "a violation)")
     ap.add_argument("--admission", default="strict",
                     choices=["strict", "lenient"])
     ap.add_argument("--warm-steps", type=int, default=0)
@@ -261,6 +305,17 @@ def main(argv=None):
               f"{eng.budget.prefill_tokens}p/{eng.budget.decode_tokens}d "
               f"tok/tick prefix-cache={share} packed={eng.packed} "
               f"shed_after={eng.shed_after}")
+        if eng.tiered:
+            print(f"tiered pool: {eng.pool.device_pages} device frames, "
+                  "host buffers beyond, rank-"
+                  f"{eng.cache['layers']['attn']['k_lat'].shape[-1]} latent "
+                  f"sidecar resident, <= {eng.pool.max_inflight} fetches "
+                  "in flight (demote before preempt)")
+        plan = sc.scheduler.fault_plan()
+        if plan is not None or sc.scheduler.audit:
+            print("faults: " + (f"[{plan.describe()}]" if plan is not None
+                                else "off")
+                  + (" audit=per-tick" if sc.scheduler.audit else ""))
     reqs = [Request(rid=i,
                     prompt=data.batch_at(4000 + i)["tokens"][0, :24 + 4 * i],
                     max_new=sc.max_new)
@@ -290,6 +345,24 @@ def main(argv=None):
               f"{st['n_prefill_chunks']}, prefix hit rate "
               f"{st['prefix_hit_rate']:.3f}, copy-on-write "
               f"{st['n_cow_copies']}, host syncs {st['n_host_syncs']}")
+        if st.get("faults") or st["n_quarantined"] \
+                or st["n_backend_fallbacks"]:
+            print(f"faults: injected {st.get('faults', {})}, quarantined "
+                  f"{st['n_quarantined']}, backend fallbacks "
+                  f"{st['n_backend_fallbacks']}")
+        if "tiered" in st:
+            ti = st["tiered"]
+            print(f"tiered pool: {ti['device_pages']} device frames, "
+                  f"{ti['n_demoted']} demoted / {ti['n_promoted']} "
+                  f"promoted, prefetch hit rate "
+                  f"{ti['prefetch_hit_rate']:.2f}, {ti['n_sync_fetches']} "
+                  f"sync fetches, {ti['n_fetches_issued']} queued fetches "
+                  f"({ti['n_sync_fallbacks']} re-copied), "
+                  f"{ti['n_decode_reruns']} decode reruns in "
+                  f"{ti['n_decode_runs']} runs, {ti['n_deferred']} "
+                  f"deferrals, {ti['h2d_bytes']} B host-to-device / "
+                  f"{ti['d2h_bytes']} B device-to-host, peak host buffers "
+                  f"{ti['peak_host_bytes']} B")
     for r in reqs[:2]:
         print(f"  req{r.rid}: {r.out[:10]}")
     return reqs

@@ -123,13 +123,22 @@ def _stores_pca(policy: str) -> bool:
 
 
 def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
-                sliding_window=None, page_table=None, page_size: int = 0):
+                sliding_window=None, page_table=None, page_size: int = 0,
+                frame_table=None):
     """One-token decode with the configured attention policy.
 
     x (B,E); pos_len (B,) tokens already cached; cache {"k","v"} of
     (B,Smax,Hkv,·), or with ``page_table (B, max_pages)``/``page_size``
     the paged pools (R,Hkv,·): the new token's K/V scatter through the
-    table to their pool rows. Updated in place. Returns y (B,E)."""
+    table to their pool rows. Updated in place. Returns y (B,E).
+
+    ``frame_table (B, max_pages)`` (tiered pools, Loki policies): the K/V
+    rows live at device frames and the always-resident ``k_lat`` sidecar
+    by logical page. The K/V rows are written through the frame table,
+    the sidecar's through the page table; the score pass reads the
+    sidecar and exact attention the frames (``dispatch.
+    loki_tiered_decode``). Returns (y, winners (B, max_pages) bool), the
+    logical pages the selection attended."""
     hd = cfg.resolved_head_dim
     b = x.shape[0]
     q, k, v = _qkv(p, x[:, None, :], cfg)
@@ -159,6 +168,10 @@ def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
     if paged:
         # the pool's width is the stored key width: rank-r truncation
         k_store = k_store[..., :cache["k"].shape[-1]]
+        if frame_table is not None:
+            return _attn_decode_tiered(p, cache, q, k_store, v, positions,
+                                       cfg, sw, page_table, page_size,
+                                       frame_table, x.dtype)
         for name, new in (("k", k_store), ("v", v)):
             if lay.quantized:
                 PC.write_token_rows_q(cache[name], cache[name + "_scale"],
@@ -210,6 +223,30 @@ def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
     return L.dot(out.reshape(b, cfg.q_dim).to(x.dtype), p["wo"])
 
 
+def _attn_decode_tiered(p, cache, q, k_store, v, positions,
+                        cfg: ModelConfig, sw, page_table, page_size: int,
+                        frame_table, act_dtype):
+    """The tiered half of ``attn_decode``: writes, then the score pass over
+    the sidecar and exact attention over the frames."""
+    policy = cfg.attn_policy()
+    if policy not in ("loki", "loki_block"):
+        raise ValueError("tiered pools serve Loki policies only "
+                         f"(got {policy!r})")
+    dl = cache["k_lat"].shape[-1]
+    PC.write_token_rows(cache["k"], k_store, frame_table, positions,
+                        page_size)
+    PC.write_token_rows(cache["v"], v, frame_table, positions, page_size)
+    PC.write_token_rows(cache["k_lat"], k_store[..., :dl], page_table,
+                        positions, page_size)
+    out, win = dispatch.loki_tiered_decode(
+        q, cache["k"], cache["v"], cache["k_lat"], positions + 1, p["pca"],
+        cfg.loki, sliding_window=sw, page_table=page_table,
+        frame_table=frame_table, page_size=page_size,
+        token_granular=policy == "loki")
+    b = q.shape[0]
+    return L.dot(out.reshape(b, cfg.q_dim).to(act_dtype), p["wo"]), win
+
+
 def attn_prefill(p, cache, x, positions, cfg: ModelConfig):
     """Process a whole prompt, writing cache rows [0, S) in place. The
     cache stores keys in the policy's basis so decode steps are pure
@@ -232,7 +269,8 @@ def attn_prefill(p, cache, x, positions, cfg: ModelConfig):
 
 
 def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
-                       cfg: ModelConfig, *, table_row, page_size: int):
+                       cfg: ModelConfig, *, table_row, page_size: int,
+                       frame_row=None):
     """One chunk of a paged, chunked prefill for a single request.
 
     x (1,C,E) holds the chunk's embeddings at logical positions
@@ -245,7 +283,13 @@ def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
     Exact across chunks: the cached prefix holds keys in the policy's
     storage basis, so prefix scores are taken in that basis (q̂·k̂ equals
     q·k for an orthogonal P, Lemma 4.1); the chunk's own columns use the
-    fresh original-basis keys, as the one-shot prefill does."""
+    fresh original-basis keys, as the one-shot prefill does.
+
+    ``frame_row (max_pages,)`` (tiered pools): each table entry's device
+    frame. Prefill is exact attention over the whole prefix, so the
+    scheduler has made every page of the slot resident; K/V rows are
+    written and read through the frames, the ``k_lat`` sidecar written
+    through ``table_row``."""
     b, c = x.shape[:2]
     q, k, v = _qkv(p, x, cfg)
     positions = pos_start + torch.arange(c, device=x.device)[None]  # (1,C)
@@ -266,18 +310,23 @@ def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
                if pca_store else k)
     kw = cache["k"].shape[-1]          # the pool's (stored) key width
     k_store = k_store[..., :kw]
+    kv_row = table_row if frame_row is None else frame_row
     for name, new in (("k", k_store[0]), ("v", v[0])):
         if lay.quantized:
             PC.write_chunk_rows_q(cache[name], cache[name + "_scale"], new,
                                   table_row, pos_start, page_size,
                                   n_valid=n_valid, qmax=lay.qmax)
         else:
-            PC.write_chunk_rows(cache[name], new, table_row, pos_start,
+            PC.write_chunk_rows(cache[name], new, kv_row, pos_start,
                                 page_size, n_valid=n_valid)
+    if frame_row is not None:
+        PC.write_chunk_rows(cache["k_lat"],
+                            k_store[0][..., :cache["k_lat"].shape[-1]],
+                            table_row, pos_start, page_size, n_valid=n_valid)
     klog = PC.gather_logical_dq(cache["k"], cache.get("k_scale"),
-                                table_row[None], page_size)
+                                kv_row[None], page_size)
     vlog = PC.gather_logical_dq(cache["v"], cache.get("v_scale"),
-                                table_row[None], page_size)
+                                kv_row[None], page_size)
     sl = klog.shape[1]
     scale = hd ** -0.5
     qg = A._group(q, cfg.n_kv_heads)                       # (1,C,Hkv,G,D)

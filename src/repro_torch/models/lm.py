@@ -13,6 +13,10 @@ leading L axis), and its entry points:
   decode_step(..., page_table=, page_size=)        -> (logits, cache)
   decode_step(..., slot_idx=)                       packed rows
   copy_cache_page(cfg, cache, src, dst, page_size)  -> cache (COW)
+  init_paged_cache(..., device_pages=)              tiered pool
+  decode_step(..., frame_table=)     -> (logits, winners, cache)
+  prefill_chunk(..., frame_row=)     -> (logits, cache)
+  promote_page_rows(cfg, cache, k_rows, v_rows, frame, page_size)
 
 Caches are updated in place where the JAX code donated them. Block
 composition: [attn, mlp]. Other families raise NotImplementedError.
@@ -168,12 +172,17 @@ def prefill(params, cfg: ModelConfig, tokens, smax: int, *,
 
 
 def _layer_decode(p, c, x, pos_len, cfg: ModelConfig, *, page_table=None,
-                  page_size: int = 0):
+                  page_size: int = 0, frame_table=None):
+    """One layer's decode step -> (x, winners or None)."""
     h = L.norm_apply(p["ln1"], x)
-    x = x + B.attn_decode(p["attn"], c, h, pos_len, cfg,
-                          page_table=page_table, page_size=page_size)
+    y = B.attn_decode(p["attn"], c, h, pos_len, cfg, page_table=page_table,
+                      page_size=page_size, frame_table=frame_table)
+    win = None
+    if frame_table is not None:
+        y, win = y
+    x = x + y
     h = L.norm_apply(p["ln2"], x)
-    return x + L.mlp_apply(p["mlp"], h, cfg)
+    return x + L.mlp_apply(p["mlp"], h, cfg), win
 
 
 def _check_slot_idx(slot_idx, batch: int) -> None:
@@ -209,26 +218,39 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
     table alone. Distinctness is checked on a host tensor only (on the
     card the check would cost a host sync).
 
-    The reference's ``live`` (StateSlot families), ``frame_table`` (tiered
-    pool) and rank-3 tables (page-table groups) are not ported yet
-    (ROADMAP queue 1 items 7-8) and raise."""
+    ``frame_table (B, max_pages)`` (tiered pools): each table entry's
+    device frame (0, the trash frame, for HOST pages). The return becomes
+    (logits, winners, cache), ``winners (B, max_pages)`` bool the union
+    over layers of the logical pages the Loki selection attended: the
+    scheduler promotes HOST winners and re-runs those slots.
+
+    The reference's ``live`` (StateSlot families) and rank-3 tables
+    (page-table groups) are not ported yet (ROADMAP queue 1 items 7-8)
+    and raise."""
     check_family(cfg)
-    if live is not None or frame_table is not None:
+    if live is not None:
         raise NotImplementedError(
-            "decode_step: live / frame_table are not ported yet (ROADMAP "
-            "queue 1 items 7-8)")
+            "decode_step: live (StateSlot families) is not ported yet "
+            "(ROADMAP queue 1 item 8)")
     if slot_idx is not None:
         _check_slot_idx(slot_idx, token.shape[0])
     if page_table is not None and page_table.ndim != 2:
         raise NotImplementedError("page-table groups (rank-3 tables) are "
                                   "not ported yet (ROADMAP queue 1 item 7)")
     x = L.embed_apply(params["embed"], token, cfg)
+    winners = None
     for i in range(cfg.n_layers):
-        x = _layer_decode(layer_params(params, i), layer_cache(cache, i), x,
-                          pos_len, cfg, page_table=page_table,
-                          page_size=page_size)
+        x, win = _layer_decode(layer_params(params, i),
+                               layer_cache(cache, i), x, pos_len, cfg,
+                               page_table=page_table, page_size=page_size,
+                               frame_table=frame_table)
+        if win is not None:
+            winners = win if winners is None else winners | win
     x = L.norm_apply(params["final_norm"], x)
-    return L.unembed_apply(params["embed"], x, cfg), cache
+    logits = L.unembed_apply(params["embed"], x, cfg)
+    if frame_table is not None:
+        return logits, winners, cache
+    return logits, cache
 
 
 # --------------------------------------------------------------- paged
@@ -247,28 +269,40 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     key width W (rank r under the pca basis); the default layout keeps the
     caller's ``dtype``, as the reference does. Quantized layouts (int8,
     fp8) add (L, n_pages) float32 ``k_scale``/``v_scale`` sidecars, zero
-    until a page is written. The reference's tiered pool (``device_pages``)
-    is not ported yet (ROADMAP queue 1 item 7); like the reference it
-    refuses quantized layouts."""
+    until a page is written.
+
+    ``device_pages`` makes the pool tiered: the K and V pools shrink to
+    ``device_pages`` frames while an always-resident latent-K sidecar
+    ``k_lat`` (L, n_pages * page_size, Hkv, d) keeps the leading
+    ``cache_spec.latent_score_width`` columns of every logical page's
+    (PCA-basis) keys, so Loki's score pass never needs the host tier. Like
+    the reference it refuses quantized layouts: their writes re-derive
+    per-page scales, which a tiered step's re-run would not repeat bit for
+    bit."""
     check_family(cfg)
     CS.assert_pageable(cfg)
     B.check_policy(cfg)
     spec = CS.layer_specs(cfg)[0].attn
     lay = spec.layout
     if device_pages is not None:
+        if not 2 <= device_pages <= n_pages:
+            raise ValueError(f"device_pages {device_pages} must be in "
+                             f"[2, n_pages={n_pages}]")
         if lay.quantized:
             raise ValueError("tiered pools require a non-quantized "
                              "PageLayout (per-page scale RMW is not "
                              "replay-idempotent)")
-        raise NotImplementedError("tiered KV pools are not ported yet "
-                                  "(ROADMAP queue 1 item 7)")
     pdt = dtype if lay == PageLayout() else PC.STORAGE_DTYPE[lay.dtype]
     dev = resolve_device(device)
-    rows = n_pages * page_size
+    rows = (n_pages if device_pages is None else device_pages) * page_size
     lead = (cfg.n_layers, rows, spec.n_kv_heads)
     attn = {"k": torch.zeros(lead + (spec.k_width,), dtype=pdt, device=dev),
             "v": torch.zeros(lead + (spec.head_dim,), dtype=pdt,
                              device=dev)}
+    if device_pages is not None:
+        attn["k_lat"] = torch.zeros(
+            (cfg.n_layers, n_pages * page_size, spec.n_kv_heads,
+             CS.latent_score_width(cfg)), dtype=pdt, device=dev)
     if lay.quantized:
         for name in ("k_scale", "v_scale"):
             attn[name] = torch.zeros((cfg.n_layers, n_pages),
@@ -289,13 +323,13 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, pos_start: int,
     chunk's K/V into the pools in place and attends causally over the
     cached prefix plus the chunk. Returns (logits (1, V) of chunk token
     ``n_valid - 1``, cache). ``slot`` addresses per-slot state, which the
-    dense family has none of; the tiered pool's ``frame_row`` is not
-    ported yet (ROADMAP queue 1 item 7)."""
+    dense family has none of. ``frame_row (max_pages,)`` or (1,
+    max_pages) (tiered pools): each table entry's device frame; K/V go
+    through it, the latent sidecar through the table."""
     check_family(cfg)
     CS.assert_pageable(cfg)
-    if frame_row is not None:
-        raise NotImplementedError("tiered KV pools are not ported yet "
-                                  "(ROADMAP queue 1 item 7)")
+    if frame_row is not None and frame_row.ndim == 2:
+        frame_row = frame_row[0]
     if page_table.ndim > 2:
         raise NotImplementedError("page-table groups (rank-3 tables) are "
                                   "not ported yet (ROADMAP queue 1 item 7)")
@@ -307,7 +341,8 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, pos_start: int,
         x = x + B.attn_prefill_chunk(p["attn"], layer_cache(cache, i), h,
                                      pos_start, n_valid, cfg,
                                      table_row=table_row,
-                                     page_size=page_size)
+                                     page_size=page_size,
+                                     frame_row=frame_row)
         h = L.norm_apply(p["ln2"], x)
         x = x + L.mlp_apply(p["mlp"], h, cfg)
     x = L.norm_apply(params["final_norm"], x[:, n_valid - 1:n_valid])
@@ -317,18 +352,41 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, pos_start: int,
 
 @torch.no_grad()
 def copy_cache_page(cfg: ModelConfig, cache, src_page: int, dst_page: int,
-                    page_size: int):
+                    page_size: int, src_frame=None, dst_frame=None):
     """Copy-on-write over a paged cache, in place: physical page ``src``'s
     rows into ``dst`` in every layer's K and V pool, and the page's scales
     when the layout is quantized (the codes dequantize as the donor's only
     at the donor's scale). The scheduler calls it before a request that
     shares a cached tail page writes into it; the page ids are host ints.
-    The reference's tiered frames are not ported (ROADMAP queue 1 item
-    7). Returns the cache."""
+    On a tiered pool the K/V rows move between ``src_frame`` and
+    ``dst_frame`` (both pages RESIDENT) and the latent sidecar by page.
+    Returns the cache."""
     attn = cache["layers"]["attn"]
+    if src_frame is not None:
+        for name in ("k", "v"):
+            PC.copy_page_rows(attn[name], src_frame, dst_frame, page_size)
+        PC.copy_page_rows(attn["k_lat"], src_page, dst_page, page_size)
+        return cache
     for name in ("k", "v"):
         PC.copy_page_rows(attn[name], src_page, dst_page, page_size)
     if cfg.page_layout.quantized:
         for name in ("k_scale", "v_scale"):
             PC.copy_page_scale(attn[name], src_page, dst_page)
+    return cache
+
+
+@torch.no_grad()
+def promote_page_rows(cfg: ModelConfig, cache, k_rows, v_rows, frame: int,
+                      page_size: int):
+    """Land a promoted page's full-D rows in its staging frame, in place:
+    ``k_rows (L, page_size, Hkv, kw)``/``v_rows (L, page_size, Hkv, D)``
+    are the bytes taken at demotion, ``frame`` the frame
+    ``PagePool.promote_begin`` gave. From pinned host memory the copies
+    do not block the host; they run on the caller's current stream. The
+    latent sidecar never left the card. Returns the cache."""
+    del cfg
+    attn = cache["layers"]["attn"]
+    rows = slice(frame * page_size, (frame + 1) * page_size)
+    attn["k"][:, rows].copy_(k_rows, non_blocking=True)
+    attn["v"][:, rows].copy_(v_rows, non_blocking=True)
     return cache

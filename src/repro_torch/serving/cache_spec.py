@@ -90,6 +90,23 @@ def has_paged_attn(cfg: ModelConfig) -> bool:
     return any(s.attn is not None for s in layer_specs(cfg))
 
 
+def max_k_width(cfg: ModelConfig) -> int:
+    """Stored K width of the stacked pools: the max per-layer ``k_width``
+    (one width for every layer here: per-layer ranks are not ported)."""
+    widths = [s.attn.k_width for s in layer_specs(cfg) if s.attn is not None]
+    return max(widths) if widths else cfg.resolved_head_dim
+
+
+def latent_score_width(cfg: ModelConfig) -> int:
+    """Width of the always-resident latent-K sidecar of a tiered pool: the
+    leading-d slice Loki's score pass reads, d = min(max(d_f·D, 8), kd) as
+    in ``loki.loki_decode``, clamped to the stored K width. The sidecar's
+    rows are bitwise copies of the leading columns of the stored
+    (PCA-basis) keys, so scoring from it is the single-tier scoring."""
+    d = max(int(cfg.loki.d_f * cfg.resolved_head_dim), 8)
+    return min(d, max_k_width(cfg))
+
+
 def pageable(cfg: ModelConfig) -> Tuple[bool, str]:
     """Can this config serve from the paged engine? (ok, reason)."""
     if has_paged_attn(cfg) and cfg.attn_policy() in UNPAGEABLE_POLICIES:

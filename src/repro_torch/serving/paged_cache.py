@@ -19,12 +19,26 @@ pools (K and V scales apart). Every write re-derives the page's scale from
 its valid prefix and re-quantizes the page (read-modify-write), as the
 reference does.
 
+Tiered pool (``device_pages``): logical pages stay the unit of the page
+tables, refcounts and the prefix index, but only ``device_pages`` frames
+of full-D K/V rows live on the card. Every logical page also owns a row
+range of the always-resident latent-K sidecar (``lm.init_paged_cache``),
+which is all Loki's score pass reads. A page is in one tier state:
+
+  RESIDENT   its full-D rows live in a device frame (``frame_of(page)``)
+  HOST       its full-D rows live in the engine's pinned host buffers
+  IN_FLIGHT  a host-to-device copy owns a frame but has not landed yet
+
+``demote`` / ``promote_begin`` / ``promote_complete`` move pages between
+the states with double-free-style guards; ``FetchQueue`` wraps the promote
+pair into a bounded queue of copies (default 2 in flight).
+
 Two layers, as in the reference: torch helpers over the pools (writes are
 in place, where the JAX code returns an updated array), and the host-side
 refcounted ``PagePool`` the scheduler drives, with its prefix-cache index
-over full prompt pages and the LRU of cached pages. The reference's
-tiers, ``FetchQueue`` and private (retained) entries are not ported yet
-(ROADMAP queue 1 item 7).
+over full prompt pages, the LRU of cached pages, the tier state and the
+fault seams (``set_faults``). The reference's private (retained) entries
+come with the hybrid families (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -37,6 +51,11 @@ import numpy as np
 import torch
 
 TRASH_PAGE = 0
+
+# tier states of a logical page in a tiered pool
+RESIDENT = "resident"
+HOST = "host"
+IN_FLIGHT = "in_flight"
 
 #: chain-hash parent of a prompt's first page
 ROOT_KEY = b""
@@ -297,14 +316,42 @@ class PagePool:
     ``free_pages`` counts the free list, ``cached_pages`` the registered
     pages no request holds, ``available_pages`` both: what ``alloc`` can
     produce. ``used_pages`` counts pages some request holds.
+
+    ``device_pages`` makes the pool tiered: frames 1 .. device_pages - 1
+    hold full-D rows (frame 0 is the trash frame), and each allocated or
+    cached page carries a tier state. ``max_inflight`` bounds the fetches
+    in flight. The pool is bookkeeping only: the engine owns the device
+    pools and the host buffers and makes the copies, copy-then-demote and
+    promote_begin, copy, promote_complete.
     """
 
-    def __init__(self, n_pages: int, page_size: int):
+    def __init__(self, n_pages: int, page_size: int,
+                 device_pages: Optional[int] = None,
+                 max_inflight: int = 2):
         if n_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is reserved)")
+        if device_pages is not None and not 2 <= device_pages <= n_pages:
+            raise ValueError(
+                f"device_pages must be in [2, n_pages={n_pages}], "
+                f"got {device_pages}")
         self.n_pages = n_pages
         self.page_size = page_size
+        # the serving/faults.py FaultPlan consulted at alloc and
+        # available_pages; None: no faults
+        self._faults = None
         self._free: List[int] = list(range(1, n_pages))
+        # tier state (device_pages None: single tier, every page its own
+        # frame and always RESIDENT)
+        self.device_pages = device_pages
+        self.max_inflight = max_inflight
+        self._free_frames: List[int] = (
+            list(range(1, device_pages)) if device_pages else [])
+        self._frame_of: Dict[int, int] = {}   # RESIDENT | IN_FLIGHT pages
+        self._tier: Dict[int, str] = {}       # allocated or cached pages
+        self._pinned: Dict[int, int] = {}     # page -> pin count
+        self._inflight: Dict[int, int] = {}   # page -> staging frame
+        self.n_demoted = 0
+        self.n_promoted = 0
         self._ref: Dict[int, int] = {}
         # the prefix index over full prompt pages, three views of it
         self._index: Dict[bytes, CacheEntry] = {}
@@ -317,6 +364,18 @@ class PagePool:
         self.n_hits = 0
         self.n_hit_tokens = 0
         self.n_evicted = 0
+
+    # -------------------------------------------------- fault injection
+
+    def set_faults(self, plan) -> None:
+        """Attach a serving/faults.py FaultPlan, consulted at ``alloc``
+        (alloc_fail), ``available_pages`` (pool_exhaustion) and
+        ``promote_begin`` (hbm_oom_on_promote). The engine advances the
+        plan's tick."""
+        self._faults = plan
+
+    def _fault(self, site: str, unit: int = 0) -> bool:
+        return self._faults is not None and self._faults.hit(site, unit)
 
     # ------------------------------------------------------- accounting
 
@@ -332,7 +391,11 @@ class PagePool:
 
     @property
     def available_pages(self) -> int:
-        """What ``alloc`` can produce: free plus cached pages."""
+        """What ``alloc`` can produce: free plus cached pages. An injected
+        ``pool_exhaustion`` reads 0 for the tick, without touching the
+        accounting."""
+        if self._fault("pool_exhaustion"):
+            return 0
         return len(self._free) + len(self._lru)
 
     @property
@@ -349,10 +412,11 @@ class PagePool:
     def is_private(self, page: int) -> bool:
         """Is this page a private (retained) entry? Never here: the
         reference's ``register_private`` belongs to hybrid retention,
-        not ported (ROADMAP queue 1 item 7)."""
+        not ported (ROADMAP queue 1 item 8)."""
         e = self._by_page.get(page)
         return e is not None and e.key.startswith(b"priv:")
 
+    # read-only views for the auditor (serving/faults.py)
     def free_page_ids(self) -> List[int]:
         return list(self._free)
 
@@ -363,22 +427,188 @@ class PagePool:
         """page -> refcount for every held page (a copy)."""
         return dict(self._ref)
 
+    # ------------------------------------------------------- tier state
+
+    @property
+    def tiered(self) -> bool:
+        return self.device_pages is not None
+
+    @property
+    def free_frames(self) -> int:
+        return len(self._free_frames)
+
+    def tier_of(self, page: int) -> str:
+        """Tier state of an allocated or cached page (single-tier pools
+        and the trash page are RESIDENT by definition)."""
+        if not self.tiered or page == TRASH_PAGE:
+            return RESIDENT
+        state = self._tier.get(page)
+        if state is None:
+            raise ValueError(f"tier_of() of free page {page}")
+        return state
+
+    def frame_of(self, page: int) -> Optional[int]:
+        """The device frame of a page's full-D rows: the page itself in a
+        single-tier pool, the mapped frame of a RESIDENT or IN_FLIGHT page,
+        None for a HOST page."""
+        if not self.tiered:
+            return page
+        if page == TRASH_PAGE:
+            return TRASH_PAGE
+        return self._frame_of.get(page)
+
+    def pin(self, page: int) -> None:
+        """Pin a RESIDENT page against demotion (tail pages receiving
+        decode writes)."""
+        if not self.tiered or page == TRASH_PAGE:
+            return
+        if self._tier.get(page) != RESIDENT:
+            raise ValueError(f"pin of non-resident page {page}")
+        self._pinned[page] = self._pinned.get(page, 0) + 1
+
+    def unpin(self, page: int) -> None:
+        if not self.tiered or page == TRASH_PAGE:
+            return
+        if self._pinned.get(page, 0) <= 0:
+            raise ValueError(f"unpin of unpinned page {page}")
+        self._pinned[page] -= 1
+        if self._pinned[page] == 0:
+            del self._pinned[page]
+
+    def is_pinned(self, page: int) -> bool:
+        return self._pinned.get(page, 0) > 0
+
+    def demote(self, page: int) -> int:
+        """Surrender a RESIDENT page's frame (its rows must already be in
+        the host buffers: the engine copies first) and return the frame.
+        Raises like a double free on a HOST, in-flight, pinned or trash
+        page."""
+        if not self.tiered:
+            raise ValueError("demote() on a single-tier pool")
+        if page == TRASH_PAGE:
+            raise ValueError("demote of the reserved trash page")
+        state = self._tier.get(page)
+        if state == HOST:
+            raise ValueError(f"double-demote of page {page}")
+        if state != RESIDENT:
+            raise ValueError(f"demote of {state or 'free'} page {page}")
+        if self._pinned.get(page, 0):
+            raise ValueError(f"demote of pinned page {page}")
+        frame = self._frame_of.pop(page)
+        self._free_frames.append(frame)
+        self._tier[page] = HOST
+        self.n_demoted += 1
+        return frame
+
+    def promote_begin(self, page: int, faultable: bool = True
+                      ) -> Optional[int]:
+        """Claim a staging frame for a HOST page's fetch and return it
+        (the page turns IN_FLIGHT; the engine copies, then
+        ``promote_complete``), or None when no frame is free, the
+        in-flight budget is spent or ``hbm_oom_on_promote`` fires.
+        Promoting a RESIDENT or IN_FLIGHT page raises."""
+        if not self.tiered:
+            raise ValueError("promote_begin() on a single-tier pool")
+        state = self._tier.get(page)
+        if state in (RESIDENT, IN_FLIGHT):
+            raise ValueError(f"promote of {state} page {page}")
+        if state != HOST:
+            raise ValueError(f"promote of free page {page}")
+        if faultable and self._fault("hbm_oom_on_promote", page):
+            return None
+        if not self._free_frames or len(self._inflight) >= self.max_inflight:
+            return None
+        frame = self._free_frames.pop()
+        self._frame_of[page] = frame
+        self._tier[page] = IN_FLIGHT
+        self._inflight[page] = frame
+        return frame
+
+    def promote_complete(self, page: int) -> int:
+        """The fetch landed: IN_FLIGHT -> RESIDENT. Returns the frame."""
+        if self._tier.get(page) != IN_FLIGHT:
+            raise ValueError(
+                f"promote_complete of page {page} with no fetch in flight")
+        del self._inflight[page]
+        self._tier[page] = RESIDENT
+        self.n_promoted += 1
+        return self._frame_of[page]
+
+    def promote_abort(self, page: int) -> None:
+        """A fetch that never landed (dma_timeout): the staging frame goes
+        back and the page to HOST, so a retry can claim a fresh fetch."""
+        if self._tier.get(page) != IN_FLIGHT:
+            raise ValueError(
+                f"promote_abort of page {page} with no fetch in flight")
+        del self._inflight[page]
+        self._free_frames.append(self._frame_of.pop(page))
+        self._tier[page] = HOST
+
+    def _tier_free(self, page: int) -> None:
+        """Clear a page's tier state as it returns to the free list. The
+        in-flight check comes before any change: a refused free leaves the
+        tier partition as it was (the fetch still owns its frame)."""
+        if not self.tiered:
+            return
+        state = self._tier.get(page)
+        if state == IN_FLIGHT:
+            raise ValueError(f"free of in-flight page {page}")
+        self._tier.pop(page, None)
+        if state == RESIDENT:
+            self._free_frames.append(self._frame_of.pop(page))
+        self._pinned.pop(page, None)
+
+    # auditor views over the tier partition (invariants G, H, I)
+    def resident_page_ids(self) -> List[int]:
+        return [p for p, st in self._tier.items() if st == RESIDENT]
+
+    def host_page_ids(self) -> List[int]:
+        return [p for p, st in self._tier.items() if st == HOST]
+
+    def inflight_page_ids(self) -> List[int]:
+        return list(self._inflight)
+
+    def free_frame_ids(self) -> List[int]:
+        return list(self._free_frames)
+
+    def pinned_page_ids(self) -> List[int]:
+        return [p for p, n in self._pinned.items() if n > 0]
+
+    def frame_map(self) -> Dict[int, int]:
+        """page -> frame for every RESIDENT or IN_FLIGHT page (a copy)."""
+        return dict(self._frame_of)
+
     # ------------------------------------------------------- alloc/free
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """n pages at refcount 1, in free-list order, evicting cached
         pages (least recently released first) when the free list is
         short; None (and no allocation, no eviction) when fewer are
-        available. ``alloc(0)`` returns ``[]``."""
+        available or ``alloc_fail`` fires. In a tiered pool fresh pages
+        are born RESIDENT and each takes a frame: when the free frames
+        and the cached pages' frames cannot cover them, None too (the
+        caller demotes cold pages first). ``alloc(0)`` returns ``[]``."""
         if n == 0:
             return []
+        if self._fault("alloc_fail", n):
+            return None
         if n > self.available_pages:
             return None
+        if self.tiered:
+            lru_frames = sum(1 for p in self._lru
+                             if self._tier.get(p) == RESIDENT)
+            if n > len(self._free_frames) + lru_frames:
+                return None
+            while len(self._free_frames) < n:
+                self._evict_one()
         while len(self._free) < n:
             self._evict_one()
         taken, self._free = self._free[:n], self._free[n:]
         for p in taken:
             self._ref[p] = 1
+            if self.tiered:
+                self._tier[p] = RESIDENT
+                self._frame_of[p] = self._free_frames.pop()
         return taken
 
     def acquire(self, pages: List[int]) -> List[int]:
@@ -402,8 +632,9 @@ class PagePool:
         """Drop one reference per listed page. At zero a page goes back to
         the end of the free list, or, when registered, to the MRU end of
         the LRU (still a hit, evicted on demand). Raises, before changing
-        anything, on the trash page or a refcount underflow (a double
-        free)."""
+        anything, on the trash page, a refcount underflow (a double free)
+        or a free that would drop an IN_FLIGHT page to the free list (its
+        fetch still owns the frame)."""
         seen: Dict[int, int] = {}
         for p in pages:
             if p == TRASH_PAGE:
@@ -412,6 +643,11 @@ class PagePool:
             if self._ref.get(p, 0) < seen[p]:
                 raise ValueError(
                     f"double-free of page {p} (refcount underflow)")
+        for p, c in seen.items():
+            if self.tiered and self._ref.get(p, 0) == c \
+                    and p not in self._by_page \
+                    and self._tier.get(p) == IN_FLIGHT:
+                raise ValueError(f"free of in-flight page {p}")
         for p in pages:
             self._ref[p] -= 1
             if self._ref[p] == 0:
@@ -419,13 +655,18 @@ class PagePool:
                 if p in self._by_page:
                     self._lru[p] = None
                 else:
+                    self._tier_free(p)
                     self._free.append(p)
+
+    # release is free under refcounts (ref 1 -> 0): the reference's name
+    free = release
 
     def _evict_one(self) -> None:
         """Reclaim the least recently released cached page: drop its index
-        entry and hand the page to the free list."""
+        entry and hand the page (and its frame) back."""
         page, _ = self._lru.popitem(last=False)
         self._drop_entry(self._by_page[page])
+        self._tier_free(page)
         self._free.append(page)
         self.n_evicted += 1
 
@@ -518,3 +759,78 @@ class PagePool:
     def pages_for(n_tokens: int, page_size: int) -> int:
         """Pages needed to hold n_tokens."""
         return -(-max(n_tokens, 0) // page_size)
+
+
+# ------------------------------------------------------------ fetch queue
+
+class FetchQueue:
+    """Bounded queue of host-to-device page fetches over a tiered
+    PagePool.
+
+    ``request(page)`` claims a staging frame (``promote_begin``) and
+    starts the engine's copy, ``copy_fn(page, frame)``, which returns an
+    event recorded after the copy on the engine's copy stream (None where
+    the copy is done on return, on the CPU). The queue holds at most
+    ``pool.max_inflight`` fetches; requesting past it completes the oldest
+    first, so issue order is landing order. Completing a fetch makes the
+    caller's (compute) stream wait on its event, so every later step reads
+    the frame after the copy landed, then marks the page RESIDENT.
+
+    ``drain()`` completes every outstanding fetch: the barrier before the
+    frame table is rebuilt for the next step. Under an injected
+    ``dma_timeout`` the fetch is aborted and copied again (not faultable:
+    this is the fallback), counted in ``n_sync_fallback``.
+    """
+
+    def __init__(self, pool: PagePool, copy_fn, faults=None):
+        self.pool = pool
+        self._copy = copy_fn            # copy_fn(page, frame) -> event
+        self._faults = faults
+        self._pending: "collections.deque[Tuple[int, object]]" = \
+            collections.deque()
+        self.n_issued = 0
+        self.n_sync_fallback = 0
+
+    def request(self, page: int) -> bool:
+        """Start fetching a HOST page; False when no staging frame could be
+        claimed (frame pressure or hbm_oom_on_promote): the caller runs
+        its demote, retry or defer ladder."""
+        if self._pending and len(self._pending) >= self.pool.max_inflight:
+            self._complete(*self._pending.popleft())
+        frame = self.pool.promote_begin(page)
+        if frame is None:
+            return False
+        self._pending.append((page, self._copy(page, frame)))
+        self.n_issued += 1
+        return True
+
+    @staticmethod
+    def land(event) -> None:
+        """Order the current stream's later work after a copy's event."""
+        if event is not None:
+            event.wait()
+
+    def _complete(self, page: int, event) -> None:
+        # the copy was issued whatever the fault says: its frame may go
+        # back to the free list below, so later writes to it must come
+        # after it
+        self.land(event)
+        if self._faults is not None and self._faults.hit("dma_timeout",
+                                                         page):
+            self.pool.promote_abort(page)
+            frame = self.pool.promote_begin(page, faultable=False)
+            if frame is None:       # the abort above freed budget
+                raise RuntimeError(
+                    f"sync fallback could not claim a frame for {page}")
+            self.land(self._copy(page, frame))
+            self.n_sync_fallback += 1
+        self.pool.promote_complete(page)
+
+    def drain(self) -> None:
+        """Complete every outstanding fetch."""
+        while self._pending:
+            self._complete(*self._pending.popleft())
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._pending)

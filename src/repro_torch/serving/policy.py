@@ -14,6 +14,9 @@ A policy is two total orders plus one capability flag:
   preempt_for_admission       may a more urgent waiter evict a runner just
                               for its slot? (False for FIFO.)
 
+``shed_key`` orders preemption victims and ``demote_key`` a tiered
+pool's demotion victims.
+
 ``TickBudget`` holds the per-tick token caps: prompt tokens prefilled and
 live slots decoded.
 """
@@ -48,6 +51,17 @@ class SchedulerPolicy:
         the maximum, the least urgent request, ties toward the one that
         has churned through the most preemptions."""
         return (self.sort_key(req, arrival), n_preempts)
+
+    def demote_key(self, page: int, cached_unreferenced: bool,
+                   lru_order: int, last_use_tick: int):
+        """Demotion order of a tiered pool: the engine demotes the minimum
+        when it needs device frames. Cached pages no slot holds go first,
+        in LRU order (their frames serve nobody; their bytes keep prefix
+        value on the host), then cold resident pages by last-use tick.
+        Demotion always comes before preemption or shedding: losing a
+        frame costs one fetch, losing a slot a re-prefill."""
+        return ((0, lru_order) if cached_unreferenced
+                else (1, last_use_tick))
 
 
 class FifoPolicy(SchedulerPolicy):

@@ -51,28 +51,63 @@ tokens and the finite mask in one device-to-host copy: one host sync per
 tick, counted in ``n_host_syncs``. A copy-on-write is an in-place copy on
 the card at host page ids: no sync.
 
-Not ported yet, and refused when asked for (ROADMAP queue 1 item 7):
-fault injection and the auditor, the trace guard (it seals compiled
-programs, which the eager port has none of), the tiered pool, page-table
-groups, and state snapshots and retention (these two come with the
-window and state families, ROADMAP queue 1 item 8). The reference's
-degradation ladder (re-running a failed kernel step on the XLA path) is
-deliberately absent: on the card a failed kernel raises.
+Tiered pool (``device_pages``): only ``device_pages`` frames of full-D
+K/V rows stay on the card; the rest of the pages live in pinned host
+buffers, while the latent-K sidecar of every page stays on the card, so
+Loki's score pass reads every page. A tiered decode step runs the score
+pass over the sidecar and exact attention over the frames (HOST pages
+read the trash frame 0); a slot whose winners were all RESIDENT commits
+its token, a slot that attended a HOST page has its misses promoted and
+runs again (at most ``_TIERED_MAX_RUNS`` runs), and a slot whose misses
+cannot be promoted this tick defers whole. Frame shortage demotes cold
+pages and never preempts. Ordering on the card, made explicit where the
+reference leans on JAX's dispatch order:
+
+  demotion   synchronous: the frame's rows go to a pinned host buffer
+             from a free list (copy-then-demote), then one host sync,
+             counted in ``n_demote_syncs`` apart from the decode syncs
+  promotion  the host-to-frame copy runs on a copy stream that first
+             waits on the compute stream (the frame's old contents are
+             done with); an event recorded after it is what the fetch
+             queue lands: the compute stream waits on it before any step
+             that reads the frame. A host buffer returns to the free list
+             only once its page is RESIDENT again, after that wait
+  a run      one upload (page table, frame table, tokens, positions) and
+             one device-to-host copy (tokens, finite mask, winners)
+
+Faults (``faults``, a serving/faults.py FaultPlan advanced each tick):
+the pool's seams (``alloc_fail``, ``pool_exhaustion``,
+``hbm_oom_on_promote``), the fetch queue's ``dma_timeout``, ``nan_logits``
+on the masked, packed and tiered steps, ``slot_corrupt`` after the decode
+phase, and ``kernel_fail``. The reference's ladder for a failed kernel
+step (disable the kernel backend, re-run the step on the plain path) runs
+on a CPU engine only, where the plain gathered path is the floor; a CUDA
+engine has no floor, refuses a plan that can fire ``kernel_fail``, and a
+real kernel failure raises out of the tick (ROADMAP §3). ``audit=True``
+runs the invariant auditor after every tick.
+
+Not ported yet, and refused when asked for: the trace guard (it seals
+compiled programs; it comes with the captured decode step, ROADMAP, the
+note after queue 1), page-table groups, and state snapshots and retention
+(these two come with the window and state families, ROADMAP queue 1 item
+8).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dispatch
 from repro_torch.models import lm
 from repro_torch.serving import cache_spec as CS
+from repro_torch.serving import faults as FI
 from repro_torch.serving import lifecycle as LC
 from repro_torch.serving import paged_cache as PC
 from repro_torch.serving.engine import (Request, context_cap,
@@ -82,6 +117,17 @@ from repro_torch.serving.paged_cache import PagePool
 from repro_torch.serving.policy import SchedulerPolicy, TickBudget, make_policy
 
 PAGED_POLICIES = ("full", "exact_topk", "loki", "loki_block")
+
+# runs of one tiered decode step before it gives up: run 1 finds the first
+# off-device winners, run 2 can still move deeper layers' selections (their
+# run-1 scores read trash rows), run 3 is resident in practice; 4 leaves
+# one run of slack before calling it promotion/selection ping-pong
+_TIERED_MAX_RUNS = 4
+
+
+def _can_fire(plan, site: str) -> bool:
+    """Can a FaultPlan fire ``site`` at all (a rate or a point)?"""
+    return plan.rates.get(site, 0.0) > 0.0 or bool(plan.at.get(site))
 
 
 class PagedServingEngine:
@@ -109,18 +155,28 @@ class PagedServingEngine:
     shed_after     preemptions a request survives before it is shed
                    (terminal SHED with a retry-after hint) instead of
                    requeued; None (default) never sheds
+    faults         serving/faults.py FaultPlan consulted by the pool, the
+                   fetch queue and this scheduler; None: off. A CUDA
+                   engine refuses a plan that can fire ``kernel_fail``
+    audit          run the invariant auditor after every tick (raises
+                   AuditError on a violation)
     nan_guard      FAIL a request whose decode logits go non-finite, alone
+    device_pages   tiered pool: frames of full-D K/V rows kept on the card
+                   (with the trash frame); the other pages live in pinned
+                   host buffers, scored through the resident latent
+                   sidecar and promoted when the selection attends them.
+                   Needs a Loki policy over a non-quantized layout. None:
+                   single tier
+    max_inflight   fetches the tiered pool's queue holds at once
     packed         gather-packed decode: the tick's live slots compacted
                    into a batch padded to a power-of-two bucket; False
-                   always runs full width, masked
+                   always runs full width, masked. Off under the tier (its
+                   re-runs and winner bookkeeping are slot-indexed)
     device         where the pool lives: the card unless "cpu" is asked
                    for; ``params`` must be on the same device
 
-    The reference's ``faults``, ``audit``, ``trace_guard`` and
-    ``device_pages`` are taken at their off values and raise otherwise
-    (ROADMAP queue 1 item 7). ``donate`` has no effect: the port always
-    updates the pools in place. ``max_inflight`` belongs to the tiered
-    pool.
+    The reference's ``trace_guard`` raises (ROADMAP, the note after queue
+    1). ``donate`` has no effect: the port updates the pools in place.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 4,
@@ -136,15 +192,12 @@ class PagedServingEngine:
                  trace_guard=None, donate: bool = True,
                  device_pages: Optional[int] = None,
                  max_inflight: int = 2, packed: bool = True, device=None):
-        del donate, max_inflight
-        unported = [name for name, on in (
-            ("faults", faults is not None), ("audit", audit),
-            ("trace_guard", trace_guard is not None),
-            ("device_pages", device_pages is not None)) if on]
-        if unported:
+        del donate
+        if trace_guard is not None:
             raise NotImplementedError(
-                f"PagedServingEngine: {', '.join(unported)} not ported yet "
-                "(ROADMAP queue 1 item 7)")
+                "PagedServingEngine: trace_guard seals compiled programs; "
+                "it comes with the captured decode step (ROADMAP, the note "
+                "after queue 1)")
         if backend is not None:
             cfg = cfg.replace(
                 loki=dataclasses.replace(cfg.loki, backend=backend))
@@ -158,6 +211,12 @@ class PagedServingEngine:
             raise ValueError(f"admission={admission!r}; "
                              "use 'strict' or 'lenient'")
         self.device = resolve_device(device)
+        if (faults is not None and self.device.type == "cuda"
+                and _can_fire(faults, "kernel_fail")):
+            raise ValueError(
+                "PagedServingEngine: kernel_fail needs a plain floor to "
+                "fall back to, which a CUDA engine does not have: a real "
+                "kernel failure raises out of the tick (ROADMAP §3)")
         self.params, self.cfg = params, cfg
         self.page_size = page_size or cfg.loki.block_size
         self.max_pages = -(-smax // self.page_size)
@@ -168,7 +227,7 @@ class PagedServingEngine:
         self.nan_guard = nan_guard
         self.admission = admission
         self.shed_after = shed_after
-        self.packed = bool(packed)
+        self.packed = bool(packed) and device_pages is None
         self._clock = clock or time.time
         self.policy: SchedulerPolicy = make_policy(policy)
         self.budget = TickBudget(
@@ -187,9 +246,34 @@ class PagedServingEngine:
                 f"pool of {n_pages} pages cannot hold one full request "
                 f"({self.req_budget} pages); raise n_pages or lower smax")
 
-        self.pool = PagePool(n_pages, self.page_size)
+        self.tiered = device_pages is not None
+        if self.tiered:
+            if cfg.attn_policy() not in ("loki", "loki_block"):
+                raise ValueError(
+                    "tiered KV pool needs a Loki policy (its latent "
+                    f"sidecar drives the score pass), not "
+                    f"{cfg.attn_policy()!r}")
+            if cfg.page_layout.quantized:
+                raise ValueError(
+                    "tiered KV pool requires a non-quantized page layout: "
+                    "quantized row writes re-derive per-page scales, so "
+                    "the miss-repair replay would not be bit-idempotent")
+            if device_pages - 1 < self.req_budget:
+                raise ValueError(
+                    f"device pool of {device_pages} frames cannot hold "
+                    f"one full request ({self.req_budget} pages); raise "
+                    "device_pages or lower smax")
+        self._faults = faults
+        self.audit = audit
+
+        self.pool = PagePool(n_pages, self.page_size,
+                             device_pages=device_pages,
+                             max_inflight=max_inflight)
+        if faults is not None:
+            self.pool.set_faults(faults)
         self.cache = lm.init_paged_cache(cfg, n_pages, self.page_size,
                                          torch.float32, n_slots=n_slots,
+                                         device_pages=device_pages,
                                          device=self.device)
         self.page_table = np.zeros((n_slots, self.max_pages), np.int32)
         self.pos = np.zeros((n_slots,), np.int32)
@@ -233,6 +317,40 @@ class PagedServingEngine:
         self.peak_slot_pages = 0
         self.n_stalled = 0
         self.stalled_rids: List[int] = []
+        self.n_backend_fallbacks = 0
+        # tiered pool: host buffers of HOST and IN_FLIGHT pages (k, v) and
+        # a free list of buffers to reuse, the pinned write target per
+        # slot, the last tick each page was used (demotion order), the
+        # copy stream and the fetch queue
+        self._host_kv: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._host_free: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self._n_host_buffers = 0
+        self._pinned_tail: Dict[int, int] = {}
+        self._page_last_use: Dict[int, int] = {}
+        attn = self.cache["layers"]["attn"]
+        self._page_bytes = self.page_size * sum(
+            attn[n][0, 0].numel() * attn[n].element_size()
+            for n in ("k", "v")) * cfg.n_layers
+        self.n_prefetch_hits = 0
+        self.n_prefetch_misses = 0
+        self.n_sync_fetches = 0
+        self.n_decode_reruns = 0
+        self.n_decode_runs = 0
+        self.n_deferred = 0
+        self.n_demote_syncs = 0
+        self.n_h2d_bytes = 0
+        self.n_d2h_bytes = 0
+        # winner pages and live pages summed over the slots of each step's
+        # first run: how much of its context a slot's selection touches
+        self.n_winner_pages = 0
+        self.n_live_pages = 0
+        self.n_winner_slots = 0
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.tiered and self.device.type == "cuda"
+                             else None)
+        self._fetch = (PC.FetchQueue(self.pool, self._promote_copy,
+                                     faults=faults)
+                       if self.tiered else None)
 
     # ------------------------------------------------------------ host->card
 
@@ -370,6 +488,11 @@ class PagedServingEngine:
         self.pos[slot] = len(req.prompt) - 1
         self.last_tok[slot] = int(req.prompt[-1])
         self.live[slot] = True
+        if self.tiered and self.slot_pages[slot]:
+            # pin the decode write target now if a frame allows it; the
+            # decode phase makes it resident again before every step
+            if self._ensure_resident([self.slot_pages[slot][-1]]):
+                self._repin_tail(slot)
 
     def _release_slot(self, slot: int) -> None:
         """Drop a slot's page references (a shared page survives for its
@@ -377,7 +500,13 @@ class PagedServingEngine:
         table at the trash page, so the batched step's unconditional write
         cannot touch reallocated pages. No status change (callers own
         that)."""
+        if self.tiered:
+            old = self._pinned_tail.pop(slot, None)
+            if old is not None:
+                self.pool.unpin(old)
         self.pool.release(self.slot_pages[slot])
+        if self.tiered:
+            self._prune_host()
         self.slot_pages[slot] = []
         self._cow_pending.pop(slot, None)
         self._reg_next.pop(slot, None)
@@ -452,10 +581,25 @@ class PagedServingEngine:
             return True
         if not self._make_room(need, protect=slot):
             return False
+        # fresh pages are born RESIDENT: a tiered pool frees their frames
+        # by demotion, never by preemption (``_make_room`` above answers a
+        # shortage of logical pages, which frames cannot)
+        if self.tiered and not self._demote_for_frames(
+                need, protect=frozenset(self.slot_pages[slot])):
+            return False
         pages = self.pool.alloc(need)
+        if pages is None:
+            return False               # injected alloc_fail: contended
         base = len(self.slot_pages[slot])
         self.page_table[slot, base:base + need] = pages
         self.slot_pages[slot].extend(pages)
+        if self.tiered and slot in self._pinned_tail:
+            # the tail moved to a fresh (RESIDENT) page: the pin follows at
+            # once, so a caller that defers after growing (a prefill chunk
+            # whose older pages cannot all be promoted this tick) leaves no
+            # stale pin behind (invariant H); the reference moves it only
+            # once the caller goes on
+            self._repin_tail(slot)
         self.peak_slot_pages = max(self.peak_slot_pages,
                                    len(self.slot_pages[slot]))
         return True
@@ -477,14 +621,36 @@ class PagedServingEngine:
         # (making room may have preempted the co-reader)
         if self.pool.refcount(old) == 1:
             self.pool.deregister(old)
-        else:
-            new = self.pool.alloc(1)[0]
-            lm.copy_cache_page(self.cfg, self.cache, old, new,
-                               self.page_size)
-            self.page_table[slot, idx] = new
-            self.slot_pages[slot][idx] = new
-            self.pool.release([old])
-            self.n_cow_copies += 1
+            del self._cow_pending[slot]
+            return True
+        if self.tiered:
+            # the copy reads the source frame and writes a fresh one: the
+            # source is promoted first (it may take a free frame), the
+            # destination's frame is claimed after
+            prot = frozenset(self.slot_pages[slot])
+            if not (self._ensure_resident([old], prot)
+                    and self._demote_for_frames(1, prot | {old})):
+                return False
+        got = self.pool.alloc(1)
+        if got is None:
+            return False               # injected alloc_fail: contended
+        new = got[0]
+        frames = {}
+        if self.tiered:
+            frames = dict(src_frame=self.pool.frame_of(old),
+                          dst_frame=self.pool.frame_of(new))
+        lm.copy_cache_page(self.cfg, self.cache, old, new, self.page_size,
+                           **frames)
+        self.page_table[slot, idx] = new
+        self.slot_pages[slot][idx] = new
+        if self.tiered:
+            # the old page may have been this slot's pinned tail: move the
+            # pin to the copy before the reference goes
+            self._repin_tail(slot)
+        self.pool.release([old])
+        if self.tiered:
+            self._prune_host()
+        self.n_cow_copies += 1
         del self._cow_pending[slot]
         return True
 
@@ -568,9 +734,19 @@ class PagedServingEngine:
             return -1
         chunk = np.zeros((c,), np.int32)
         chunk[:n_valid] = toks[start:start + n_valid]
-        dev = self._upload(np.concatenate([chunk, self.page_table[slot]]))
+        rows = [chunk, self.page_table[slot]]
+        if self.tiered:
+            # prefill is exact attention over the whole prefix and writes
+            # the chunk's pages: every page the slot holds must be resident
+            if not self._ensure_resident(self.slot_pages[slot]):
+                return -1              # frame-starved this tick
+            self._repin_tail(slot)
+            rows.append(self._frame_table(self.page_table[slot]))
+        dev = self._upload(np.concatenate(rows))
+        mp = self.max_pages
         lm.prefill_chunk(self.params, self.cfg, self.cache, dev[:c][None],
-                         start, n_valid, dev[c:], self.page_size)
+                         start, n_valid, dev[c:c + mp], self.page_size,
+                         frame_row=dev[c + mp:] if self.tiered else None)
         self.n_prefill_chunks += 1
         self._prefill_at[slot] = start + n_valid
         self.n_prefill_computed_tokens += n_valid
@@ -594,54 +770,49 @@ class PagedServingEngine:
         # each selected slot writes its new token this step: its target
         # page must exist and be its own (copy on write first); a slot
         # that cannot grow is the least urgent under pressure and preempts
-        # itself
+        # itself, unless only device frames are short (tier)
+        prepped: set = set()
         for slot in chosen:
             if not self.live[slot]:
                 continue                   # preempted by an earlier grow
             if not (self._resolve_cow(slot)
                     and self._grow_to(slot, int(self.pos[slot]) + 1)):
-                self._preempt(slot)
+                if self.tiered and self._frame_starved(slot):
+                    # demote before preempting: the pool has the pages and
+                    # only frames are short. Pins are best effort, so drop
+                    # those of slots not prepped this tick and retry; still
+                    # short, the slot defers one tick
+                    self._unpin_tails(keep=prepped | {slot})
+                    if not (self._resolve_cow(slot) and self._grow_to(
+                            slot, int(self.pos[slot]) + 1)):
+                        sel[slot] = False
+                        continue
+                else:
+                    self._preempt(slot)
+                    continue
+            if self.tiered:
+                # this step writes the slot's K/V row into its tail page:
+                # promote it if demoted and pin it, so no demotion in the
+                # repair loop diverts the write to the trash frame; frame-
+                # starved, the slot defers (nothing of its stream moves)
+                held = self.slot_pages[slot]
+                if held:
+                    if not self._ensure_resident([held[-1]],
+                                                 frozenset(held)):
+                        sel[slot] = False
+                        continue
+                    self._repin_tail(slot)
+                    self._page_last_use[held[-1]] = self.ticks
+                prepped.add(slot)
         sel &= self.live
         if not sel.any():
             return False
-        sidx = self._packed_order(sel)
-        packed = sidx is not None
-        if packed:
-            self.n_packed_ticks += 1
-            self.n_packed_rows_saved += self.n_slots - len(sidx)
+        if self.tiered:
+            nxt_np, finite, sel = self._decode_tiered(sel, rng)
+            if not sel.any():
+                return False           # every stream deferred a tick
         else:
-            self.n_masked_ticks += 1
-            sidx = np.arange(self.n_slots, dtype=np.int32)
-        # rows not selected this step (idle, mid-prefill or over budget
-        # slots, the packed batch's pad rows) get all-zero table rows, so
-        # they read and write only the trash page
-        rows, mp = len(sidx), self.max_pages
-        pt = self.page_table[sidx] * sel[sidx, None].astype(np.int32)
-        # the tick's one upload: table, tokens, positions (and slot ids)
-        dev = self._upload(np.concatenate(
-            [pt.ravel(), self.last_tok[sidx], self.pos[sidx]]
-            + ([sidx] if packed else [])))
-        o = rows * mp
-        logits, self.cache = self._run_decode(
-            dev[:o].view(rows, mp), dev[o:o + rows],
-            dev[o + rows:o + 2 * rows], dev[o + 2 * rows:] if packed else None)
-        nxt = sample_next(logits, greedy=self.greedy, rng=rng,
-                          ticks=self.ticks)
-        if self.nan_guard:
-            nxt = torch.stack([nxt, torch.isfinite(logits).all(-1).to(
-                torch.int32)])
-        # the one device->host copy of the tick: the sampled tokens (and
-        # the finite mask) drive every request's lifecycle on the host,
-        # scattered back to their slots (pad rows land on unselected
-        # slots, which nothing reads)
-        host = nxt.cpu().numpy()
-        self.n_host_syncs += 1
-        nxt_np = np.zeros((self.n_slots,), host.dtype)
-        nxt_np[sidx] = host[0] if self.nan_guard else host
-        finite = None
-        if self.nan_guard:
-            finite = np.ones((self.n_slots,), host.dtype)
-            finite[sidx] = host[1]
+            nxt_np, finite = self._decode_step(sel, rng)
         self.n_decode_steps += 1
         self.pos += sel.astype(np.int32)
         self._last_decoded[sel] = self.ticks
@@ -669,6 +840,64 @@ class PagedServingEngine:
                 self.last_tok[slot] = tok
         return True
 
+    def _decode_step(self, sel: np.ndarray, rng):
+        """One packed or masked decode step over the selected slots ->
+        (sampled tokens, finite mask or None), both over the full slot
+        axis (entries of unselected slots are not read)."""
+        sidx = self._packed_order(sel)
+        packed = sidx is not None
+        if packed:
+            self.n_packed_ticks += 1
+            self.n_packed_rows_saved += self.n_slots - len(sidx)
+        else:
+            self.n_masked_ticks += 1
+            sidx = np.arange(self.n_slots, dtype=np.int32)
+        # rows not selected this step (idle, mid-prefill or over budget
+        # slots, the packed batch's pad rows) get all-zero table rows, so
+        # they read and write only the trash page
+        rows, mp = len(sidx), self.max_pages
+        pt = self.page_table[sidx] * sel[sidx, None].astype(np.int32)
+        # the step's one upload: table, tokens, positions (and slot ids)
+        dev = self._upload(np.concatenate(
+            [pt.ravel(), self.last_tok[sidx], self.pos[sidx]]
+            + ([sidx] if packed else [])))
+        o = rows * mp
+        logits, self.cache = self._run_decode(
+            dev[:o].view(rows, mp), dev[o:o + rows],
+            dev[o + rows:o + 2 * rows], dev[o + 2 * rows:] if packed else None)
+        # nan_logits poisons the row that carries the slot (a packed row
+        # on a packed step)
+        self._poison(logits, [i for i in range(rows) if sel[sidx[i]]],
+                     sidx)
+        nxt = sample_next(logits, greedy=self.greedy, rng=rng,
+                          ticks=self.ticks)
+        if self.nan_guard:
+            nxt = torch.stack([nxt, torch.isfinite(logits).all(-1).to(
+                torch.int32)])
+        # the one device->host copy of the step: the sampled tokens (and
+        # the finite mask) drive every request's lifecycle on the host,
+        # scattered back to their slots (pad rows land on unselected
+        # slots, which nothing reads)
+        host = nxt.cpu().numpy()
+        self.n_host_syncs += 1
+        nxt_np = np.zeros((self.n_slots,), host.dtype)
+        nxt_np[sidx] = host[0] if self.nan_guard else host
+        finite = None
+        if self.nan_guard:
+            finite = np.ones((self.n_slots,), host.dtype)
+            finite[sidx] = host[1]
+        return nxt_np, finite
+
+    def _poison(self, logits, rows, slots) -> None:
+        """The ``nan_logits`` site: each of ``rows`` (carrying slot
+        ``slots[row]``) whose slot the plan hits is set to NaN on the
+        card, one row at a time (no index tensor crosses from the host)."""
+        if self._faults is None:
+            return
+        for i in rows:
+            if self._faults.hit("nan_logits", int(slots[i])):
+                logits[i] = float("nan")
+
     def _packed_order(self, sel: np.ndarray):
         """This tick's gather-packed batch: its slot ids, the selected
         ones first, or None when it runs full width, masked: packing is
@@ -686,22 +915,371 @@ class PagedServingEngine:
         return np.concatenate([live_idx, pad[:bucket - n_live]]).astype(
             np.int32)
 
+    def _ladder(self, step):
+        """Run one decode step through the reference's degradation ladder,
+        on a CPU engine only: when the kernel path (the plain versions
+        standing in for the kernels) fails with ``kernel_fail``, the
+        kernel backend is disabled process-wide and the same step re-runs
+        on the plain gathered path, which later steps keep. The injected
+        failure raises before the step touches the pools. A CUDA engine
+        has no floor (``resolve_backend`` raises for a disabled kernel
+        backend there): it never consults the site, and a kernel that
+        fails on the card raises out of the tick."""
+        on_kernels = (self.device.type == "cpu"
+                      and dispatch.resolve_backend(
+                          self.cfg.loki.backend, "cpu") == "pallas")
+        try:
+            if (on_kernels and self._faults is not None
+                    and self._faults.hit("kernel_fail")):
+                raise FI.FaultInjected("injected kernel-step abort")
+            return step()
+        except FI.FaultInjected as e:
+            if not on_kernels:
+                raise
+            dispatch.disable_backend("pallas", f"decode step failed: {e}")
+            self.n_backend_fallbacks += 1
+            return step()
+
     def _run_decode(self, pt, tok, pos, sidx):
-        """One batched decode step over the masked or packed table. No
-        fallback: a kernel that fails on the card raises out of the
-        tick."""
-        return lm.decode_step(self.params, self.cfg, self.cache, tok, pos,
-                              page_table=pt, page_size=self.page_size,
-                              slot_idx=sidx)
+        """One batched decode step over the masked or packed table."""
+        return self._ladder(lambda: lm.decode_step(
+            self.params, self.cfg, self.cache, tok, pos, page_table=pt,
+            page_size=self.page_size, slot_idx=sidx))
+
+    # ------------------------------------------------------- tiered pool
+
+    def _frame_table(self, pt: np.ndarray) -> np.ndarray:
+        """A logical page table resolved to device frames: RESIDENT pages
+        to their frame; HOST pages and frames still in flight to the trash
+        frame 0, whose rows are finite garbage. A slot whose selection
+        attended such a page is re-run, never committed."""
+        lut = np.zeros((self.pool.n_pages,), np.int32)
+        for p, f in self.pool.frame_map().items():
+            lut[p] = f
+        for p in self.pool.inflight_page_ids():
+            lut[p] = 0
+        return lut[pt]
+
+    def _prune_host(self) -> None:
+        """Return the host buffers no off-device page needs to the free
+        list. A page leaves HOST and IN_FLIGHT only once its copy has
+        landed (the compute stream waited on its event), and a buffer is
+        reused only by a demotion's copy on that stream, so no unfinished
+        copy still reads a buffer it lets go."""
+        keep = set(self.pool.host_page_ids()) \
+            | set(self.pool.inflight_page_ids())
+        for p in [p for p in self._host_kv if p not in keep]:
+            self._host_free.append(self._host_kv.pop(p))
+
+    def _host_buffers(self):
+        """A (k, v) pair of page-sized host buffers, pinned on a CUDA
+        engine: from the free list, else new."""
+        if self._host_free:
+            return self._host_free.pop()
+        self._n_host_buffers += 1
+        attn = self.cache["layers"]["attn"]
+        pin = self.device.type == "cuda"
+        return tuple(torch.empty(
+            (attn[n].shape[0], self.page_size) + tuple(attn[n].shape[2:]),
+            dtype=attn[n].dtype, pin_memory=pin) for n in ("k", "v"))
+
+    def _promote_copy(self, page: int, frame: int):
+        """FetchQueue's copy: a page's host bytes into its staging frame.
+        On the card the copy runs on the copy stream, after the compute
+        stream's work so far (the frame's old contents are done with), and
+        returns the event recorded after it; on the CPU it is done on
+        return (None)."""
+        k_host, v_host = self._host_kv[page]
+        self.n_h2d_bytes += self._page_bytes
+        if self._copy_stream is None:
+            lm.promote_page_rows(self.cfg, self.cache, k_host, v_host, frame,
+                                 self.page_size)
+            return None
+        self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._copy_stream):
+            lm.promote_page_rows(self.cfg, self.cache, k_host, v_host, frame,
+                                 self.page_size)
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return event
+
+    def _demote(self, pages) -> None:
+        """Copy-then-demote: each page's full-D rows leave its frame for a
+        host buffer, one host sync waits for the copies, then the frames
+        go back. The latent sidecar rows stay on the card, so the pages
+        keep scoring; only exact attention needs them back."""
+        attn = self.cache["layers"]["attn"]
+        ps = self.page_size
+        # take back the buffers of pages promoted since the last prune
+        # (their copies have landed) before any new one is allocated
+        self._prune_host()
+        for p in pages:
+            f = self.pool.frame_of(p)
+            bufs = self._host_buffers()
+            for buf, n in zip(bufs, ("k", "v")):
+                buf.copy_(attn[n][:, f * ps:(f + 1) * ps], non_blocking=True)
+            self._host_kv[p] = bufs
+            self.n_d2h_bytes += self._page_bytes
+        if pages and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+            self.n_demote_syncs += 1
+        for p in pages:
+            self.pool.demote(p)
+
+    def _demote_for_frames(self, need: int, protect=frozenset()) -> bool:
+        """Free device frames by demoting victims in the policy's
+        ``demote_key`` order: cached pages no slot holds first, then cold
+        resident pages by last-use tick. Pinned tails and ``protect`` are
+        never victims. True iff ``need`` frames are now free."""
+        short = need - self.pool.free_frames
+        if short <= 0:
+            return True
+        lru_pos = {p: i for i, p in enumerate(self.pool.lru_page_ids())}
+        cands = [p for p in self.pool.resident_page_ids()
+                 if p not in protect and not self.pool.is_pinned(p)]
+        cands.sort(key=lambda p: self.policy.demote_key(
+            p, p in lru_pos, lru_pos.get(p, 0),
+            self._page_last_use.get(p, -1)))
+        self._demote(cands[:short])
+        return self.pool.free_frames >= need
+
+    def _promote_sync(self, page: int, protect=frozenset()) -> bool:
+        """Promote one page outside the queue, counted: the repair path of
+        reads that no trash-frame masking may hide (prefill's prefix, a
+        copy-on-write source, a decode write target). Claims a frame
+        (demoting a victim if none is free), copies and lands the copy.
+        False when no frame could be claimed this tick (hbm_oom_on_promote,
+        or every frame pinned or protected): the caller defers."""
+        state = self.pool.tier_of(page)
+        if state == PC.IN_FLIGHT:
+            self._fetch.drain()
+            self._prune_host()
+            state = self.pool.tier_of(page)
+        if state == PC.RESIDENT:
+            return True
+        frame = self.pool.promote_begin(page)
+        if frame is None:
+            self._demote_for_frames(1, protect | {page})
+            frame = self.pool.promote_begin(page)
+        if frame is None:
+            return False
+        PC.FetchQueue.land(self._promote_copy(page, frame))
+        self.pool.promote_complete(page)
+        self.n_sync_fetches += 1
+        self._prune_host()
+        return True
+
+    def _ensure_resident(self, pages, protect=frozenset()) -> bool:
+        """Promote every off-device page of ``pages`` outside the queue."""
+        if not self.tiered:
+            return True
+        prot = frozenset(protect) | set(pages)
+        return all(self._promote_sync(p, prot) for p in pages)
+
+    def _repin_tail(self, slot: int) -> None:
+        """Pin the slot's write target (tail page), unpinning the previous
+        one once the tail moves: a pinned tail is never demoted, so a
+        decode write never lands in the trash frame by mistake."""
+        tail = self.slot_pages[slot][-1] if self.slot_pages[slot] else None
+        old = self._pinned_tail.get(slot)
+        if old == tail:
+            return
+        if old is not None:
+            self.pool.unpin(old)
+            self._pinned_tail.pop(slot, None)
+        if tail is not None:
+            self.pool.pin(tail)
+            self._pinned_tail[slot] = tail
+
+    def _frame_starved(self, slot: int) -> bool:
+        """Did this slot's decode prep fail for frames rather than pages?
+        True when free and cached pages could cover its growth (and a
+        pending copy-on-write): then only the device tier is short, which
+        is demotion's and deferral's job, never preemption's."""
+        need = PagePool.pages_for(int(self.pos[slot]) + 1, self.page_size) \
+            - len(self.slot_pages[slot])
+        if slot in self._cow_pending:
+            need += 1
+        return self.pool.available_pages >= max(need, 0)
+
+    def _unpin_tails(self, keep) -> None:
+        """Drop the tail pins of every slot not in ``keep``. Safe once that
+        slot's last write landed: a demotion copies the frame's rows out
+        first, so unpinning loses nothing; the slot re-pins in its own
+        prep or defers."""
+        for t in [t for t in self._pinned_tail if t not in keep]:
+            self.pool.unpin(self._pinned_tail.pop(t))
+
+    def _winner_pages(self, pt: np.ndarray, win: np.ndarray,
+                      sel: np.ndarray) -> Dict[int, set]:
+        """slot -> the physical pages this run's selection attended."""
+        return {int(s): {int(p) for p in pt[s][win[s]] if p != 0}
+                for s in np.flatnonzero(sel)}
+
+    def _repair_misses(self, miss: Dict[int, List[int]],
+                       winners: Dict[int, set], todo: np.ndarray) -> None:
+        """Promote the missed pages of as many slots as the frames allow,
+        most urgent first; a slot whose misses cannot all fit defers
+        (dropped from ``todo``; it runs again next tick, identically).
+        Each repaired slot's winners join the protected set, so a later
+        slot never demotes an earlier one's pages and re-runs make
+        progress. When even the head of the line cannot fit, every other
+        stream defers and unpins so it can claim the whole tier (the
+        constructor makes one request always fit)."""
+        order = sorted(miss, key=lambda s: self.policy.decode_key(
+            self.slot_req[s], self._arrival[id(self.slot_req[s])],
+            int(self._last_decoded[s])))
+
+        def claim(pages, trial):
+            for p in pages:
+                if self.pool.tier_of(p) != PC.HOST:
+                    continue           # in flight or just promoted
+                if not self._fetch.request(p):
+                    self._demote_for_frames(1, frozenset(trial))
+                    if not self._fetch.request(p):
+                        return False
+            return True
+
+        protect = set(self._pinned_tail.values())
+        head_took_all = False
+        for i, s in enumerate(order):
+            if head_took_all:
+                todo[s] = False
+                continue
+            trial = protect | winners[s]
+            if claim(miss[s], trial):
+                protect = trial
+                continue
+            if i == 0:
+                # head-of-line starvation: every other stream defers and
+                # its pin lifts (next tick's prep promotes and pins again)
+                self._unpin_tails(keep={s})
+                head_took_all = True
+                trial = winners[s] | {self._pinned_tail.get(s)} - {None}
+                if claim(miss[s], trial):
+                    continue
+            todo[s] = False            # defer this stream
+
+    def _decode_tiered(self, sel: np.ndarray, rng):
+        """A tiered decode step: an optimistic run whose score pass reads
+        only the resident latent sidecar and whose exact attention reads
+        the frames. Slots whose winners were all RESIDENT commit: their
+        run was exact. Slots that attended an off-device page read trash
+        rows: their misses are promoted through the fetch queue and only
+        they run again. The re-run is exact: a slot's K/V row write
+        depends only on its token and position, and positions advance
+        after the phase. A slot whose misses cannot be promoted this tick
+        defers whole. Returns (tokens, finite mask or None, committed)
+        over the full slot axis, ``committed`` within ``sel``."""
+        n, mp = self.n_slots, self.max_pages
+        todo = sel.copy()
+        done = np.zeros_like(sel)
+        nxt_out = np.zeros((n,), np.int64)
+        fin_out = np.ones((n,), bool) if self.nan_guard else None
+        for attempt in range(_TIERED_MAX_RUNS):
+            pt = self.page_table * todo.astype(np.int32)[:, None]
+            ft = self._frame_table(pt)
+            # the run's one upload: page table, frame table, tokens and
+            # positions
+            dev = self._upload(np.concatenate(
+                [pt.ravel(), ft.ravel(), self.last_tok, self.pos]))
+            o = n * mp
+            logits, win = self._run_decode_t(
+                dev[:o].view(n, mp), dev[o:2 * o].view(n, mp),
+                dev[2 * o:2 * o + n], dev[2 * o + n:])
+            self._poison(logits, np.flatnonzero(todo), np.arange(n))
+            parts = [sample_next(logits, greedy=self.greedy, rng=rng,
+                                 ticks=self.ticks)]
+            if self.nan_guard:
+                parts.append(torch.isfinite(logits).all(-1).to(torch.int32))
+            parts.append(win.to(torch.int32).ravel())
+            # the run's one device->host copy: tokens, the finite mask and
+            # the winners together
+            host = torch.cat(parts).cpu().numpy()
+            self.n_host_syncs += 1
+            self.n_decode_runs += 1
+            nxt_np = host[:n]
+            finite = host[n:2 * n] if self.nan_guard else None
+            winners = self._winner_pages(pt, host[-o:].reshape(n, mp) > 0,
+                                         todo)
+            miss = {s: [p for p in sorted(pages)
+                        if self.pool.tier_of(p) != PC.RESIDENT]
+                    for s, pages in winners.items()}
+            miss = {s: m for s, m in miss.items() if m}
+            if attempt == 0:
+                uniq = set().union(*winners.values()) if winners else set()
+                n_miss = sum(self.pool.tier_of(p) != PC.RESIDENT
+                             for p in uniq)
+                self.n_prefetch_misses += n_miss
+                self.n_prefetch_hits += len(uniq) - n_miss
+                for s, pages in winners.items():
+                    self.n_winner_pages += len(pages)
+                    self.n_live_pages += len(self.slot_pages[s])
+                    self.n_winner_slots += 1
+            # commit every fully resident slot: its token is exact and its
+            # K/V row write is input-only (valid even beside trash reads)
+            for s in winners:
+                if s in miss:
+                    continue
+                done[s] = True
+                todo[s] = False
+                nxt_out[s] = nxt_np[s]
+                if fin_out is not None:
+                    fin_out[s] = bool(finite[s])
+                for p in winners[s]:
+                    self._page_last_use[p] = self.ticks
+            if todo.any():
+                self.n_decode_reruns += 1
+                self._repair_misses(miss, winners, todo)
+                self._fetch.drain()
+                self._prune_host()
+            if not todo.any():
+                self.n_deferred += int((sel & ~done).sum())
+                return nxt_out, fin_out, done
+        raise RuntimeError(
+            f"tiered decode did not converge in {_TIERED_MAX_RUNS} runs "
+            "(promotion/selection ping-pong; raise device_pages)")
+
+    def _run_decode_t(self, pt, ft, tok, pos):
+        """The tiered twin of ``_run_decode``: the same ladder around the
+        frame-table decode step -> (logits, winners)."""
+        def step():
+            logits, win, self.cache = lm.decode_step(
+                self.params, self.cfg, self.cache, tok, pos, page_table=pt,
+                page_size=self.page_size, frame_table=ft)
+            return logits, win
+        return self._ladder(step)
+
+    def _inject_corruption(self) -> None:
+        """The ``slot_corrupt`` site: silently repoint one live slot's tail
+        page entry at a page another slot holds, the bookkeeping bug that
+        would alias two requests' caches. Nothing fails here by design:
+        the auditor must catch it (invariants B, E)."""
+        if self._faults is None:
+            return
+        for slot in range(self.n_slots):
+            pages = self.slot_pages[slot]
+            if (self.slot_req[slot] is None or not pages
+                    or not self._faults.hit("slot_corrupt", slot)):
+                continue
+            mine = set(pages)
+            foreign = sorted({p for s in range(self.n_slots) if s != slot
+                              for p in self.slot_pages[s] if p not in mine})
+            pages[-1] = foreign[0] if foreign else 0
 
     # ----------------------------------------------------------------- tick
 
     def tick(self, rng: Optional[torch.Generator] = None) -> None:
+        if self._faults is not None:
+            self._faults.advance(self.ticks)
         self._expire_deadlines()
         self._admission_phase()
         self._prefill_phase()
         self._decode_phase(rng)
+        self._inject_corruption()
         self.ticks += 1
+        if self.audit:
+            FI.audit_engine(self)
 
     @property
     def n_prefix_hit_tokens(self) -> int:
@@ -758,7 +1336,7 @@ class PagedServingEngine:
                    for t in self.cache["layers"]["attn"].values())
 
     def stats(self) -> Dict[str, Any]:
-        return {"engine": "paged", "ticks": self.ticks,
+        out = {"engine": "paged", "ticks": self.ticks,
                 "layout": self.cfg.page_layout.describe(),
                 "bytes_per_page": self.bytes_per_page,
                 "n_decode_steps": self.n_decode_steps,
@@ -770,6 +1348,7 @@ class PagedServingEngine:
                 "prefix_hit_rate": self.prefix_hit_rate(),
                 "n_quarantined": self.n_quarantined,
                 "n_shed": self.n_shed,
+                "n_backend_fallbacks": self.n_backend_fallbacks,
                 "n_host_syncs": self.n_host_syncs,
                 "peak_slot_pages": self.peak_slot_pages,
                 "lifecycle": dict(self.lifecycle_counts),
@@ -783,3 +1362,33 @@ class PagedServingEngine:
                            "n_masked_ticks": self.n_masked_ticks,
                            "n_rows_saved": self.n_packed_rows_saved,
                            "n_sealed_fallbacks": 0}}
+        if self.tiered:
+            looked = self.n_prefetch_hits + self.n_prefetch_misses
+            out["tiered"] = {
+                # the reference's counters
+                "device_pages": self.pool.device_pages,
+                "n_demoted": self.pool.n_demoted,
+                "n_promoted": self.pool.n_promoted,
+                "n_prefetch_hits": self.n_prefetch_hits,
+                "n_prefetch_misses": self.n_prefetch_misses,
+                "prefetch_hit_rate": (self.n_prefetch_hits / looked
+                                      if looked else 1.0),
+                "n_sync_fetches": self.n_sync_fetches,
+                "n_fetches_issued": self._fetch.n_issued,
+                "n_sync_fallbacks": self._fetch.n_sync_fallback,
+                "n_decode_reruns": self.n_decode_reruns,
+                # the port's: runs, deferred slots, demotion syncs, bytes
+                # each way, host buffers at their peak, winner and live
+                # pages over the slots of each step's first run
+                "n_decode_runs": self.n_decode_runs,
+                "n_deferred": self.n_deferred,
+                "n_demote_syncs": self.n_demote_syncs,
+                "h2d_bytes": self.n_h2d_bytes,
+                "d2h_bytes": self.n_d2h_bytes,
+                "peak_host_bytes": self._n_host_buffers * self._page_bytes,
+                "winner_pages": self.n_winner_pages,
+                "live_pages": self.n_live_pages,
+                "winner_slots": self.n_winner_slots}
+        if self._faults is not None:
+            out["faults"] = dict(self._faults.counts)
+        return out

@@ -23,6 +23,7 @@ from repro.configs import get_smoke_config as jget_smoke
 from repro.models import lm as jlm
 from repro.serving import paged_cache as JPC
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import PageLayout
 from repro_torch.launch import serve
 from repro_torch.models import lm
 from repro_torch.models.convert import params_from_numpy
@@ -207,22 +208,28 @@ def test_prefill_chunk_and_paged_decode_match_jax(arch, policy, backend):
 
 
 def test_paged_entry_points_refuse_what_is_not_ported():
+    """What the paged entry points still refuse: sliding windows and
+    StateSlot ``live`` masks (other families), rank-3 tables (page-table
+    groups), and a tiered pool over a quantized layout or outside
+    [2, n_pages] frames, as the reference refuses them."""
     cfg = get_smoke_config("llama2-7b")
     with pytest.raises(NotImplementedError, match="item 8"):
         lm.init_paged_cache(cfg.replace(sliding_window=64), 4, 8,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        lm.init_paged_cache(cfg, 4, 8, device_pages=2, device="cpu")
+    for bad in (1, 5):
+        with pytest.raises(ValueError, match="device_pages"):
+            lm.init_paged_cache(cfg, 4, 8, device_pages=bad, device="cpu")
+    with pytest.raises(ValueError, match="non-quantized"):
+        lm.init_paged_cache(cfg.with_layout(PageLayout.parse("int8")), 4,
+                            8, device_pages=2, device="cpu")
     params = lm.init(cfg, device="cpu")
     cache = lm.init_paged_cache(cfg, 4, 8, device="cpu")
     tok, pos = torch.zeros(1, dtype=torch.int32), torch.zeros(
         1, dtype=torch.int32)
     table = torch.zeros((1, 3), dtype=torch.int32)
-    for kw in (dict(live=torch.ones(1, dtype=torch.bool)),
-               dict(frame_table=table)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.decode_step(params, cfg, cache, tok, pos, page_table=table,
-                           page_size=8, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.decode_step(params, cfg, cache, tok, pos, page_table=table,
+                       page_size=8, live=torch.ones(1, dtype=torch.bool))
     with pytest.raises(NotImplementedError, match="groups"):
         lm.decode_step(params, cfg, cache, tok, pos,
                        page_table=table[:, None], page_size=8)
@@ -312,11 +319,17 @@ def test_paged_preemption_reproduces_greedy_outputs():
 
 
 def test_engine_refuses_unported_features_and_small_pools():
+    """What the engine still refuses: the trace guard (it comes with the
+    captured decode step), sliding windows (other families), a tiered
+    pool under a policy other than Loki's; and pools too small."""
     params, cfg = _engine_model()
-    for kw in (dict(device_pages=4), dict(audit=True),
-               dict(faults=object()), dict(trace_guard=object())):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            PagedServingEngine(params, cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PagedServingEngine(params, cfg, trace_guard=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        PagedServingEngine(params, cfg.replace(sliding_window=16),
+                           device="cpu")
+    with pytest.raises(ValueError, match="Loki policy"):
+        PagedServingEngine(params, cfg, device_pages=4, device="cpu")
     with pytest.raises(ValueError, match="unknown scheduler policy"):
         PagedServingEngine(params, cfg, policy="lifo", device="cpu")
     with pytest.raises(ValueError, match="cannot hold one full request"):
