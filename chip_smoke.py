@@ -34,9 +34,12 @@ Phases, each of which fails the run on any error:
              kernel, an unselected page on the trash frame changes
              nothing; bit for bit);
              the five kernels at the batch widths of packed decode (B 1
-             and 2 at Hkv 32: clusters of 8, 16 and 8 full-decode splits)
-             at fp32 and int8:pca:r=32, paged, checked the same way, their
-             cluster plans resident;
+             and 2 at Hkv 32, planned for their own rows: clusters of 8,
+             16 and 8 full-decode splits) at fp32 and int8:pca:r=32,
+             paged, checked the same way, their cluster plans resident;
+             the five kernels at granite-moe-3b's decode shape (G 3, D
+             64, d 16; bf16 q over fp32 K/V), checked, paged == contiguous
+             and timed as the main case is;
              the per-head pipeline's three (block_max_scores,
              block_max_scores_fm, block_sparse_attention) at llama2-7b's
              decode step flattened per head (bf16 q over fp32 K/V, fp32,
@@ -65,7 +68,11 @@ Phases, each of which fails the run on any error:
              loki_block (4 long prompts, 16 new tokens each), then full
              and exact_topk through it, the launch counters of each run
              proving every layer of every tick ran the planned kernel and
-             no other;
+             no other; then the paper's baselines pcaattn and h2o and
+             chunked Loki (n_chunks 4) through it (dense_pcaattn,
+             dense_h2o, dense_loki_chunked: no decode kernel launched, one
+             host sync in a decode tick, asserted; greedy agreement with
+             the full run reported);
   4. step    the decode-step path: one decode step of all four slots
              through the fused kernel, each layer's call repeated through
              ops.loki_decode_two_kernel on the same inputs, bit for bit
@@ -94,8 +101,11 @@ Phases, each of which fails the run on any error:
              the same dispatch (asserted) and against the fp32 layout
              (reported), and at int8:pca:r=32 each layer's fused call
              repeated through the pair, bit for bit (paged_int8pca_step);
-             full once more with packed decode off (paged_full_masked,
-             greedy agreement reported); then a 2100-token system prompt
+             Fault 2's other sides: full and exact_topk with packed decode
+             off at fp32 and int8:pca:r=32 (paged_full_masked, ...),
+             loki_block packed in a pool of every slot at its page bound
+             at both (paged_loki_block_packed, ...) and unpacked at int8;
+             then a 2100-token system prompt
              before four 300-token suffixes, request 0 first, in a
              40-page pool, fp32 and int8:pca:r=32 (paged_prefix_loki_block,
              paged_int8pca_prefix_loki_block): 6300 tokens served from
@@ -121,10 +131,23 @@ Phases, each of which fails the run on any error:
              way, the copies' rate on profiled ticks, prefetch hits, winner
              against live pages a slot, device bytes against the single
              tier's and the peak of pinned host buffers;
+  5c. fault 2 packed == masked greedy tokens, 64 of 64, under full,
+             exact_topk and loki_block at fp32 and int8:pca:r=32 (the
+             fp32 loki_block masked side is paged_loki_block_masked),
+             asserted;
   6. flash   the prefill-flash path: one 3072-token prompt through
              lm.prefill at full width, each layer's causal-attention q, k,
              v through ops.flash (counted), held against plain flash
-             within FLASH_BF16_BOUND and FLASH_BF16_REL_L2.
+             within FLASH_BF16_BOUND and FLASH_BF16_REL_L2;
+  7. granite granite-moe-3b-a800m at published width (seeded bf16
+             weights, PCA calibrated on synthetic data): per policy
+             (loki_block, full, exact_topk) the dense engine's greedy
+             tokens, then the paged engine at its defaults
+             (paged_granite_<policy>: planned launches and one host sync
+             a decode tick asserted, agreement with the dense engine
+             reported), then loki_block with float32 weights at 8 of the
+             32 layers (paged_granite_fp32_loki_block: paged == dense,
+             64 of 64, capacity drops included, asserted).
 The second-to-last line is a JSON object listing the kernels; the last is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
@@ -242,6 +265,11 @@ def make_case(name, *, B, Hkv, G, D, S, bs, d, kb, lw, sw, cur, kv_dtype,
         cur=torch.tensor(cur, dtype=torch.int32, device=DEV))
 
 
+GRANITE_CASE = "granite-moe-3b G=3 D=64 q:bf16 kv:fp32"
+GRANITE_SHAPE = dict(B=4, Hkv=8, G=3, D=64, S=4096, bs=128, d=16, kb=8,
+                     lw=16, sw=0, cur=[1536, 2048, 2560, 3072])
+
+
 def kernel_cases():
     f32, bf16 = torch.float32, torch.bfloat16
     llama = dict(B=4, Hkv=32, G=1, D=128, S=4096, bs=128, d=32, kb=8, lw=16,
@@ -266,6 +294,10 @@ def kernel_cases():
         make_case("short cur_len, -1 sentinels",
                   **dict(llama, cur=[100, 1, 300, 129]), kv_dtype=f32,
                   q_dtype=f32, seed=8),
+        # granite-moe-3b's decode step: G = 3 (not a power of two), D 64,
+        # score width d 16; bf16 queries over the engine's fp32 cache
+        make_case(GRANITE_CASE, **GRANITE_SHAPE, kv_dtype=f32,
+                  q_dtype=bf16, seed=9),
     ]
 
 
@@ -506,9 +538,10 @@ def check_kernels(results):
                         for n, p in plans.items())
             + f"; paged_full_decode {full_smem} B shared (== "
             "tuning.full_smem_bytes)")
-        if "main" not in results:
-            results["main"] = dict(case=case, sel=sel_p, sel_exact=sel_x,
-                                   errs=errs, plans=plans)
+        key = "granite" if case["name"] == GRANITE_CASE else "main"
+        if key not in results:
+            results[key] = dict(case=case, sel=sel_p, sel_exact=sel_x,
+                                errs=errs, plans=plans)
 
 
 def paged_copy(case, ps, seed):
@@ -571,7 +604,7 @@ def check_paged(results):
     from repro_torch.kernels import fused_decode as F
     cases = kernel_cases()
     for case, ps in ((cases[0], 128), (cases[0], 256), (cases[4], 128),
-                     (cases[5], 256), (cases[7], 128)):
+                     (cases[5], 256), (cases[7], 128), (cases[8], 128)):
         q, cur, table, pk, pv, lk, lv = paged_copy(case, ps, seed=ps)
         sel = F.select_blocks(q, lk, cur, **kernel_kw(case))
         paged = paged_calls(case, q, cur, table, ps, pk, pv, sel)
@@ -586,8 +619,9 @@ def check_paged(results):
                     f"{float((a.float() - b.float()).abs().max()):.3e})")
         log(f"kernels: paged == contiguous bit for bit, all five kernels, "
             f"{case['name']}, page_size {ps} (shuffled table, trash row)")
-        if "paged" not in results:
-            results["paged"] = (q, cur, table, pk, pv, sel)
+        key = "paged_granite" if case["name"] == GRANITE_CASE else "paged"
+        if key not in results:
+            results[key] = (q, cur, table, pk, pv, sel)
         del pk, pv, lk, lv
 
 
@@ -823,6 +857,61 @@ def library_calls(q, k, v, cur, sel, bs, sw, scale):
     }
 
 
+def plain_calls(case, sel):
+    """The five kernels' plain versions on a case (the grouped attention
+    over ``sel``)."""
+    from repro_torch.kernels import fused_decode as F
+    from repro_torch.kernels import gather_attention as GA
+    q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
+    kw, ex_kw = kernel_kw(case), kernel_kw(case, exact=True)
+    att_kw = dict(block_size=case["bs"], scale=kw["scale"],
+                  sliding_window=case["sw"])
+    return {
+        "fused_loki_decode": lambda: F.fused_loki_decode_plain(
+            q, k, v, cur, **kw),
+        "select_blocks": lambda: F.select_blocks_plain(q, k, cur, **kw),
+        "block_sparse_attention_grouped": lambda: GA.attend_blocks_plain(
+            q, k, v, sel, cur, **att_kw),
+        "paged_full_decode": lambda: GA.full_decode_plain(
+            q, k, v, cur, scale=kw["scale"],
+            sliding_window=case["sw"]),
+        "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode_plain(
+            q, k, v, cur, **ex_kw),
+    }
+
+
+def time_granite(results):
+    """Kernels 1-5 at granite-moe-3b's decode shape (``GRANITE_CASE``: G
+    3, D 64, d 16), contiguous and paged (page 128, one idle row), beside
+    their plain versions, their bounds and, for the two attention
+    kernels, one scaled_dot_product_attention call."""
+    g = results["granite"]
+    case, sel = g["case"], g["sel"]
+    q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
+    scale = kernel_kw(case)["scale"]
+    kern = paged_calls(case, q, cur, None, 0, k, v, sel)
+    pq, pcur, ptable, pk, pv, psel = results.pop("paged_granite")
+    paged = paged_calls(case, pq, pcur, ptable, 128, pk, pv, psel)
+    plain = plain_calls(case, sel)
+    lib_calls = library_calls(q, k, v, cur, sel, case["bs"], case["sw"],
+                              scale)
+    lib = {n: time_ms(f) for n, f in lib_calls.items()}
+    bnd = bounds(case, sel, g["sel_exact"])
+    timing = {}
+    for name in KERNELS:
+        ms, paged_ms = time_ms(kern[name]), time_ms(paged[name])
+        plain_ms = time_ms(plain[name], reps=5)
+        timing[name] = dict(ms=ms, paged_ms=paged_ms, plain_ms=plain_ms,
+                            bound_ms=bnd[name][0], bound_by=bnd[name][1],
+                            library_ms=lib.get(name))
+        log(f"timing: {name} at {GRANITE_CASE}: {ms:.4f} ms contiguous, "
+            f"{paged_ms:.4f} ms paged, bound {bnd[name][0]:.4f} ms by "
+            f"{bnd[name][1]}, plain {plain_ms:.4f} ms"
+            + (f", scaled_dot_product_attention {lib[name]:.4f} ms"
+               if name in lib else ""))
+    results["granite_timing"] = timing
+
+
 def time_kernels(results):
     """Each kernel contiguous and paged, its plain version and, for the
     full decode, the one PyTorch call that computes the same function, at
@@ -839,17 +928,7 @@ def time_kernels(results):
     kern = paged_calls(case, q, cur, None, 0, k, v, sel)
     pq, pcur, ptable, pk, pv, psel = results["paged"]
     paged = paged_calls(case, pq, pcur, ptable, 128, pk, pv, psel)
-    plain = {
-        "fused_loki_decode": lambda: F.fused_loki_decode_plain(
-            q, k, v, cur, **kw),
-        "select_blocks": lambda: F.select_blocks_plain(q, k, cur, **kw),
-        "block_sparse_attention_grouped": lambda: GA.attend_blocks_plain(
-            q, k, v, sel, cur, **att_kw),
-        "paged_full_decode": lambda: GA.full_decode_plain(
-            q, k, v, cur, scale=kw["scale"]),
-        "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode_plain(
-            q, k, v, cur, **ex_kw),
-    }
+    plain = plain_calls(case, sel)
     B, Hkv = q.shape[:2]
     lib_calls = library_calls(q, k, v, cur, sel, case["bs"], case["sw"],
                               kw["scale"])
@@ -2086,7 +2165,83 @@ def serve(results, *, smoke=False, smax=4096, lengths=LENGTHS,
     results["launches"] = launches
     results["serve"] = dict(ticks=ticks, decode_tick_ms=decode_ms,
                             tok_per_s=toks_out / wall, **step)
+    serve_baselines(results, params, cfg, paged_toks, greedy["full"],
+                    smax=sc.engine.smax)
     return params, cfg, paged_toks, greedy
+
+
+#: the paper's comparison baselines and chunked Loki through the dense
+#: engine: (path, policy, extra LokiConfig fields)
+BASELINE_RUNS = (("dense_pcaattn", "pcaattn", {}), ("dense_h2o", "h2o", {}),
+                 ("dense_loki_chunked", "loki", dict(n_chunks=4)))
+
+
+def serve_baselines(results, params, cfg, toks, ref, *, smax, n_slots=4):
+    """``BASELINE_RUNS`` through the dense engine, each counted on its
+    own: every request DONE, no decode kernel launched (the three are
+    plain torch, as they are jnp in the JAX package), one host sync in a
+    decode tick (asserted); the decode tick's median and greedy agreement
+    with the dense ``full`` run (``ref``, reported)."""
+    from repro_torch import kernels as K
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.lifecycle import is_terminal
+    out = results.setdefault("baselines", {})
+    for path, policy, extra in BASELINE_RUNS:
+        bcfg = cfg.with_policy(policy, **extra)
+        eng = ServingEngine(params, bcfg, n_slots=n_slots, smax=smax,
+                            device=DEV)
+        reqs = [Request(rid=i, prompt=t, max_new=MAX_NEW)
+                for i, t in enumerate(toks)]
+        for r in reqs:
+            eng.submit(r)
+        # ---- the path: counts set to 0 just before, read just after
+        K.reset_launch_counts()
+        tick_ms, syncs = [], None
+        t_all = time.perf_counter()
+        while not all(is_terminal(r) for r in reqs):
+            if eng.ticks > 100:
+                raise AssertionError(f"{path} did not finish in 100 ticks")
+            if eng.ticks == 1 and syncs is None:
+                syncs = sync_count(eng.tick)
+                continue
+            t_tick = time.perf_counter()
+            eng.tick()
+            sync()
+            tick_ms.append(1e3 * (time.perf_counter() - t_tick))
+        wall = time.perf_counter() - t_all
+        counts = K.launch_counts()
+        # ---- end of the path
+        del eng
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        results.setdefault("launches", {})[path] = counts
+        bad = [r.rid for r in reqs if str(r.status) != "done"]
+        if bad:
+            raise AssertionError(f"{path}: requests not DONE: {bad}")
+        if any(counts.values()):
+            raise AssertionError(f"{path}: decode kernels launched "
+                                 f"{counts}; {policy} is plain torch")
+        if DEV == "cuda" and syncs != 1:
+            raise AssertionError(f"{path}: {syncs} host syncs in a decode "
+                                 "tick, expected 1")
+        n_out = sum(len(r.out) for r in reqs)
+        same = sum(a == b for r, w in zip(reqs, ref)
+                   for a, b in zip(r.out, w))
+        decode_ms = statistics.median(tick_ms[1:])
+        out[path] = dict(policy=policy, **extra, ticks=len(tick_ms) + 1,
+                         first_tick_ms=tick_ms[0],
+                         decode_tick_ms=decode_ms,
+                         tok_per_s=n_out / wall, host_syncs_decode=syncs,
+                         greedy_equal_full=same, tokens=n_out)
+        log(f"baselines: {path} ({policy}{', ' if extra else ''}"
+            + ", ".join(f"{k}={v}" for k, v in extra.items())
+            + f"): {len(tick_ms) + 1} ticks, first tick (4 prefills + "
+            f"decode) {tick_ms[0]:.1f} ms, decode tick median "
+            f"{decode_ms:.2f} ms -> {1e3 * n_slots / decode_ms:.1f} tok/s at "
+            f"{n_slots} slots; {n_out} tokens in {wall:.2f} s; host syncs "
+            f"in a decode tick {syncs}; decode kernel launches {counts}; "
+            f"greedy tokens equal to the dense full run's in "
+            f"{same}/{n_out} (reported, not asserted)")
 
 
 def tight_pool(lengths, page_size: int, chunk: int) -> int:
@@ -2104,13 +2259,14 @@ def sync_count(fn) -> int:
     if DEV != "cuda":
         fn()
         return 0
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
+    # switched on outside the record: the first switch warns once itself
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
             fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
@@ -2151,7 +2307,26 @@ PAGED_RUNS = (("", "loki_block"), ("", "full"), ("", "exact_topk"),
 #: prefix (16 full pages and 52 tokens into the 17th) before four distinct
 #: SUFFIX_LEN-token suffixes, in PREFIX_POOL pages
 PREFIX_RUNS = (("", "loki_block"), ("int8:pca:r=32", "loki_block"))
+#: Fault 2's runs (layout, policy, packed), each beside a packed run of
+#: PAGED_RUNS or of this list: the masked side (packed decode off) of
+#: full and exact_topk at both layouts and of loki_block at int8, and
+#: loki_block packed at both layouts in a pool of every slot at its page
+#: bound (PAGED_RUNS' loki_block preempts in its tight pool). The fp32
+#: loki_block masked side is the tiered phase's paged_loki_block_masked.
+FAULT2_LAYOUTS = ("", "int8:pca:r=32")
+FAULT2_RUNS = (("", "full", False), ("", "exact_topk", False),
+               ("", "loki_block", True), ("int8:pca:r=32", "full", False),
+               ("int8:pca:r=32", "exact_topk", False),
+               ("int8:pca:r=32", "loki_block", True),
+               ("int8:pca:r=32", "loki_block", False))
 PREFIX_LEN, SUFFIX_LEN, PREFIX_POOL = 2100, 300, 40
+
+
+def fault2_pair(layout: str, policy: str):
+    """(packed path, masked path) of Fault 2's comparison."""
+    base = paged_path(layout, policy)
+    return (base + "_packed" if policy == "loki_block" else base,
+            base + "_masked")
 
 
 def paged_path(layout: str, policy: str) -> str:
@@ -2335,7 +2510,7 @@ def paged_report(path, reqs, run, ref, ref_name, n_slots, **extra):
 
 def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
                 page_size=128, chunk=512, runs=PAGED_RUNS,
-                prefix_runs=PREFIX_RUNS):
+                prefix_runs=PREFIX_RUNS, fault2_runs=FAULT2_RUNS):
     """The paged path: the paged engine at its defaults (prefix cache,
     packed decode) serves the four prompts at full width, once per
     (layout, policy) of ``runs``, counted on its own each time.
@@ -2343,9 +2518,9 @@ def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
     must preempt. A run at another layout than the default is compared
     with the default layout's run of its policy (greedy tokens, reported)
     and checked by ``layout_step`` (one decode step, kernels against the
-    plain path on the same pool). Then ``full`` once more with packed
-    decode off (``paged_full_masked``), and the shared-system-prompt runs
-    (``serve_prefix``)."""
+    plain path on the same pool). Then ``fault2_runs`` (the sides of
+    Fault 2's packed == masked comparisons, ``check_fault2``), and the
+    shared-system-prompt runs (``serve_prefix``)."""
     from repro_torch.configs.base import PageLayout
     from repro_torch.serving.engine import Request
     from repro_torch.serving.scheduler import PagedServingEngine
@@ -2368,6 +2543,7 @@ def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
             torch.cuda.empty_cache()
         paged_checked(path, reqs, run, planned, cfg.n_layers)
         results.setdefault("launches", {})[path] = run["counts"]
+        results.setdefault("tokens", {})[path] = [r.out for r in reqs]
         return reqs, run, dict(plan=str(plan), policy=policy,
                                n_pages=n_pages or 1 + 4 * (smax // page_size),
                                pool_bytes=pool_bytes,
@@ -2394,25 +2570,149 @@ def serve_paged(results, params, cfg, toks, greedy, *, smax=4096,
                            ref_logits, smax=smax, page_size=page_size,
                            chunk=chunk)
         out[path].update(step)
-    if "full" in outs_fp32:
-        # packed against masked under full: the split count follows the
-        # step's rows, so the card may round apart at float32 (the CPU
-        # plain path does not split); reported, not asserted
-        path = "paged_full_masked"
-        reqs, run, info = run_one(path, policy_cfg(cfg, "full"), "full",
-                                  None, packed=False)
-        splits = {rows: full_split(page_size, smax,
-                                   rows * cfg.n_kv_heads)
-                  for rows in (1, 2, 4)}
-        out[path] = paged_report(path, reqs, run, outs_fp32["full"],
-                                 "the packed paged_full run", 4,
-                                 n_split_by_rows=splits, **info)
-        log(f"paged: paged_full_decode splits by step rows {splits} "
-            f"(B x Hkv = rows x {cfg.n_kv_heads})")
+    # Fault 2's other sides: masked runs and roomy packed loki_block runs
+    # (checked by check_fault2 once the tiered phase has run)
+    for layout, policy, packed in fault2_runs:
+        pair = fault2_pair(layout, policy)
+        path = pair[0] if packed else pair[1]
+        pcfg = policy_cfg(cfg, policy)
+        if layout:
+            pcfg = pcfg.with_layout(PageLayout.parse(layout))
+        reqs, run, info = run_one(path, pcfg, policy, None, packed=packed)
+        ref = outs_fp32.get(policy) if layout else greedy.get(policy)
+        out[path] = paged_report(
+            path, reqs, run, ref, "the fp32 native paged run" if layout
+            else "the dense engine", 4, **info)
     results["paged_serve"] = out
     if prefix_runs:
         serve_prefix(results, params, cfg, smax=smax, page_size=page_size,
                      chunk=chunk, runs=prefix_runs)
+
+
+#: granite's prompt lengths: each prompt's len - 1 tokens (the dense
+#: engine's one-shot prefill, the paged engine's 512-token chunks) are a
+#: whole number of 256-token MoE dispatch groups
+GRANITE_LENGTHS = (1537, 2049, 2561, 3073)
+GRANITE_POLICIES = ("loki_block", "full", "exact_topk")
+
+
+def serve_granite(results, *, smoke=False, smax=4096, page_size=128,
+                  chunk=512, lengths=GRANITE_LENGTHS,
+                  policies=GRANITE_POLICIES, fp32_layers=8):
+    """granite-moe-3b-a800m at published width (32 layers, d_model 1536,
+    24 heads over 8 KV heads, 40 experts top-8; seeded bf16 weights, PCA
+    calibrated on synthetic batches): per policy, the dense engine serves
+    the four prompts (the greedy reference), then the paged engine at its
+    defaults (prefix cache, packed decode; fp32 pool of every slot at its
+    page bound, 128-token pages, 512-token chunks), counted on its own
+    (``paged_granite_<policy>``) and checked by ``paged_checked``: every
+    request DONE, the planned kernel on every layer of every decode step,
+    one host sync in a decode tick. Greedy agreement with the dense engine
+    is reported: in bf16 the two prefills round apart (the dense one
+    attends over bf16 K/V, the chunked one over the fp32 pool), and
+    capacity routing turns one flipped expert pick into another drop set
+    for the rest of its 256-token group (drops go in token order). Then
+    the same pair under loki_block with float32 weights and activations,
+    depth cut to ``fp32_layers`` (``paged_granite_fp32_loki_block``): there
+    the paged engine's tokens equal the dense engine's, 64 of 64, capacity
+    drops included (asserted). ``smoke`` and the sizes shrink it for a CPU
+    rehearsal."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch.serve import (EngineSection, ServeConfig,
+                                          calibrated_params)
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.scheduler import PagedServingEngine
+
+    sc = ServeConfig(engine=EngineSection(
+        arch="granite-moe-3b-a800m", smoke=smoke, kind="paged",
+        policy="loki_block", backend="auto", n_slots=4, smax=smax),
+        device=DEV)
+    cfg = sc.resolve_model()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=96,
+                                  global_batch=8, seed=7, n_states=32,
+                                  temperature=0.22))
+    toks = prompts(cfg.vocab, lengths, seed=13)
+
+    def requests():
+        return [Request(rid=i, prompt=t, max_new=MAX_NEW)
+                for i, t in enumerate(toks)]
+
+    def pair(path, params, pcfg, policy):
+        """The dense engine's greedy tokens, then the paged engine's run
+        of ``path``, checked; -> (dense tokens, paged requests, run,
+        info)."""
+        eng = ServingEngine(params, pcfg, n_slots=4, smax=smax, device=DEV)
+        reqs = requests()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done(100)
+        dense = [r.out for r in reqs]
+        del eng
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        if [len(o) for o in dense] != [MAX_NEW] * len(toks):
+            raise AssertionError(f"{path}: dense reference {dense}")
+        plan, planned = planned_kernels(pcfg, smax, policy)
+        eng = PagedServingEngine(params, pcfg, n_slots=4, smax=smax,
+                                 page_size=page_size, prefill_chunk=chunk,
+                                 backend="auto", device=DEV)
+        info = dict(plan=str(plan), policy=policy, dtype=pcfg.dtype,
+                    n_layers=pcfg.n_layers, n_pages=eng.pool.n_pages,
+                    pool_bytes=eng.pool_bytes)
+        reqs = requests()
+        run = drive_paged(path, eng, reqs)
+        del eng
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        paged_checked(path, reqs, run, planned, pcfg.n_layers)
+        results.setdefault("launches", {})[path] = run["counts"]
+        return dense, reqs, run, info
+
+    t0 = time.perf_counter()
+    params = calibrated_params(cfg, data, seed=0, device=DEV)
+    sync()
+    n_params = sum(t.numel() for t in tensors_of(params))
+    log(f"granite: {cfg.arch}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+        f"heads, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+        f"{n_params / 1e9:.2f} B parameters in {cfg.dtype}; init + PCA "
+        f"calibration {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for policy in policies:
+        path = f"paged_granite_{policy}"
+        dense, reqs, run, info = pair(path, params, policy_cfg(cfg, policy),
+                                      policy)
+        out[path] = paged_report(path, reqs, run, dense,
+                                 "the dense engine", 4, **info)
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    fcfg = cfg.replace(dtype="float32",
+                       n_layers=min(fp32_layers, cfg.n_layers))
+    path = "paged_granite_fp32_loki_block"
+    dense, reqs, run, info = pair(path, calibrated_params(
+        fcfg, data, seed=0, device=DEV), fcfg, "loki_block")
+    out[path] = paged_report(path, reqs, run, dense, "the dense engine", 4,
+                             **info)
+    if [r.out for r in reqs] != dense:
+        raise AssertionError(f"{path}: paged tokens differ from the dense "
+                             f"engine's ({out[path]['greedy_equal_reference']}"
+                             f"/{out[path]['tokens']} equal)")
+    log(f"granite: {path}: paged == dense, {out[path]['tokens']} of "
+        f"{out[path]['tokens']} greedy tokens ({fcfg.n_layers} of "
+        f"{cfg.n_layers} layers, float32)")
+    results["granite_serve"] = out
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tensors_of(tree):
+    """The tensors of a parameter tree (nested dicts)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors_of(v)
+    else:
+        yield tree
 
 
 def prefix_prompts(vocab: int, n: int = 4):
@@ -2644,6 +2944,7 @@ def serve_tiered(results, params, cfg, toks, *, smax=4096, page_size=128,
     launches[path] = run["counts"]
     out[path] = paged_report(path, reqs, run, None, None, 4, **info)
     ref = [r.out for r in reqs]
+    results.setdefault("tokens", {})[path] = ref
     done = {}
     for path, mult, spec in runs:
         fplan = FI.FaultPlan.parse(spec) if spec else None
@@ -2682,6 +2983,36 @@ def serve_tiered(results, params, cfg, toks, *, smax=4096, page_size=128,
         out[path] = tiered_report(path, reqs, run, ref, 4, **info)
 
 
+def check_fault2(results, layouts=FAULT2_LAYOUTS):
+    """Fault 2 closed: under each of full, exact_topk and loki_block, at
+    each layout, the packed run's greedy tokens equal the masked run's,
+    every one of them (asserted), with packed ticks on the packed side.
+    The engine plans every step's kernels for its full width, so a slot's
+    split count and cluster size do not follow the step's rows."""
+    toks, serve_out = results["tokens"], results["paged_serve"]
+    out = {}
+    for layout in layouts:
+        for policy in ("full", "exact_topk", "loki_block"):
+            packed, masked = fault2_pair(layout, policy)
+            a, b = toks[packed], toks[masked]
+            n = sum(len(o) for o in b)
+            same = sum(x == y for o, w in zip(a, b) for x, y in zip(o, w))
+            n_packed = serve_out[packed]["n_packed_ticks"]
+            if serve_out[masked]["n_packed_ticks"] or n_packed < 1:
+                raise AssertionError(f"Fault 2: {packed} ran {n_packed} "
+                                     f"packed ticks, {masked} "
+                                     f"{serve_out[masked]['n_packed_ticks']}")
+            if a != b:
+                raise AssertionError(f"Fault 2: {packed} (packed) and "
+                                     f"{masked} (masked) agree in {same}/{n} "
+                                     "greedy tokens")
+            out[packed] = dict(masked=masked, equal=same, tokens=n,
+                               packed_ticks=n_packed)
+            log(f"fault 2: {packed} (packed, {n_packed} packed ticks) == "
+                f"{masked} (masked): {same}/{n} greedy tokens")
+    results["fault2"] = out
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """The ops wrappers the paged policies' dispatch calls, replaced by
@@ -2696,6 +3027,7 @@ def plain_kernels():
         q, k, v = GA.logical(q, k, v, kw.pop("page_table", None),
                              kw.pop("page_size", 0), kw.pop("k_scale", None),
                              kw.pop("v_scale", None))
+        kw.pop("plan_rows", None)       # the plain versions do not split
         if kw.get("scale") is None:
             kw["scale"] = v.shape[-1] ** -0.5
         if "k_blocks" in kw:
@@ -2989,7 +3321,8 @@ def decode_step_check(params, cfg, toks, smax):
     for (args, kwargs, out), (_, _, p_out) in zip(calls, plain_calls):
         q, k, v, cur = args
         kw = {n: x for n, x in kwargs.items()
-              if n not in ("page_table", "page_size", "k_scale", "v_scale")}
+              if n not in ("page_table", "page_size", "k_scale", "v_scale",
+                           "plan_rows")}
         kw["scale"] = kwargs["scale"] or v.shape[-1] ** -0.5
         want = F.fused_loki_decode_plain(q, k, v, cur, **kw)
         rows = ~near_tie_rows(F.block_scores_plain(
@@ -3232,6 +3565,19 @@ SOURCES = {
 }
 
 
+#: the granite paths and, per kernel, the one that runs it at fp32 (None:
+#: the planner picks another kernel at granite's shape)
+GRANITE_RUN_PATHS = tuple(f"paged_granite_{p}" for p in GRANITE_POLICIES) \
+    + ("paged_granite_fp32_loki_block",)
+GRANITE_PATHS = {
+    "fused_loki_decode": "paged_granite_loki_block",
+    "select_blocks": None,
+    "block_sparse_attention_grouped": None,
+    "paged_full_decode": "paged_granite_full",
+    "fused_exact_topk_decode": "paged_granite_exact_topk",
+}
+
+
 #: the storage modes' TPU kernel bodies (the ``quant=True`` branches that
 #: multiply each block by its page scale after its DMA) and the path of
 #: each kernel at a layout run on (None: the kernel phase only)
@@ -3254,7 +3600,9 @@ LAYOUT_PATHS = {
 #: the paths whose pools hold int8 or fp8 codes (their decode kernels run
 #: those storage modes only)
 LAYOUT_RUNS = set(LAYOUT_PATHS.values()) | {
-    "paged_int8pca_prefix_loki_block", "paged_int8pca_prefix_loki_block_off"}
+    "paged_int8pca_prefix_loki_block", "paged_int8pca_prefix_loki_block_off"
+} | {path for layout, policy, _ in FAULT2_RUNS if layout
+     for path in fault2_pair(layout, policy)}
 
 
 def ptxas_summary(text):
@@ -3335,6 +3683,7 @@ def main() -> int:
     check_flash(results)
     check_head_raises()
     time_kernels(results)
+    time_granite(results)
     log_storage_against_fp32(results)
     time_head_kernels(results)
     log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
@@ -3345,7 +3694,13 @@ def main() -> int:
         log(f"paged paths done at {time.perf_counter() - t_start:.1f} s")
         serve_tiered(results, params, cfg, toks)
         log(f"tiered paths done at {time.perf_counter() - t_start:.1f} s")
+        check_fault2(results)
         prefill_flash(results, params, cfg)
+        del params
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        serve_granite(results)
+        log(f"granite paths done at {time.perf_counter() - t_start:.1f} s")
     launches = results.get("launches", {})
 
     errs = dict(results["main"]["errs"], **results["errs"])
@@ -3373,6 +3728,21 @@ def main() -> int:
                          full_attention_sdpa_ms_not_same_function=results[
                              "sdpa_ms"])
         kernels.append(entry)
+    # kernels 1-5 at granite-moe-3b's decode shape (G 3, D 64, d 16)
+    for name in KERNELS:
+        t = results["granite_timing"][name]
+        path = GRANITE_PATHS[name]
+        kernels.append({
+            "name": f"{name}[granite-moe-3b]", "route": "cuda",
+            "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+            "path": path,
+            "launches": launches.get(path, {}).get(name, 0) if path else 0,
+            "launches_by_path": {p: launches.get(p, {}).get(name, 0)
+                                 for p in GRANITE_RUN_PATHS},
+            "max_abs_err": results["granite"]["errs"][name],
+            "ms": t["ms"], "paged_ms": t["paged_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     # the storage modes of kernels 1-5, one entry per (kernel, layout)
     for key, t in results["layout_timing"].items():
         name, tag = key[:-1].split("[")
@@ -3399,6 +3769,9 @@ def main() -> int:
                    "kernels": kernels,
                    "launches": launches, "serve": results.get("serve"),
                    "paged_serve": results.get("paged_serve"),
+                   "baselines": results.get("baselines"),
+                   "fault2": results.get("fault2"),
+                   "granite_serve": results.get("granite_serve"),
                    "prefill_flash": results.get("prefill_flash"),
                    "profile": results.get("profile"),
                    "fused_plans": results.get("fused_plans"),

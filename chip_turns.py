@@ -1,6 +1,7 @@
 """Compare two checkouts of the port on one NVIDIA GPU, in turns.
 
     python3 chip_turns.py OTHER_CHECKOUT
+    python3 chip_turns.py OTHER_CHECKOUT --packed
 
 OTHER_CHECKOUT is a second tree of this repository (a ``git archive`` of
 another commit unpacked under ``build/``, which git ignores). The script
@@ -15,6 +16,18 @@ another commit unpacked under ``build/``, which git ignores). The script
      global generators seeded before each phase, and compares the two
      records call by call with ``torch.equal`` (the first calls of each
      wrapper, as many as both trees made).
+
+With ``--packed`` it does none of that, and instead times, in turns
+(other, this, this, other, each in its own process), the four kernels a
+packed decode step launches (fused_loki_decode,
+block_sparse_attention_grouped, paged_full_decode,
+fused_exact_topk_decode) at llama2-7b's decode shape (Hkv 32, D 128, S
+4096, bs 128, d 32, k_blocks 8, bf16 queries over a paged fp32 pool,
+128-token pages) at B 1, 2 and 4, as a 4-slot engine's packed steps
+launch them: a tree whose wrappers take ``plan_rows`` plans every step
+for the engine's 4 x 32 rows, an older tree for the step's own B x 32.
+Each time is chip_smoke's ``time_ms`` (CUDA events, L2 flushed, median of
+20). Results go to ``chiprun_out/turns/packed.json``.
 
 Everything goes to ``chiprun_out/turns/``: each run's chip_smoke.json and
 log, the SASS summary and the comparison (``summary.json``). Imports
@@ -78,6 +91,72 @@ for phase in ("check_kernels", "check_layouts", "check_paged",
     getattr(C, phase)(results)
 torch.save(rec, path)
 """
+
+# Run in a tree's own process: the packed steps' kernels at B 1, 2, 4 of a
+# 4-slot engine, timed with that tree's wrappers; JSON on stdout.
+PACKED = r"""
+import inspect, json, sys
+import torch
+root = sys.argv[1]
+sys.path[:0] = [root, root + "/src"]
+import chip_smoke as C
+from repro_torch.kernels import fused_decode as F
+from repro_torch.kernels import gather_attention as GA
+ENGINE, HKV, PS = 4, 32, 128
+takes = "plan_rows" in inspect.signature(F.fused_loki_decode).parameters
+n_sm = GA._sm_count(torch.device("cuda"))
+out = dict(plan_rows=takes, ms={}, plan={})
+for b in (1, 2, 4):
+    case = C.make_case(f"B={b}", B=b, Hkv=HKV, G=1, D=128, S=4096, bs=128,
+                       d=32, kb=8, lw=16, sw=0,
+                       cur=[3000, 2500, 1800, 3100][:b],
+                       kv_dtype=torch.float32, q_dtype=torch.bfloat16,
+                       seed=40 + b)
+    q, cur, table, pk, pv, _, _ = C.paged_copy(case, PS, seed=b)
+    q, cur, table = q[:b], cur[:b], table[:b]      # no idle row
+    pg = dict(page_table=table, page_size=PS)
+    rows = ENGINE * HKV if takes else b * HKV
+    ex = dict(plan_rows=rows) if takes else {}
+    kw, ex_kw = C.kernel_kw(case), C.kernel_kw(case, exact=True)
+    att = dict(block_size=128, scale=kw["scale"], sliding_window=0)
+    sel = F.select_blocks(q, pk, cur, **kw, **pg)
+    calls = {
+        "fused_loki_decode": lambda: F.fused_loki_decode(
+            q, pk, pv, cur, **kw, **pg, **ex),
+        "block_sparse_attention_grouped": lambda:
+            GA.block_sparse_attention_grouped(q, pk, pv, sel, cur, **att,
+                                              **pg, **ex),
+        "paged_full_decode": lambda: GA.paged_full_decode(
+            q, pk, pv, cur, **att, **pg, **ex),
+        "fused_exact_topk_decode": lambda: F.fused_exact_topk_decode(
+            q, pk, pv, cur, **ex_kw, **pg, **ex),
+    }
+    for name, fn in calls.items():
+        out["ms"][f"{name} B={b}"] = C.time_ms(fn)
+    out["plan"][f"B={b}"] = dict(
+        rows=rows, C=GA.fused_cluster_size(4096 // 128, rows, n_sm),
+        n_split=GA.full_decode_n_split(4096 // 128, rows, n_sm))
+    del pk, pv
+print(json.dumps(out))
+"""
+
+
+def run_packed(tree: str, label: str, turn: int) -> dict:
+    """One ``PACKED`` timing of ``tree`` in its own process."""
+    proc = subprocess.run([sys.executable, "-c", PACKED, tree], cwd=tree,
+                          capture_output=True, text=True, timeout=1500)
+    with open(os.path.join(OUT, f"packed_{turn}_{label}.log"), "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"packed {turn} {label} failed "
+                           f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"packed turn {turn} {label} (plan_rows {got['plan_rows']}, "
+          f"plans {got['plan']}): "
+          + ", ".join(f"{n} {t:.4f}" for n, t in got["ms"].items()),
+          flush=True)
+    return got
+
 
 # Run in a tree's own process: its built libraries' paths, as JSON.
 LIBS = r"""
@@ -194,6 +273,9 @@ def compare_outputs(other: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", help="the other checkout's root")
+    ap.add_argument("--packed", action="store_true",
+                    help="time the packed steps' kernels at B 1, 2, 4 in "
+                         "turns instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -204,6 +286,12 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     order = [("other", other), ("this", ROOT), ("this", ROOT),
              ("other", other)]
+    if args.packed:
+        runs = [dict(turn=i, tree=label, **run_packed(tree, label, i))
+                for i, (label, tree) in enumerate(order)]
+        with open(os.path.join(OUT, "packed.json"), "w") as fh:
+            json.dump(runs, fh, indent=1)
+        return 0
     times = [dict(turn=i, tree=label, ms=run_smoke(tree, label, i))
              for i, (label, tree) in enumerate(order)]
     summary = dict(times=times, sass=compare_sass(other),

@@ -1,12 +1,22 @@
-"""The exact top-k baseline the paper compares against (Section 5),
-counterpart of ``repro.core.baselines``: full-dimensionality scores, then
-top-k, then exact attention over the selection (the quality upper bound
-for Loki). Two granularities: token (``exact_topk_decode``, the plain
-reference) and block (``exact_topk_decode_block``, the fused kernel's
-formulation and its oracle). The reference's ``pcaattn`` and ``h2o`` are
-not ported yet (ROADMAP queue 1 item 4a).
+"""Sparse-attention baselines the paper compares against (Section 5,
+Table 1), counterpart of ``repro.core.baselines``.
+
+* exact top-k: full-dimensionality scores, then top-k, then exact
+  attention over the selection (the quality upper bound for Loki). Two
+  granularities: token (``exact_topk_decode``, the plain reference) and
+  block (``exact_topk_decode_block``, the fused kernel's formulation and
+  its oracle).
+* H2O: heavy-hitter token eviction with a fixed-budget cache (half heavy
+  hitters by accumulated attention mass, half recent), permanent deletion.
+* PCAAttn: the appendix E ablation, attention computed directly from the
+  truncated d-dim PCA keys (known to fail; a negative control).
+
+H2O and PCAAttn are plain torch, as they are jnp in the reference: no
+TPU kernel computes them.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -80,3 +90,108 @@ def exact_topk_decode_block(q, k_cache, v_cache, cur_len, cfg: LokiConfig,
     k_sel = gather_heads(k_cache, idx)
     v_sel = gather_heads(v_cache, idx)
     return attend_selected(q, k_sel, v_sel, valid, logit_scale=logit_scale)
+
+
+def pcaattn_decode(q_rope, k_hat_cache_d, v_cache, cur_len, proj,
+                   cfg: LokiConfig, *, logit_scale=None):
+    """Appendix E: softmax over truncated-basis scores directly.
+
+    q_rope (B,H,D); k_hat_cache_d (B,Smax,Hkv,d) stores only the first d
+    PCA dims (this variant shrinks the K half of the cache by d/D);
+    v_cache (B,Smax,Hkv,D); proj (Hkv,D,D). Scores are scaled by D**-0.5
+    (paper Algorithm 2 line 6), not d**-0.5. Returns (B,H,D)."""
+    del cfg
+    b, h, dim = q_rope.shape
+    d = k_hat_cache_d.shape[-1]
+    n_kv = proj.shape[0]
+    qg = q_rope.reshape(b, n_kv, h // n_kv, dim)
+    q_hat = torch.einsum("bhgd,hde->bhge", qg,
+                         proj[..., :d].to(q_rope.dtype)).reshape(b, h, d)
+    scale = logit_scale if logit_scale is not None else dim ** -0.5
+    scores = decode_scores(q_hat, k_hat_cache_d, logit_scale=scale)
+    scores = torch.where(length_mask(k_hat_cache_d.shape[1], cur_len,
+                                     q_rope.device), scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", w, v_cache)
+    return out.reshape(b, h, v_cache.shape[-1])
+
+
+# ----------------------------------------------------------------- H2O
+
+class H2OState(NamedTuple):
+    """Fixed-budget eviction cache, slots [0, budget)."""
+    k: torch.Tensor       # (B, budget, Hkv, D)
+    v: torch.Tensor       # (B, budget, Hkv, D)
+    pos: torch.Tensor     # (B, budget) int32 original positions, -1 empty
+    acc: torch.Tensor     # (B, Hkv, budget) float32 accumulated mass
+    fill: torch.Tensor    # (B,) int32 number of live slots
+
+
+def h2o_init(batch: int, budget: int, n_kv: int, d: int,
+             dtype=torch.bfloat16, device=None) -> H2OState:
+    return H2OState(
+        k=torch.zeros((batch, budget, n_kv, d), dtype=dtype, device=device),
+        v=torch.zeros((batch, budget, n_kv, d), dtype=dtype, device=device),
+        pos=torch.full((batch, budget), -1, dtype=torch.int32,
+                       device=device),
+        acc=torch.zeros((batch, n_kv, budget), dtype=torch.float32,
+                        device=device),
+        fill=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def h2o_decode(q_rope, k_new, v_new, state: H2OState, step, *,
+               recent_frac: float = 0.5, logit_scale=None,
+               inplace: bool = False):
+    """One H2O decode step, in the reference's order: insert the new token
+    (into the next free slot, or over the evicted one once the budget is
+    full), attend over the live slots, then add the step's attention mass
+    (the mean over each group's query heads) to ``acc``. Eviction takes
+    the slot of least mean mass over the kv heads among those that are
+    neither recent (``pos >= step - budget * recent_frac``) nor empty,
+    ties to the lowest slot (``jnp.argmin``'s order).
+
+    q_rope (B,H,D); k_new/v_new (B,Hkv,D); step (B,) or an int, the new
+    token's position. Returns (out (B,H,D), new state): new tensors, or
+    with ``inplace`` the input state's own tensors updated in place (the
+    engines' caches, which the JAX code donates)."""
+    b, h, d = q_rope.shape
+    budget, n_kv = state.k.shape[1], state.k.shape[2]
+    dev = q_rope.device
+    step = torch.as_tensor(step, dtype=torch.int32, device=dev).expand(b)
+    rows = torch.arange(b, device=dev)
+
+    # 1. insert the new token first, so it is attended this step
+    full = state.fill >= budget
+    recent_slots = int(budget * recent_frac)
+    is_recent = state.pos >= (step[:, None] - recent_slots)
+    score_for_evict = state.acc.mean(dim=1)                   # (B,budget)
+    score_for_evict = torch.where(is_recent | (state.pos < 0),
+                                  torch.inf, score_for_evict)
+    # torch.argmin promises the first minimum, as jnp.argmin does
+    evict_slot = torch.argmin(score_for_evict, dim=-1)        # (B,)
+    slot = torch.where(full, evict_slot, state.fill.long())
+
+    k_cache, v_cache, pos, acc, fill = (
+        state if inplace else tuple(t.clone() for t in state))
+    k_cache[rows, slot] = k_new.to(k_cache.dtype)
+    v_cache[rows, slot] = v_new.to(v_cache.dtype)
+    pos[rows, slot] = step
+    # acc[b, :, slot[b]] = 0 as a scatter: the indexed assignment across
+    # the head axis syncs the host on the card
+    acc.scatter_(2, slot[:, None, None].expand(b, n_kv, 1), 0.0)
+    fill.copy_(torch.clamp(fill + 1, max=budget))
+
+    # 2. attend over the live slots
+    scale = logit_scale if logit_scale is not None else d ** -0.5
+    qg = q_rope.reshape(b, n_kv, h // n_kv, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg.float() * scale,
+                          k_cache.float())
+    live = pos >= 0                                           # (B,budget)
+    scores = torch.where(live[:, None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", w.to(v_cache.dtype), v_cache)
+
+    # 3. accumulate the attention mass (mean over query groups)
+    acc += w.mean(dim=2)
+    return (out.reshape(b, h, d),
+            H2OState(k_cache, v_cache, pos, acc, fill))

@@ -18,6 +18,12 @@ per decode step, which implementation runs:
 ``loki_tiered_decode`` is ``loki_block_decode`` over a tiered pool: the
 score pass over the latent sidecar, exact attention over device frames.
 
+``plan_rows`` (an int, slots x kv heads): the rows the kernels' split count
+and cluster size are planned for. The paged engine passes its full width
+on every step, so a gather-packed step launches each slot as the masked
+step does and their greedy outputs agree bit for bit; None plans for the
+step's own B * Hkv.
+
 On CPU tensors, shapes no kernel plan covers fall back to torch *with the
 kernels' group-shared selection*, so a backend choice is numerically
 consistent across shapes. CUDA tensors have no fallback: a shape no kernel
@@ -159,7 +165,7 @@ def _lengths(cur_len, b: int, device):
 def loki_block_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
                       cfg: LokiConfig, *, sliding_window: int = 0,
                       logit_scale=None, page_table=None, page_size: int = 0,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, plan_rows=None):
     """Block-granular Loki decode through the configured backend.
 
     q_rope (B,H,D); k_hat_cache (B,Smax,Hkv,W) with W <= D the stored key
@@ -224,7 +230,8 @@ def loki_block_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
     out = fn(q_hat, k_hat_cache, v_cache, _lengths(cur_len, b, q_rope.device),
              d=d, k_blocks=k_blocks, block_size=plan.block_size,
              scale=logit_scale, local_window=cfg.local_window,
-             sliding_window=sliding_window, **pargs, **qargs)
+             sliding_window=sliding_window, plan_rows=plan_rows, **pargs,
+             **qargs)
     return out.reshape(b, h, dim)
 
 
@@ -310,7 +317,7 @@ def loki_tiered_decode(q_rope, k_pool, v_pool, lat_pool, cur_len, proj,
 def full_paged_decode(q, k_cache, v_cache, cur_len, *, backend: str = "auto",
                       block_size: int = 128, sliding_window: int = 0,
                       logit_scale=None, page_table=None, page_size: int = 0,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, plan_rows=None):
     """Full-attention decode through the configured backend.
 
     q (B,H,W) queries in the storage basis (W <= D the stored key width);
@@ -347,13 +354,14 @@ def full_paged_decode(q, k_cache, v_cache, cur_len, *, backend: str = "auto",
                           block_size=plan.block_size, scale=logit_scale,
                           sliding_window=sliding_window,
                           page_table=page_table, page_size=page_size,
-                          **qargs)
+                          plan_rows=plan_rows, **qargs)
     return out.reshape(b, h, dim)
 
 
 def exact_topk_paged_decode(q, k_cache, v_cache, cur_len, cfg: LokiConfig,
                             *, logit_scale=None, page_table=None,
-                            page_size: int = 0, k_scale=None, v_scale=None):
+                            page_size: int = 0, k_scale=None, v_scale=None,
+                            plan_rows=None):
     """Exact-top-k decode through the configured backend.
 
     backend="xla" is the token-granular reference
@@ -398,7 +406,8 @@ def exact_topk_paged_decode(q, k_cache, v_cache, cur_len, cfg: LokiConfig,
     k_blocks = max(int(cfg.k_f * nb), 1)
     qg = _grouped_query(q, n_kv, kd).contiguous()
     cur = _lengths(cur_len, b, q.device)
-    pargs = dict(page_table=page_table, page_size=page_size, **qargs)
+    pargs = dict(page_table=page_table, page_size=page_size,
+                 plan_rows=plan_rows, **qargs)
     if plan.variant == "fused":
         out = ops.exact_topk_decode_fused(
             qg, k_cache, v_cache, cur, k_blocks=k_blocks,

@@ -9,8 +9,9 @@ that basis exact). Each step:
   3. top-k (k = k_f·S) token indices from approx scores     (O(S log S))
   4. exact attention over the selected keys/values only     (O(2Dk))
 
-Two selection granularities: token (``loki_decode``, paper-faithful) and
-block (``loki_decode_block``, the kernels' formulation).
+Two selection granularities: token (``loki_decode``, paper-faithful, and
+``loki_decode_chunked``, its per-chunk top-k) and block
+(``loki_decode_block``, the kernels' formulation).
 
 ``lax.top_k`` breaks ties toward the lower index; ``torch.topk`` promises
 no order, so every top-k here is a stable descending sort (equal values
@@ -122,6 +123,74 @@ def loki_decode(q_rope, k_hat_cache, v_cache, cur_len, proj,
     k_sel = gather_heads(k_hat_cache, idx)
     v_sel = gather_heads(v_cache, idx)
     return attend_selected(q_hat, k_sel, v_sel, valid, logit_scale=scale)
+
+
+def loki_decode_chunked(q_rope, k_hat_cache, v_cache, cur_len, proj,
+                        cfg: LokiConfig, *, sliding_window: int = 0,
+                        logit_scale=None):
+    """Chunked Loki: the cache's sequence axis cut into ``cfg.n_chunks``
+    equal chunks, a top-(k / n_chunks) per chunk from the approximate
+    scores, exact attention over the union of the selections (one softmax
+    across all chunks). The reference shards the chunks over the kv_seq
+    mesh axis so every top-k and gather stays device-local; its sharding
+    constraints have no counterpart here.
+
+    Shapes as ``loki_decode``; smax % n_chunks == 0. Returns (B,H,D)."""
+    b, h, dim = q_rope.shape
+    smax = k_hat_cache.shape[1]
+    kd = k_hat_cache.shape[-1]        # stored key width (latent rank <= D)
+    nc = cfg.n_chunks
+    assert nc > 0 and smax % nc == 0
+    sc = smax // nc
+    d = min(max(int(cfg.d_f * dim), 8), kd)
+    n_kv = proj.shape[0]
+    g = h // n_kv
+    dev = q_rope.device
+    dv = v_cache.shape[-1]
+
+    q_hat = _rotate_query(q_rope, proj, kd).reshape(b, n_kv, g, kd)
+    scale = logit_scale if logit_scale is not None else dim ** -0.5
+    kc = k_hat_cache.reshape(b, nc, sc, n_kv, kd)
+    vc = v_cache.reshape(b, nc, sc, n_kv, dv)
+
+    # approximate scores from the leading d PCA dims, chunk-local
+    approx = torch.einsum("bhgd,bcshd->bhgcs",
+                          (q_hat.float() * scale)[..., :d],
+                          kc[..., :d].float())         # (B,Hkv,G,nc,Sc)
+    pos = torch.arange(smax, device=dev).reshape(nc, sc)
+    cur = torch.as_tensor(cur_len, device=dev)
+    cur = cur if cur.ndim == 0 else cur[:, None, None]
+    live = (pos[None] < cur)[:, None, None]            # (B|1,1,1,nc,Sc)
+    if sliding_window:
+        live = live & (pos[None] >= cur - sliding_window)[:, None, None]
+    if cfg.local_window:
+        rec = (pos[None] >= cur - cfg.local_window)[:, None, None]
+        approx = torch.where(rec, 1e4 + approx, approx)
+    approx = torch.where(live, approx, NEG_INF)
+
+    kpc = max(static_k(cfg, smax) // nc, 1)            # picks per chunk
+    top_s, idx = topk_lower_index(approx, kpc)         # (B,Hkv,G,nc,kpc)
+    valid = top_s > NEG_INF / 2
+
+    # chunk-local gathers: (B,nc,Hkv,Sc,·) rows at each chunk's picks
+    kcx = kc.transpose(2, 3)
+    vcx = vc.transpose(2, 3)
+    idx_g = idx.movedim(3, 1).reshape(b, nc, n_kv, g * kpc)
+    k_sel = torch.gather(kcx, 3, idx_g[..., None].expand(-1, -1, -1, -1, kd))
+    v_sel = torch.gather(vcx, 3, idx_g[..., None].expand(-1, -1, -1, -1, dv))
+    k_sel = k_sel.reshape(b, nc, n_kv, g, kpc, kd)
+    v_sel = v_sel.reshape(b, nc, n_kv, g, kpc, dv)
+
+    # exact scores over the union; softmax across (nc, kpc) jointly
+    scores = torch.einsum("bhgd,bchgkd->bhgck", q_hat.float() * scale,
+                          k_sel.float())
+    scores = torch.where(valid, scores, NEG_INF)       # (B,Hkv,G,nc,kpc)
+    m = scores.amax(dim=(3, 4), keepdim=True)
+    w = torch.exp(scores - m)
+    den = w.sum(dim=(3, 4), keepdim=True)
+    w = (w / torch.clamp(den, min=1e-30)).to(v_sel.dtype)
+    out = torch.einsum("bhgck,bchgkd->bhgd", w, v_sel)
+    return out.reshape(b, h, dv)
 
 
 def loki_decode_block(q_rope, k_hat_cache, v_cache, cur_len, proj,

@@ -274,6 +274,11 @@ struct Launch {
   int local_window, sliding_window;
   cudaStream_t stream;
   long long* info;    // not null: report (C, smem, clusters), no launch
+  // the rows (slots x kv heads) the cluster size is planned for: the
+  // engine's full width, so a packed step of fewer slots launches each
+  // slot as the full-width step does (its rounding then does not depend
+  // on which slots share the step)
+  int plan_rows;
 
   BlockRows rows() const {
     return make_rows(table, n_tab, page_size, S, bs, ksc, vsc);
@@ -288,7 +293,7 @@ struct Fused {
     const int nb = a.S / a.bs;
     const FusedLayout L =
         fused_layout<TK>(a.G, a.W, a.D, a.d, a.bs, nb, a.kb);
-    const int C = cluster_size(nb, a.B * a.Hkv, sm_count());
+    const int C = cluster_size(nb, a.plan_rows, sm_count());
     // 16-byte copies need rows of whole 16-byte pieces
     const int vec_k = (a.W * sizeof(TK)) % 16 == 0;
     const int vec_kv = vec_k && (a.D * sizeof(TK)) % 16 == 0;
@@ -319,6 +324,7 @@ inline bool shape_ok(const Launch& a) {
   return a.G >= 1 && a.G <= MAXG && a.W >= 1 && a.W <= MAXDIM && a.D >= 1 &&
          a.D <= MAXDIM && a.d >= 1 && a.d <= a.W && a.bs >= 1 &&
          a.S % a.bs == 0 && a.kb >= 1 && a.kb <= a.S / a.bs &&
+         a.plan_rows >= 1 &&
          rows_ok(a.table, a.n_tab, a.page_size, a.S, a.bs);
 }
 
@@ -328,7 +334,7 @@ struct Select {
   static cudaError_t go(const Launch& a) {
     const int nb = a.S / a.bs;
     const ScoreLayout L = score_layout<TK>(a.G, a.W, a.d, a.bs, nb);
-    const int C = cluster_size(nb, a.B * a.Hkv, sm_count());
+    const int C = cluster_size(nb, a.plan_rows, sm_count());
     const int vec_k = (a.W * sizeof(TK)) % 16 == 0;
     return launch_cluster(
         select_cluster_kernel<TQ, TK, GM>, a.Hkv, a.B, C, L.total, a.stream,
@@ -355,7 +361,9 @@ using namespace loki;
 // cache's storage code (decode_common.cuh KV_*); table is nullptr for a
 // contiguous cache (n_tab = page_size = 0), else the (B, n_tab) int32 page
 // table, with S = n_tab * page_size the logical length; k_scale / v_scale
-// the (n_pages,) float32 page scales of an int8 or fp8 pool, else nullptr.
+// the (n_pages,) float32 page scales of an int8 or fp8 pool, else nullptr;
+// plan_rows the rows (slots x kv heads) the cluster size is planned for,
+// B * Hkv or the engine's full width for a packed step of B slots.
 // Returns a cudaError_t (cudaErrorInvalidValue for a storage this library
 // is not built for).
 extern "C" int loki_fused_decode(const void* q, const void* k, const void* v,
@@ -364,12 +372,13 @@ extern "C" int loki_fused_decode(const void* q, const void* k, const void* v,
                                  void* out, int q_bf16, int kv, int B, int S,
                                  int Hkv, int G, int W, int D, int d, int bs,
                                  int kb, int n_tab, int page_size,
-                                 float scale, int local_window,
-                                 int sliding_window, void* stream) {
+                                 int plan_rows, float scale,
+                                 int local_window, int sliding_window,
+                                 void* stream) {
   const Launch a{q, k, v, cur_len, table, k_scale, v_scale, out, B, S,
                       Hkv, G, W, D, d, bs, kb, n_tab, page_size, scale,
                       local_window, sliding_window,
-                      static_cast<cudaStream_t>(stream), nullptr};
+                      static_cast<cudaStream_t>(stream), nullptr, plan_rows};
   if (!shape_ok(a)) return (int)cudaErrorInvalidValue;
   return (int)by_storage<Fused>(q_bf16, kv, a);
 }
@@ -380,12 +389,12 @@ extern "C" int loki_fused_exact_topk_decode(
     const void* q, const void* k, const void* v, const void* cur_len,
     const void* table, const void* k_scale, const void* v_scale, void* out,
     int q_bf16, int kv, int B, int S, int Hkv, int G, int W, int D, int bs,
-    int kb, int n_tab, int page_size, float scale, int sliding_window,
-    void* stream) {
+    int kb, int n_tab, int page_size, int plan_rows, float scale,
+    int sliding_window, void* stream) {
   const Launch a{q, k, v, cur_len, table, k_scale, v_scale, out, B, S,
                       Hkv, G, W, D, W, bs, kb, n_tab, page_size, scale, 0,
                       sliding_window, static_cast<cudaStream_t>(stream),
-                      nullptr};
+                      nullptr, plan_rows};
   if (!shape_ok(a)) return (int)cudaErrorInvalidValue;
   return (int)by_storage<Fused>(q_bf16, kv, a);
 }
@@ -407,7 +416,8 @@ extern "C" long long loki_fused_smem_bytes(int kv, int G, int W, int D,
 // storage is asked as if paged (the kernels take it only so).
 extern "C" int loki_fused_cluster_info(int q_bf16, int kv, int B, int S,
                                        int Hkv, int G, int W, int D, int d,
-                                       int bs, int kb, long long* info) {
+                                       int bs, int kb, int plan_rows,
+                                       long long* info) {
   static const int table = 0;
   static const float scale1 = 1.f;
   const bool scaled = kv == KV_I8 || kv == KV_F8;
@@ -415,7 +425,7 @@ extern "C" int loki_fused_cluster_info(int q_bf16, int kv, int B, int S,
                       scaled ? &table : nullptr, scaled ? &scale1 : nullptr,
                       scaled ? &scale1 : nullptr, nullptr, B, S, Hkv, G, W,
                       D, d, bs, kb, scaled ? 1 : 0, scaled ? S : 0, 1.f, 0,
-                      0, nullptr, info};
+                      0, nullptr, info, plan_rows};
   if (!shape_ok(a) || info == nullptr) return (int)cudaErrorInvalidValue;
   return (int)by_storage<Fused>(q_bf16, kv, a);
 }
@@ -425,13 +435,13 @@ extern "C" int loki_select_blocks(const void* q, const void* k,
                                   const void* k_scale, void* out, int q_bf16,
                                   int kv, int B, int S, int Hkv, int G, int W,
                                   int d, int bs, int kb, int n_tab,
-                                  int page_size, float scale,
+                                  int page_size, int plan_rows, float scale,
                                   int local_window, int sliding_window,
                                   void* stream) {
   const Launch a{q, k, nullptr, cur_len, table, k_scale, nullptr, out,
                       B, S, Hkv, G, W, W, d, bs, kb, n_tab, page_size, scale,
                       local_window, sliding_window,
-                      static_cast<cudaStream_t>(stream), nullptr};
+                      static_cast<cudaStream_t>(stream), nullptr, plan_rows};
   if (!shape_ok(a)) return (int)cudaErrorInvalidValue;
   return (int)by_storage<Select>(q_bf16, kv, a);
 }
@@ -452,7 +462,8 @@ extern "C" long long loki_select_smem_bytes(int kv, int G, int W, int d,
 // scaled storage is asked as if paged (the kernel takes it only so).
 extern "C" int loki_select_cluster_info(int q_bf16, int kv, int B, int S,
                                         int Hkv, int G, int W, int d, int bs,
-                                        int kb, long long* info) {
+                                        int kb, int plan_rows,
+                                        long long* info) {
   static const int table = 0;
   static const float scale1 = 1.f;
   const bool scaled = kv == KV_I8 || kv == KV_F8;
@@ -460,7 +471,7 @@ extern "C" int loki_select_cluster_info(int q_bf16, int kv, int B, int S,
                       scaled ? &table : nullptr, scaled ? &scale1 : nullptr,
                       nullptr, nullptr, B, S, Hkv, G, W, W, d, bs, kb,
                       scaled ? 1 : 0, scaled ? S : 0, 1.f, 0, 0, nullptr,
-                      info};
+                      info, plan_rows};
   if (!shape_ok(a) || info == nullptr) return (int)cudaErrorInvalidValue;
   return (int)by_storage<Select>(q_bf16, kv, a);
 }

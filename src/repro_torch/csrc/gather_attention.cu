@@ -294,6 +294,9 @@ struct Launch {
   float* part;        // full decode: the splits' partials
   int n_split;
   long long* info;    // not null: report the launch's plan, no launch
+  // grouped: the rows (slots x kv heads) the cluster size is planned for,
+  // the engine's full width for a packed step (fused_decode.cu's Launch)
+  int plan_rows;
 
   BlockRows rows() const {
     return make_rows(table, n_tab, page_size, S, bs, ksc, vsc);
@@ -317,7 +320,7 @@ struct Grouped {
   static cudaError_t go(const Launch& a) {
     const int nb = a.S / a.bs;
     const AttendLayout L = attend_layout<TK, SPLIT_TOK>(a.G, a.W, a.D, a.n_sel);
-    const int C = cluster_size(nb, a.B * a.Hkv, sm_count());
+    const int C = cluster_size(nb, a.plan_rows, sm_count());
     // 16-byte copies need rows of whole 16-byte pieces
     const int vec =
         (a.W * sizeof(TK)) % 16 == 0 && (a.D * sizeof(TK)) % 16 == 0;
@@ -397,19 +400,24 @@ using namespace loki;
 // (decode_common.cuh KV_*); table is nullptr for a contiguous cache
 // (n_tab = page_size = 0), else the (B, n_tab) int32 page table with S =
 // n_tab * page_size; k_scale / v_scale the (n_pages,) float32 page scales
-// of an int8 or fp8 pool, else nullptr. Returns a cudaError_t
-// (cudaErrorInvalidValue for a storage this library is not built for).
+// of an int8 or fp8 pool, else nullptr; plan_rows (grouped) the rows the
+// cluster size is planned for, as fused_decode.cu's launchers take it.
+// Returns a cudaError_t (cudaErrorInvalidValue for a storage this library
+// is not built for).
 extern "C" int loki_block_sparse_attention_grouped(
     const void* q, const void* k, const void* v, const void* blk_idx,
     const void* cur_len, const void* table, const void* k_scale,
     const void* v_scale, void* out, int q_bf16, int kv, int B, int S,
     int Hkv, int G, int W, int D, int bs, int n_sel, int n_tab,
-    int page_size, float scale, int sliding_window, void* stream) {
+    int page_size, int plan_rows, float scale, int sliding_window,
+    void* stream) {
   const Launch a{q, k, v, blk_idx, cur_len, table, k_scale, v_scale,
                      out, B, S, Hkv, G, W, D, bs, n_sel, n_tab, page_size,
                      scale, sliding_window,
-                     static_cast<cudaStream_t>(stream), nullptr, 0, nullptr};
-  if (!a.ok() || n_sel < 1) return (int)cudaErrorInvalidValue;
+                     static_cast<cudaStream_t>(stream), nullptr, 0, nullptr,
+                     plan_rows};
+  if (!a.ok() || n_sel < 1 || plan_rows < 1)
+    return (int)cudaErrorInvalidValue;
   return (int)by_storage<Grouped>(q_bf16, kv, a);
 }
 
@@ -419,7 +427,7 @@ extern "C" int loki_block_sparse_attention_grouped(
 // scaled storage is asked as if paged (the kernel takes it only so).
 extern "C" int loki_grouped_cluster_info(int q_bf16, int kv, int B, int S,
                                          int Hkv, int G, int W, int D,
-                                         int bs, int n_sel,
+                                         int bs, int n_sel, int plan_rows,
                                          long long* info) {
   static const int table = 0;
   static const float scale1 = 1.f;
@@ -428,8 +436,8 @@ extern "C" int loki_grouped_cluster_info(int q_bf16, int kv, int B, int S,
                      scaled ? &table : nullptr, scaled ? &scale1 : nullptr,
                      scaled ? &scale1 : nullptr, nullptr, B, S, Hkv, G, W, D,
                      bs, n_sel, scaled ? 1 : 0, scaled ? S : 0, 1.f, 0,
-                     nullptr, nullptr, 0, info};
-  if (!a.ok() || n_sel < 1 || info == nullptr)
+                     nullptr, nullptr, 0, info, plan_rows};
+  if (!a.ok() || n_sel < 1 || plan_rows < 1 || info == nullptr)
     return (int)cudaErrorInvalidValue;
   return (int)by_storage<Grouped>(q_bf16, kv, a);
 }

@@ -47,7 +47,9 @@ by log-sum-exp in rank order. select_blocks runs the first two phases
 alone, on the same clusters, and CTA 0 writes the winners; its block
 maxima and winners are the fused kernels' bits at any C.
 ``fused_cluster_size`` (in ``gather_attention``, shared with the
-block-list kernels) is the launchers' rule for C (shapes only);
+block-list kernels) is the launchers' rule for C (shapes only), planned
+for ``plan_rows`` rows (B * Hkv, or the engine's full width under
+gather-packed decode: ``gather_attention``'s docstring);
 ``fused_cluster_plain`` repeats the cluster form's arithmetic in torch for
 the tests and the card's checks.
 """
@@ -63,7 +65,7 @@ from repro_torch.kernels.gather_attention import (NEG_INF,
                                                   attend_blocks_plain,
                                                   cache_args,
                                                   fused_cluster_size,
-                                                  logical,
+                                                  logical, plan_rows_of,
                                                   share_partials_plain,
                                                   split_blocks,
                                                   winner_shares)
@@ -201,15 +203,15 @@ def fused_exact_topk_decode_plain(q_hat, k_hat, v, cur_len, *, k_blocks,
 
 _FN: dict = {}
 # pointers, then int arguments, of each launcher (csrc/fused_decode.cu)
-_ARITY = {"loki_fused_decode": (8, 13, 2),
-          "loki_fused_exact_topk_decode": (8, 12, 1),
-          "loki_select_blocks": (6, 12, 2)}
+_ARITY = {"loki_fused_decode": (8, 14, 2),
+          "loki_fused_exact_topk_decode": (8, 13, 1),
+          "loki_select_blocks": (6, 13, 2)}
 # argument and result types of the library's shape queries
-_QUERIES = {"loki_fused_cluster_info": ([ctypes.c_int] * 11
+_QUERIES = {"loki_fused_cluster_info": ([ctypes.c_int] * 12
                                         + [ctypes.c_void_p], ctypes.c_int),
             "loki_fused_smem_bytes": ([ctypes.c_int] * 8,
                                       ctypes.c_longlong),
-            "loki_select_cluster_info": ([ctypes.c_int] * 10
+            "loki_select_cluster_info": ([ctypes.c_int] * 11
                                          + [ctypes.c_void_p], ctypes.c_int),
             "loki_select_smem_bytes": ([ctypes.c_int] * 6,
                                        ctypes.c_longlong)}
@@ -262,7 +264,7 @@ def cluster_plan(q_hat, k_hat, v, *, d: int, k_blocks: int,
     dim = v.shape[-1]
     return _plan(lib, "loki_fused_cluster_info",
                  (_build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g,
-                  kdim, dim, d, block_size, k_blocks),
+                  kdim, dim, d, block_size, k_blocks, b * n_kv),
                  "loki_fused_smem_bytes",
                  (code, g, kdim, dim, d, block_size, s_len // block_size,
                   k_blocks))
@@ -280,7 +282,7 @@ def select_plan(q_hat, k_hat, *, d: int, k_blocks: int,
     code, lib, _ = _build.storage(k_hat, "k_hat")
     return _plan(lib, "loki_select_cluster_info",
                  (_build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g,
-                  kdim, d, block_size, k_blocks),
+                  kdim, d, block_size, k_blocks, b * n_kv),
                  "loki_select_smem_bytes",
                  (code, g, kdim, d, block_size, s_len // block_size))
 
@@ -306,12 +308,12 @@ def fused_loki_decode(q_hat, k_hat, v, cur_len, *, d: int, k_blocks: int,
                       block_size: int = 128, scale=None,
                       local_window: int = 0, sliding_window: int = 0,
                       page_table=None, page_size: int = 0,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, plan_rows=None):
     """Single-pass Loki decode. (B,Hkv,G,W),(B,S,Hkv,W),(B,S,Hkv,D),(B,)
     (or pooled (R,Hkv,·) caches with ``page_table``/``page_size``, and
     their per-page ``k_scale``/``v_scale`` when quantized) -> (B,Hkv,G,D)
     in q_hat's dtype. On the card: one launch of ``fused_cluster_size``
-    CTAs per (slot, kv-head), as one cluster."""
+    CTAs per (slot, kv-head), as one cluster, planned for ``plan_rows``."""
     check_scales(k_hat, k_scale, v_scale, page_table, page_size)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
                                                k_blocks, page_table,
@@ -329,7 +331,8 @@ def fused_loki_decode(q_hat, k_hat, v, cur_len, *, d: int, k_blocks: int,
                                       v_scale)
     _launch("loki_fused_decode", fused_loki_decode, ptrs, q_hat, k_hat,
             code, (b, s_len, n_kv, g, kdim, dim, d, block_size, k_blocks,
-                   n_tab, page_size), (scale, local_window, sliding_window))
+                   n_tab, page_size, plan_rows_of(plan_rows, b, n_kv)),
+            (scale, local_window, sliding_window))
     return out
 
 
@@ -339,10 +342,12 @@ fused_loki_decode.launches = 0
 def fused_exact_topk_decode(q_hat, k_hat, v, cur_len, *, k_blocks: int,
                             block_size: int = 128, scale=None,
                             sliding_window: int = 0, page_table=None,
-                            page_size: int = 0, k_scale=None, v_scale=None):
+                            page_size: int = 0, k_scale=None, v_scale=None,
+                            plan_rows=None):
     """Single-pass exact-top-k decode: exact full-width block scores,
     group-shared block top-k and attention over the winners in one
-    kernel. Shapes, paging and scales follow ``fused_loki_decode``; no
+    kernel. Shapes, paging, scales and ``plan_rows`` follow
+    ``fused_loki_decode``; no
     recency boost. -> (B,Hkv,G,D) in q_hat's dtype."""
     check_scales(k_hat, k_scale, v_scale, page_table, page_size)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
@@ -361,7 +366,8 @@ def fused_exact_topk_decode(q_hat, k_hat, v, cur_len, *, k_blocks: int,
                                       k_scale, v_scale)
     _launch("loki_fused_exact_topk_decode", fused_exact_topk_decode, ptrs,
             q_hat, k_hat, code, (b, s_len, n_kv, g, kdim, dim, block_size,
-                                 k_blocks, n_tab, page_size),
+                                 k_blocks, n_tab, page_size,
+                                 plan_rows_of(plan_rows, b, n_kv)),
             (scale, sliding_window))
     return out
 
@@ -372,12 +378,12 @@ fused_exact_topk_decode.launches = 0
 def select_blocks(q_hat, k_hat, cur_len, *, d: int, k_blocks: int,
                   block_size: int = 128, scale=None, local_window: int = 0,
                   sliding_window: int = 0, page_table=None,
-                  page_size: int = 0, k_scale=None):
+                  page_size: int = 0, k_scale=None, plan_rows=None):
     """Fused score+select: (B,Hkv,G,W),(B,S,Hkv,W) or pooled (with the K
     pool's ``k_scale`` when quantized),(B,) -> (B,Hkv,kb) int32 logical
     block indices, group-shared, ``-1`` for exhausted entries. On the card:
     one launch of ``fused_cluster_size`` CTAs per (slot, kv-head), as one
-    cluster (``select_plan``)."""
+    cluster (``select_plan``), planned for ``plan_rows``."""
     check_scales(k_hat, k_scale, None, page_table, page_size, need_v=False)
     b, n_kv, g, kdim, s_len, k_blocks = _shape(q_hat, k_hat, block_size,
                                                k_blocks, page_table,
@@ -401,7 +407,8 @@ def select_blocks(q_hat, k_hat, cur_len, *, d: int, k_blocks: int,
             + _build.cuda_args("select_blocks", out=out))
     _launch("loki_select_blocks", select_blocks, ptrs, q_hat, k_hat, code,
             (b, s_len, n_kv, g, kdim, d, block_size, k_blocks, n_tab,
-             page_size), (scale, local_window, sliding_window))
+             page_size, plan_rows_of(plan_rows, b, n_kv)),
+            (scale, local_window, sliding_window))
     return out
 
 

@@ -34,6 +34,12 @@ kernel merges them by log-sum-exp. ``full_decode_n_split`` picks n_split
 from shapes only. ``full_decode_split_plain`` repeats that arithmetic in
 torch for the tests and the card's checks.
 
+The split count and the cluster size are planned for ``plan_rows``
+(slots x kv heads), B * Hkv unless the caller passes the engine's full
+width: a gather-packed step of fewer slots then launches each slot with
+the full-width step's split count and cluster size, so a slot's float32
+rounding does not depend on which other slots share its step.
+
 The two block-list kernels (grouped and per-head) run as one cluster of C
 CTAs per row, C = ``fused_cluster_size`` (shapes only), as the fused
 kernels' attention phase runs: the row's entries in [0, S / bs) are kept in
@@ -135,9 +141,21 @@ def full_decode_plain(q_hat, k_hat, v, cur_len, *, scale,
 SPLIT_CTAS_PER_SM = 4
 
 
+def plan_rows_of(plan_rows, b: int, n_kv: int) -> int:
+    """The rows a launch is planned for: ``plan_rows`` (the engine's
+    full width, an int) or the step's own B * Hkv."""
+    if plan_rows is None:
+        return b * n_kv
+    if not isinstance(plan_rows, int) or plan_rows < 1:
+        raise ValueError(f"plan_rows must be a positive int, got "
+                         f"{plan_rows!r}")
+    return plan_rows
+
+
 def full_decode_n_split(n_blocks: int, rows: int, n_sm: int) -> int:
     """Splits per (slot, kv-head) of the full decode, from shapes only:
-    about SPLIT_CTAS_PER_SM CTAs per SM over ``rows`` = B * Hkv, at least
+    about SPLIT_CTAS_PER_SM CTAs per SM over ``rows`` (B * Hkv, or the
+    engine's full width under packing: ``plan_rows``), at least
     1 and at most the ``n_blocks`` = S / block_size blocks of a row. It
     never sees cur_len, so choosing it costs the host no sync."""
     return max(1, min(n_blocks, SPLIT_CTAS_PER_SM * n_sm // max(rows, 1)))
@@ -323,10 +341,10 @@ def _sm_count(device) -> int:
 _FN: dict = {}
 # pointers, then int arguments, then float + int tail of each launcher
 # (csrc/gather_attention.cu)
-_ARITY = {"loki_block_sparse_attention_grouped": (9, 12),
+_ARITY = {"loki_block_sparse_attention_grouped": (9, 13),
           "loki_full_decode": (9, 12)}
 # argument and result types of the library's shape queries
-_QUERIES = {"loki_grouped_cluster_info": ([ctypes.c_int] * 10
+_QUERIES = {"loki_grouped_cluster_info": ([ctypes.c_int] * 11
                                           + [ctypes.c_void_p], ctypes.c_int),
             "loki_head_cluster_info": ([ctypes.c_int] * 8
                                        + [ctypes.c_void_p], ctypes.c_int),
@@ -379,7 +397,8 @@ def attend_plan(q_hat, k_hat, v, blk_idx, *, block_size: int = 128,
     code, _, lib = _build.storage(k_hat, "k_hat")
     return _plan(lib, lambda info: _fn(lib, "loki_grouped_cluster_info")(
         _build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g, kdim,
-        dim, block_size, n_sel, info), code, g, kdim, dim, n_sel, tok=4)
+        dim, block_size, n_sel, b * n_kv, info), code, g, kdim, dim, n_sel,
+        tok=4)
 
 
 def full_plan(q_hat, k_hat, v, *, block_size: int = 128) -> dict:
@@ -414,11 +433,13 @@ def block_sparse_attention_grouped(q_hat, k_hat, v, blk_idx, cur_len, *,
                                    block_size: int = 128, scale=None,
                                    sliding_window: int = 0,
                                    page_table=None, page_size: int = 0,
-                                   k_scale=None, v_scale=None):
+                                   k_scale=None, v_scale=None,
+                                   plan_rows=None):
     """GQA-batched sparse attention over a group-shared block selection.
     (B,Hkv,G,W),(B,S,Hkv,W),(B,S,Hkv,D),(B,Hkv,n_sel),(B,) -> (B,Hkv,G,D),
     or pooled caches with ``page_table``/``page_size`` (and their per-page
-    ``k_scale``/``v_scale`` when quantized). Default scale ``D**-0.5``."""
+    ``k_scale``/``v_scale`` when quantized). Default scale ``D**-0.5``;
+    the cluster size is planned for ``plan_rows`` (module docstring)."""
     check_scales(k_hat, k_scale, v_scale, page_table, page_size)
     b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
     s_len = cache_args(k_hat, block_size, page_table, page_size)
@@ -441,8 +462,9 @@ def block_sparse_attention_grouped(q_hat, k_hat, v, blk_idx, cur_len, *,
             + _build.cuda_args(kernel, out=out))
     rc = _fn(lib, "loki_block_sparse_attention_grouped")(
         *ptrs, _build.dtype_code(q_hat, "q_hat"), code, b, s_len, n_kv, g,
-        kdim, dim, block_size, n_sel, n_tab, page_size, scale,
-        sliding_window, _build.stream_of(q_hat))
+        kdim, dim, block_size, n_sel, n_tab, page_size,
+        plan_rows_of(plan_rows, b, n_kv), scale, sliding_window,
+        _build.stream_of(q_hat))
     _build.check(rc, "block_sparse_attention_grouped")
     block_sparse_attention_grouped.launches += 1
     return out
@@ -453,7 +475,8 @@ block_sparse_attention_grouped.launches = 0
 
 def paged_full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
                       scale=None, sliding_window: int = 0, page_table=None,
-                      page_size: int = 0, k_scale=None, v_scale=None):
+                      page_size: int = 0, k_scale=None, v_scale=None,
+                      plan_rows=None):
     """Full-attention decode streamed over the live blocks only (the
     ``full`` policy's kernel), contiguous or paged (with per-page
     ``k_scale``/``v_scale`` when quantized).
@@ -461,7 +484,7 @@ def paged_full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
     dtype. Default scale ``D**-0.5``; cur_len >= 1 per row. On the card
     the live blocks are split ``full_decode_n_split`` ways and merged in
     the same launcher call, through a float32 scratch of
-    (B, Hkv, n_split, G, D + 2)."""
+    (B, Hkv, n_split, G, D + 2); n_split is planned for ``plan_rows``."""
     check_scales(k_hat, k_scale, v_scale, page_table, page_size)
     b, n_kv, g, kdim, dim = _widths(q_hat, k_hat, v)
     s_len = cache_args(k_hat, block_size, page_table, page_size)
@@ -473,7 +496,8 @@ def paged_full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
             sliding_window=sliding_window)
     out = torch.empty((b, n_kv, g, dim), dtype=q_hat.dtype,
                       device=q_hat.device)
-    n_split = full_decode_n_split(s_len // block_size, b * n_kv,
+    n_split = full_decode_n_split(s_len // block_size,
+                                  plan_rows_of(plan_rows, b, n_kv),
                                   _sm_count(q_hat.device))
     part = torch.empty((b, n_kv, n_split, g, dim + 2), dtype=torch.float32,
                        device=q_hat.device)

@@ -82,20 +82,24 @@ def loki_decode_fused(q_hat, k_hat, v, cur_len, *, d: int, k_blocks: int,
                       block_size: int = 128, scale=None,
                       local_window: int = 0, sliding_window: int = 0,
                       page_table=None, page_size: int = 0,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, plan_rows=None):
     """Single-pass fused decode: score, select and attend in one kernel; no
-    score or selection tensor reaches device memory. Returns (B,Hkv,G,D)."""
+    score or selection tensor reaches device memory. Returns (B,Hkv,G,D).
+    ``plan_rows``: the rows the launch is planned for (the engine's full
+    width under gather-packed decode; B * Hkv when None)."""
     return fused_loki_decode(q_hat, k_hat, v, cur_len, d=d,
                              k_blocks=k_blocks, block_size=block_size,
                              scale=scale, local_window=local_window,
                              sliding_window=sliding_window,
                              page_table=page_table, page_size=page_size,
-                             k_scale=k_scale, v_scale=v_scale)
+                             k_scale=k_scale, v_scale=v_scale,
+                             plan_rows=plan_rows)
 
 
 def full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
                 scale=None, sliding_window: int = 0, page_table=None,
-                page_size: int = 0, k_scale=None, v_scale=None):
+                page_size: int = 0, k_scale=None, v_scale=None,
+                plan_rows=None):
     """Streaming full-attention decode (the ``full`` policy): K/V stream
     block by block, through the page table when paged, into a (G,)-wide
     online softmax, reading only the live prefix (or window)."""
@@ -103,13 +107,15 @@ def full_decode(q_hat, k_hat, v, cur_len, *, block_size: int = 128,
                              block_size=block_size, scale=scale,
                              sliding_window=sliding_window,
                              page_table=page_table, page_size=page_size,
-                             k_scale=k_scale, v_scale=v_scale)
+                             k_scale=k_scale, v_scale=v_scale,
+                             plan_rows=plan_rows)
 
 
 def exact_topk_decode_fused(q_hat, k_hat, v, cur_len, *, k_blocks: int,
                             block_size: int = 128, scale=None,
                             sliding_window: int = 0, page_table=None,
-                            page_size: int = 0, k_scale=None, v_scale=None):
+                            page_size: int = 0, k_scale=None, v_scale=None,
+                            plan_rows=None):
     """Single-pass exact-top-k decode: exact full-width scores, block
     top-k and sparse attention in one kernel."""
     return fused_exact_topk_decode(q_hat, k_hat, v, cur_len,
@@ -118,14 +124,14 @@ def exact_topk_decode_fused(q_hat, k_hat, v, cur_len, *, k_blocks: int,
                                    sliding_window=sliding_window,
                                    page_table=page_table,
                                    page_size=page_size, k_scale=k_scale,
-                                   v_scale=v_scale)
+                                   v_scale=v_scale, plan_rows=plan_rows)
 
 
 def loki_decode_two_kernel(q_hat, k_hat, v, cur_len, *, d: int,
                            k_blocks: int, block_size: int = 128, scale=None,
                            local_window: int = 0, sliding_window: int = 0,
                            page_table=None, page_size: int = 0,
-                           k_scale=None, v_scale=None):
+                           k_scale=None, v_scale=None, plan_rows=None):
     """Two-kernel form: fused score+select (only the (B,Hkv,kb) index rows
     reach device memory) feeding the GQA-batched sparse attention."""
     blk_idx = select_blocks(q_hat, k_hat, cur_len, d=d, k_blocks=k_blocks,
@@ -133,10 +139,11 @@ def loki_decode_two_kernel(q_hat, k_hat, v, cur_len, *, d: int,
                             local_window=local_window,
                             sliding_window=sliding_window,
                             page_table=page_table, page_size=page_size,
-                            k_scale=k_scale)
+                            k_scale=k_scale, plan_rows=plan_rows)
     return block_sparse_attention_grouped(q_hat, k_hat, v, blk_idx, cur_len,
                                           block_size=block_size, scale=scale,
                                           sliding_window=sliding_window,
                                           page_table=page_table,
                                           page_size=page_size,
-                                          k_scale=k_scale, v_scale=v_scale)
+                                          k_scale=k_scale, v_scale=v_scale,
+                                          plan_rows=plan_rows)

@@ -12,14 +12,21 @@
         --policy loki_block --smax 64 --page-size 16 --device-pages 5 \
         --faults seed=7,dma_timeout=0.2,hbm_oom_on_promote=0.1 --audit \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine dense \
+        --policy h2o --arch llama2-7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --policy loki_block --arch granite-moe-3b-a800m --device cpu
 
 Builds the dense slot engine (``--engine dense``) or the paged engine
 (``--engine paged``: a page pool of ``--n-pages`` pages of
 ``--page-size`` tokens, prompts prefilled ``--prefill-chunk`` tokens at a
 time) with the selected attention policy, calibrates the PCA transforms
-for the Loki policies (and for pages stored in the PCA basis) on synthetic
-batches, and reports throughput over a synthetic request stream. Runs on
-the card unless ``--device cpu`` is given.
+for the Loki policies and ``pcaattn`` (and for pages stored in the PCA
+basis) on synthetic batches, and reports throughput over a synthetic
+request stream. Runs on the card unless ``--device cpu`` is given. The
+policies whose caches cannot rebuild exact prefix attention (``h2o``,
+``pcaattn``) serve through the dense engine: ``--engine paged`` with one
+of them prints a note and falls back to it, as the JAX launcher does.
 
 ``--layout`` sets the paged engine's page layout in ``PageLayout.parse``
 syntax, ``dtype[:basis][:r=N]``: storage fp32 | fp16 | bf16 | int8 | fp8
@@ -58,6 +65,7 @@ from repro_torch.configs.base import ModelConfig, PageLayout
 from repro_torch.core import pca as PCA
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.models import lm
+from repro_torch.serving import cache_spec as CS
 from repro_torch.serving import faults as FI
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.lifecycle import summarize
@@ -170,12 +178,24 @@ class ServeConfig:
                 "warm_steps > 0 needs training, not ported yet (ROADMAP "
                 "queue 1 item 10)")
 
+    def serves_paged(self, cfg: ModelConfig) -> bool:
+        """Whether ``build_engine`` builds the paged engine: asked for, and
+        the config pageable. Otherwise (a policy whose cache cannot
+        rebuild exact prefix attention) it prints the JAX launcher's note
+        and the dense engine serves."""
+        if self.engine.kind != "paged":
+            return False
+        ok, why = CS.pageable(cfg)
+        if not ok:
+            print(f"note: {why}; falling back to the dense engine")
+        return ok
+
     def build_engine(self, params, cfg: ModelConfig):
         self.check()
         common = dict(n_slots=self.engine.n_slots, smax=self.engine.smax,
                       backend=self.engine.backend, admission=self.admission,
                       device=self.device)
-        if self.engine.kind == "paged":
+        if self.serves_paged(cfg):
             sch = self.scheduler
             return PagedServingEngine(
                 params, cfg, page_size=self.paged.page_size,
@@ -195,9 +215,9 @@ def calibrated_params(cfg: ModelConfig, data: SyntheticLM, *, seed: int,
                       device):
     """Random weights from ``seed`` with PCA projections calibrated on two
     synthetic batches and installed, as the JAX launcher does: for the
-    Loki policies and for pages stored in the PCA basis."""
+    Loki policies, ``pcaattn`` and pages stored in the PCA basis."""
     params = lm.init(cfg, seed=seed, device=device)
-    if cfg.attn_policy() in ("loki", "loki_block") or \
+    if cfg.attn_policy() in ("loki", "loki_block", "pcaattn") or \
             cfg.page_layout.basis == "pca":
         batches = [data.batch_at(1000 + i)["tokens"] for i in range(2)]
         calib = PCA.calibrate_model(params, cfg, batches)
@@ -211,7 +231,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true",
                     help="published width instead of the smoke config")
     ap.add_argument("--policy", default="loki",
-                    choices=["full", "exact_topk", "loki", "loki_block"])
+                    choices=["full", "exact_topk", "loki", "loki_block",
+                             "h2o", "pcaattn"],
+                    help="decode attention policy; h2o and pcaattn serve "
+                         "through the dense engine only")
     ap.add_argument("--k-f", type=float, default=0.25)
     ap.add_argument("--d-f", type=float, default=0.25)
     ap.add_argument("--backend", default="auto",
@@ -293,7 +316,8 @@ def main(argv=None):
                                   temperature=0.22))
     params = calibrated_params(cfg, data, seed=sc.seed, device=device)
     eng = sc.build_engine(params, cfg)
-    if sc.engine.kind == "paged":
+    paged = isinstance(eng, PagedServingEngine)
+    if paged:
         lay = cfg.page_layout
         print(f"layout: {lay.describe()} — {eng.bytes_per_page} B/page/layer"
               + (" (per-page f32 scales beside the table)"
@@ -330,13 +354,14 @@ def main(argv=None):
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     toks = sum(len(r.out) for r in reqs)
-    print(f"engine={sc.engine.kind} policy={cfg.attn_policy()} "
+    print(f"engine={'paged' if paged else 'dense'} "
+          f"policy={cfg.attn_policy()} "
           f"device={device} served {len(reqs)} "
           f"requests ({toks} tokens) in {eng.ticks} ticks, {dt:.2f}s -> "
           f"{toks / dt:.1f} tok/s, {1e3 * dt / max(eng.ticks, 1):.1f} "
           "ms/tick")
     print(f"lifecycle: {summarize(reqs)}")
-    if sc.engine.kind == "paged":
+    if paged:
         st = eng.stats()
         print(f"paged: {eng.pool.n_pages} pages of {eng.page_size}, "
               f"preempted {st['n_preempted']}, shed {st['n_shed']}, "

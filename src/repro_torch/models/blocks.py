@@ -1,48 +1,45 @@
-"""Attention block: params, train forward, prefill and one-token decode.
+"""Attention and MoE blocks: params, train forward, prefill and one-token
+decode.
 
-Counterpart of the attention half of ``repro.models.blocks`` for the dense
-family, over the contiguous cache of the slot engine or the paged pool of
-the paged engine. ``pos_len`` is the number of tokens already cached (B,):
-the new token lands at that index and RoPE uses it as its position.
+Counterpart of the attention and MoE parts of ``repro.models.blocks`` for
+the dense and MoE families, over the contiguous cache of the slot engine
+or the paged pool of the paged engine. ``pos_len`` is the number of tokens
+already cached (B,): the new token lands at that index and RoPE uses it as
+its position.
 
 Policies: ``full`` and ``exact_topk`` (the CUDA kernels through
 core/dispatch.py, or the plain references on backend="xla"), ``loki``
-(token top-k, plain torch as in JAX) and ``loki_block`` (the CUDA kernels
-through core/dispatch.py).
+(token top-k, or per-chunk top-k with ``n_chunks``; plain torch as in
+JAX), ``loki_block`` (the CUDA kernels through core/dispatch.py), and the
+paper's two comparison baselines ``pcaattn`` (truncated PCA keys) and
+``h2o`` (a fixed-budget eviction cache), plain torch as in JAX. ``h2o``
+and ``pcaattn`` serve through the dense engine only (their caches cannot
+rebuild exact prefix attention, ``serving/cache_spec.py``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
-from repro_torch.core import dispatch, loki
+from repro_torch.core import baselines, dispatch, loki
 from repro_torch.models import layers as L
+from repro_torch.serving import cache_spec as CS
 from repro_torch.serving import paged_cache as PC
 
 #: the attention policies the port serves
-PORTED_POLICIES = ("full", "exact_topk", "loki", "loki_block")
-
-#: policies of the JAX package the port does not carry yet, with the
-#: ROADMAP item that will
-UNPORTED_POLICIES = {
-    "pcaattn": "ROADMAP queue 1: pcaattn policy",
-    "h2o": "ROADMAP queue 1: h2o policy",
-}
+PORTED_POLICIES = ("full", "exact_topk", "loki", "loki_block", "pcaattn",
+                   "h2o")
 
 
 def check_policy(cfg: ModelConfig) -> None:
     policy = cfg.attn_policy()
-    if policy in UNPORTED_POLICIES:
-        raise NotImplementedError(
-            f"policy {policy!r} is not ported yet "
-            f"({UNPORTED_POLICIES[policy]})")
     if policy not in PORTED_POLICIES:
         raise ValueError(f"unknown attention policy {policy!r}; the port "
                          f"serves {PORTED_POLICIES}")
-    if policy == "loki" and cfg.loki.n_chunks:
-        raise NotImplementedError("loki_decode_chunked is not ported yet "
-                                  "(ROADMAP queue 1)")
 
 
 def init_attention(gen, cfg: ModelConfig, *, dtype, device, n_layers):
@@ -100,11 +97,24 @@ def attn_train(p, x, positions, cfg: ModelConfig, *, capture=None):
 
 def init_attn_cache(cfg: ModelConfig, batch: int, smax: int, dtype,
                     device, n_layers: int = 1):
-    """Zeroed (n_layers, B, Smax, Hkv, D) K and V caches."""
+    """Zeroed (n_layers, B, Smax, Hkv, D) K and V caches. ``pcaattn``
+    keeps only the leading d = max(d_f * D, 8) PCA dims of each key;
+    ``h2o`` keeps its budgeted state (``baselines.H2OState``: k, v, pos,
+    acc, fill, each stacked on n_layers, batch second) with a budget of
+    ``loki.static_k`` tokens."""
     check_policy(cfg)
-    shape = (n_layers, batch, smax, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    hd, n_kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    policy = cfg.attn_policy()
+    if policy == "h2o":
+        budget = loki.static_k(cfg.loki, smax)
+        st = baselines.h2o_init(n_layers * batch, budget, n_kv, hd, dtype,
+                                device=device)
+        return {name: t.reshape((n_layers, batch) + t.shape[1:])
+                for name, t in st._asdict().items()}
+    kw = max(int(cfg.loki.d_f * hd), 8) if policy == "pcaattn" else hd
+    lead = (n_layers, batch, smax, n_kv)
+    return {"k": torch.zeros(lead + (kw,), dtype=dtype, device=device),
+            "v": torch.zeros(lead + (hd,), dtype=dtype, device=device)}
 
 
 def _write_cache(cache_arr, new, pos_len):
@@ -124,7 +134,7 @@ def _stores_pca(policy: str) -> bool:
 
 def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
                 sliding_window=None, page_table=None, page_size: int = 0,
-                frame_table=None):
+                frame_table=None, plan_rows=None, n_rows=None):
     """One-token decode with the configured attention policy.
 
     x (B,E); pos_len (B,) tokens already cached; cache {"k","v"} of
@@ -138,40 +148,83 @@ def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
     the sidecar's through the page table; the score pass reads the
     sidecar and exact attention the frames (``dispatch.
     loki_tiered_decode``). Returns (y, winners (B, max_pages) bool), the
-    logical pages the selection attended."""
+    logical pages the selection attended.
+
+    ``plan_rows`` (an int, the engine's slots x kv heads): the rows the
+    kernels' split count and cluster size are planned for
+    (``dispatch``), so a gather-packed step launches each slot as the
+    full-width step does. ``n_rows`` (an int): only x's first n_rows rows
+    are the step's (``pos_len`` and the tables have n_rows rows); the
+    rest pad the row-wise projections to the engine's width
+    (``lm.decode_step``) and leave as zeros.
+
+    ``h2o`` (contiguous caches only) inserts into, attends over and
+    updates its budgeted state in place; ``pcaattn`` stores the leading
+    d PCA dims of each key."""
     hd = cfg.resolved_head_dim
-    b = x.shape[0]
+    rows = x.shape[0]
+    b = rows if n_rows is None else n_rows
     q, k, v = _qkv(p, x[:, None, :], cfg)
-    q, k, v = q[:, 0], k[:, 0], v[:, 0]          # (B,H,D)/(B,Hkv,D)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]          # (rows,H,D)/(rows,Hkv,D)
     positions = pos_len.expand(b)
     if cfg.rope:
-        q = L.apply_rope(q[:, None], positions[:, None],
+        pos_rows = F.pad(positions, (0, rows - b))
+        q = L.apply_rope(q[:, None], pos_rows[:, None],
                          cfg.rope_theta)[:, 0]
-        k = L.apply_rope(k[:, None], positions[:, None],
+        k = L.apply_rope(k[:, None], pos_rows[:, None],
                          cfg.rope_theta)[:, 0]
 
     policy = cfg.attn_policy()
     proj = p["pca"]
+
+    def out_rows(out):
+        """The attention output (B,H,·) through wo, over all x's rows."""
+        out = out.reshape(b, cfg.q_dim).to(x.dtype)
+        return L.dot(F.pad(out, (0, 0, 0, rows - b)), p["wo"])
     cur_len = positions + 1                       # cache incl. new token
     sw = cfg.sliding_window if sliding_window is None else sliding_window
     paged = page_table is not None
     lay = cfg.page_layout
+    if policy == "h2o":
+        if paged:
+            raise ValueError("h2o keeps its own budgeted cache; serve it "
+                             "through the dense engine")
+        st = baselines.H2OState(cache["k"], cache["v"], cache["pos"],
+                                cache["acc"], cache["fill"])
+        out, _ = baselines.h2o_decode(q[:b], k[:b], v[:b], st, positions,
+                                      inplace=True)
+        return out_rows(out)
     if _stores_pca(policy):
         _, k_store = loki.project_qk(q, k, proj)
+    elif policy == "pcaattn":
+        d = cache["k"].shape[-1]
+        k_store = torch.einsum("bhd,hde->bhe", k, proj[..., :d].to(k.dtype))
     elif paged and lay.basis == "pca":
         # latent-basis pages for full / exact_topk: store k̂ = k·P and
         # rotate q at read time (exact at full rank, Lemma 4.1)
         k_store = torch.einsum("bhd,hde->bhe", k, proj.to(k.dtype))
     else:
         k_store = k
+    # the latent-basis query of full / exact_topk, over all rows too
+    q_read = q
+    if paged and lay.basis == "pca" and policy in ("full", "exact_topk"):
+        qg = q.reshape(rows, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                       hd)
+        qh = torch.einsum("bhgd,hde->bhge", qg, proj.to(q.dtype))
+        q_read = qh[..., :lay.k_width(hd)].reshape(rows, cfg.n_heads, -1)
+    q, k_store, v, q_read = q[:b], k_store[:b], v[:b], q_read[:b]
     scales = {}
     if paged:
         # the pool's width is the stored key width: rank-r truncation
         k_store = k_store[..., :cache["k"].shape[-1]]
         if frame_table is not None:
-            return _attn_decode_tiered(p, cache, q, k_store, v, positions,
-                                       cfg, sw, page_table, page_size,
-                                       frame_table, x.dtype)
+            if cfg.loki.n_chunks:
+                raise ValueError("tiered pools do not support chunked "
+                                 "(distributed) Loki selection")
+            out, win = _attn_decode_tiered(cache, q, k_store, v, positions,
+                                           proj, cfg, sw, page_table,
+                                           page_size, frame_table, x.dtype)
+            return out_rows(out), win
         for name, new in (("k", k_store), ("v", v)):
             if lay.quantized:
                 PC.write_token_rows_q(cache[name], cache[name + "_scale"],
@@ -186,48 +239,48 @@ def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
         _write_cache(cache["k"], k_store, pos_len)
         _write_cache(cache["v"], v, pos_len)
     pargs = dict(page_table=page_table, page_size=page_size, **scales)
+    kargs = dict(pargs, plan_rows=plan_rows)
 
-    # queries follow the storage basis; hd**-0.5 stays the logit scale
-    # when the stored key width is the latent rank r < hd
-    q_read = q
-    if paged and lay.basis == "pca" and policy in ("full", "exact_topk"):
-        qg = q.reshape(b, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, hd)
-        qh = torch.einsum("bhgd,hde->bhge", qg, proj.to(q.dtype))
-        q_read = qh[..., :lay.k_width(hd)].reshape(b, cfg.n_heads, -1)
-
+    # queries follow the storage basis (q_read above); hd**-0.5 stays the
+    # logit scale when the stored key width is the latent rank r < hd
     if policy == "full":
         out = dispatch.full_paged_decode(q_read, cache["k"], cache["v"],
                                          cur_len, backend=cfg.loki.backend,
                                          block_size=cfg.loki.block_size,
                                          sliding_window=sw,
-                                         logit_scale=hd ** -0.5, **pargs)
+                                         logit_scale=hd ** -0.5, **kargs)
     elif policy == "exact_topk":
         out = dispatch.exact_topk_paged_decode(q_read, cache["k"],
                                                cache["v"], cur_len, cfg.loki,
                                                logit_scale=hd ** -0.5,
-                                               **pargs)
+                                               **kargs)
     elif policy == "loki":
         kc, vc = dispatch.gathered(cache["k"], cache["v"], **pargs)
-        out = loki.loki_decode(q, kc, vc, cur_len, proj, cfg.loki,
-                               sliding_window=sw)
+        fn = loki.loki_decode_chunked if cfg.loki.n_chunks else \
+            loki.loki_decode
+        out = fn(q, kc, vc, cur_len, proj, cfg.loki, sliding_window=sw)
     elif policy == "loki_block":
         out = dispatch.loki_block_decode(q, cache["k"], cache["v"], cur_len,
                                          proj, cfg.loki, sliding_window=sw,
-                                         **pargs)
+                                         **kargs)
+    elif policy == "pcaattn":
+        kc, vc = dispatch.gathered(cache["k"], cache["v"], **pargs)
+        out = baselines.pcaattn_decode(q, kc, vc, cur_len, proj, cfg.loki)
     else:
         check_policy(cfg)
         raise AssertionError(policy)
     # the plain paths return the cache's dtype (float32 in both engines)
     # where the kernels return the query's: both continue in the
     # activation dtype (a no-op when the model computes in float32)
-    return L.dot(out.reshape(b, cfg.q_dim).to(x.dtype), p["wo"])
+    return out_rows(out)
 
 
-def _attn_decode_tiered(p, cache, q, k_store, v, positions,
+def _attn_decode_tiered(cache, q, k_store, v, positions, proj,
                         cfg: ModelConfig, sw, page_table, page_size: int,
                         frame_table, act_dtype):
     """The tiered half of ``attn_decode``: writes, then the score pass over
-    the sidecar and exact attention over the frames."""
+    the sidecar and exact attention over the frames -> (out (B,H,D) in
+    ``act_dtype``, winners)."""
     policy = cfg.attn_policy()
     if policy not in ("loki", "loki_block"):
         raise ValueError("tiered pools serve Loki policies only "
@@ -239,18 +292,19 @@ def _attn_decode_tiered(p, cache, q, k_store, v, positions,
     PC.write_token_rows(cache["k_lat"], k_store[..., :dl], page_table,
                         positions, page_size)
     out, win = dispatch.loki_tiered_decode(
-        q, cache["k"], cache["v"], cache["k_lat"], positions + 1, p["pca"],
+        q, cache["k"], cache["v"], cache["k_lat"], positions + 1, proj,
         cfg.loki, sliding_window=sw, page_table=page_table,
         frame_table=frame_table, page_size=page_size,
         token_granular=policy == "loki")
-    b = q.shape[0]
-    return L.dot(out.reshape(b, cfg.q_dim).to(act_dtype), p["wo"]), win
+    return out.to(act_dtype), win
 
 
 def attn_prefill(p, cache, x, positions, cfg: ModelConfig):
     """Process a whole prompt, writing cache rows [0, S) in place. The
     cache stores keys in the policy's basis so decode steps are pure
-    Algorithm 1. Returns y."""
+    Algorithm 1 (``pcaattn``: the leading d PCA dims). ``h2o`` keeps the
+    most recent ``budget`` prompt tokens and resets its state. Returns
+    y."""
     q, k, v = _qkv(p, x, cfg)
     if cfg.rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
@@ -259,8 +313,26 @@ def attn_prefill(p, cache, x, positions, cfg: ModelConfig):
                              sliding_window=cfg.sliding_window)
     b, s = x.shape[:2]
     y = L.dot(out.reshape(b, s, cfg.q_dim), p["wo"])
-    if _stores_pca(cfg.attn_policy()):
+    policy = cfg.attn_policy()
+    if policy == "h2o":
+        # budget cache: keep the most recent `budget` prompt tokens
+        budget = cache["k"].shape[1]
+        take = min(budget, s)
+        for name, new in (("k", k), ("v", v)):
+            cache[name].zero_()
+            cache[name][:, :take] = new[:, s - take:].to(cache[name].dtype)
+        cache["pos"].fill_(-1)
+        cache["pos"][:, :take] = torch.arange(s - take, s, dtype=torch.int32,
+                                              device=x.device)
+        cache["acc"].zero_()
+        cache["fill"].fill_(take)
+        return y
+    if _stores_pca(policy):
         k_store = torch.einsum("bshd,hde->bshe", k, p["pca"].to(k.dtype))
+    elif policy == "pcaattn":
+        d = cache["k"].shape[-1]
+        k_store = torch.einsum("bshd,hde->bshe", k,
+                               p["pca"][..., :d].to(k.dtype))
     else:
         k_store = k
     cache["k"][:, :s] = k_store.to(cache["k"].dtype)
@@ -298,7 +370,7 @@ def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
     policy = cfg.attn_policy()
-    if policy not in PORTED_POLICIES:
+    if policy in CS.UNPAGEABLE_POLICIES:
         raise ValueError(f"policy {policy!r} cannot reconstruct exact "
                          "prefix attention from its cache; use the dense "
                          "engine's one-shot prefill")
@@ -350,3 +422,138 @@ def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
     w = torch.softmax(scores, dim=-1).to(vlog.dtype)
     o = torch.einsum("bhgcs,bshd->bchgd", w, vlog)
     return L.dot(o.reshape(b, c, cfg.q_dim).to(x.dtype), p["wo"])
+
+
+# =====================================================================
+# MoE block (capacity dispatch; FLOPs track active experts)
+# =====================================================================
+
+#: tokens per dispatch group (keeps dispatch tensors small)
+MOE_GROUP = 256
+
+
+def init_moe(gen, cfg: ModelConfig, *, dtype, device, n_layers):
+    """Router (float32, as the JAX code uses it) and the stacked expert
+    matrices, drawn from ``gen`` like every other leaf."""
+    m = cfg.moe
+    d, f = cfg.d_model, m.d_ff_expert
+    gated = cfg.mlp in ("swiglu", "geglu")
+    kw = dict(device=device, n_layers=n_layers)
+    return {"router": L._init(gen, (d, m.n_experts), dtype=torch.float32,
+                              **kw),
+            "w_in": L._init(gen, (m.n_experts, d, 2 * f if gated else f),
+                            dtype=dtype, **kw),
+            "w_out": L._init(gen, (m.n_experts, f, d), dtype=dtype, **kw)}
+
+
+def _expert_act(h, cfg: ModelConfig, f: int):
+    if cfg.mlp in ("swiglu", "geglu"):
+        gate, up = h[..., :f], h[..., f:]
+        # jax.nn.gelu defaults to the tanh approximation
+        act = (F.silu(gate) if cfg.mlp == "swiglu"
+               else F.gelu(gate, approximate="tanh"))
+        return act * up
+    if cfg.mlp == "sq_relu":
+        return torch.relu(h).square()
+    return F.gelu(h, approximate="tanh")
+
+
+def _route(x, p, top_k: int):
+    """Router logits (float32), softmax probabilities and the top-k gates
+    renormalised over the k picks, ties to the lower expert
+    (``lax.top_k``'s order)."""
+    logits = L.dot(x.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, eidx = loki.topk_lower_index(probs, top_k)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, gate_w, eidx
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """x (B,S,E) -> (y (B,S,E), aux loss). Capacity routing with
+    sort-based gather/scatter dispatch over groups of MOE_GROUP tokens.
+
+    Tokens are sorted by expert id with a stable sort, so an expert over
+    capacity drops its latest tokens (GShard's drop-in-token-order); each
+    expert's capacity window gathers its tokens, and the combine is a
+    scatter-add of the gated expert outputs. The aux loss is the Switch
+    load balance plus ``router_z_loss`` times the router z-loss.
+
+    A token count above MOE_GROUP must be a multiple of it: the reference
+    reshapes to (n_tok // g, g, E), which is undefined otherwise, so this
+    raises a ValueError rather than pad."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n_tok = b * s
+    g = min(MOE_GROUP, n_tok)
+    if n_tok % g:
+        raise ValueError(f"moe_apply: {n_tok} tokens are not a whole "
+                         f"number of {MOE_GROUP}-token dispatch groups")
+    n_groups = n_tok // g
+    xt = x.reshape(n_groups, g, d)
+    K, E = m.top_k, m.n_experts
+    dev = x.device
+    logits, probs, gate_w, eidx = _route(xt, p, K)          # (G,g,K)
+
+    cap = int(math.ceil(g * K / E * m.capacity_factor))
+    cap = max(4, -(-cap // 4) * 4)                          # round up to 4
+
+    # ---- sort-based dispatch --------------------------------------------
+    flat_e = eidx.reshape(n_groups, g * K)                  # (G,gK)
+    flat_w = gate_w.reshape(n_groups, g * K)
+    order = torch.sort(flat_e, dim=-1, stable=True).indices  # by expert
+    sorted_e = torch.gather(flat_e, -1, order).contiguous()
+    erange = torch.arange(E, device=dev).expand(n_groups, E).contiguous()
+    starts = torch.searchsorted(sorted_e, erange, side="left")
+    ends = torch.searchsorted(sorted_e, erange, side="right")
+    slot = starts[:, :, None] + torch.arange(cap, device=dev)  # (G,E,C)
+    valid = (slot < ends[:, :, None]).reshape(n_groups, -1)   # drops
+    slot = torch.clamp(slot, max=g * K - 1)
+    sel = torch.gather(order, -1, slot.reshape(n_groups, -1))  # (G,E*C)
+    tok = sel // K
+    w_sel = torch.where(valid, torch.gather(flat_w, -1, sel), 0.0)
+
+    dt = x.dtype
+    x_sel = torch.gather(xt, 1, tok[..., None].expand(-1, -1, d))
+    expert_in = x_sel.reshape(n_groups, E, cap, d)
+    h = torch.einsum("gecd,edf->gecf", expert_in, p["w_in"].to(dt))
+    h = _expert_act(h, cfg, m.d_ff_expert)
+    expert_out = torch.einsum("gecf,efd->gecd", h, p["w_out"].to(dt))
+
+    # ---- combine: gated scatter-add back to token order ------------------
+    # one index_add_ per pick rank k: a token holds at most one pick of
+    # each rank, so no call adds two terms into one row and the sum runs
+    # in rank order on any device (atomics make one call's order free)
+    contrib = expert_out.reshape(n_groups, E * cap, d) \
+        * w_sel[..., None].to(dt)
+    rows = (tok + g * torch.arange(n_groups, device=dev)[:, None]).reshape(-1)
+    rank = (sel % K).reshape(-1)
+    contrib = contrib.reshape(-1, d)
+    y = torch.zeros((n_tok, d), dtype=dt, device=dev)
+    for k in range(K):
+        mine = rank == k
+        y.index_add_(0, torch.where(mine, rows, 0),
+                     torch.where(mine[:, None], contrib, 0.0))
+    y = y.reshape(b, s, d)
+
+    # aux: load balance (Switch) + router z-loss
+    first = F.one_hot(eidx[:, :, 0], E).float()
+    frac_tokens = first.mean(dim=1)                         # first choice
+    frac_probs = probs.mean(dim=1)
+    lb = E * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
+    zl = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    return y, lb + m.router_z_loss * zl
+
+
+def moe_decode(p, x, cfg: ModelConfig):
+    """Single-token MoE: x (B,E) -> (B,E), the top-k experts' weights
+    gathered per token (no capacity: every pick is served)."""
+    m = cfg.moe
+    _, _, gate_w, eidx = _route(x, p, m.top_k)              # (B,K)
+    dt = x.dtype
+    w_in = p["w_in"][eidx].to(dt)                           # (B,K,E,f')
+    w_out = p["w_out"][eidx].to(dt)
+    h = torch.einsum("bd,bkdf->bkf", x, w_in)
+    h = _expert_act(h, cfg, m.d_ff_expert)
+    y = torch.einsum("bkf,bkfd->bkd", h, w_out)
+    return torch.einsum("bk,bkd->bd", gate_w.to(dt), y)

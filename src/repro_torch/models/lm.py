@@ -1,4 +1,5 @@
-"""Language-model assembly, dense family (counterpart of ``repro.models.lm``).
+"""Language-model assembly, dense and MoE families (counterpart of
+``repro.models.lm``).
 
 One parameter tree, the JAX package's layout (per-layer leaves stacked on a
 leading L axis), and its entry points:
@@ -19,13 +20,16 @@ leading L axis), and its entry points:
   promote_page_rows(cfg, cache, k_rows, v_rows, frame, page_size)
 
 Caches are updated in place where the JAX code donated them. Block
-composition: [attn, mlp]. Other families raise NotImplementedError.
+composition: dense [attn, mlp], moe [attn, moe] (the MoE layer's leaves
+under ``p["moe"]`` in place of ``p["mlp"]``; ``forward`` returns its aux
+loss summed over layers). Other families raise NotImplementedError.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, PageLayout
@@ -35,14 +39,36 @@ from repro_torch.serving import cache_spec as CS
 from repro_torch.serving import paged_cache as PC
 
 
+#: the families the port serves
+PORTED_FAMILIES = ("dense", "moe")
+
+
 def check_family(cfg: ModelConfig) -> None:
-    """The port serves the dense family; the others come later."""
-    if (cfg.family != "dense" or cfg.is_encoder_decoder or cfg.vision_tokens
-            or cfg.window_layers is not None or not cfg.rope):
+    """The port serves the dense and MoE families; the others come
+    later."""
+    if (cfg.family not in PORTED_FAMILIES or cfg.is_encoder_decoder
+            or cfg.vision_tokens or cfg.window_layers is not None
+            or not cfg.rope):
         raise NotImplementedError(
             f"{cfg.arch}: family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1 item 8: other families); the port serves dense rotary "
-            "models")
+            "queue 1 item 8: other families); the port serves dense and "
+            "MoE rotary models")
+
+
+def _ffn(p, h, cfg: ModelConfig):
+    """A layer's feed-forward half over (B,S,E) -> (y, aux): the MLP, or
+    the capacity-routed MoE (``blocks.moe_apply``) with its aux loss."""
+    if cfg.family == "moe":
+        return B.moe_apply(p["moe"], h, cfg)
+    return L.mlp_apply(p["mlp"], h, cfg), None
+
+
+def _ffn_decode(p, h, cfg: ModelConfig):
+    """The feed-forward half of one decode token (B,E): the MLP, or the
+    per-token expert gather (``blocks.moe_decode``)."""
+    if cfg.family == "moe":
+        return B.moe_decode(p["moe"], h, cfg)
+    return L.mlp_apply(p["mlp"], h, cfg)
 
 
 def tree_map(fn, tree):
@@ -59,7 +85,8 @@ def layer_params(params, i: int):
 # --------------------------------------------------------------- init
 
 #: leaves the JAX code casts to the activation dtype at every use; the
-#: port casts them once (same values)
+#: port casts them once (same values). The MoE router stays float32: the
+#: JAX code routes in float32
 CAST_LEAVES = {"table", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_in",
                "w_out"}
 
@@ -88,13 +115,15 @@ def init(cfg: ModelConfig, *, seed: int = 0,
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
     kw = dict(dtype=L.torch_dtype(cfg.dtype), device=dev)
     n = cfg.n_layers
+    ffn = (B.init_moe if cfg.family == "moe" else L.init_mlp)(
+        gen, cfg, n_layers=n, **kw)
     return {
         "embed": L.init_embed(gen, cfg, **kw),
         "layers": {
             "ln1": L.init_norm(cfg, device=dev, n_layers=n),
             "attn": B.init_attention(gen, cfg, n_layers=n, **kw),
             "ln2": L.init_norm(cfg, device=dev, n_layers=n),
-            "mlp": L.init_mlp(gen, cfg, n_layers=n, **kw),
+            ("moe" if cfg.family == "moe" else "mlp"): ffn,
         },
         "final_norm": L.init_norm(cfg, device=dev),
     }
@@ -103,26 +132,31 @@ def init(cfg: ModelConfig, *, seed: int = 0,
 # --------------------------------------------------------------- forward
 
 def forward(params, tokens, cfg: ModelConfig, *, capture_keys: bool = False):
-    """Teacher-forced forward -> (logits (B,S,V), aux). ``capture_keys``
-    also returns (pre, post, q): pre/post-rotary keys (L,B,S,Hkv,D) and
-    post-rotary queries (L,B,S,H,D) for PCA calibration."""
+    """Teacher-forced forward -> (logits (B,S,V), aux), aux the MoE layers'
+    aux losses summed over layers (0 for the dense family).
+    ``capture_keys`` also returns (pre, post, q): pre/post-rotary keys
+    (L,B,S,Hkv,D) and post-rotary queries (L,B,S,H,D) for PCA
+    calibration."""
     check_family(cfg)
     x = L.embed_apply(params["embed"], tokens, cfg)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
     captures = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         cap = {} if capture_keys else None
         h = L.norm_apply(p["ln1"], x)
         x = x + B.attn_train(p["attn"], h, positions, cfg, capture=cap)
         h = L.norm_apply(p["ln2"], x)
-        x = x + L.mlp_apply(p["mlp"], h, cfg)
+        y, a = _ffn(p, h, cfg)
+        x = x + y
+        if a is not None:
+            aux = aux + a
         if cap is not None:
             captures.append(cap)
     x = L.norm_apply(params["final_norm"], x)
     logits = L.unembed_apply(params["embed"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if capture_keys:
         return logits, aux, tuple(torch.stack([c[n] for c in captures])
                                   for n in ("pre", "post", "q"))
@@ -133,7 +167,8 @@ def forward(params, tokens, cfg: ModelConfig, *, capture_keys: bool = False):
 
 def init_cache(cfg: ModelConfig, batch: int, smax: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
-    """Stacked (L, B, Smax, Hkv, D) decode cache for the whole model."""
+    """Stacked (L, B, Smax, Hkv, D) decode cache for the whole model
+    (``h2o``: its budgeted state, ``blocks.init_attn_cache``)."""
     check_family(cfg)
     return {"layers": {"attn": B.init_attn_cache(
         cfg, batch, smax, dtype, resolve_device(device),
@@ -141,7 +176,8 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int,
 
 
 def layer_cache(cache, i: int):
-    """Layer i's {"k","v"}: views, so writes land in the stacked cache."""
+    """Layer i's cache leaves ({"k","v"}, or h2o's state): views, so
+    writes land in the stacked cache."""
     return tree_map(lambda a: a[i], cache["layers"]["attn"])
 
 
@@ -164,7 +200,7 @@ def prefill(params, cfg: ModelConfig, tokens, smax: int, *,
         x = x + B.attn_prefill(p["attn"], layer_cache(cache, i), h,
                                positions, cfg)
         h = L.norm_apply(p["ln2"], x)
-        x = x + L.mlp_apply(p["mlp"], h, cfg)
+        x = x + _ffn(p, h, cfg)[0]
     x = L.norm_apply(params["final_norm"], x[:, -1:])
     logits = L.unembed_apply(params["embed"], x, cfg)[:, 0]
     pos_len = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
@@ -172,17 +208,19 @@ def prefill(params, cfg: ModelConfig, tokens, smax: int, *,
 
 
 def _layer_decode(p, c, x, pos_len, cfg: ModelConfig, *, page_table=None,
-                  page_size: int = 0, frame_table=None):
+                  page_size: int = 0, frame_table=None, plan_rows=None,
+                  n_rows=None):
     """One layer's decode step -> (x, winners or None)."""
     h = L.norm_apply(p["ln1"], x)
     y = B.attn_decode(p["attn"], c, h, pos_len, cfg, page_table=page_table,
-                      page_size=page_size, frame_table=frame_table)
+                      page_size=page_size, frame_table=frame_table,
+                      plan_rows=plan_rows, n_rows=n_rows)
     win = None
     if frame_table is not None:
         y, win = y
     x = x + y
     h = L.norm_apply(p["ln2"], x)
-    return x + L.mlp_apply(p["mlp"], h, cfg), win
+    return x + _ffn_decode(p, h, cfg), win
 
 
 def _check_slot_idx(slot_idx, batch: int) -> None:
@@ -202,7 +240,7 @@ def _check_slot_idx(slot_idx, batch: int) -> None:
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
                 page_table=None, page_size: int = 0, live=None,
-                frame_table=None, slot_idx=None):
+                frame_table=None, slot_idx=None, plan_slots=None):
     """One generation step. token (B,) int; pos_len (B,) tokens cached.
     Returns (logits (B,V) float32, cache) — the cache updated in place.
 
@@ -217,6 +255,17 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
     components is empty here: the pooled K/V is addressed through the
     table alone. Distinctness is checked on a host tensor only (on the
     card the check would cost a host sync).
+
+    ``plan_slots`` (an int): the engine's slot count. A packed step of B <
+    plan_slots rows computes each slot as the engine's full-width (masked)
+    step does, so the two agree bit for bit: the decode kernels plan
+    their split count and cluster size for ``plan_slots x Hkv`` rows, and
+    the row-wise ops (norms, projections, MLP or MoE, unembedding) run
+    over plan_slots rows, zero rows appended, only the attention over the
+    B rows. On the card those ops' kernels, and so their rounding, follow
+    the row count (an RMSNorm's mean over 2 rows and over 4 can round
+    apart); their cost at decode is the weights' bytes, which the rows do
+    not change. None: the step's own B.
 
     ``frame_table (B, max_pages)`` (tiered pools): each table entry's
     device frame (0, the trash frame, for HOST pages). The return becomes
@@ -237,17 +286,22 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
     if page_table is not None and page_table.ndim != 2:
         raise NotImplementedError("page-table groups (rank-3 tables) are "
                                   "not ported yet (ROADMAP queue 1 item 7)")
+    b = token.shape[0]
+    rows = b if plan_slots is None else max(int(plan_slots), b)
+    plan_rows = None if plan_slots is None else rows * cfg.n_kv_heads
     x = L.embed_apply(params["embed"], token, cfg)
+    x = F.pad(x, (0, 0, 0, rows - b))
     winners = None
     for i in range(cfg.n_layers):
         x, win = _layer_decode(layer_params(params, i),
                                layer_cache(cache, i), x, pos_len, cfg,
                                page_table=page_table, page_size=page_size,
-                               frame_table=frame_table)
+                               frame_table=frame_table, plan_rows=plan_rows,
+                               n_rows=b)
         if win is not None:
             winners = win if winners is None else winners | win
     x = L.norm_apply(params["final_norm"], x)
-    logits = L.unembed_apply(params["embed"], x, cfg)
+    logits = L.unembed_apply(params["embed"], x, cfg)[:b]
     if frame_table is not None:
         return logits, winners, cache
     return logits, cache
@@ -344,7 +398,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, pos_start: int,
                                      page_size=page_size,
                                      frame_row=frame_row)
         h = L.norm_apply(p["ln2"], x)
-        x = x + L.mlp_apply(p["mlp"], h, cfg)
+        x = x + _ffn(p, h, cfg)[0]
     x = L.norm_apply(params["final_norm"], x[:, n_valid - 1:n_valid])
     logits = L.unembed_apply(params["embed"], x, cfg)[:, 0]
     return logits, cache

@@ -1,5 +1,5 @@
 """Per-layer CacheSpec table of the paged engine (counterpart of
-``repro.serving.cache_spec``), dense family only.
+``repro.serving.cache_spec``), dense and MoE families.
 
 Each decoder layer declares its decode-state components; the paged cache
 (``models/lm.init_paged_cache``) and the scheduler are driven by that table.
@@ -12,10 +12,11 @@ The port carries one component kind so far:
              basis (native or pca), the stored key width W (rank r under
              pca) and, for int8 and fp8, per-page float32 scales.
 
-The reference's WindowPagedAttn, StateSlot and CrossAttnStatic (sliding
-window, recurrent and encoder families) come with the other families
-(ROADMAP queue 1 item 8), and per-layer ranks (``page_ranks``) with them.
-Both raise here.
+MoE layers ([attn, moe]) page their attention exactly as dense layers do:
+the experts keep no decode state. The reference's WindowPagedAttn,
+StateSlot and CrossAttnStatic (sliding window, recurrent and encoder
+families) come with the other families (ROADMAP queue 1 item 8), and
+per-layer ranks (``page_ranks``) with them. Both raise here.
 """
 from __future__ import annotations
 
@@ -65,13 +66,13 @@ class LayerSpec:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.is_encoder_decoder
+    if (cfg.family not in ("dense", "moe") or cfg.is_encoder_decoder
             or cfg.vision_tokens or cfg.window_layers is not None
             or cfg.sliding_window):
         raise NotImplementedError(
-            f"{cfg.arch}: only dense full-attention layers page in the port "
-            "so far (window, state and cross-attention components: ROADMAP "
-            "queue 1 item 8)")
+            f"{cfg.arch}: only dense and MoE full-attention layers page in "
+            "the port so far (window, state and cross-attention components: "
+            "ROADMAP queue 1 item 8)")
     if cfg.page_ranks is not None:
         raise NotImplementedError(
             "per-layer page ranks (page_ranks) are not ported yet; they "
@@ -82,7 +83,7 @@ def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
     """The spec table: one LayerSpec per decoder layer."""
     _check_ported(cfg)
     attn = PagedAttn(cfg.n_kv_heads, cfg.resolved_head_dim, cfg.page_layout)
-    return tuple(LayerSpec("dense", (("attn", attn),))
+    return tuple(LayerSpec(cfg.family, (("attn", attn),))
                  for _ in range(cfg.n_layers))
 
 

@@ -130,9 +130,9 @@ class ServingEngine:
         self.cache = lm.init_cache(cfg, n_slots, smax, torch.float32,
                                    device=self.device)
         # positions / last tokens live on the host: per-slot bookkeeping
-        # stays in numpy and crosses to the device once per step. On the
-        # CPU torch.as_tensor aliases these arrays; the step runs eagerly,
-        # so it is done before tick() updates them in place
+        # stays in numpy and crosses to the device once per step, as one
+        # private copy (``_upload``), so tick() may update them in place
+        # while the step can still read the copy
         self.pos = np.zeros((n_slots,), np.int32)
         self.live = np.zeros((n_slots,), bool)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
@@ -229,15 +229,24 @@ class ServingEngine:
 
     # ------------------------------------------------------------- tick
 
+    def _upload(self):
+        """The step's tokens and positions on the engine's device in one
+        copy: from pinned memory without blocking on the card (PyTorch's
+        pinned allocator keeps the buffer until the copy has run), a
+        private copy on the CPU. The tick's one host sync is then the
+        sampled tokens' way back."""
+        t = torch.from_numpy(np.concatenate([self.last_tok, self.pos]))
+        t = (t.pin_memory().to(self.device, non_blocking=True)
+             if self.device.type == "cuda" else t.clone())
+        return t[:self.n_slots], t[self.n_slots:]
+
     def tick(self, rng: Optional[torch.Generator] = None) -> None:
         self._expire_deadlines()
         self._admit()
         if not self.live.any():
             return
-        logits, self.cache = lm.decode_step(
-            self.params, self.cfg, self.cache,
-            torch.as_tensor(self.last_tok, device=self.device),
-            torch.as_tensor(self.pos, device=self.device))
+        logits, self.cache = lm.decode_step(self.params, self.cfg,
+                                            self.cache, *self._upload())
         self.pos += self.live.astype(np.int32)
         nxt = sample_next(logits, greedy=self.greedy, rng=rng,
                           ticks=self.ticks)

@@ -169,8 +169,10 @@ class PagedServingEngine:
                    single tier
     max_inflight   fetches the tiered pool's queue holds at once
     packed         gather-packed decode: the tick's live slots compacted
-                   into a batch padded to a power-of-two bucket; False
-                   always runs full width, masked. Off under the tier (its
+                   into a batch padded to a power-of-two bucket, its
+                   kernels planned for the full width (bit-identical to
+                   the masked step); False always runs full width,
+                   masked. Off under the tier (its
                    re-runs and winner bookkeeping are slot-indexed)
     device         where the pool lives: the card unless "cpu" is asked
                    for; ``params`` must be on the same device
@@ -941,10 +943,13 @@ class PagedServingEngine:
             return step()
 
     def _run_decode(self, pt, tok, pos, sidx):
-        """One batched decode step over the masked or packed table."""
+        """One batched decode step over the masked or packed table. The
+        kernels are planned for the engine's full width (``plan_slots``),
+        so a packed step rounds each slot as the masked step does."""
         return self._ladder(lambda: lm.decode_step(
             self.params, self.cfg, self.cache, tok, pos, page_table=pt,
-            page_size=self.page_size, slot_idx=sidx))
+            page_size=self.page_size, slot_idx=sidx,
+            plan_slots=self.n_slots))
 
     # ------------------------------------------------------- tiered pool
 
