@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --only kernels # build + kernel checks only
+    python3 chip_smoke.py --only train   # the train phase only (no build,
+                                         # no kernels line)
 
 Phases, each of which fails the run on any error:
   1. build   the CUDA sources in src/repro_torch/csrc with nvcc (sm_90a),
@@ -148,6 +150,22 @@ Phases, each of which fails the run on any error:
              reported), then loki_block with float32 weights at 8 of the
              32 layers (paged_granite_fp32_loki_block: paged == dense,
              64 of 64, capacity drops included, asserted).
+  8. train   the serving phases' models freed first; (a) qwen2.5-3b at
+             published width (36 layers, 3.09 B parameters), float32
+             masters from the port's seeded init, bf16 compute, 6 steps
+             of 8 x 128 tokens through make_train_step with the
+             TrainConfig launch/train.py builds: finite losses and grad
+             norms, the first loss within 1.0 of ln V, the last below the
+             first (asserted); step ms, AdamW ms (CUDA events around
+             apply_updates), tok/s and peak memory; (b) qwen2.5-3b and
+             granite-moe-3b smoke, float32, 3 steps on the card against
+             the port's CPU path from the same params and batches; (c)
+             crash at step 7 and resume from step 5 through TrainRunner
+             and run_with_restarts (losses within rtol 1e-5; bit-equality
+             and the gradient leaves two identical backward passes give
+             apart reported); (d) python -m repro_torch.launch.train twice
+             against one checkpoint directory (the second resumes); (e) no
+             kernel wrapper launches in the phase (asserted).
 The second-to-last line is a JSON object listing the kernels; the last is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
@@ -156,6 +174,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -3534,6 +3553,353 @@ def prefill_flash(results, params, cfg, smax=4096):
 
 # --------------------------------------------------------------------- main
 
+# ------------------------------------------------------------------ train
+
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_STEPS = 6
+#: 3 steps of the smoke models on the card against the port's CPU path
+TRAIN_PAIRS = ("qwen2.5-3b", "granite-moe-3b-a800m")
+#: the CPU tests' train config (tests/test_torch_train.py)
+TRAIN_SMALL = dict(lr=1e-3, warmup_steps=2, total_steps=20, seed=0)
+
+
+def train_published(*, arch=TRAIN_ARCH, steps=TRAIN_STEPS,
+                    smoke=False):
+    """(a) ``arch`` at published width, every layer: float32 masters from
+    the port's seeded init, bf16 compute, the TrainConfig and DataConfig
+    ``launch/train.py`` builds for ``--steps steps`` (8 x 128 tokens),
+    ``steps`` steps through ``make_train_step``, no checkpoint. Asserts
+    finite losses and grad norms, a first loss within 1.0 of ln V and a
+    last loss below the first. Step ms: host clock around a synchronised
+    step; AdamW ms: CUDA events around ``adamw.apply_updates``; both the
+    median of steps 2 on."""
+    import math
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.synthetic import SyntheticLM, torch_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.training import step as tstep
+
+    args = train_cli.parse_args(["--arch", arch, "--steps", str(steps)])
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    tcfg, dcfg = train_cli.train_config(args), train_cli.data_config(
+        cfg, args)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=tcfg.seed, device=DEV, dtype=cfg.param_dtype)
+    state = tstep.TrainState(params, adamw.init_state(params))
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tensors_of(params))
+    state_gb = (torch.cuda.memory_allocated() / 1e9 if DEV == "cuda"
+                else float("nan"))
+    log(f"train: {cfg.arch}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {n_params / 1e9:.3f} B parameters in "
+        f"{cfg.param_dtype}, compute {cfg.dtype}; params + AdamW moments "
+        f"{state_gb:.2f} GB allocated after init ({init_s:.1f} s)")
+
+    opt_times = []
+    real = adamw.apply_updates
+
+    def timed(*a, **kw):
+        if DEV != "cuda":
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            opt_times.append((time.perf_counter() - t) * 1e3)
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        opt_times.append((start, end))
+        return out
+
+    data = SyntheticLM(dcfg)
+    step_fn = tstep.make_train_step(cfg, tcfg)
+    step_ms, losses, gnorms = [], [], []
+    adamw.apply_updates = timed
+    try:
+        for i in range(steps):
+            batch = torch_batch(data.batch_at(i), DEV)
+            sync()
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            sync()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+    finally:
+        adamw.apply_updates = real
+    opt_ms = [x if DEV != "cuda" else x[0].elapsed_time(x[1])
+              for x in opt_times]
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda"
+               else float("nan"))
+    profile = (profile_train_step(step_fn, state, torch_batch(
+        data.batch_at(steps), DEV)) if DEV == "cuda" else None)
+    del state, params, m
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    ln_v = math.log(cfg.vocab)
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train: non-finite loss or grad norm: "
+                             f"{losses} {gnorms}")
+    if abs(losses[0] - ln_v) > 1.0:
+        raise AssertionError(f"train: first loss {losses[0]:.4f} is not "
+                             f"within 1.0 of ln V = {ln_v:.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: last loss {losses[-1]:.4f} is not "
+                             f"below the first {losses[0]:.4f}")
+    tokens = dcfg.global_batch * dcfg.seq_len
+    med_step = statistics.median(step_ms[1:])
+    med_opt = statistics.median(opt_ms[1:])
+    out = {"arch": cfg.arch, "n_layers": cfg.n_layers,
+           "n_params": n_params, "tokens_per_step": tokens,
+           "train_config": dataclasses.asdict(tcfg),
+           "init_s": init_s, "state_gb": state_gb, "peak_gb": peak_gb,
+           "step_ms": step_ms, "adamw_ms": opt_ms,
+           "step_ms_median": med_step, "adamw_ms_median": med_opt,
+           "adamw_share": med_opt / med_step,
+           "tokens_per_s": tokens / (med_step / 1e3),
+           "losses": losses, "grad_norms": gnorms, "ln_vocab": ln_v,
+           "profile": profile}
+    log(f"train: {steps} steps of {tokens} tokens: step {med_step:.2f} ms "
+        f"(median of steps 2-{steps}; all {[round(x, 2) for x in step_ms]}),"
+        f" AdamW {med_opt:.2f} ms ({med_opt / med_step:.3f} of the step), "
+        f"{tokens / (med_step / 1e3):.0f} tok/s, peak "
+        f"{peak_gb:.2f} GB allocated")
+    log(f"train: losses {[round(x, 4) for x in losses]} (ln V "
+        f"{ln_v:.4f}), grad norms {[round(x, 3) for x in gnorms]}")
+    return out
+
+
+def profile_train_step(step_fn, state, batch):
+    """Where a train step's time goes: torch.profiler device time by
+    kernel over one more step (not among the measured ones), against its
+    wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        sync()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = sorted(((dev_us(e) / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if dev_us(e) > 0 and e.device_type != DeviceType.CPU),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"train profile: one step wall {wall_ms:.2f} ms under the "
+        f"profiler, device busy {busy:.2f} ms -> idle share "
+        f"{max(0.0, 1 - busy / wall_ms):.3f}; {sum(r[1] for r in rows)} "
+        f"device ops")
+    for ms, n, key in rows[:15]:
+        log(f"train profile:   {ms:8.3f} ms  {n:5d}x  {key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy,
+                device_ops=sum(r[1] for r in rows),
+                top=[dict(ms=ms, calls=n, name=key[:120])
+                     for ms, n, key in rows[:15]])
+
+
+def _train_run(cfg, tcfg, np_params, data, steps, device):
+    """``steps`` steps from ``np_params`` on ``device`` -> (losses, grad
+    norms, final params as numpy by path)."""
+    from repro_torch.data.synthetic import torch_batch
+    from repro_torch.models import lm
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optim import adamw
+    from repro_torch.training import step as tstep
+
+    params = params_from_numpy(np_params, cfg, device=device)
+    state = tstep.TrainState(params, adamw.init_state(params))
+    step_fn = tstep.make_train_step(cfg, tcfg)
+    losses, gnorms = [], []
+    for i in range(steps):
+        state, m = step_fn(state, torch_batch(data.batch_at(i), device))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    return losses, gnorms, {p: x.cpu().numpy()
+                            for p, x in lm.tree_items(state.params)}
+
+
+def train_card_vs_cpu(*, archs=TRAIN_PAIRS, steps=3):
+    """(b) The smoke models in float32, ``steps`` steps on the card and
+    on the port's CPU path from the same numpy params and batches: losses
+    and grad norms within rtol 1e-4, every parameter within atol 1e-4
+    (the worst difference is reported)."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+
+    tcfg = TrainConfig(**TRAIN_SMALL)
+    out = {}
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        init = lm.init(cfg, seed=0, device="cpu", dtype="float32")
+        np_params = lm.tree_map(lambda t: t.numpy(), init)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                      global_batch=4, seed=1))
+        card = _train_run(cfg, tcfg, np_params, data, steps, DEV)
+        host = _train_run(cfg, tcfg, np_params, data, steps, "cpu")
+        for got, want, what in ((card[0], host[0], "losses"),
+                                (card[1], host[1], "grad norms")):
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       err_msg=f"train {arch}: {what}")
+        for path, x in card[2].items():
+            np.testing.assert_allclose(x, host[2][path], rtol=0, atol=1e-4,
+                                       err_msg=f"train {arch}: {path}")
+        worst = max(float(np.abs(x - host[2][p]).max())
+                    for p, x in card[2].items())
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], host[0]))
+        out[cfg.arch] = {"losses_card": card[0], "losses_cpu": host[0],
+                         "loss_max_rel": loss_rel, "param_max_abs": worst}
+        log(f"train: {cfg.arch} {steps} steps card vs cpu (float32): loss "
+            f"rel {loss_rel:.2e}, params max abs {worst:.2e} (atol 1e-4)")
+    return out
+
+
+def train_resume(*, fail_at=7, n_steps=12):
+    """(c) tests/test_runner.py's crash and resume on the card: the
+    llama2-7b smoke model through ``TrainRunner`` and
+    ``run_with_restarts`` with ``FailureInjector(fail_at)``, checkpoints
+    every 5 steps in a temporary directory; the resumed losses against
+    the uninterrupted run's within rtol 1e-5, bit-equality reported.
+    Then each smoke model's gradients twice from the same state and
+    batch: the leaves that differ name the card's non-deterministic
+    ops."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM, \
+        torch_batch
+    from repro_torch.models import lm
+    from repro_torch.training import step as tstep
+    from repro_torch.training.runner import (FailureInjector, TrainRunner,
+                                             run_with_restarts)
+
+    cfg = get_smoke_config("llama2-7b")
+    tcfg = TrainConfig(**TRAIN_SMALL)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=1)
+    with tempfile.TemporaryDirectory() as d:
+        ref = TrainRunner(cfg, tcfg, dcfg, os.path.join(d, "ref"),
+                          ckpt_every=5, device=DEV).run(n_steps)
+        inj = FailureInjector(fail_at=fail_at)
+        got = run_with_restarts(
+            lambda: TrainRunner(cfg, tcfg, dcfg, os.path.join(d, "crash"),
+                                ckpt_every=5, device=DEV), n_steps,
+            injector=inj)
+    want = [m["loss"] for m in ref["metrics"]]
+    resumed = [m["loss"] for m in got["metrics"]]
+    if not inj.fired or len(resumed) != n_steps - 5:
+        raise AssertionError(f"train resume: fired {inj.fired}, "
+                             f"{len(resumed)} steps after the restart")
+    np.testing.assert_allclose(resumed, want[-len(resumed):], rtol=1e-5,
+                               err_msg="train resume: losses")
+    bit_equal = resumed == want[-len(resumed):]
+    params_equal = all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(
+            lm.tree_items(got["state"].params),
+            lm.tree_items(ref["state"].params)))
+    nondet = {}
+    for arch in ("llama2-7b", "granite-moe-3b-a800m"):
+        c = get_smoke_config(arch)
+        params = lm.init(c, seed=0, device=DEV, dtype="float32")
+        batch = torch_batch(SyntheticLM(DataConfig(
+            vocab=c.vocab, seq_len=32, global_batch=4, seed=1)).batch_at(0),
+            DEV)
+        g1 = tstep.grads_of(params, batch, c, tcfg)[0]
+        g2 = tstep.grads_of(params, batch, c, tcfg)[0]
+        nondet[c.arch] = [k for (k, x), (_, y) in zip(
+            lm.tree_items(g1), lm.tree_items(g2)) if not torch.equal(x, y)]
+    log(f"train resume: restart at step {fail_at}, resumed from step 5: "
+        f"losses within rtol 1e-5 of the uninterrupted run, bit-equal "
+        f"{bit_equal}, final params bit-equal {params_equal}; gradient "
+        f"leaves that differ between two identical backward passes: "
+        f"{nondet}")
+    return {"bit_equal": bit_equal, "params_bit_equal": params_equal,
+            "losses": resumed, "reference": want[-len(resumed):],
+            "max_rel": max(abs(a - b) / abs(b) for a, b in
+                           zip(resumed, want[-len(resumed):])),
+            "nondeterministic_grad_leaves": nondet}
+
+
+def train_cli_twice(steps=3):
+    """(d) ``python -m repro_torch.launch.train --arch qwen2.5-3b --smoke
+    --steps 3`` twice against one checkpoint directory: both exit 0, the
+    second resumes from step 3."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "qwen2.5-3b", "--smoke", "--steps", str(steps), "--ckpt-dir",
+               d] + (["--device", "cpu"] if DEV == "cpu" else [])
+        runs = []
+        for _ in range(2):
+            t = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=600, env=env, cwd=ROOT)
+            runs.append((r, time.perf_counter() - t))
+    for i, (r, _) in enumerate(runs):
+        if r.returncode != 0:
+            raise AssertionError(f"train CLI run {i + 1} exited "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+    resume = f"resumed from checkpoint step {steps}"
+    if resume in runs[0][0].stdout or resume not in runs[1][0].stdout:
+        raise AssertionError(f"train CLI: no resume line on the second run:"
+                             f" {runs[1][0].stdout}")
+    for i, (r, s) in enumerate(runs):
+        log(f"train CLI run {i + 1} ({s:.1f} s): "
+            + " | ".join(r.stdout.strip().splitlines()))
+    return {"stdout": [r.stdout for r, _ in runs],
+            "wall_s": [s for _, s in runs]}
+
+
+def train(results, *, smoke=False):
+    """The training path: (a) qwen2.5-3b at published width, (b) the
+    smoke models on the card against the port's CPU path, (c) crash and
+    resume, (d) the CLI twice; (e) no kernel wrapper launches during any
+    of it."""
+    from repro_torch import kernels as K
+
+    t0 = time.perf_counter()
+    if DEV == "cuda":
+        log(f"train: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+            f"allocated before the phase; {card_state()}")
+    K.reset_launch_counts()
+    out = {"published": train_published(smoke=smoke),
+           "card_vs_cpu": train_card_vs_cpu(), "resume": train_resume(),
+           "cli": train_cli_twice()}
+    counts = K.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"train: kernel wrappers launched {counts}")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t0
+    if DEV == "cuda":
+        log(f"train: {card_state()}")
+    log(f"train: no kernel launched ({counts}); phase {out['wall_s']:.1f} s")
+    results["train"] = out
+
+
 SOURCES = {
     "fused_loki_decode": ("src/repro_torch/csrc/fused_decode.cu",
                           "src/repro/kernels/fused_decode.py:248",
@@ -3639,7 +4005,7 @@ def ptxas_summary(text):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels"], default=None)
+    ap.add_argument("--only", choices=["kernels", "train"], default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3655,6 +4021,18 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
+    if args.only == "train":
+        results = {}
+        train(results)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        with open(os.path.join(out_dir, "chip_smoke_train.json"), "w") as fh:
+            json.dump({"card": card, "train": results["train"]}, fh,
+                      indent=1)
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     secs = _build.build_all()
     log(f"build: {len(_build.LIBRARIES)} CUDA libraries built with nvcc "
         f"(sm_90a) in {secs:.1f} s")
@@ -3701,6 +4079,12 @@ def main() -> int:
             torch.cuda.empty_cache()
         serve_granite(results)
         log(f"granite paths done at {time.perf_counter() - t_start:.1f} s")
+        # the serving phases' models and pools go before training
+        del cfg, toks, greedy
+        gc.collect()
+        torch.cuda.empty_cache()
+        train(results)
+        log(f"train done at {time.perf_counter() - t_start:.1f} s")
     launches = results.get("launches", {})
 
     errs = dict(results["main"]["errs"], **results["errs"])
@@ -3773,6 +4157,7 @@ def main() -> int:
                    "fault2": results.get("fault2"),
                    "granite_serve": results.get("granite_serve"),
                    "prefill_flash": results.get("prefill_flash"),
+                   "train": results.get("train"),
                    "profile": results.get("profile"),
                    "fused_plans": results.get("fused_plans"),
                    "head_plans": results.get("head_plans"),

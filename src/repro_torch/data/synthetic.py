@@ -1,5 +1,6 @@
 """Deterministic synthetic token pipeline (a copy of
-``repro.data.synthetic`` without its JAX helper).
+``repro.data.synthetic``; ``torch_batch`` takes the place of its
+``jax_batch``).
 
 Offline container => no real corpora. The generator produces a *structured*
 Markov-ish token stream (not uniform noise) so that perplexity/top-k
@@ -17,6 +18,9 @@ import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
+
+from repro_torch import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,3 +81,12 @@ class SyntheticLM:
 def _softmax(x):
     e = np.exp(x - x.max(axis=-1, keepdims=True))
     return e / e.sum(axis=-1, keepdims=True)
+
+
+def torch_batch(batch: Dict[str, np.ndarray], device=None
+                ) -> Dict[str, torch.Tensor]:
+    """A host batch as tensors on ``device`` (the card unless the caller
+    passes ``device="cpu"``)."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}

@@ -147,3 +147,21 @@ def apply_rope(x, positions, theta=10000.0):
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- losses
+
+def softmax_xent(logits, labels, z_loss=0.0, mask=None):
+    """logits (B,S,V) float32, labels (B,S) int. Returns the mean loss:
+    ``logsumexp - logit[label]``, plus ``z_loss * lse**2`` when z_loss is
+    set; with ``mask`` (B,S) the masked mean ``sum(loss * mask) /
+    max(sum(mask), 1)``."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    if mask is not None:
+        loss = loss * mask
+        return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss.mean()

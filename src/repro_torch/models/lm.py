@@ -5,7 +5,7 @@ One parameter tree, the JAX package's layout (per-layer leaves stacked on a
 leading L axis), and its entry points:
 
   init(cfg, ...)                                   -> params
-  forward(params, tokens, cfg)                     -> (logits, aux)
+  forward(params, tokens, cfg, remat=)             -> (logits, aux)
   prefill(params, cfg, tokens, smax)               -> (logits, cache, pos_len)
   decode_step(params, cfg, cache, token, pos_len)  -> (logits, cache)
   init_paged_cache(cfg, n_pages, page_size)        -> paged cache
@@ -26,10 +26,12 @@ loss summed over layers). Other families raise NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, PageLayout
@@ -77,9 +79,56 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def _tree_key(prefix: str, k) -> str:
+    return f"{prefix}/{k}" if prefix else str(k)
+
+
+def tree_items(tree, prefix: str = ""):
+    """(key, leaf) pairs of a tree of dicts, lists, tuples and
+    NamedTuples, in the JAX tree's order (dict keys sorted). A key is the
+    JAX checkpoint's: dict keys, list indices and ``.field`` for a
+    NamedTuple's fields, joined by "/"."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], _tree_key(prefix, k))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k in tree._fields:
+            yield from tree_items(getattr(tree, k), _tree_key(prefix, "." + k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, _tree_key(prefix, i))
+    else:
+        yield prefix, tree
+
+
+def tree_rebuild(tree, fn, prefix: str = ""):
+    """``tree`` with each leaf replaced by ``fn(key, leaf)``, keys as
+    ``tree_items`` gives them."""
+    if isinstance(tree, dict):
+        return {k: tree_rebuild(v, fn, _tree_key(prefix, k))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_rebuild(getattr(tree, k), fn,
+                                         _tree_key(prefix, "." + k))
+                            for k in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_rebuild(v, fn, _tree_key(prefix, i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def layer_params(params, i: int):
     """Layer i's parameters: views into the stacked (L, ...) leaves."""
     return tree_map(lambda a: a[i], params["layers"])
+
+
+def unbind_layers(params, n_layers: int):
+    """Every layer's parameters, each stacked leaf split once with
+    ``unbind``. Under autograd the backward of ``unbind`` stacks the L
+    gradients once, where L ``a[i]`` selects would each write a
+    zero-filled gradient the size of the whole stack."""
+    split = tree_map(lambda a: a.unbind(0), params["layers"])
+    return [tree_map(lambda t: t[i], split) for i in range(n_layers)]
 
 
 # --------------------------------------------------------------- init
@@ -105,15 +154,19 @@ def cast_params(params, cfg: ModelConfig):
 
 
 def init(cfg: ModelConfig, *, seed: int = 0,
-         generator: Optional[torch.Generator] = None, device=None):
+         generator: Optional[torch.Generator] = None, device=None,
+         dtype: Optional[str] = None):
     """Random parameters: normal(0, 1/sqrt(fan_in)) matrices (embedding
     scale d_model**-0.5), unit norm scales, zero biases, identity PCA.
     The draws come from ``generator`` (or a fresh one seeded with
-    ``seed``) on ``device``; they differ from ``jax.random``'s."""
+    ``seed``) on ``device``; they differ from ``jax.random``'s. The
+    matrices are drawn in float32 and stored at ``dtype`` (default
+    ``cfg.dtype``, what serving runs; the trainer keeps float32 masters,
+    ``cfg.param_dtype``)."""
     check_family(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
-    kw = dict(dtype=L.torch_dtype(cfg.dtype), device=dev)
+    kw = dict(dtype=L.torch_dtype(dtype or cfg.dtype), device=dev)
     n = cfg.n_layers
     ffn = (B.init_moe if cfg.family == "moe" else L.init_mlp)(
         gen, cfg, n_layers=n, **kw)
@@ -131,26 +184,64 @@ def init(cfg: ModelConfig, *, seed: int = 0,
 
 # --------------------------------------------------------------- forward
 
-def forward(params, tokens, cfg: ModelConfig, *, capture_keys: bool = False):
+def _block_train(p, x, positions, cfg: ModelConfig, capture=None):
+    """One layer of the teacher-forced forward -> (x, aux or None)."""
+    h = L.norm_apply(p["ln1"], x)
+    x = x + B.attn_train(p["attn"], h, positions, cfg, capture=capture)
+    h = L.norm_apply(p["ln2"], x)
+    y, a = _ffn(p, h, cfg)
+    return x + y, a
+
+
+#: the matmul outputs ``remat="dots"`` keeps (JAX's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the remat policy: "none" keeps every activation,
+    "full" recomputes the layer in the backward (JAX's
+    nothing_saveable), "dots" keeps the matmul outputs and recomputes the
+    rest (checkpoint_dots)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+
+
+def forward(params, tokens, cfg: ModelConfig, *, remat: str = "none",
+            capture_keys: bool = False):
     """Teacher-forced forward -> (logits (B,S,V), aux), aux the MoE layers'
     aux losses summed over layers (0 for the dense family).
+
+    ``remat`` ("none", "full", "dots"): what each layer keeps for the
+    backward (``_remat``), as the JAX scan's ``jax.checkpoint`` policy.
     ``capture_keys`` also returns (pre, post, q): pre/post-rotary keys
     (L,B,S,Hkv,D) and post-rotary queries (L,B,S,H,D) for PCA
-    calibration."""
+    calibration; like the reference's unrolled loop it runs without
+    remat. Differentiable: the trainer calls it on its float32 masters
+    cast inside the differentiated function (``training/step.py``)."""
     check_family(cfg)
     x = L.embed_apply(params["embed"], tokens, cfg)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
     captures = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        p = layer_params(params, i)
+    block = _remat(_block_train, "none" if capture_keys else remat)
+    for p in unbind_layers(params, cfg.n_layers):
         cap = {} if capture_keys else None
-        h = L.norm_apply(p["ln1"], x)
-        x = x + B.attn_train(p["attn"], h, positions, cfg, capture=cap)
-        h = L.norm_apply(p["ln2"], x)
-        y, a = _ffn(p, h, cfg)
-        x = x + y
+        x, a = block(p, x, positions, cfg, cap)
         if a is not None:
             aux = aux + a
         if cap is not None:
