@@ -4,6 +4,8 @@
     python3 chip_smoke.py --only kernels # build + kernel checks only
     python3 chip_smoke.py --only train   # the train phase only (no build,
                                          # no kernels line)
+    python3 chip_smoke.py --only families  # build, the families' kernel
+                                           # cases and the families phase
 
 Phases, each of which fails the run on any error:
   1. build   the CUDA sources in src/repro_torch/csrc with nvcc (sm_90a),
@@ -40,8 +42,11 @@ Phases, each of which fails the run on any error:
              16 and 8 full-decode splits) at fp32 and int8:pca:r=32,
              paged, checked the same way, their cluster plans resident;
              the five kernels at granite-moe-3b's decode shape (G 3, D
-             64, d 16; bf16 q over fp32 K/V), checked, paged == contiguous
-             and timed as the main case is;
+             64, d 16; bf16 q over fp32 K/V) and at whisper-small's (G 1,
+             D 64, S 448, 32-token blocks), mixtral-8x22b's sliding
+             window (G 6, window 4096, S 8192) and llava-next-mistral-
+             7b's (G 4), checked, paged == contiguous (pages of 128, 64,
+             512 and 128) and timed as the main case is;
              the per-head pipeline's three (block_max_scores,
              block_max_scores_fm, block_sparse_attention) at llama2-7b's
              decode step flattened per head (bf16 q over fp32 K/V, fp32,
@@ -150,6 +155,30 @@ Phases, each of which fails the run on any error:
              reported), then loki_block with float32 weights at 8 of the
              32 layers (paged_granite_fp32_loki_block: paged == dense,
              64 of 64, capacity drops included, asserted).
+  7b. families the window and encoder families at published width
+             (seeded weights, PCA calibrated), each paged run at the
+             engine's defaults beside the dense engine's greedy tokens,
+             checked by paged_checked, every page back in the pool:
+             whisper-small (12 + 12 layers, 1500 stand-in frames a
+             request, smax 448, page 64, block 32) under loki_block, full
+             and exact_topk with bf16 weights (agreement reported) and
+             float32 weights (paged == dense, 64 of 64, asserted), and
+             loki_block over an int8 pool (int8 cross K/V);
+             mixtral-8x22b's 4096-token window (MIXTRAL_LAYERS of 56
+             layers in bf16, MIXTRAL_FP32_LAYERS in float32; smax 8192,
+             512-token pages and chunks, prompts 4609-5889) under
+             loki_block and full: every slot within its window budget
+             after every tick, pages recycled, a slot's peak at
+             ceil(4096 / 512) + 1 pages (asserted); in float32 paged ==
+             dense asserted with one page-table group and with windows
+             alternating 4096 and 0 (two groups through rank-3 tables,
+             the full group pinning its pages), and one decode step over
+             tables with recycled entries on the trash page bit-equal to
+             the step over the unrecycled tables (mixtral_recycled_step,
+             mixtral_groups_recycled_step); llava-next-mistral-7b (32
+             layers) under loki_block with the paged phase's prompts,
+             then one prefill with 576 seeded patch embeddings (logits
+             finite and moved from the prefill without them, asserted).
   8. train   the serving phases' models freed first; (a) qwen2.5-3b at
              published width (36 layers, 3.09 B parameters), float32
              masters from the port's seeded init, bf16 compute, 6 steps
@@ -287,6 +316,23 @@ def make_case(name, *, B, Hkv, G, D, S, bs, d, kb, lw, sw, cur, kv_dtype,
 GRANITE_CASE = "granite-moe-3b G=3 D=64 q:bf16 kv:fp32"
 GRANITE_SHAPE = dict(B=4, Hkv=8, G=3, D=64, S=4096, bs=128, d=16, kb=8,
                      lw=16, sw=0, cur=[1536, 2048, 2560, 3072])
+#: the window and encoder families' decode shapes (the families phase's
+#: engines; bf16 queries over the engines' fp32 caches): whisper-small (G
+#: 1, D 64, smax 448 in 32-token blocks), mixtral-8x22b's sliding window
+#: (G 6, window 4096, smax 8192) and llava-next-mistral-7b (G 4)
+WHISPER_CASE = "whisper-small G=1 D=64 bs=32 q:bf16 kv:fp32"
+WHISPER_SHAPE = dict(B=4, Hkv=12, G=1, D=64, S=448, bs=32, d=16, kb=3,
+                     lw=16, sw=0, cur=[201, 265, 329, 393])
+MIXTRAL_CASE = "mixtral-8x22b G=6 window=4096 q:bf16 kv:fp32"
+MIXTRAL_SHAPE = dict(B=4, Hkv=8, G=6, D=128, S=8192, bs=128, d=32, kb=16,
+                     lw=16, sw=4096, cur=[4609, 5121, 5377, 5889])
+LLAVA_CASE = "llava-next-mistral-7b G=4 q:bf16 kv:fp32"
+LLAVA_SHAPE = dict(B=4, Hkv=8, G=4, D=128, S=4096, bs=128, d=32, kb=8,
+                   lw=16, sw=0, cur=[1530, 2040, 2550, 3060])
+#: result keys of the cases timed on their own (beside the main case), and
+#: the page size each is paged at
+CASE_KEYS = {GRANITE_CASE: ("granite", 128), WHISPER_CASE: ("whisper", 64),
+             MIXTRAL_CASE: ("mixtral", 512), LLAVA_CASE: ("llava", 128)}
 
 
 def kernel_cases():
@@ -317,6 +363,12 @@ def kernel_cases():
         # score width d 16; bf16 queries over the engine's fp32 cache
         make_case(GRANITE_CASE, **GRANITE_SHAPE, kv_dtype=f32,
                   q_dtype=bf16, seed=9),
+        make_case(WHISPER_CASE, **WHISPER_SHAPE, kv_dtype=f32,
+                  q_dtype=bf16, seed=10),
+        make_case(MIXTRAL_CASE, **MIXTRAL_SHAPE, kv_dtype=f32,
+                  q_dtype=bf16, seed=11),
+        make_case(LLAVA_CASE, **LLAVA_SHAPE, kv_dtype=f32, q_dtype=bf16,
+                  seed=12),
     ]
 
 
@@ -439,8 +491,9 @@ def fused_plans(case):
     return plans
 
 
-def check_kernels(results):
-    """Each of the five kernels against its plain version on every case;
+def check_kernels(results, only=None):
+    """Each of the five kernels against its plain version on every case
+    (``only``: the cases named there);
     the four cluster kernels (the fused ones, select_blocks and the grouped
     attention) also against a second call, bit for bit, and but for
     select_blocks (whose selection does not depend on C) against their
@@ -449,6 +502,8 @@ def check_kernels(results):
     from repro_torch.kernels import gather_attention as GA
 
     for case in kernel_cases():
+        if only is not None and case["name"] not in only:
+            continue
         q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
         W = k.shape[-1]
         kw, ex_kw = kernel_kw(case), kernel_kw(case, exact=True)
@@ -557,7 +612,7 @@ def check_kernels(results):
                         for n, p in plans.items())
             + f"; paged_full_decode {full_smem} B shared (== "
             "tuning.full_smem_bytes)")
-        key = "granite" if case["name"] == GRANITE_CASE else "main"
+        key = CASE_KEYS.get(case["name"], ("main",))[0]
         if key not in results:
             results[key] = dict(case=case, sel=sel_p, sel_exact=sel_x,
                                 errs=errs, plans=plans)
@@ -615,15 +670,20 @@ def paged_calls(case, q, cur, table, ps, k, v, sel):
     }
 
 
-def check_paged(results):
+def check_paged(results, only=None):
     """#1-#5 paged against contiguous on the same logical data, asserted
     bit-identical: the paged form differs only in where a block's rows
     are read from. Shuffled tables with a trash-page row, pages of one and
     of two kernel blocks."""
     from repro_torch.kernels import fused_decode as F
     cases = kernel_cases()
-    for case, ps in ((cases[0], 128), (cases[0], 256), (cases[4], 128),
-                     (cases[5], 256), (cases[7], 128), (cases[8], 128)):
+    pairs = ((cases[0], 128), (cases[0], 256), (cases[4], 128),
+             (cases[5], 256), (cases[7], 128)) + tuple(
+                 (c, CASE_KEYS[c["name"]][1]) for c in cases
+                 if c["name"] in CASE_KEYS)
+    for case, ps in pairs:
+        if only is not None and case["name"] not in only:
+            continue
         q, cur, table, pk, pv, lk, lv = paged_copy(case, ps, seed=ps)
         sel = F.select_blocks(q, lk, cur, **kernel_kw(case))
         paged = paged_calls(case, q, cur, table, ps, pk, pv, sel)
@@ -638,7 +698,8 @@ def check_paged(results):
                     f"{float((a.float() - b.float()).abs().max()):.3e})")
         log(f"kernels: paged == contiguous bit for bit, all five kernels, "
             f"{case['name']}, page_size {ps} (shuffled table, trash row)")
-        key = "paged_granite" if case["name"] == GRANITE_CASE else "paged"
+        key = "paged_" + CASE_KEYS.get(case["name"], ("",))[0]
+        key = key.rstrip("_")
         if key not in results:
             results[key] = (q, cur, table, pk, pv, sel)
         del pk, pv, lk, lv
@@ -899,36 +960,40 @@ def plain_calls(case, sel):
     }
 
 
-def time_granite(results):
-    """Kernels 1-5 at granite-moe-3b's decode shape (``GRANITE_CASE``: G
-    3, D 64, d 16), contiguous and paged (page 128, one idle row), beside
+def time_cases(results, only=CASE_KEYS):
+    """Kernels 1-5 at each decode shape of ``CASE_KEYS`` (granite-moe-3b:
+    G 3, D 64, d 16; whisper-small, mixtral-8x22b's window, llava),
+    contiguous and paged (the case's page size, one idle row), beside
     their plain versions, their bounds and, for the two attention
     kernels, one scaled_dot_product_attention call."""
-    g = results["granite"]
-    case, sel = g["case"], g["sel"]
-    q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
-    scale = kernel_kw(case)["scale"]
-    kern = paged_calls(case, q, cur, None, 0, k, v, sel)
-    pq, pcur, ptable, pk, pv, psel = results.pop("paged_granite")
-    paged = paged_calls(case, pq, pcur, ptable, 128, pk, pv, psel)
-    plain = plain_calls(case, sel)
-    lib_calls = library_calls(q, k, v, cur, sel, case["bs"], case["sw"],
-                              scale)
-    lib = {n: time_ms(f) for n, f in lib_calls.items()}
-    bnd = bounds(case, sel, g["sel_exact"])
-    timing = {}
-    for name in KERNELS:
-        ms, paged_ms = time_ms(kern[name]), time_ms(paged[name])
-        plain_ms = time_ms(plain[name], reps=5)
-        timing[name] = dict(ms=ms, paged_ms=paged_ms, plain_ms=plain_ms,
-                            bound_ms=bnd[name][0], bound_by=bnd[name][1],
-                            library_ms=lib.get(name))
-        log(f"timing: {name} at {GRANITE_CASE}: {ms:.4f} ms contiguous, "
-            f"{paged_ms:.4f} ms paged, bound {bnd[name][0]:.4f} ms by "
-            f"{bnd[name][1]}, plain {plain_ms:.4f} ms"
-            + (f", scaled_dot_product_attention {lib[name]:.4f} ms"
-               if name in lib else ""))
-    results["granite_timing"] = timing
+    for name_, (key, ps) in only.items():
+        g = results[key]
+        case, sel = g["case"], g["sel"]
+        q, k, v, cur = case["q"], case["k"], case["v"], case["cur"]
+        scale = kernel_kw(case)["scale"]
+        kern = paged_calls(case, q, cur, None, 0, k, v, sel)
+        pq, pcur, ptable, pk, pv, psel = results.pop(f"paged_{key}")
+        paged = paged_calls(case, pq, pcur, ptable, ps, pk, pv, psel)
+        plain = plain_calls(case, sel)
+        lib_calls = library_calls(q, k, v, cur, sel, case["bs"], case["sw"],
+                                  scale)
+        lib = {n: time_ms(f) for n, f in lib_calls.items()}
+        bnd = bounds(case, sel, g["sel_exact"])
+        timing = {}
+        for name in KERNELS:
+            ms, paged_ms = time_ms(kern[name]), time_ms(paged[name])
+            plain_ms = time_ms(plain[name], reps=5)
+            timing[name] = dict(ms=ms, paged_ms=paged_ms, plain_ms=plain_ms,
+                                bound_ms=bnd[name][0], bound_by=bnd[name][1],
+                                library_ms=lib.get(name))
+            log(f"timing: {name} at {name_}: {ms:.4f} ms contiguous, "
+                f"{paged_ms:.4f} ms paged (page {ps}), bound "
+                f"{bnd[name][0]:.4f} ms by {bnd[name][1]}, plain "
+                f"{plain_ms:.4f} ms"
+                + (f", scaled_dot_product_attention {lib[name]:.4f} ms"
+                   if name in lib else ""))
+        results[f"{key}_timing"] = timing
+        del pk, pv, kern, paged
 
 
 def time_kernels(results):
@@ -2725,6 +2790,423 @@ def serve_granite(results, *, smoke=False, smax=4096, page_size=128,
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ window and encoder families
+
+#: whisper-small's prompts (200-400 tokens) in its published 448-token
+#: text context; 64-token pages of two 32-token blocks, so loki_block's
+#: 3 of 14 blocks are fewer than the 7-13 live ones
+WHISPER_LENGTHS = (201, 265, 329, 393)
+WHISPER_SMAX, WHISPER_PAGE, WHISPER_BLOCK, WHISPER_CHUNK = 448, 64, 32, 128
+#: mixtral's prompts: past the 4096-token window, and each len - 1 a whole
+#: number of 256-token MoE dispatch groups (the dense engine's one-shot
+#: prefill and the paged engine's 512-token chunks route alike); with
+#: 512-token pages and chunks the pages recycle in prefill and in decode
+MIXTRAL_LENGTHS = (4609, 5121, 5377, 5889)
+MIXTRAL_SMAX, MIXTRAL_PAGE, MIXTRAL_CHUNK = 8192, 512, 512
+#: mixtral's depth cut: bf16 runs at MIXTRAL_LAYERS of 56 layers (4.8 GB
+#: of bf16 weights a layer), the float32 equality runs at
+#: MIXTRAL_FP32_LAYERS
+MIXTRAL_LAYERS, MIXTRAL_FP32_LAYERS = 8, 2
+LLAVA_PATCH_SEED = 5
+
+
+def family_requests(toks, frames=None):
+    from repro_torch.serving.engine import Request
+    return [Request(rid=i, prompt=t, max_new=MAX_NEW,
+                    frames=None if frames is None else frames[i])
+            for i, t in enumerate(toks)]
+
+
+def dense_greedy(path, params, cfg, toks, smax, frames=None):
+    """The dense engine's greedy tokens for ``toks`` (the paged runs'
+    reference), every request MAX_NEW tokens long."""
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(params, cfg, n_slots=len(toks), smax=smax,
+                        device=DEV)
+    reqs = family_requests(toks, frames)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done(100)
+    del eng
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    out = [r.out for r in reqs]
+    if [len(o) for o in out] != [MAX_NEW] * len(toks):
+        raise AssertionError(f"{path}: dense reference {out}")
+    return out
+
+
+def window_checked(eng):
+    """After a tick: every page-table group of every slot within its
+    spec-table bound, and a full-attention group holding every page it
+    covers (it pins them; only window groups recycle)."""
+    for g, w in enumerate(eng.group_windows):
+        for slot, pages in enumerate(eng._group_pages(g)):
+            held = sum(p is not None for p in pages)
+            if held > eng._group_pages_hard[g]:
+                raise AssertionError(f"tick {eng.ticks}: slot {slot} group "
+                                     f"{g} holds {held} pages, above "
+                                     f"{eng._group_pages_hard[g]}")
+            if not w and None in pages:
+                raise AssertionError(f"tick {eng.ticks}: slot {slot}'s "
+                                     f"full-attention group {g} recycled "
+                                     "a page")
+
+
+def paged_run(results, path, params, cfg, policy, toks, *, smax, page_size,
+              chunk, frames=None, tick_check=None, **kw):
+    """The paged engine at its defaults over ``toks`` as one counted path
+    (``drive_paged``), ``tick_check(engine)`` after every tick, checked by
+    ``paged_checked`` and for every page back in the pool. Returns
+    (requests, run, info)."""
+    from repro_torch.serving.scheduler import PagedServingEngine
+    plan, planned = planned_kernels(cfg, smax, policy)
+    eng = PagedServingEngine(params, cfg, n_slots=len(toks), smax=smax,
+                             page_size=page_size, prefill_chunk=chunk,
+                             backend="auto", device=DEV, **kw)
+    info = dict(plan=str(plan), policy=policy, dtype=cfg.dtype,
+                n_layers=cfg.n_layers, n_pages=eng.pool.n_pages,
+                page_size=page_size, pool_bytes=eng.pool_bytes,
+                n_table_groups=eng.n_groups)
+    if tick_check is not None:
+        tick = eng.tick
+
+        def checked_tick(*a):
+            tick(*a)
+            tick_check(eng)
+        eng.tick = checked_tick
+    reqs = family_requests(toks, frames)
+    run = drive_paged(path, eng, reqs)
+    back = eng.pool.free_pages + eng.pool.cached_pages
+    n_pages = eng.pool.n_pages
+    del eng
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    paged_checked(path, reqs, run, planned, cfg.n_layers)
+    if back != n_pages - 1:
+        raise AssertionError(f"{path}: the pool got {back} of its "
+                             f"{n_pages - 1} pages back")
+    results.setdefault("launches", {})[path] = run["counts"]
+    return reqs, run, info
+
+
+def equal_checked(path, reqs, dense, report):
+    if [r.out for r in reqs] != dense:
+        raise AssertionError(f"{path}: paged tokens differ from the dense "
+                             f"engine's ({report['greedy_equal_reference']}"
+                             f"/{report['tokens']} equal)")
+    log(f"families: {path}: paged == dense, {report['tokens']} of "
+        f"{report['tokens']} greedy tokens")
+
+
+def serve_whisper(results, out, *, smoke=False, smax=WHISPER_SMAX,
+                  page_size=WHISPER_PAGE, block=WHISPER_BLOCK,
+                  chunk=WHISPER_CHUNK, lengths=WHISPER_LENGTHS):
+    """whisper-small at published width (12 encoder and 12 decoder layers,
+    d_model 768, 12 heads, vocab 51865, 1500 stand-in frames a request,
+    ``launch.serve._frames``), smax 448, 64-token pages, 32-token blocks:
+    with bf16 and then float32 weights, per policy (loki_block, full,
+    exact_topk) the dense engine's greedy tokens, then the paged engine at
+    its defaults (cross K/V installed at admission, prefix caching
+    bypassed; ``paged_whisper_[fp32_]<policy>``: planned launches and one
+    host sync a decode tick asserted); paged == dense asserted in float32
+    and reported in bf16. Then loki_block at bf16 over an int8 pool
+    (quantized cross K/V, one scale a layer and slot)."""
+    from repro_torch.configs.base import PageLayout
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch import serve as S
+
+    sc = S.ServeConfig(engine=S.EngineSection(
+        arch="whisper-small", smoke=smoke, kind="paged",
+        policy="loki_block", backend="auto", n_slots=4, smax=smax),
+        device=DEV)
+    cfg = sc.resolve_model()
+    cfg = cfg.replace(loki=dataclasses.replace(cfg.loki, block_size=block))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=96,
+                                  global_batch=8, seed=7, n_states=32,
+                                  temperature=0.22))
+    toks = prompts(cfg.vocab, lengths, seed=17)
+    frames = [S._frames(cfg, 4000 + i)[0].numpy() for i in range(len(toks))]
+    kw = dict(smax=smax, page_size=page_size, chunk=chunk, frames=frames)
+    for dtype in ("bfloat16", "float32"):
+        dcfg = cfg.replace(dtype=dtype)
+        t0 = time.perf_counter()
+        params = S.calibrated_params(dcfg, data, seed=0, device=DEV)
+        sync()
+        n_params = sum(t.numel() for t in tensors_of(params))
+        log(f"families: {cfg.arch}, {cfg.enc_layers} encoder + "
+            f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads, vocab {cfg.vocab}, enc_seq "
+            f"{cfg.enc_seq}, {n_params / 1e6:.1f} M parameters in {dtype}; "
+            f"init + PCA calibration {time.perf_counter() - t0:.1f} s")
+        dense_lb = None
+        for policy in GRANITE_POLICIES:
+            pcfg = policy_cfg(dcfg, policy)
+            tag = "" if dtype == "bfloat16" else "fp32_"
+            path = f"paged_whisper_{tag}{policy}"
+            dense = dense_greedy(path, params, pcfg, toks, smax, frames)
+            reqs, run, info = paged_run(results, path, params, pcfg, policy,
+                                        toks, **kw)
+            out[path] = paged_report(path, reqs, run, dense,
+                                     "the dense engine", 4, **info)
+            if dtype == "float32":
+                equal_checked(path, reqs, dense, out[path])
+            if policy == "loki_block":
+                dense_lb = dense
+        if dtype == "bfloat16":
+            path = "paged_whisper_int8_loki_block"
+            pcfg = dcfg.with_layout(PageLayout.parse("int8"))
+            reqs, run, info = paged_run(results, path, params, pcfg,
+                                        "loki_block", toks, **kw)
+            out[path] = paged_report(path, reqs, run, dense_lb,
+                                     "the dense engine (bf16)", 4, **info)
+        del params
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+
+def recycled_step(results, path, params, cfg, toks, *, smax, page_size,
+                  chunk):
+    """Four prompts prefilled chunk by chunk through shuffled tables (one
+    row per page-table group: rank 3 with ``cfg.window_layers``), then one
+    decode step over those tables and one over the same tables with every
+    page a window group's window has passed pointed at the trash page: the
+    logits bit for bit (counted as ``path``)."""
+    from repro_torch import kernels as K
+    from repro_torch.models import lm
+    from repro_torch.serving import cache_spec as CS
+    b, mp = len(toks), smax // page_size
+    windows = CS.group_windows(cfg)
+    n_groups = len(windows)
+    gen = torch.Generator().manual_seed(3)
+    table = (torch.randperm(b * n_groups * mp, generator=gen) + 1).view(
+        b, n_groups, mp).int()
+    cache = lm.init_paged_cache(cfg, 1 + table.numel(), page_size,
+                                n_slots=b, device=DEV)
+    grouped = cfg.window_layers is not None
+
+    def rows(t):
+        return (t if grouped else t[:, 0]).to(DEV).contiguous()
+    for s, t in enumerate(toks):
+        for start in range(0, len(t) - 1, chunk):
+            nv = min(chunk, len(t) - 1 - start)
+            buf = torch.zeros((1, chunk), dtype=torch.int32)
+            buf[0, :nv] = torch.as_tensor(t[start:start + nv])
+            lm.prefill_chunk(params, cfg, cache, buf.to(DEV), start, nv,
+                             rows(table[s:s + 1]), page_size, slot=s)
+    pos = torch.tensor([len(t) - 1 for t in toks], dtype=torch.int32)
+    tok = torch.tensor([int(t[-1]) for t in toks], dtype=torch.int32)
+    rec = table.clone()
+    for s in range(b):
+        for g, w in enumerate(windows):
+            if w:
+                rec[s, g, :max(0, int(pos[s]) - w + 1) // page_size] = 0
+    n_trash = int((rec == 0).sum())
+    if not n_trash:
+        raise AssertionError(f"{path}: no table entry recycled")
+    K.reset_launch_counts()
+    logits = [lm.decode_step(params, cfg, cache, tok.to(DEV), pos.to(DEV),
+                             page_table=rows(t), page_size=page_size)[0]
+              for t in (table, rec)]
+    counts = K.launch_counts()
+    sync()
+    if not torch.equal(logits[0], logits[1]):
+        raise AssertionError(
+            f"{path}: the step over recycled tables differs from the "
+            "unrecycled one (max |d| "
+            f"{float((logits[0] - logits[1]).abs().max()):.3e})")
+    results.setdefault("launches", {})[path] = counts
+    log(f"families: {path}: one decode step over tables with {n_trash} "
+        f"recycled entries on the trash page == over the unrecycled "
+        f"tables, bit for bit ({n_groups} page-table group(s), windows "
+        f"{list(windows)}); launches {counts}")
+    del cache
+
+
+def serve_mixtral(results, out, *, smoke=False, smax=MIXTRAL_SMAX,
+                  page_size=MIXTRAL_PAGE, chunk=MIXTRAL_CHUNK,
+                  lengths=MIXTRAL_LENGTHS, n_layers=MIXTRAL_LAYERS,
+                  fp32_layers=MIXTRAL_FP32_LAYERS):
+    """mixtral-8x22b's sliding window at published width (d_model 6144,
+    48 heads over 8 KV heads, head_dim 128, window 4096, 8 experts top-2),
+    depth cut to ``n_layers`` of 56 (bf16) and ``fp32_layers`` (float32):
+    per policy (loki_block, full) the dense engine's greedy tokens, then
+    the paged engine at its defaults (smax 8192, 512-token pages and
+    chunks; ``paged_mixtral_<policy>``), every slot within its window
+    budget after every tick, pages recycled, a slot's peak at
+    ceil(4096 / page) + 1 and every page back in the pool (asserted),
+    agreement reported; with float32 weights paged == dense asserted
+    (``paged_mixtral_fp32_loki_block``) and one decode step over recycled
+    tables bit-equal to the unrecycled one (``mixtral_recycled_step``);
+    then the same float32 model with windows alternating 4096 and 0 (two
+    page-table groups through rank-3 tables: the full group pins its
+    pages, the window group recycles; ``paged_mixtral_groups_loki_block``,
+    ``mixtral_groups_recycled_step``), paged == dense asserted."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch import serve as S
+    from repro_torch.serving import cache_spec as CS
+
+    sc = S.ServeConfig(engine=S.EngineSection(
+        arch="mixtral-8x22b", smoke=smoke, kind="paged",
+        policy="loki_block", backend="auto", n_slots=4, smax=smax),
+        device=DEV)
+    cfg = sc.resolve_model()
+    full_depth = cfg.n_layers
+    w = cfg.sliding_window
+    budget = CS.window_page_budget(w, page_size)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=96,
+                                  global_batch=8, seed=7, n_states=32,
+                                  temperature=0.22))
+    toks = prompts(cfg.vocab, lengths, seed=19)
+    kw = dict(smax=smax, page_size=page_size, chunk=chunk,
+              tick_check=window_checked)
+
+    def recycled_checked(path, run, groups=1):
+        st = run["stats"]
+        if st["n_recycled_pages"] < 1:
+            raise AssertionError(f"{path}: no page recycled")
+        if groups == 1 and st["peak_slot_pages"] != budget:
+            raise AssertionError(f"{path}: peak {st['peak_slot_pages']} "
+                                 f"pages a slot, not ceil({w} / "
+                                 f"{page_size}) + 1 = {budget}")
+        got = st.get("table_groups", {}).get("n_groups", 1)
+        if got != groups:
+            raise AssertionError(f"{path}: {got} page-table groups, "
+                                 f"expected {groups}")
+
+    bcfg = cfg.replace(n_layers=min(n_layers, full_depth))
+    t0 = time.perf_counter()
+    params = S.calibrated_params(bcfg, data, seed=0, device=DEV)
+    sync()
+    n_params = sum(t.numel() for t in tensors_of(params))
+    log(f"families: {cfg.arch}, {bcfg.n_layers} of {full_depth} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+        f"KV heads, window {w}, {cfg.moe.n_experts} experts "
+        f"top-{cfg.moe.top_k}, {n_params / 1e9:.2f} B parameters in "
+        f"{bcfg.dtype}; init + PCA calibration "
+        f"{time.perf_counter() - t0:.1f} s")
+    for policy in ("loki_block", "full"):
+        pcfg = policy_cfg(bcfg, policy)
+        path = f"paged_mixtral_{policy}"
+        dense = dense_greedy(path, params, pcfg, toks, smax)
+        reqs, run, info = paged_run(results, path, params, pcfg, policy,
+                                    toks, **kw)
+        recycled_checked(path, run)
+        out[path] = paged_report(
+            path, reqs, run, dense, "the dense engine", 4, **info,
+            n_recycled_pages=run["stats"]["n_recycled_pages"],
+            peak_slot_pages=run["stats"]["peak_slot_pages"])
+    if DEV == "cuda":
+        log(f"families: {cfg.arch} at {bcfg.n_layers} layers: peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    fcfg = cfg.replace(dtype="float32",
+                       n_layers=min(fp32_layers, full_depth))
+    params = S.calibrated_params(fcfg, data, seed=0, device=DEV)
+    gcfg = fcfg.with_window_layers(tuple(
+        w if i % 2 == 0 else 0 for i in range(fcfg.n_layers)))
+    for path, pcfg, groups in (("paged_mixtral_fp32_loki_block", fcfg, 1),
+                               ("paged_mixtral_groups_loki_block", gcfg, 2)):
+        dense = dense_greedy(path, params, pcfg, toks, smax)
+        reqs, run, info = paged_run(results, path, params, pcfg,
+                                    "loki_block", toks, **kw)
+        recycled_checked(path, run, groups)
+        out[path] = paged_report(
+            path, reqs, run, dense, "the dense engine", 4, **info,
+            n_recycled_pages=run["stats"]["n_recycled_pages"],
+            peak_slot_pages=run["stats"]["peak_slot_pages"],
+            window_layers=pcfg.window_layers)
+        equal_checked(path, reqs, dense, out[path])
+        step = ("mixtral_recycled_step" if groups == 1
+                else "mixtral_groups_recycled_step")
+        recycled_step(results, step, params, pcfg, toks, smax=smax,
+                      page_size=page_size, chunk=chunk)
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_llava(results, out, *, smoke=False, smax=4096, page_size=128,
+                chunk=512, lengths=PAGED_LENGTHS):
+    """llava-next-mistral-7b at published width (32 layers, 32 heads over
+    8 KV heads, its Mistral-7B backbone; seeded bf16 weights, PCA
+    calibrated): the paged engine at its defaults under loki_block over
+    the llama prompts (``paged_llava_loki_block``), the dense engine's
+    tokens as reference (agreement reported); then one ``lm.prefill`` of
+    the first prompt with 576 seeded patch embeddings in place of its last
+    576 tokens: the (text) logits finite and apart from the same prefill
+    without patches (asserted)."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch import serve as S
+    from repro_torch.models import lm
+
+    sc = S.ServeConfig(engine=S.EngineSection(
+        arch="llava-next-mistral-7b", smoke=smoke, kind="paged",
+        policy="loki_block", backend="auto", n_slots=4, smax=smax),
+        device=DEV)
+    cfg = sc.resolve_model()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=96,
+                                  global_batch=8, seed=7, n_states=32,
+                                  temperature=0.22))
+    toks = prompts(cfg.vocab, lengths, seed=11)
+    t0 = time.perf_counter()
+    params = S.calibrated_params(cfg, data, seed=0, device=DEV)
+    sync()
+    n_params = sum(t.numel() for t in tensors_of(params))
+    log(f"families: {cfg.arch}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+        f"heads, {n_params / 1e9:.2f} B parameters in {cfg.dtype}; init + "
+        f"PCA calibration {time.perf_counter() - t0:.1f} s")
+    path = "paged_llava_loki_block"
+    dense = dense_greedy(path, params, cfg, toks, smax)
+    reqs, run, info = paged_run(results, path, params, cfg, "loki_block",
+                                toks, smax=smax, page_size=page_size,
+                                chunk=chunk)
+    out[path] = paged_report(path, reqs, run, dense, "the dense engine", 4,
+                             **info)
+    gen = torch.Generator(device=DEV).manual_seed(LLAVA_PATCH_SEED)
+    patches = torch.randn((1, cfg.vision_tokens, cfg.d_model),
+                          generator=gen, device=DEV)
+    tok = torch.as_tensor(toks[0][None], device=DEV)
+    with_p = lm.prefill(params, cfg, tok, smax, patches=patches)[0].float()
+    plain = lm.prefill(params, cfg, tok, smax)[0].float()
+    if not torch.isfinite(with_p).all():
+        raise AssertionError("llava: prefill with patches gave non-finite "
+                             "logits")
+    moved = float((with_p - plain).abs().max())
+    if not moved > 0:
+        raise AssertionError("llava: the patches did not move the text "
+                             "row's logits")
+    out["llava_patches"] = dict(prompt=len(toks[0]),
+                                vision_tokens=cfg.vision_tokens,
+                                max_abs_logit_moved=moved)
+    log(f"families: llava prefill of {len(toks[0])} tokens with "
+        f"{cfg.vision_tokens} seeded patch embeddings: logits finite, the "
+        f"text row's logits moved by up to {moved:.3e} from the prefill "
+        "without patches")
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_families(results, *, smoke=False, whisper=None, mixtral=None,
+                   llava=None):
+    """The window and encoder families at published width:
+    ``serve_whisper``, ``serve_mixtral``, ``serve_llava`` (each keyword a
+    dict of sizes for a CPU rehearsal)."""
+    out = {}
+    t0 = time.perf_counter()
+    for name, fn, sizes in (("whisper", serve_whisper, whisper),
+                            ("mixtral", serve_mixtral, mixtral),
+                            ("llava", serve_llava, llava)):
+        fn(results, out, smoke=smoke, **(sizes or {}))
+        log(f"families: {name} done at {time.perf_counter() - t0:.1f} s "
+            "into the phase")
+    results["families_serve"] = out
+
+
 def tensors_of(tree):
     """The tensors of a parameter tree (nested dicts)."""
     if isinstance(tree, dict):
@@ -3944,6 +4426,32 @@ GRANITE_PATHS = {
 }
 
 
+#: the families phase's paths (fp32 and bf16 pools: the kernels' float32
+#: library) and, per kernel, the one that runs it at the case's shape
+WHISPER_RUN_PATHS = tuple(f"paged_whisper_{d}{p}" for d in ("", "fp32_")
+                          for p in GRANITE_POLICIES)
+MIXTRAL_RUN_PATHS = ("paged_mixtral_loki_block", "paged_mixtral_full",
+                     "paged_mixtral_fp32_loki_block",
+                     "paged_mixtral_groups_loki_block",
+                     "mixtral_recycled_step", "mixtral_groups_recycled_step")
+LLAVA_RUN_PATHS = ("paged_llava_loki_block",)
+#: per timed case of CASE_KEYS: its label in the kernels line, the paths
+#: run at its shape, and per kernel the path that runs it (absent: the
+#: planner picks another kernel at that shape)
+CASE_PATHS = {
+    "granite": ("granite-moe-3b", GRANITE_RUN_PATHS, GRANITE_PATHS),
+    "whisper": ("whisper-small", WHISPER_RUN_PATHS, {
+        "fused_loki_decode": "paged_whisper_loki_block",
+        "paged_full_decode": "paged_whisper_full",
+        "fused_exact_topk_decode": "paged_whisper_exact_topk"}),
+    "mixtral": ("mixtral-8x22b-swa", MIXTRAL_RUN_PATHS, {
+        "fused_loki_decode": "paged_mixtral_loki_block",
+        "paged_full_decode": "paged_mixtral_full"}),
+    "llava": ("llava-next-mistral-7b", LLAVA_RUN_PATHS, {
+        "fused_loki_decode": "paged_llava_loki_block"}),
+}
+
+
 #: the storage modes' TPU kernel bodies (the ``quant=True`` branches that
 #: multiply each block by its page scale after its DMA) and the path of
 #: each kernel at a layout run on (None: the kernel phase only)
@@ -3966,9 +4474,35 @@ LAYOUT_PATHS = {
 #: the paths whose pools hold int8 or fp8 codes (their decode kernels run
 #: those storage modes only)
 LAYOUT_RUNS = set(LAYOUT_PATHS.values()) | {
-    "paged_int8pca_prefix_loki_block", "paged_int8pca_prefix_loki_block_off"
+    "paged_int8pca_prefix_loki_block", "paged_int8pca_prefix_loki_block_off",
+    "paged_whisper_int8_loki_block"
 } | {path for layout, policy, _ in FAULT2_RUNS if layout
      for path in fault2_pair(layout, policy)}
+
+
+def case_entries(results, launches, keys=tuple(CASE_PATHS)):
+    """The kernels line's entries of kernels 1-5 at granite-moe-3b's
+    decode shape (G 3, D 64, d 16) and at the window and encoder
+    families' (whisper, mixtral, llava): one per (kernel, case)."""
+    out = []
+    for key in keys:
+        label, run_paths, by_kernel = CASE_PATHS[key]
+        for name in KERNELS:
+            t = results[f"{key}_timing"][name]
+            path = by_kernel.get(name)
+            out.append({
+                "name": f"{name}[{label}]", "route": "cuda",
+                "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+                "path": path,
+                "launches": launches.get(path, {}).get(name, 0)
+                if path else 0,
+                "launches_by_path": {p: launches.get(p, {}).get(name, 0)
+                                     for p in run_paths},
+                "max_abs_err": results[key]["errs"][name],
+                "ms": t["ms"], "paged_ms": t["paged_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return out
 
 
 def ptxas_summary(text):
@@ -4005,7 +4539,8 @@ def ptxas_summary(text):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels", "train"], default=None)
+    ap.add_argument("--only", choices=["kernels", "train", "families"],
+                    default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4051,6 +4586,32 @@ def main() -> int:
         "instructions")
 
     results = {}
+    if args.only == "families":
+        # the families' kernel cases, then their serving paths
+        families = {k: CASE_KEYS[k] for k in (WHISPER_CASE, MIXTRAL_CASE,
+                                              LLAVA_CASE)}
+        check_kernels(results, only=families)
+        check_paged(results, only=families)
+        time_cases(results, only=families)
+        log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
+        serve_families(results)
+        log(f"families done at {time.perf_counter() - t_start:.1f} s")
+        kernels = case_entries(results, results.get("launches", {}),
+                               keys=("whisper", "mixtral", "llava"))
+        with open(os.path.join(out_dir, "chip_smoke_families.json"),
+                  "w") as fh:
+            json.dump({"card": card, "build_s": secs,
+                       "script_s": time.perf_counter() - t_start,
+                       "kernels": kernels,
+                       "launches": results.get("launches"),
+                       "families_serve": results.get("families_serve")},
+                      fh, indent=1)
+        log(card)
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     check_kernels(results)
     check_layouts(results)
     check_packed_widths(results)
@@ -4061,7 +4622,7 @@ def main() -> int:
     check_flash(results)
     check_head_raises()
     time_kernels(results)
-    time_granite(results)
+    time_cases(results)
     log_storage_against_fp32(results)
     time_head_kernels(results)
     log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
@@ -4079,6 +4640,8 @@ def main() -> int:
             torch.cuda.empty_cache()
         serve_granite(results)
         log(f"granite paths done at {time.perf_counter() - t_start:.1f} s")
+        serve_families(results)
+        log(f"families paths done at {time.perf_counter() - t_start:.1f} s")
         # the serving phases' models and pools go before training
         del cfg, toks, greedy
         gc.collect()
@@ -4112,21 +4675,7 @@ def main() -> int:
                          full_attention_sdpa_ms_not_same_function=results[
                              "sdpa_ms"])
         kernels.append(entry)
-    # kernels 1-5 at granite-moe-3b's decode shape (G 3, D 64, d 16)
-    for name in KERNELS:
-        t = results["granite_timing"][name]
-        path = GRANITE_PATHS[name]
-        kernels.append({
-            "name": f"{name}[granite-moe-3b]", "route": "cuda",
-            "source": SOURCES[name][0], "replaces": SOURCES[name][1],
-            "path": path,
-            "launches": launches.get(path, {}).get(name, 0) if path else 0,
-            "launches_by_path": {p: launches.get(p, {}).get(name, 0)
-                                 for p in GRANITE_RUN_PATHS},
-            "max_abs_err": results["granite"]["errs"][name],
-            "ms": t["ms"], "paged_ms": t["paged_ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kernels += case_entries(results, launches)
     # the storage modes of kernels 1-5, one entry per (kernel, layout)
     for key, t in results["layout_timing"].items():
         name, tag = key[:-1].split("[")
@@ -4156,6 +4705,7 @@ def main() -> int:
                    "baselines": results.get("baselines"),
                    "fault2": results.get("fault2"),
                    "granite_serve": results.get("granite_serve"),
+                   "families_serve": results.get("families_serve"),
                    "prefill_flash": results.get("prefill_flash"),
                    "train": results.get("train"),
                    "profile": results.get("profile"),

@@ -63,6 +63,12 @@ def causal_attention(q, k, v, *, causal=True, sliding_window=0,
     return out.reshape(b, s, h, d)
 
 
+def cross_attention(q, k, v, chunk=512):
+    """Non-causal attention of decoder queries over encoder K/V (whisper):
+    q (B,S,H,D) against k, v (B,S_enc,Hkv,D)."""
+    return causal_attention(q, k, v, causal=False, chunk=chunk)
+
+
 # ------------------------------------------------------------ decode scores
 
 def decode_scores(q, k_cache, *, d_slice=None, logit_scale=None):

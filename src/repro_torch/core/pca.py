@@ -93,16 +93,22 @@ def calibrate(forward_capture, batches, n_layers: int, n_kv: int,
     return PCACalibration(p_pre, p_post, e_pre, e_post)
 
 
-def calibrate_model(params, cfg, token_batches) -> PCACalibration:
+def calibrate_model(params, cfg, token_batches,
+                    frames=None) -> PCACalibration:
     """Calibrate PCA transforms for an LM by capturing its keys over token
-    batches (each (B,S) integer tensor or array)."""
+    batches (each (B,S) integer tensor or array). ``frames``: the
+    encoder-decoder's encoder input (B, enc_seq, d_model), shared across
+    batches."""
     from repro_torch.models import lm
     device = params["embed"]["table"].device
+    if frames is not None:
+        frames = torch.as_tensor(frames, device=device)
 
     @torch.no_grad()
     def fwd(tokens):
         tokens = torch.as_tensor(tokens, device=device)
         _, _, (pre, post, _q) = lm.forward(params, tokens, cfg,
+                                           frames=frames,
                                            capture_keys=True)
         return pre, post
 

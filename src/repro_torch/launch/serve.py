@@ -16,6 +16,12 @@
         --policy h2o --arch llama2-7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
         --policy loki_block --arch granite-moe-3b-a800m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --policy loki_block --arch whisper-small --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --policy full --arch mixtral-8x22b --page-size 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine dense \
+        --warm-steps 10 --device cpu
 
 Builds the dense slot engine (``--engine dense``) or the paged engine
 (``--engine paged``: a page pool of ``--n-pages`` pages of
@@ -45,10 +51,17 @@ tier) with ``--max-inflight`` fetches in flight (2); ``--faults`` takes a
 ``FaultPlan.parse`` spec (empty: off) and ``--audit`` runs the invariant
 auditor after every tick. The run ends with the tiered pool's counters.
 
+The served families are those of ``cache_spec.servable_archs``: dense,
+MoE (mixtral's sliding window recycles its pages on the paged engine),
+the encoder-decoder (whisper: each request carries deterministic stand-in
+encoder frames, ``_frames``, as in the JAX launcher) and the vlm (llava,
+served as its dense backbone). ``--warm-steps N`` trains the random
+weights N steps first (the JAX launcher's warm-up: AdamW at lr 3e-3, 5
+warmup steps, through ``training.step.make_train_step``).
+
 Every knob lives in :class:`ServeConfig`; the flags are thin aliases.
-``warm_steps > 0`` raises (the port has no training yet). ``--full``
-selects the published width (the JAX launcher's ``--smoke`` cannot be
-turned off).
+``--full`` selects the published width (the JAX launcher's ``--smoke``
+cannot be turned off).
 """
 from __future__ import annotations
 
@@ -61,15 +74,17 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import ModelConfig, PageLayout
+from repro_torch.configs.base import ModelConfig, PageLayout, TrainConfig
 from repro_torch.core import pca as PCA
-from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.data.synthetic import DataConfig, SyntheticLM, torch_batch
 from repro_torch.models import lm
+from repro_torch.optim import adamw
 from repro_torch.serving import cache_spec as CS
 from repro_torch.serving import faults as FI
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.lifecycle import summarize
 from repro_torch.serving.scheduler import PagedServingEngine
+from repro_torch.training.step import TrainState, make_train_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,10 +188,11 @@ class ServeConfig:
             raise ValueError("--layout, --device-pages, --faults and "
                              "--audit set the paged engine; use --engine "
                              "paged")
-        if self.warm_steps:
+        archs = CS.servable_archs()
+        if self.engine.arch not in archs:
             raise NotImplementedError(
-                "warm_steps > 0 needs training, not ported yet (ROADMAP "
-                "queue 1 item 10)")
+                f"{self.engine.arch}: its family is not ported yet (ROADMAP "
+                f"queue 1 item 8); the port serves {', '.join(archs)}")
 
     def serves_paged(self, cfg: ModelConfig) -> bool:
         """Whether ``build_engine`` builds the paged engine: asked for, and
@@ -211,16 +227,60 @@ class ServeConfig:
         return ServingEngine(params, cfg, **common)
 
 
+def _frames(cfg: ModelConfig, seed: int, batch: int = 1) -> torch.Tensor:
+    """Deterministic stand-in encoder frames (B, enc_seq, d_model) float32
+    on the host: no audio frontend (the conv stem is stubbed, see
+    configs/whisper_small.py). Drawn from a torch generator, so they
+    differ from the JAX launcher's draws."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((batch, cfg.enc_seq, cfg.d_model), generator=gen)
+
+
+def batch_with_extras(cfg: ModelConfig, data: SyntheticLM, i: int, device):
+    """Synthetic batch ``i`` on ``device``, with stand-in frames for the
+    encoder-decoder."""
+    batch = torch_batch(data.batch_at(i), device)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = _frames(cfg, i, batch["tokens"].shape[0]).to(
+            batch["tokens"].device)
+    return batch
+
+
+def warm_params(cfg: ModelConfig, data: SyntheticLM, *, steps: int,
+                seed: int, device):
+    """The JAX launcher's warm-up: float32 masters from ``seed``, ``steps``
+    train steps (AdamW, lr 3e-3, 5 warmup steps, cosine over ``steps``)
+    over ``batch_with_extras(i)``, returned cast for serving -> (params,
+    last metrics)."""
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=5, total_steps=steps)
+    params = lm.init(cfg, seed=seed, device=device, dtype=cfg.param_dtype)
+    state = TrainState(params, adamw.init_state(params))
+    step = make_train_step(cfg, tcfg)
+    metrics = {}
+    for i in range(steps):
+        state, metrics = step(state, batch_with_extras(cfg, data, i, device))
+    return lm.cast_params(state.params, cfg), metrics
+
+
 def calibrated_params(cfg: ModelConfig, data: SyntheticLM, *, seed: int,
-                      device):
-    """Random weights from ``seed`` with PCA projections calibrated on two
-    synthetic batches and installed, as the JAX launcher does: for the
-    Loki policies, ``pcaattn`` and pages stored in the PCA basis."""
-    params = lm.init(cfg, seed=seed, device=device)
+                      device, warm_steps: int = 0):
+    """Random weights from ``seed`` (warmed ``warm_steps`` train steps,
+    ``warm_params``) with PCA projections calibrated on two synthetic
+    batches and installed, as the JAX launcher does: for the Loki
+    policies, ``pcaattn`` and pages stored in the PCA basis. The
+    encoder-decoder calibrates over stand-in frames."""
+    if warm_steps:
+        params, m = warm_params(cfg, data, steps=warm_steps, seed=seed,
+                                device=device)
+        print(f"warmed {warm_steps} steps, loss {float(m['loss']):.3f}")
+    else:
+        params = lm.init(cfg, seed=seed, device=device)
     if cfg.attn_policy() in ("loki", "loki_block", "pcaattn") or \
             cfg.page_layout.basis == "pca":
         batches = [data.batch_at(1000 + i)["tokens"] for i in range(2)]
-        calib = PCA.calibrate_model(params, cfg, batches)
+        frames = (_frames(cfg, 0, batches[0].shape[0])
+                  if cfg.is_encoder_decoder else None)
+        calib = PCA.calibrate_model(params, cfg, batches, frames=frames)
         params = PCA.install_projections(params, calib, "pre")
     return params
 
@@ -314,10 +374,15 @@ def main(argv=None):
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=96,
                                   global_batch=8, seed=7, n_states=32,
                                   temperature=0.22))
-    params = calibrated_params(cfg, data, seed=sc.seed, device=device)
+    params = calibrated_params(cfg, data, seed=sc.seed, device=device,
+                               warm_steps=sc.warm_steps)
     eng = sc.build_engine(params, cfg)
     paged = isinstance(eng, PagedServingEngine)
     if paged:
+        if eng.window or eng.n_groups > 1:
+            print(f"windows: page-table groups {list(eng.group_windows)} "
+                  f"(0 = full attention), budget {eng.req_budget} "
+                  "pages/request, pages recycled as they leave a window")
         lay = cfg.page_layout
         print(f"layout: {lay.describe()} — {eng.bytes_per_page} B/page/layer"
               + (" (per-page f32 scales beside the table)"
@@ -342,7 +407,9 @@ def main(argv=None):
                   + (" audit=per-tick" if sc.scheduler.audit else ""))
     reqs = [Request(rid=i,
                     prompt=data.batch_at(4000 + i)["tokens"][0, :24 + 4 * i],
-                    max_new=sc.max_new)
+                    max_new=sc.max_new,
+                    frames=(_frames(cfg, 4000 + i)[0].numpy()
+                            if cfg.is_encoder_decoder else None))
             for i in range(sc.requests)]
     for r in reqs:
         eng.submit(r)
@@ -369,7 +436,9 @@ def main(argv=None):
               f"({st['packed']['n_packed_ticks']} packed), prefill chunks "
               f"{st['n_prefill_chunks']}, prefix hit rate "
               f"{st['prefix_hit_rate']:.3f}, copy-on-write "
-              f"{st['n_cow_copies']}, host syncs {st['n_host_syncs']}")
+              f"{st['n_cow_copies']}, host syncs {st['n_host_syncs']}, "
+              f"recycled pages {st['n_recycled_pages']}, peak pages a "
+              f"slot {st['peak_slot_pages']}")
         if st.get("faults") or st["n_quarantined"] \
                 or st["n_backend_fallbacks"]:
             print(f"faults: injected {st.get('faults', {})}, quarantined "

@@ -1,11 +1,13 @@
 """Attention and MoE blocks: params, train forward, prefill and one-token
 decode.
 
-Counterpart of the attention and MoE parts of ``repro.models.blocks`` for
-the dense and MoE families, over the contiguous cache of the slot engine
-or the paged pool of the paged engine. ``pos_len`` is the number of tokens
-already cached (B,): the new token lands at that index and RoPE uses it as
-its position.
+Counterpart of the attention and MoE parts of ``repro.models.blocks``
+(the encoder's non-causal self-attention included), over the contiguous
+cache of the slot engine or the paged pool of the paged engine. ``pos_len``
+is the number of tokens already cached (B,): the new token lands at that
+index and RoPE uses it as its position. Every attention entry takes the
+layer's own ``sliding_window`` (per-layer windows), and the paged ones the
+layer's latent-K ``rank`` (per-layer ranks).
 
 Policies: ``full`` and ``exact_topk`` (the CUDA kernels through
 core/dispatch.py, or the plain references on backend="xla"), ``loki``
@@ -77,9 +79,12 @@ def _qkv(p, x, cfg: ModelConfig):
             v.reshape(b, s, cfg.n_kv_heads, hd))
 
 
-def attn_train(p, x, positions, cfg: ModelConfig, *, capture=None):
+def attn_train(p, x, positions, cfg: ModelConfig, *, capture=None,
+               sliding_window=None):
     """Full causal attention. ``capture``: optional dict that receives the
-    pre/post-rotary keys (and post-rotary queries) for PCA calibration."""
+    pre/post-rotary keys (and post-rotary queries) for PCA calibration.
+    ``sliding_window``: this layer's window (``cfg.layer_window``), None
+    for ``cfg.sliding_window``."""
     q, k, v = _qkv(p, x, cfg)
     if capture is not None:
         capture["pre"] = k
@@ -89,8 +94,17 @@ def attn_train(p, x, positions, cfg: ModelConfig, *, capture=None):
     if capture is not None:
         capture["post"] = k
         capture["q"] = q
-    out = A.causal_attention(q, k, v, causal=True,
-                             sliding_window=cfg.sliding_window)
+    sw = cfg.sliding_window if sliding_window is None else sliding_window
+    out = A.causal_attention(q, k, v, causal=True, sliding_window=sw)
+    b, s = x.shape[:2]
+    return L.dot(out.reshape(b, s, cfg.q_dim), p["wo"])
+
+
+def encoder_attn_train(p, x, cfg: ModelConfig):
+    """The encoder's self-attention (whisper): non-causal, no positions
+    (the encoder adds sinusoids to its input)."""
+    q, k, v = _qkv(p, x, cfg)
+    out = A.causal_attention(q, k, v, causal=False)
     b, s = x.shape[:2]
     return L.dot(out.reshape(b, s, cfg.q_dim), p["wo"])
 
@@ -134,7 +148,7 @@ def _stores_pca(policy: str) -> bool:
 
 def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
                 sliding_window=None, page_table=None, page_size: int = 0,
-                frame_table=None, plan_rows=None, n_rows=None):
+                frame_table=None, plan_rows=None, n_rows=None, rank=None):
     """One-token decode with the configured attention policy.
 
     x (B,E); pos_len (B,) tokens already cached; cache {"k","v"} of
@@ -160,7 +174,14 @@ def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
 
     ``h2o`` (contiguous caches only) inserts into, attends over and
     updates its budgeted state in place; ``pcaattn`` stores the leading
-    d PCA dims of each key."""
+    d PCA dims of each key.
+
+    ``sliding_window``: this layer's window, overriding
+    ``cfg.sliding_window`` (per-layer windows, ``cfg.window_layers``; 0 =
+    full attention). ``rank`` (an int): this layer's latent-K rank under
+    ``cfg.page_ranks``; the pool is as wide as the widest layer and the
+    stored keys' columns from ``rank`` on are zeroed (they add nothing to
+    q̂·k̂)."""
     hd = cfg.resolved_head_dim
     rows = x.shape[0]
     b = rows if n_rows is None else n_rows
@@ -216,7 +237,10 @@ def attn_decode(p, cache, x, pos_len, cfg: ModelConfig, *,
     scales = {}
     if paged:
         # the pool's width is the stored key width: rank-r truncation
-        k_store = k_store[..., :cache["k"].shape[-1]]
+        kw = cache["k"].shape[-1]
+        k_store = k_store[..., :kw]
+        if rank is not None:
+            k_store = _rank_masked(k_store, rank)
         if frame_table is not None:
             if cfg.loki.n_chunks:
                 raise ValueError("tiered pools do not support chunked "
@@ -299,18 +323,27 @@ def _attn_decode_tiered(cache, q, k_store, v, positions, proj,
     return out.to(act_dtype), win
 
 
-def attn_prefill(p, cache, x, positions, cfg: ModelConfig):
+def _rank_masked(k_store, rank: int):
+    """Stored keys with their columns from ``rank`` on zeroed (a layer's
+    own rank in a pool as wide as the widest layer's)."""
+    keep = torch.arange(k_store.shape[-1], device=k_store.device) < rank
+    return k_store * keep.to(k_store.dtype)
+
+
+def attn_prefill(p, cache, x, positions, cfg: ModelConfig, *,
+                 sliding_window=None):
     """Process a whole prompt, writing cache rows [0, S) in place. The
     cache stores keys in the policy's basis so decode steps are pure
     Algorithm 1 (``pcaattn``: the leading d PCA dims). ``h2o`` keeps the
     most recent ``budget`` prompt tokens and resets its state. Returns
-    y."""
+    y. ``sliding_window``: this layer's window, None for
+    ``cfg.sliding_window``."""
     q, k, v = _qkv(p, x, cfg)
     if cfg.rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = A.causal_attention(q, k, v, causal=True,
-                             sliding_window=cfg.sliding_window)
+    sw = cfg.sliding_window if sliding_window is None else sliding_window
+    out = A.causal_attention(q, k, v, causal=True, sliding_window=sw)
     b, s = x.shape[:2]
     y = L.dot(out.reshape(b, s, cfg.q_dim), p["wo"])
     policy = cfg.attn_policy()
@@ -342,7 +375,7 @@ def attn_prefill(p, cache, x, positions, cfg: ModelConfig):
 
 def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
                        cfg: ModelConfig, *, table_row, page_size: int,
-                       frame_row=None):
+                       frame_row=None, rank=None, sliding_window=None):
     """One chunk of a paged, chunked prefill for a single request.
 
     x (1,C,E) holds the chunk's embeddings at logical positions
@@ -361,7 +394,10 @@ def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
     frame. Prefill is exact attention over the whole prefix, so the
     scheduler has made every page of the slot resident; K/V rows are
     written and read through the frames, the ``k_lat`` sidecar written
-    through ``table_row``."""
+    through ``table_row``.
+
+    ``sliding_window`` and ``rank``: this layer's window and latent-K
+    rank, as ``attn_decode`` takes them."""
     b, c = x.shape[:2]
     q, k, v = _qkv(p, x, cfg)
     positions = pos_start + torch.arange(c, device=x.device)[None]  # (1,C)
@@ -382,6 +418,8 @@ def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
                if pca_store else k)
     kw = cache["k"].shape[-1]          # the pool's (stored) key width
     k_store = k_store[..., :kw]
+    if rank is not None:
+        k_store = _rank_masked(k_store, rank)
     kv_row = table_row if frame_row is None else frame_row
     for name, new in (("k", k_store[0]), ("v", v[0])):
         if lay.quantized:
@@ -416,8 +454,9 @@ def attn_prefill_chunk(p, cache, x, pos_start: int, n_valid: int,
 
     kv_pos = torch.arange(sl, device=x.device)
     mask = kv_pos[None, :] <= positions[0][:, None]        # causal (C, Sl)
-    if cfg.sliding_window:
-        mask &= positions[0][:, None] - kv_pos[None, :] < cfg.sliding_window
+    sw = cfg.sliding_window if sliding_window is None else sliding_window
+    if sw:
+        mask &= positions[0][:, None] - kv_pos[None, :] < sw
     scores = torch.where(mask[None, None, None], scores, A.NEG_INF)
     w = torch.softmax(scores, dim=-1).to(vlog.dtype)
     o = torch.einsum("bhgcs,bshd->bchgd", w, vlog)

@@ -1,9 +1,11 @@
 """Parameters from the JAX package's tree, handed over as numpy arrays.
 
-The JAX tree of a dense model (``repro.models.lm.init``) has the same
-nesting as the port's: stacked (L, ...) layer leaves, the ``pca`` leaf and,
-with qkv bias, ``bq``/``bk``/``bv``. The caller converts it with
-``jax.tree.map(np.asarray, params)``, so this module never sees JAX.
+The JAX tree of a model the port serves (``repro.models.lm.init``) has
+the same nesting as the port's: stacked (L, ...) layer leaves, the ``pca``
+leaf and, with qkv bias, ``bq``/``bk``/``bv``; the MoE layers' ``moe``; the
+encoder-decoder's ``enc_layers``/``enc_norm`` and each decoder layer's
+``ln_x``/``xattn``; the vlm's ``vision_adapter``. The caller converts it
+with ``jax.tree.map(np.asarray, params)``, so this module never sees JAX.
 """
 from __future__ import annotations
 
@@ -20,8 +22,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
     ``device="cpu"``), matrices cast once to ``cfg.dtype``."""
     lm.check_family(cfg)
     dev = resolve_device(device)
-    if not isinstance(tree.get("layers"), dict):
-        raise ValueError("expected stacked (L, ...) layer leaves")
+    for key in ("layers", "enc_layers"):
+        if key in tree and not isinstance(tree[key], dict):
+            raise ValueError(f"expected stacked (L, ...) leaves under "
+                             f"{key!r}")
     params = lm.tree_map(
         lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
     return lm.cast_params(params, cfg)

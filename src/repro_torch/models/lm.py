@@ -1,18 +1,20 @@
-"""Language-model assembly, dense and MoE families (counterpart of
-``repro.models.lm``).
+"""Language-model assembly (counterpart of ``repro.models.lm``): the
+dense, MoE, encoder-decoder and vlm families.
 
 One parameter tree, the JAX package's layout (per-layer leaves stacked on a
 leading L axis), and its entry points:
 
   init(cfg, ...)                                   -> params
-  forward(params, tokens, cfg, remat=)             -> (logits, aux)
-  prefill(params, cfg, tokens, smax)               -> (logits, cache, pos_len)
+  forward(params, tokens, cfg, frames=, patches=, remat=) -> (logits, aux)
+  prefill(params, cfg, tokens, smax, frames=, patches=)
+                                                   -> (logits, cache, pos_len)
   decode_step(params, cfg, cache, token, pos_len)  -> (logits, cache)
   init_paged_cache(cfg, n_pages, page_size)        -> paged cache
   prefill_chunk(params, cfg, cache, tokens, pos_start, n_valid,
-                page_table, page_size)             -> (logits, cache)
+                page_table, page_size, slot=)      -> (logits, cache)
   decode_step(..., page_table=, page_size=)        -> (logits, cache)
   decode_step(..., slot_idx=)                       packed rows
+  encode_cross_kv(params, cfg, frames)             -> (k, v) per layer
   copy_cache_page(cfg, cache, src, dst, page_size)  -> cache (COW)
   init_paged_cache(..., device_pages=)              tiered pool
   decode_step(..., frame_table=)     -> (logits, winners, cache)
@@ -20,21 +22,35 @@ leading L axis), and its entry points:
   promote_page_rows(cfg, cache, k_rows, v_rows, frame, page_size)
 
 Caches are updated in place where the JAX code donated them. Block
-composition: dense [attn, mlp], moe [attn, moe] (the MoE layer's leaves
-under ``p["moe"]`` in place of ``p["mlp"]``; ``forward`` returns its aux
-loss summed over layers). Other families raise NotImplementedError.
+composition:
+  dense   [attn, mlp]
+  moe     [attn, moe] (the MoE layer's leaves under ``p["moe"]`` in place
+          of ``p["mlp"]``; ``forward`` returns its aux loss summed over
+          layers)
+  encdec  encoder [attn, mlp] over stand-in frame embeddings + decoder
+          [attn, cross-attn, mlp] (whisper; sinusoidal positions)
+  vlm     the dense backbone, projected patch embeddings prepended in
+          place of the prompt's last ``vision_tokens`` tokens (llava)
+Each layer attends within its own window (``cfg.layer_window``); with
+``cfg.window_layers`` the paged entry points take a rank-3 table
+``(B, n_groups, max_pages)`` and each layer reads its page-table group's
+row (``cache_spec.layer_group_ids``). ``cfg.page_ranks`` gives each layer
+its own latent-K rank. The hybrid and ssm families (recurrent state) are
+not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
 import functools
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, PageLayout
+from repro_torch.core import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.serving import cache_spec as CS
@@ -42,19 +58,17 @@ from repro_torch.serving import paged_cache as PC
 
 
 #: the families the port serves
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "encdec", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The port serves the dense and MoE families; the others come
-    later."""
-    if (cfg.family not in PORTED_FAMILIES or cfg.is_encoder_decoder
-            or cfg.vision_tokens or cfg.window_layers is not None
-            or not cfg.rope):
+    """The port serves the dense, MoE, encoder-decoder and vlm families;
+    the recurrent-state ones (hybrid, ssm) come later."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.arch}: family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1 item 8: other families); the port serves dense and "
-            "MoE rotary models")
+            "queue 1 item 8: the recurrent-state families, StateSlot); the "
+            f"port serves {', '.join(PORTED_FAMILIES)}")
 
 
 def _ffn(p, h, cfg: ModelConfig):
@@ -122,12 +136,13 @@ def layer_params(params, i: int):
     return tree_map(lambda a: a[i], params["layers"])
 
 
-def unbind_layers(params, n_layers: int):
-    """Every layer's parameters, each stacked leaf split once with
+def unbind_layers(params, n_layers: int, key: str = "layers"):
+    """Every layer's parameters of ``params[key]`` (the decoder's, or the
+    encoder's ``enc_layers``), each stacked leaf split once with
     ``unbind``. Under autograd the backward of ``unbind`` stacks the L
     gradients once, where L ``a[i]`` selects would each write a
     zero-filled gradient the size of the whole stack."""
-    split = tree_map(lambda a: a.unbind(0), params["layers"])
+    split = tree_map(lambda a: a.unbind(0), params[key])
     return [tree_map(lambda t: t[i], split) for i in range(n_layers)]
 
 
@@ -137,7 +152,7 @@ def unbind_layers(params, n_layers: int):
 #: port casts them once (same values). The MoE router stays float32: the
 #: JAX code routes in float32
 CAST_LEAVES = {"table", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_in",
-               "w_out"}
+               "w_out", "vision_adapter"}
 
 
 def cast_params(params, cfg: ModelConfig):
@@ -151,6 +166,29 @@ def cast_params(params, cfg: ModelConfig):
                     else v.to(dt) if k in CAST_LEAVES else v)
                 for k, v in tree.items()}
     return walk(params)
+
+
+def _init_ffn(gen, cfg: ModelConfig, n: int, kind: str, kw):
+    return (B.init_moe if kind == "moe" else L.init_mlp)(
+        gen, cfg, n_layers=n, **kw)
+
+
+def _init_stack(gen, cfg: ModelConfig, n: int, kind: str, *, device, kw,
+                ffn=None):
+    """The stacked leaves of ``n`` layers of ``kind`` (dense|moe|dec|enc),
+    the JAX tree's keys: ln1, attn, ln2 and mlp or moe; a decoder layer
+    of the encoder-decoder also ln_x and its cross-attention xattn.
+    ``ffn``: the feed-forward leaves if already drawn."""
+    if ffn is None:
+        ffn = _init_ffn(gen, cfg, n, kind, kw)
+    p = {"ln1": L.init_norm(cfg, device=device, n_layers=n),
+         "attn": B.init_attention(gen, cfg, n_layers=n, **kw),
+         "ln2": L.init_norm(cfg, device=device, n_layers=n),
+         ("moe" if kind == "moe" else "mlp"): ffn}
+    if kind == "dec":
+        p["ln_x"] = L.init_norm(cfg, device=device, n_layers=n)
+        p["xattn"] = B.init_attention(gen, cfg, n_layers=n, **kw)
+    return p
 
 
 def init(cfg: ModelConfig, *, seed: int = 0,
@@ -167,27 +205,129 @@ def init(cfg: ModelConfig, *, seed: int = 0,
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
     kw = dict(dtype=L.torch_dtype(dtype or cfg.dtype), device=dev)
-    n = cfg.n_layers
-    ffn = (B.init_moe if cfg.family == "moe" else L.init_mlp)(
-        gen, cfg, n_layers=n, **kw)
-    return {
-        "embed": L.init_embed(gen, cfg, **kw),
-        "layers": {
-            "ln1": L.init_norm(cfg, device=dev, n_layers=n),
-            "attn": B.init_attention(gen, cfg, n_layers=n, **kw),
-            "ln2": L.init_norm(cfg, device=dev, n_layers=n),
-            ("moe" if cfg.family == "moe" else "mlp"): ffn,
-        },
-        "final_norm": L.init_norm(cfg, device=dev),
-    }
+    kind = CS.layer_kind(cfg, 0)
+    # draw order: the feed-forward leaves, the embedding, the rest
+    ffn = _init_ffn(gen, cfg, cfg.n_layers, kind, kw)
+    params = {"embed": L.init_embed(gen, cfg, **kw)}
+    params["layers"] = _init_stack(gen, cfg, cfg.n_layers, kind, device=dev,
+                                   kw=kw, ffn=ffn)
+    if cfg.is_encoder_decoder:
+        params["enc_layers"] = _init_stack(gen, cfg, cfg.enc_layers, "enc",
+                                           device=dev, kw=kw)
+        params["enc_norm"] = L.init_norm(cfg, device=dev)
+    if cfg.vision_tokens:
+        # the stub frontend: one linear adapter over precomputed patch
+        # embeddings (the vision tower is out of scope, as in the JAX code)
+        params["vision_adapter"] = L._init(gen, (cfg.d_model, cfg.d_model),
+                                           **kw)
+    params["final_norm"] = L.init_norm(cfg, device=dev)
+    return params
+
+
+# --------------------------------------------------------------- positions
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid_table(s: int, d: int, device: torch.device):
+    pos = np.arange(s)[:, None]
+    i = np.arange(d // 2)[None]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    return torch.as_tensor(np.concatenate([np.sin(ang), np.cos(ang)],
+                                          axis=-1), dtype=torch.float32,
+                           device=device)[None]
+
+
+def _sinusoidal(s: int, d: int, device) -> torch.Tensor:
+    """(1, s, d) float32 sinusoidal positions 0..s-1, computed in float64
+    on the host as the JAX code does, made once per (s, d, device)."""
+    return _sinusoid_table(s, d, torch.device(device))
+
+
+def _sinusoidal_at(pos, d: int) -> torch.Tensor:
+    """(N, d) float32 sinusoids at positions ``pos`` (N,), computed on
+    ``pos``'s device (no host round trip)."""
+    i = torch.arange(d // 2, device=pos.device)[None]
+    ang = pos[:, None].float() / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _adds_sinusoids(cfg: ModelConfig) -> bool:
+    """Decoders without rotary positions, and the encoder-decoder's
+    decoder, add sinusoids to the token embeddings."""
+    return not cfg.rope or cfg.is_encoder_decoder
+
+
+def _embed_inputs(params, tokens, cfg: ModelConfig, patches=None):
+    """Token embeddings (B,S,E) with the vlm's projected patches in place
+    of the last ``vision_tokens`` tokens and the sinusoids added."""
+    x = L.embed_apply(params["embed"], tokens, cfg)
+    s = tokens.shape[1]
+    if cfg.vision_tokens and patches is not None:
+        vis = L.dot(patches.to(x.dtype), params["vision_adapter"])
+        x = torch.cat([vis, x[:, :s - cfg.vision_tokens]], dim=1)
+    if _adds_sinusoids(cfg):
+        x = x + _sinusoidal(s, cfg.d_model, x.device).to(x.dtype)
+    return x
+
+
+# --------------------------------------------------------------- encoder
+
+def _encode(params, frames, cfg: ModelConfig):
+    """The whisper encoder over stand-in frame embeddings (B,S_enc,E):
+    sinusoids, then non-causal [attn, mlp] layers and ``enc_norm``."""
+    if frames is None:
+        raise ValueError(f"{cfg.arch}: the encoder-decoder needs frames "
+                         "(B, enc_seq, d_model)")
+    x = frames.to(L.torch_dtype(cfg.dtype))
+    x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    for p in unbind_layers(params, cfg.enc_layers, "enc_layers"):
+        h = L.norm_apply(p["ln1"], x)
+        x = x + B.encoder_attn_train(p["attn"], h, cfg)
+        h = L.norm_apply(p["ln2"], x)
+        x = x + L.mlp_apply(p["mlp"], h, cfg)
+    return L.norm_apply(params["enc_norm"], x)
+
+
+def _enc_kv(p, enc_x, cfg: ModelConfig):
+    """A decoder layer's cross (k, v) of the encoder's hidden states."""
+    _, k, v = B._qkv(p["xattn"], enc_x, cfg)
+    return k, v
+
+
+def _cross_train(p, x, ek, ev, cfg: ModelConfig):
+    """The decoder's cross-attention residual over encoder K/V (B,S,E)."""
+    h = L.norm_apply(p["ln_x"], x)
+    q, _, _ = B._qkv(p["xattn"], h, cfg)
+    o = A.cross_attention(q, ek.to(q.dtype), ev.to(q.dtype))
+    b, s = x.shape[:2]
+    return L.dot(o.reshape(b, s, cfg.q_dim).to(x.dtype), p["xattn"]["wo"])
+
+
+@torch.no_grad()
+def encode_cross_kv(params, cfg: ModelConfig, frames):
+    """Encoder K/V for every decoder layer (the CrossAttnStatic
+    component): the encoder runs once over ``frames (B, enc_seq,
+    d_model)`` and each decoder layer's cross-attention projects it.
+    Returns (k, v), each (L, B, enc_seq, Hkv, D)."""
+    check_family(cfg)
+    enc_x = _encode(params, frames, cfg)
+    kv = [_enc_kv(layer_params(params, i), enc_x, cfg)
+          for i in range(cfg.n_layers)]
+    return (torch.stack([k for k, _ in kv]),
+            torch.stack([v for _, v in kv]))
 
 
 # --------------------------------------------------------------- forward
 
-def _block_train(p, x, positions, cfg: ModelConfig, capture=None):
-    """One layer of the teacher-forced forward -> (x, aux or None)."""
+def _block_train(p, x, positions, cfg: ModelConfig, window: int,
+                 enc_x=None, capture=None):
+    """One layer of the teacher-forced forward -> (x, aux or None):
+    self-attention within ``window``, the cross-attention over the encoder
+    output ``enc_x`` (encoder-decoder), the feed-forward half."""
     h = L.norm_apply(p["ln1"], x)
-    x = x + B.attn_train(p["attn"], h, positions, cfg, capture=capture)
+    x = x + B.attn_train(p["attn"], h, positions, cfg, capture=capture,
+                         sliding_window=window)
+    if enc_x is not None:
+        x = x + _cross_train(p, x, *_enc_kv(p, enc_x, cfg), cfg)
     h = L.norm_apply(p["ln2"], x)
     y, a = _ffn(p, h, cfg)
     return x + y, a
@@ -220,8 +360,8 @@ def _remat(fn, remat: str):
     raise ValueError(f"remat must be none, full or dots, got {remat!r}")
 
 
-def forward(params, tokens, cfg: ModelConfig, *, remat: str = "none",
-            capture_keys: bool = False):
+def forward(params, tokens, cfg: ModelConfig, *, frames=None,
+            patches=None, remat: str = "none", capture_keys: bool = False):
     """Teacher-forced forward -> (logits (B,S,V), aux), aux the MoE layers'
     aux losses summed over layers (0 for the dense family).
 
@@ -231,17 +371,27 @@ def forward(params, tokens, cfg: ModelConfig, *, remat: str = "none",
     (L,B,S,Hkv,D) and post-rotary queries (L,B,S,H,D) for PCA
     calibration; like the reference's unrolled loop it runs without
     remat. Differentiable: the trainer calls it on its float32 masters
-    cast inside the differentiated function (``training/step.py``)."""
+    cast inside the differentiated function (``training/step.py``).
+
+    ``frames (B, enc_seq, d_model)``: the encoder-decoder's stand-in
+    encoder input (required there). ``patches (B, vision_tokens,
+    d_model)``: the vlm's patch embeddings, projected by the adapter and
+    put in place of the prompt's last ``vision_tokens`` tokens. Each layer
+    attends within ``cfg.layer_window(i)``; the JAX code's forward and
+    prefill use ``cfg.sliding_window`` for every layer, which differs only
+    under ``window_layers``, where its decode uses the per-layer windows
+    and so disagrees with its own prefill."""
     check_family(cfg)
-    x = L.embed_apply(params["embed"], tokens, cfg)
+    x = _embed_inputs(params, tokens, cfg, patches)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
+    enc_x = _encode(params, frames, cfg) if cfg.is_encoder_decoder else None
     captures = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = _remat(_block_train, "none" if capture_keys else remat)
-    for p in unbind_layers(params, cfg.n_layers):
+    for i, p in enumerate(unbind_layers(params, cfg.n_layers)):
         cap = {} if capture_keys else None
-        x, a = block(p, x, positions, cfg, cap)
+        x, a = block(p, x, positions, cfg, cfg.layer_window(i), enc_x, cap)
         if a is not None:
             aux = aux + a
         if cap is not None:
@@ -259,11 +409,19 @@ def forward(params, tokens, cfg: ModelConfig, *, remat: str = "none",
 def init_cache(cfg: ModelConfig, batch: int, smax: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Stacked (L, B, Smax, Hkv, D) decode cache for the whole model
-    (``h2o``: its budgeted state, ``blocks.init_attn_cache``)."""
+    (``h2o``: its budgeted state, ``blocks.init_attn_cache``); the
+    encoder-decoder also keeps each slot's cross K/V, ``cross_k`` and
+    ``cross_v`` (L, B, enc_seq, Hkv, D)."""
     check_family(cfg)
-    return {"layers": {"attn": B.init_attn_cache(
-        cfg, batch, smax, dtype, resolve_device(device),
-        n_layers=cfg.n_layers)}}
+    dev = resolve_device(device)
+    layers = {"attn": B.init_attn_cache(cfg, batch, smax, dtype, dev,
+                                        n_layers=cfg.n_layers)}
+    if cfg.is_encoder_decoder:
+        for name in ("cross_k", "cross_v"):
+            layers[name] = torch.zeros(
+                (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim), dtype=dtype, device=dev)
+    return {"layers": layers}
 
 
 def layer_cache(cache, i: int):
@@ -272,24 +430,98 @@ def layer_cache(cache, i: int):
     return tree_map(lambda a: a[i], cache["layers"]["attn"])
 
 
+def slot_view(cache, lo: int, hi: int):
+    """The cache of slots [lo, hi): every leaf but the pooled attention of
+    a paged cache is sliced on its slot axis (views, so writes land in
+    the cache)."""
+    return {"layers": tree_map(lambda a: a[:, lo:hi], cache["layers"])}
+
+
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens, smax: int, *,
-            cache_dtype=torch.bfloat16, cache=None):
+def install_cross_kv(cfg: ModelConfig, cache, slot: int, ck, cv):
+    """Write one request's cross K/V, ``ck``/``cv`` (L, 1, enc_seq, Hkv,
+    D) from ``encode_cross_kv``, into its slot of a paged cache, in place
+    (the CrossAttnStatic lifecycle: once, at admission). A quantized
+    layout stores codes with one amax scale per (layer, slot), as the
+    reference's scheduler does; being written once, the slot needs no
+    read-modify-write. Returns the cache."""
+    layers = cache["layers"]
+    for name, x in (("cross_k", ck), ("cross_v", cv)):
+        dst = layers[name][:, slot]
+        x = x[:, 0].float()
+        if name + "_scale" in layers:
+            qmax = cfg.page_layout.qmax
+            amax = x.abs().amax(dim=tuple(range(1, x.ndim)))        # (L,)
+            scale = torch.clamp(amax, min=PC.QUANT_EPS) / qmax
+            layers[name + "_scale"][:, slot] = scale
+            x = PC.quantize_rows(
+                x, scale.reshape((-1,) + (1,) * (x.ndim - 1)), dst.dtype,
+                qmax)
+        dst.copy_(x.to(dst.dtype))
+    return cache
+
+
+def _cross_rows(cache, i: int, slots=None):
+    """Layer i's cross K/V of the step's rows as float32 when quantized
+    (the codes times their slot's scale), else as stored. ``slots``: the
+    rows' slot ids (None: every slot, in order)."""
+    lay = cache["layers"]
+    ck, cv = lay["cross_k"][i], lay["cross_v"][i]
+    if slots is not None:
+        ck, cv = ck[slots], cv[slots]
+    if "cross_k_scale" in lay:
+        ks, vs = lay["cross_k_scale"][i], lay["cross_v_scale"][i]
+        if slots is not None:
+            ks, vs = ks[slots], vs[slots]
+        ck = ck.float() * ks[:, None, None, None]
+        cv = cv.float() * vs[:, None, None, None]
+    return ck, cv
+
+
+def _cross_decode(p, x, ck, cv, cfg: ModelConfig, n_rows: int):
+    """The decoder's cross-attention residual of one decode token: x
+    (rows,E), of which the first ``n_rows`` are the step's; every encoder
+    row is attended (``attention.decode_full`` at cur_len = enc_seq, with
+    no length tensor to build). Plain torch: the JAX code's is jnp."""
+    rows = x.shape[0]
+    h = L.norm_apply(p["ln_x"], x)
+    q, _, _ = B._qkv(p["xattn"], h[:, None], cfg)
+    q = q[:n_rows, 0]                                     # (b,H,D)
+    scores = A.decode_scores(q, ck)
+    w = torch.softmax(scores, dim=-1).to(cv.dtype)
+    o = torch.einsum("bhgs,bshd->bhgd", w, cv).reshape(n_rows, cfg.q_dim)
+    o = F.pad(o.to(x.dtype), (0, 0, 0, rows - n_rows))
+    return L.dot(o, p["xattn"]["wo"])
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens, smax: int, *, frames=None,
+            patches=None, cache_dtype=torch.bfloat16, cache=None):
     """Process a prompt -> (logits_last (B,V), cache, pos_len (B,)).
 
     ``cache``: an existing (L, B, Smax, ...) cache (or a view of some of
-    its slots) to fill in place instead of allocating a new one."""
+    its slots, ``slot_view``) to fill in place instead of allocating a new
+    one. ``frames``/``patches`` as ``forward`` takes them; the
+    encoder-decoder writes each layer's cross K/V into the cache."""
     check_family(cfg)
     b, s = tokens.shape
     if cache is None:
         cache = init_cache(cfg, b, smax, cache_dtype, device=tokens.device)
-    x = L.embed_apply(params["embed"], tokens, cfg)
+    x = _embed_inputs(params, tokens, cfg, patches)
     positions = torch.arange(s, device=tokens.device)[None]
+    enc_x = _encode(params, frames, cfg) if cfg.is_encoder_decoder else None
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         h = L.norm_apply(p["ln1"], x)
         x = x + B.attn_prefill(p["attn"], layer_cache(cache, i), h,
-                               positions, cfg)
+                               positions, cfg,
+                               sliding_window=cfg.layer_window(i))
+        if enc_x is not None:
+            ek, ev = _enc_kv(p, enc_x, cfg)
+            for name, t in (("cross_k", ek), ("cross_v", ev)):
+                dst = cache["layers"][name][i]
+                dst.copy_(t.to(dst.dtype))
+            x = x + _cross_train(p, x, ek, ev, cfg)
         h = L.norm_apply(p["ln2"], x)
         x = x + _ffn(p, h, cfg)[0]
     x = L.norm_apply(params["final_norm"], x[:, -1:])
@@ -300,16 +532,21 @@ def prefill(params, cfg: ModelConfig, tokens, smax: int, *,
 
 def _layer_decode(p, c, x, pos_len, cfg: ModelConfig, *, page_table=None,
                   page_size: int = 0, frame_table=None, plan_rows=None,
-                  n_rows=None):
-    """One layer's decode step -> (x, winners or None)."""
+                  n_rows=None, window=None, rank=None, cross=None):
+    """One layer's decode step -> (x, winners or None). ``cross``: the
+    step rows' cross (k, v) of an encoder-decoder layer."""
     h = L.norm_apply(p["ln1"], x)
     y = B.attn_decode(p["attn"], c, h, pos_len, cfg, page_table=page_table,
                       page_size=page_size, frame_table=frame_table,
-                      plan_rows=plan_rows, n_rows=n_rows)
+                      plan_rows=plan_rows, n_rows=n_rows,
+                      sliding_window=window, rank=rank)
     win = None
     if frame_table is not None:
         y, win = y
     x = x + y
+    if cross is not None:
+        x = x + _cross_decode(p, x, *cross, cfg,
+                              x.shape[0] if n_rows is None else n_rows)
     h = L.norm_apply(p["ln2"], x)
     return x + _ffn_decode(p, h, cfg), win
 
@@ -364,9 +601,13 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
     over layers of the logical pages the Loki selection attended: the
     scheduler promotes HOST winners and re-runs those slots.
 
-    The reference's ``live`` (StateSlot families) and rank-3 tables
-    (page-table groups) are not ported yet (ROADMAP queue 1 items 7-8)
-    and raise."""
+    With ``cfg.window_layers`` the table is rank 3, ``(B, n_groups,
+    max_pages)``: each layer reads its page-table group's row and attends
+    within its own window. The encoder-decoder reads each row's cross K/V
+    from its slot (``slot_idx``, or the row's own index). The reference's
+    ``live`` (StateSlot families) is not ported yet (ROADMAP queue 1 item
+    8) and raises, as do tiered pools with page-table groups (the JAX
+    code refuses them too)."""
     check_family(cfg)
     if live is not None:
         raise NotImplementedError(
@@ -374,21 +615,30 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
             "(ROADMAP queue 1 item 8)")
     if slot_idx is not None:
         _check_slot_idx(slot_idx, token.shape[0])
-    if page_table is not None and page_table.ndim != 2:
-        raise NotImplementedError("page-table groups (rank-3 tables) are "
-                                  "not ported yet (ROADMAP queue 1 item 7)")
+    tables = _layer_tables(cfg, page_table)
+    if frame_table is not None and page_table.ndim == 3:
+        raise ValueError("tiered pools do not compose with per-layer "
+                         "window groups (window_layers)")
+    ranks = cfg.page_ranks if page_table is not None else None
     b = token.shape[0]
     rows = b if plan_slots is None else max(int(plan_slots), b)
     plan_rows = None if plan_slots is None else rows * cfg.n_kv_heads
     x = L.embed_apply(params["embed"], token, cfg)
+    if _adds_sinusoids(cfg):
+        x = x + _sinusoidal_at(pos_len.expand(b), cfg.d_model).to(x.dtype)
     x = F.pad(x, (0, 0, 0, rows - b))
+    slots = None if slot_idx is None else slot_idx.long()
     winners = None
     for i in range(cfg.n_layers):
+        cross = (_cross_rows(cache, i, slots) if cfg.is_encoder_decoder
+                 else None)
         x, win = _layer_decode(layer_params(params, i),
                                layer_cache(cache, i), x, pos_len, cfg,
-                               page_table=page_table, page_size=page_size,
+                               page_table=tables[i], page_size=page_size,
                                frame_table=frame_table, plan_rows=plan_rows,
-                               n_rows=b)
+                               n_rows=b, window=cfg.layer_window(i),
+                               rank=None if ranks is None else ranks[i],
+                               cross=cross)
         if win is not None:
             winners = win if winners is None else winners | win
     x = L.norm_apply(params["final_norm"], x)
@@ -396,6 +646,21 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
     if frame_table is not None:
         return logits, winners, cache
     return logits, cache
+
+
+def _layer_tables(cfg: ModelConfig, page_table):
+    """Each layer's (B, max_pages) table: the table itself, or its
+    page-table group's row of a rank-3 ``(B, n_groups, max_pages)``
+    table (made contiguous once per group)."""
+    if page_table is None or page_table.ndim == 2:
+        return [page_table] * cfg.n_layers
+    n = CS.n_table_groups(cfg)
+    if page_table.ndim != 3 or page_table.shape[1] != n:
+        raise ValueError(f"{cfg.arch}: a rank-3 page table must be (B, "
+                         f"{n} groups, max_pages), got "
+                         f"{tuple(page_table.shape)}")
+    rows = [page_table[:, g].contiguous() for g in range(n)]
+    return [rows[g] for g in CS.layer_group_ids(cfg)]
 
 
 # --------------------------------------------------------------- paged
@@ -423,11 +688,21 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     (PCA-basis) keys, so Loki's score pass never needs the host tier. Like
     the reference it refuses quantized layouts: their writes re-derive
     per-page scales, which a tiered step's re-run would not repeat bit for
-    bit."""
+    bit. Per-layer ranks on a tiered pool are not ported yet (ROADMAP
+    queue 1 item 8).
+
+    Per-layer ranks (``page_ranks``): every layer's pool is as wide as the
+    widest layer's rank (``cache_spec.max_k_width``); narrower layers zero
+    their tail columns at write time. The encoder-decoder adds each
+    slot's cross K/V (the CrossAttnStatic component), ``cross_k`` and
+    ``cross_v`` (L, n_slots, enc_seq, Hkv, D), written at admission, with
+    (L, n_slots) float32 ``cross_k_scale``/``cross_v_scale`` under a
+    quantized layout."""
     check_family(cfg)
     CS.assert_pageable(cfg)
     B.check_policy(cfg)
-    spec = CS.layer_specs(cfg)[0].attn
+    specs = CS.layer_specs(cfg)
+    spec = specs[0].attn
     lay = spec.layout
     if device_pages is not None:
         if not 2 <= device_pages <= n_pages:
@@ -437,11 +712,19 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
             raise ValueError("tiered pools require a non-quantized "
                              "PageLayout (per-page scale RMW is not "
                              "replay-idempotent)")
-    pdt = dtype if lay == PageLayout() else PC.STORAGE_DTYPE[lay.dtype]
+        if cfg.page_ranks is not None:
+            raise NotImplementedError(
+                "per-layer ranks on a tiered pool are not ported yet "
+                "(ROADMAP queue 1 item 8)")
+
+    def pool_dtype(lay):
+        return dtype if lay == PageLayout() else PC.STORAGE_DTYPE[lay.dtype]
+    pdt = pool_dtype(lay)
     dev = resolve_device(device)
     rows = (n_pages if device_pages is None else device_pages) * page_size
     lead = (cfg.n_layers, rows, spec.n_kv_heads)
-    attn = {"k": torch.zeros(lead + (spec.k_width,), dtype=pdt, device=dev),
+    attn = {"k": torch.zeros(lead + (CS.max_k_width(cfg),), dtype=pdt,
+                             device=dev),
             "v": torch.zeros(lead + (spec.head_dim,), dtype=pdt,
                              device=dev)}
     if device_pages is not None:
@@ -452,7 +735,18 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
         for name in ("k_scale", "v_scale"):
             attn[name] = torch.zeros((cfg.n_layers, n_pages),
                                      dtype=torch.float32, device=dev)
-    return {"layers": {"attn": attn}}
+    layers = {"attn": attn}
+    cross = specs[0].cross
+    if cross is not None:
+        for name in ("cross_k", "cross_v"):
+            layers[name] = torch.zeros(
+                (cfg.n_layers, n_slots, cross.enc_seq, cross.n_kv_heads,
+                 cross.head_dim), dtype=pool_dtype(cross.layout), device=dev)
+        if cross.layout.quantized:
+            for name in ("cross_k_scale", "cross_v_scale"):
+                layers[name] = torch.zeros((cfg.n_layers, n_slots),
+                                           dtype=torch.float32, device=dev)
+    return {"layers": layers}
 
 
 @torch.no_grad()
@@ -464,30 +758,49 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, pos_start: int,
     tokens (1, C): a fixed-size chunk whose first ``n_valid`` entries are
     real prompt tokens at logical positions ``pos_start ..
     pos_start+C-1`` (the rest is padding, written to the trash page).
-    page_table (1, max_pages) or (max_pages,). Each layer scatters the
-    chunk's K/V into the pools in place and attends causally over the
-    cached prefix plus the chunk. Returns (logits (1, V) of chunk token
-    ``n_valid - 1``, cache). ``slot`` addresses per-slot state, which the
-    dense family has none of. ``frame_row (max_pages,)`` or (1,
-    max_pages) (tiered pools): each table entry's device frame; K/V go
-    through it, the latent sidecar through the table."""
+    page_table (1, max_pages) or (max_pages,); with ``cfg.window_layers``
+    (1, n_groups, max_pages) or (n_groups, max_pages), each layer taking
+    its page-table group's row. Each layer scatters the chunk's K/V into
+    the pools in place and attends causally, within its own window, over
+    the cached prefix plus the chunk. Returns (logits (1, V) of chunk
+    token ``n_valid - 1``, cache). ``slot`` (an int): the request's slot,
+    whose cross K/V (written at admission) the encoder-decoder's chunk
+    attends. ``frame_row (max_pages,)`` or (1, max_pages) (tiered pools):
+    each table entry's device frame; K/V go through it, the latent
+    sidecar through the table."""
     check_family(cfg)
     CS.assert_pageable(cfg)
     if frame_row is not None and frame_row.ndim == 2:
         frame_row = frame_row[0]
-    if page_table.ndim > 2:
-        raise NotImplementedError("page-table groups (rank-3 tables) are "
-                                  "not ported yet (ROADMAP queue 1 item 7)")
-    table_row = page_table[0] if page_table.ndim == 2 else page_table
+    if cfg.window_layers is not None:
+        table_row = page_table[0] if page_table.ndim == 3 else page_table
+    else:
+        table_row = page_table[0] if page_table.ndim == 2 else page_table
+    if table_row.ndim == 2:
+        groups = [table_row[g] for g in range(table_row.shape[0])]
+        rows = [groups[g] for g in CS.layer_group_ids(cfg)]
+    else:
+        rows = [table_row] * cfg.n_layers
+    ranks = cfg.page_ranks
+    slot = 0 if slot is None else int(slot)
+    b, c = tokens.shape
     x = L.embed_apply(params["embed"], tokens, cfg)
+    if _adds_sinusoids(cfg):
+        positions = pos_start + torch.arange(c, device=tokens.device)
+        x = x + _sinusoidal_at(positions, cfg.d_model)[None].to(x.dtype)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         h = L.norm_apply(p["ln1"], x)
         x = x + B.attn_prefill_chunk(p["attn"], layer_cache(cache, i), h,
                                      pos_start, n_valid, cfg,
-                                     table_row=table_row,
+                                     table_row=rows[i],
                                      page_size=page_size,
-                                     frame_row=frame_row)
+                                     frame_row=frame_row,
+                                     rank=None if ranks is None else ranks[i],
+                                     sliding_window=cfg.layer_window(i))
+        if cfg.is_encoder_decoder:
+            ek, ev = _cross_rows(cache, i, slice(slot, slot + 1))
+            x = x + _cross_train(p, x, ek, ev, cfg)
         h = L.norm_apply(p["ln2"], x)
         x = x + _ffn(p, h, cfg)[0]
     x = L.norm_apply(params["final_norm"], x[:, n_valid - 1:n_valid])

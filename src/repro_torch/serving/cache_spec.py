@@ -1,27 +1,40 @@
 """Per-layer CacheSpec table of the paged engine (counterpart of
-``repro.serving.cache_spec``), dense and MoE families.
+``repro.serving.cache_spec``).
 
 Each decoder layer declares its decode-state components; the paged cache
 (``models/lm.init_paged_cache``) and the scheduler are driven by that table.
-The port carries one component kind so far:
+Component kinds:
 
-  PagedAttn  growable page-table K/V in the shared pool
-             ((n_pages * page_size, Hkv, W) per layer, no batch dim); a
-             request holds ceil(len / page_size) pages. Its PageLayout
-             sets the storage dtype (fp32, fp16, bf16, int8, fp8), the key
-             basis (native or pca), the stored key width W (rank r under
-             pca) and, for int8 and fp8, per-page float32 scales.
+  PagedAttn        growable page-table K/V in the shared pool
+                   ((n_pages * page_size, Hkv, W) per layer, no batch dim);
+                   a request holds ceil(len / page_size) pages. Its
+                   PageLayout sets the storage dtype (fp32, fp16, bf16,
+                   int8, fp8), the key basis (native or pca), the stored
+                   key width W (rank r under pca) and, for int8 and fp8,
+                   per-page float32 scales.
+  WindowPagedAttn  PagedAttn under a sliding-window mask: only the last
+                   ``window`` positions are ever attended, so pages that
+                   slide wholly out of the window are recycled (freed, and
+                   their table entries pointed at the trash page, whose
+                   rows the window mask hides). A request holds at most
+                   ceil(window / page_size) + 1 pages.
+  CrossAttnStatic  whisper's encoder K/V, written once at admission
+                   (``lm.encode_cross_kv``) into the request's slot and
+                   read-only afterwards; quantized layouts keep one scale
+                   per (layer, slot).
 
-MoE layers ([attn, moe]) page their attention exactly as dense layers do:
-the experts keep no decode state. The reference's WindowPagedAttn,
-StateSlot and CrossAttnStatic (sliding window, recurrent and encoder
-families) come with the other families (ROADMAP queue 1 item 8), and
-per-layer ranks (``page_ranks``) with them. Both raise here.
+Layers whose windows differ read separate page tables (page-table groups,
+``group_windows``): a full-attention layer pins its pages while a window
+group recycles at its own window. ``page_ranks`` gives each layer its own
+latent-K rank. MoE layers ([attn, moe]) page their attention exactly as
+dense layers do; the vlm family is a dense backbone. The reference's
+StateSlot (the recurrent state of the hybrid and ssm families, hymba and
+xlstm) is not ported yet (ROADMAP queue 1 item 8): their configs raise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Tuple, Union
 
 from repro_torch.configs.base import ModelConfig, PageLayout
 
@@ -29,6 +42,25 @@ from repro_torch.configs.base import ModelConfig, PageLayout
 # through the dense engine only
 UNPAGEABLE_POLICIES = ("h2o", "pcaattn")
 
+
+# ------------------------------------------------------------ layer kinds
+
+def layer_kind(cfg: ModelConfig, i: int) -> str:
+    """dense|moe|dec — what block layer ``i`` is. The hybrid and ssm
+    families' kinds (StateSlot) raise: not ported yet."""
+    del i
+    if cfg.family in ("hybrid", "ssm"):
+        raise NotImplementedError(
+            f"{cfg.arch}: the {cfg.family} family keeps recurrent state "
+            "(StateSlot), which is not ported yet (ROADMAP queue 1 item 8)")
+    if cfg.family == "moe":
+        return "moe"
+    if cfg.is_encoder_decoder:
+        return "dec"
+    return "dense"
+
+
+# ------------------------------------------------------------- components
 
 @dataclasses.dataclass(frozen=True)
 class PagedAttn:
@@ -51,10 +83,39 @@ class PagedAttn:
 
 
 @dataclasses.dataclass(frozen=True)
+class WindowPagedAttn(PagedAttn):
+    """Paged K/V whose attended suffix is bounded by ``window``: pages
+    that slide out of it are recycled. Not shareable: recycling frees a
+    request's pages mid-stream and points their entries at the trash
+    page, so another request aliasing them would read trash as context."""
+    window: int = 0
+    shareable = False
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossAttnStatic:
+    """Encoder K/V written once at admission, read-only afterwards. Not
+    shareable: the decoder's self-attention K/V depend on the request's
+    frames through cross-attention, so equal token prefixes do not give
+    equal pages. ``layout``: the storage dtype is honoured (quantized
+    cross K/V carry one scale per slot), the basis is native (PCA
+    calibrates self-attention keys only)."""
+    enc_seq: int
+    n_kv_heads: int
+    head_dim: int
+    layout: PageLayout = dataclasses.field(default_factory=PageLayout)
+    shareable = False
+
+
+Component = Union[PagedAttn, WindowPagedAttn, CrossAttnStatic]
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    """One layer's decode-state declaration: named components."""
+    """One layer's decode-state declaration: named components ('attn' ->
+    pooled K/V, 'cross' -> cross_k/cross_v)."""
     kind: str
-    components: Tuple[Tuple[str, PagedAttn], ...]
+    components: Tuple[Tuple[str, Component], ...]
 
     def component(self, name: str):
         return dict(self.components).get(name)
@@ -64,27 +125,50 @@ class LayerSpec:
         c = self.component("attn")
         return c if isinstance(c, PagedAttn) else None
 
+    @property
+    def cross(self):
+        c = self.component("cross")
+        return c if isinstance(c, CrossAttnStatic) else None
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe") or cfg.is_encoder_decoder
-            or cfg.vision_tokens or cfg.window_layers is not None
-            or cfg.sliding_window):
-        raise NotImplementedError(
-            f"{cfg.arch}: only dense and MoE full-attention layers page in "
-            "the port so far (window, state and cross-attention components: "
-            "ROADMAP queue 1 item 8)")
-    if cfg.page_ranks is not None:
-        raise NotImplementedError(
-            "per-layer page ranks (page_ranks) are not ported yet; they "
-            "serve the families of ROADMAP queue 1 item 8")
 
+# --------------------------------------------------------------- registry
 
 def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
-    """The spec table: one LayerSpec per decoder layer."""
-    _check_ported(cfg)
-    attn = PagedAttn(cfg.n_kv_heads, cfg.resolved_head_dim, cfg.page_layout)
-    return tuple(LayerSpec(cfg.family, (("attn", attn),))
-                 for _ in range(cfg.n_layers))
+    """The spec table: one LayerSpec per decoder layer. Every paged
+    component carries ``cfg.page_layout`` (cross-attention with the basis
+    forced native). ``cfg.page_ranks`` gives each layer's attn component
+    its own layout at that layer's rank, so per-layer widths derive from
+    the table alone."""
+    hd = cfg.resolved_head_dim
+    lay = cfg.page_layout
+    if lay.rank > hd:
+        raise ValueError(f"page_layout rank {lay.rank} > head_dim {hd}")
+    ranks = cfg.page_ranks
+    if ranks is not None:
+        if len(ranks) != cfg.n_layers:
+            raise ValueError(f"page_ranks needs {cfg.n_layers} entries, "
+                             f"got {len(ranks)}")
+        if any(r > hd for r in ranks):
+            raise ValueError(f"page_ranks {ranks} exceed head_dim {hd}")
+    cross_lay = dataclasses.replace(lay, basis="native", rank=0)
+
+    def attn_for(i: int) -> PagedAttn:
+        li = lay if ranks is None else dataclasses.replace(
+            lay, basis="pca", rank=ranks[i])
+        w = cfg.layer_window(i)
+        if w:
+            return WindowPagedAttn(cfg.n_kv_heads, hd, li, window=w)
+        return PagedAttn(cfg.n_kv_heads, hd, li)
+
+    def one(i: int) -> LayerSpec:
+        kind = layer_kind(cfg, i)
+        comps = [("attn", attn_for(i))]
+        if kind == "dec":
+            comps.append(("cross", CrossAttnStatic(
+                cfg.enc_seq, cfg.n_kv_heads, hd, cross_lay)))
+        return LayerSpec(kind, tuple(comps))
+
+    return tuple(one(i) for i in range(cfg.n_layers))
 
 
 def has_paged_attn(cfg: ModelConfig) -> bool:
@@ -92,10 +176,17 @@ def has_paged_attn(cfg: ModelConfig) -> bool:
 
 
 def max_k_width(cfg: ModelConfig) -> int:
-    """Stored K width of the stacked pools: the max per-layer ``k_width``
-    (one width for every layer here: per-layer ranks are not ported)."""
+    """Stored K width of the stacked pools: every layer's pool lives in
+    one (L, ...) array, so the width is the widest layer's ``k_width``;
+    narrower layers zero their tail columns at write time."""
     widths = [s.attn.k_width for s in layer_specs(cfg) if s.attn is not None]
     return max(widths) if widths else cfg.resolved_head_dim
+
+
+def layer_k_widths(cfg: ModelConfig) -> Tuple[int, ...]:
+    """Per-layer stored K widths (a layer with no attn reports 0)."""
+    return tuple(s.attn.k_width if s.attn is not None else 0
+                 for s in layer_specs(cfg))
 
 
 def latent_score_width(cfg: ModelConfig) -> int:
@@ -120,7 +211,8 @@ def pageable(cfg: ModelConfig) -> Tuple[bool, str]:
 def prefix_shareable(cfg: ModelConfig) -> Tuple[bool, str]:
     """Can prompt-prefix pages be shared across this config's requests?
     (ok, reason). The engine bypasses prefix caching with the reason
-    instead of raising."""
+    instead of raising: window and cross components pin pages to one
+    request."""
     if not has_paged_attn(cfg):
         return False, "no paged-attention layers to share"
     for s in layer_specs(cfg):
@@ -137,9 +229,135 @@ def assert_pageable(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.arch}: {reason} (paged serving)")
 
 
+def servable_archs() -> Tuple[str, ...]:
+    """Archs whose (default-policy) smoke config the port's paged engine
+    serves: the reference's set less the families not ported yet."""
+    from repro_torch.configs import ARCHS, get_smoke_config
+
+    def ok(arch):
+        cfg = get_smoke_config(arch)
+        return cfg.family not in ("hybrid", "ssm") and pageable(cfg)[0]
+    return tuple(a for a in ARCHS if ok(a))
+
+
+# ---------------------------------------------------------------- budgets
+
+def window_page_budget(window: int, page_size: int) -> int:
+    """Most live pages a window layer needs: the window spans at most
+    ceil(window / page_size) pages, plus the page being written."""
+    return -(-window // page_size) + 1
+
+
+def recycle_window(cfg: ModelConfig) -> int:
+    """The window one shared page table may recycle against, or 0: only
+    when every attention layer is windowed (a full-attention layer pins
+    its pages), at the widest of their windows."""
+    windows = []
+    for s in layer_specs(cfg):
+        if isinstance(s.attn, WindowPagedAttn):
+            windows.append(s.attn.window)
+        elif s.attn is not None:
+            return 0
+    return max(windows) if windows else 0
+
+
+def group_windows(cfg: ModelConfig) -> Tuple[int, ...]:
+    """Window of each page-table group. Layers with equal windows share a
+    table (their masks pass a page at the same position); distinct windows
+    get distinct tables. Group 0 is the full-attention group when there is
+    one, else the widest window; the rest follow by descending window."""
+    windows = {s.attn.window if isinstance(s.attn, WindowPagedAttn) else 0
+               for s in layer_specs(cfg) if s.attn is not None}
+    if not windows:
+        return ()
+    return tuple(sorted(windows, key=lambda w: (w != 0, -w)))
+
+
+def layer_group_ids(cfg: ModelConfig) -> Tuple[int, ...]:
+    """Page-table group of each layer (-1: no paged attention)."""
+    gid = {w: i for i, w in enumerate(group_windows(cfg))}
+    out = []
+    for s in layer_specs(cfg):
+        if s.attn is None:
+            out.append(-1)
+        elif isinstance(s.attn, WindowPagedAttn):
+            out.append(gid[s.attn.window])
+        else:
+            out.append(gid[0])
+    return tuple(out)
+
+
+def n_table_groups(cfg: ModelConfig) -> int:
+    return max(len(group_windows(cfg)), 1)
+
+
+def group_page_budget(cfg: ModelConfig, gid: int, smax: int,
+                      page_size: int) -> int:
+    """Most pages one request holds in group ``gid``'s table."""
+    max_pages = -(-smax // page_size)
+    w = group_windows(cfg)[gid]
+    if w:
+        return min(max_pages, window_page_budget(w, page_size))
+    return max_pages
+
+
 def request_page_budget(cfg: ModelConfig, smax: int, page_size: int) -> int:
-    """Max pages one request can hold at once: every full-attention layer
-    keeps its whole prefix, so ceil(smax / page_size)."""
+    """Most pages one request holds at once, summed over its page-table
+    groups (a mixed model holds group 0's whole prefix plus each window
+    group's bounded set)."""
     if not has_paged_attn(cfg):
         return 0
-    return -(-smax // page_size)
+    return sum(group_page_budget(cfg, g, smax, page_size)
+               for g in range(len(group_windows(cfg))))
+
+
+# ------------------------------------------------------------ spec table
+
+def _fmt_layout(comp: Component) -> str:
+    lay = getattr(comp, "layout", None)
+    if lay is None or lay == PageLayout():
+        return ""
+    return f", layout={lay.describe()}"
+
+
+def _fmt_component(name: str, comp: Component, smax: int,
+                   page_size: int) -> str:
+    if isinstance(comp, WindowPagedAttn):
+        return (f"{name}=WindowPagedAttn(window={comp.window}, "
+                f"<= {window_page_budget(comp.window, page_size)} pages"
+                f"{_fmt_layout(comp)})")
+    if isinstance(comp, PagedAttn):
+        return (f"{name}=PagedAttn(<= {-(-smax // page_size)} pages"
+                f"{_fmt_layout(comp)})")
+    return (f"{name}=CrossAttnStatic(enc_seq={comp.enc_seq}, "
+            f"written at admission{_fmt_layout(comp)})")
+
+
+def format_spec_table(cfg: ModelConfig, smax: int, page_size: int) -> str:
+    """The reference's human-readable per-layer spec table, consecutive
+    identical layers folded into one row."""
+    specs = layer_specs(cfg)
+    rows = []
+    start = 0
+    for i in range(1, len(specs) + 1):
+        if i == len(specs) or specs[i] != specs[start]:
+            s = specs[start]
+            comps = " ".join(_fmt_component(n, c, smax, page_size)
+                             for n, c in s.components) or "(stateless)"
+            span = (f"{start}" if i - 1 == start else f"{start}-{i - 1}")
+            rows.append(f"  layer {span:>7}  {s.kind:<7} {comps}")
+            start = i
+    budget = request_page_budget(cfg, smax, page_size)
+    ok, why = prefix_shareable(cfg)
+    share = "prefix_shareable" if ok else f"prefix_unshareable ({why})"
+    lay = cfg.page_layout
+    bpr = lay.bytes_per_page_row(cfg.resolved_head_dim, cfg.n_kv_heads)
+    rw = recycle_window(cfg)
+    head = (f"CacheSpec[{cfg.arch}] smax={smax} page_size={page_size} "
+            f"budget={budget} pages/request"
+            + (f" recycle_window={rw}" if rw else "")
+            + f" layout={lay.describe()}"
+            + (f" ranks=per-layer(max r={max_k_width(cfg)})"
+               if cfg.page_ranks is not None else "")
+            + f" ({bpr * page_size} B/page/layer) {share}")
+    return "\n".join([head] + rows)

@@ -44,6 +44,9 @@ class Request:
     # set when the request is SHED: ticks after which resubmitting stops
     # being hopeless (the paged engine's backlog at its decode budget)
     retry_after: float = 0.0
+    # encoder-decoder models: the request's stand-in encoder input
+    # (enc_seq, d_model), encoded once at admission
+    frames: Optional[np.ndarray] = None
 
 
 def context_cap(smax: int, gen_tokens: int) -> int:
@@ -214,14 +217,26 @@ class ServingEngine:
         if len(toks) > cap:
             toks = toks[-cap:]
         self.pos[slot] = 0
+        fr = None
+        if self.cfg.is_encoder_decoder:
+            if req.frames is None:
+                raise ValueError("encoder-decoder serving needs "
+                                 "Request.frames (enc_seq, d_model)")
+            fr = torch.as_tensor(np.asarray(req.frames, np.float32)[None],
+                                 device=self.device)
+        view = lm.slot_view(self.cache, slot, slot + 1)
         if len(toks) > 1:
-            view = {"layers": {"attn": {
-                n: a[:, slot:slot + 1]
-                for n, a in self.cache["layers"]["attn"].items()}}}
             lm.prefill(self.params, self.cfg,
                        torch.as_tensor(toks[None, :-1], device=self.device),
-                       self.smax, cache=view)
+                       self.smax, frames=fr, cache=view)
             self.pos[slot] = len(toks) - 1
+        elif fr is not None:
+            # a 1-token prompt caches nothing, but the slot still needs
+            # its cross K/V: prefill the token and keep pos 0 (the decode
+            # step rewrites that row with the same values)
+            lm.prefill(self.params, self.cfg,
+                       torch.as_tensor(toks[None], device=self.device),
+                       self.smax, frames=fr, cache=view)
         self.last_tok[slot] = int(toks[-1])
         self.slot_req[slot] = req
         self.live[slot] = True

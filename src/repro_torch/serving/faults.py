@@ -243,22 +243,21 @@ def audit_engine(engine) -> None:
     held = pool.holders()
     free = set(pool.free_page_ids())
 
-    # B + C: slot references, counted against refcounts (the port keeps
-    # one page table: the reference's per-layer table groups are not
-    # ported, so group 0 is the only group)
-    gi = 0
+    # B + C: slot references of every page-table group, counted against
+    # refcounts
     holders: Counter = Counter()
-    for slot, pages in enumerate(engine.slot_pages):
-        for p in pages:
-            if p is None:
-                continue
-            if not isinstance(p, (int, np.integer)) or not 1 <= p < n:
-                _fail("C", f"slot {slot} group {gi} references wild "
-                           f"page {p!r}")
-            if p in free:
-                _fail("C", f"slot {slot} group {gi} references page "
-                           f"{p} which is on the free list")
-            holders[int(p)] += 1
+    for gi in range(engine.n_groups):
+        for slot, pages in enumerate(engine._group_pages(gi)):
+            for p in pages:
+                if p is None:
+                    continue
+                if not isinstance(p, (int, np.integer)) or not 1 <= p < n:
+                    _fail("C", f"slot {slot} group {gi} references wild "
+                               f"page {p!r}")
+                if p in free:
+                    _fail("C", f"slot {slot} group {gi} references page "
+                               f"{p} which is on the free list")
+                holders[int(p)] += 1
     for p, cnt in holders.items():
         if held.get(p, 0) != cnt:
             _fail("B", f"page {p}: refcount {held.get(p, 0)} != "
@@ -278,16 +277,18 @@ def audit_engine(engine) -> None:
                 _fail("D", f"page {p} shared by {cnt} slots is a "
                            "*private* retained entry")
 
-    # E: the table mirrors the host bookkeeping
-    table = np.asarray(engine.page_table)
-    for slot, pages in enumerate(engine.slot_pages):
-        want = np.zeros((engine.max_pages,), np.int32)
-        for i, p in enumerate(pages):
-            want[i] = 0 if p is None else p
-        if not np.array_equal(table[slot], want):
-            _fail("E", f"slot {slot} group {gi} table "
-                       f"{table[slot].tolist()} != host pages "
-                       f"{want.tolist()}")
+    # E: every group's table mirrors its host bookkeeping (recycled
+    # entries read the trash page)
+    for gi, tbl in enumerate(engine._group_tables()):
+        table = np.asarray(tbl)
+        for slot, pages in enumerate(engine._group_pages(gi)):
+            want = np.zeros((engine.max_pages,), np.int32)
+            for i, p in enumerate(pages):
+                want[i] = 0 if p is None else p
+            if not np.array_equal(table[slot], want):
+                _fail("E", f"slot {slot} group {gi} table "
+                           f"{table[slot].tolist()} != host pages "
+                           f"{want.tolist()}")
 
     # H + I: tiered-engine safety (tail residency, host bytes, budget)
     if getattr(pool, "tiered", False):

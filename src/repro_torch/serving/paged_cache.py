@@ -38,7 +38,8 @@ in place, where the JAX code returns an updated array), and the host-side
 refcounted ``PagePool`` the scheduler drives, with its prefix-cache index
 over full prompt pages, the LRU of cached pages, the tier state and the
 fault seams (``set_faults``). The reference's private (retained) entries
-come with the hybrid families (ROADMAP queue 1 item 8).
+belong to the StateSlot families' retention, not ported yet (ROADMAP
+queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -411,8 +412,8 @@ class PagePool:
 
     def is_private(self, page: int) -> bool:
         """Is this page a private (retained) entry? Never here: the
-        reference's ``register_private`` belongs to hybrid retention,
-        not ported (ROADMAP queue 1 item 8)."""
+        reference's ``register_private`` belongs to the StateSlot
+        families' retention, not ported yet (ROADMAP queue 1 item 8)."""
         e = self._by_page.get(page)
         return e is not None and e.key.startswith(b"priv:")
 

@@ -1,6 +1,6 @@
 """Paged serving engine: continuous batching over a refcounted page pool
-(counterpart of ``repro.serving.scheduler.PagedServingEngine``, the
-attention families' engine).
+(counterpart of ``repro.serving.scheduler.PagedServingEngine``; the
+dense, MoE, encoder-decoder and vlm families).
 
 The dense engine's ``(n_slots, Smax, ...)`` cache becomes the shared pool
 of serving/paged_cache.py, and a tick runs three policy-driven phases
@@ -86,11 +86,25 @@ engine has no floor, refuses a plan that can fire ``kernel_fail``, and a
 real kernel failure raises out of the tick (ROADMAP §3). ``audit=True``
 runs the invariant auditor after every tick.
 
+The spec table (serving/cache_spec.py) drives the families' lifecycles:
+
+  WindowPagedAttn  pages every future query's window has passed are
+                   recycled (released, their entries pointed at the trash
+                   page) before each prefill chunk and each decode step,
+                   so a window request holds a bounded set of pages
+  groups           layers whose windows differ read separate page tables
+                   (``aux_tables`` beside ``page_table``): every group
+                   grows in lockstep, each recycles at its own window,
+                   and a step's upload carries the rank-3 table
+  CrossAttnStatic  at admission the encoder runs once over the request's
+                   frames and each layer's cross K/V lands in its slot
+                   (quantized layouts: one scale per layer and slot)
+
 Not ported yet, and refused when asked for: the trace guard (it seals
 compiled programs; it comes with the captured decode step, ROADMAP, the
-note after queue 1), page-table groups, and state snapshots and retention
-(these two come with the window and state families, ROADMAP queue 1 item
-8).
+note after queue 1), tiered pools with page-table groups (the reference
+refuses them too), and the StateSlot families' state snapshots and
+retention (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -131,7 +145,7 @@ def _can_fire(plan, site: str) -> bool:
 
 
 class PagedServingEngine:
-    """Continuous-batching engine over a paged KV-cache (dense family).
+    """Continuous-batching engine over a paged KV-cache.
 
     n_slots        decode batch width (concurrent running requests)
     smax           logical context cap per request (rounded up to pages)
@@ -239,14 +253,34 @@ class PagedServingEngine:
         self.prefix_caching = bool(prefix_cache and shareable)
         # why the cache is bypassed although asked for ("" otherwise)
         self.prefix_cache_reason = why if prefix_cache else ""
+        self.is_encdec = cfg.is_encoder_decoder
+        # page accounting from the spec table: ``req_budget`` bounds a
+        # request's pages while it decodes (summed over its page-table
+        # groups); ``_group_pages_hard`` also covers a prefill chunk,
+        # whose pages cannot be recycled before its earliest query has
+        # passed them. Group 0 owns the primary table and the prefix
+        # cache and copy-on-write; groups 1.. are window groups that grow
+        # in lockstep with it and recycle at their own window
+        self.window = CS.recycle_window(cfg)
+        self.group_windows = CS.group_windows(cfg)
+        self.n_groups = max(len(self.group_windows), 1)
         self.req_budget = CS.request_page_budget(cfg, self.smax,
                                                  self.page_size)
+
+        def hard(w: int) -> int:
+            if w:
+                return min(self.max_pages, CS.window_page_budget(
+                    w + prefill_chunk - 1, self.page_size))
+            return self.max_pages
+        self._group_pages_hard = [hard(w) for w in self.group_windows]
+        self._req_pages_hard = sum(self._group_pages_hard)
         if n_pages is None:
-            n_pages = 1 + max(n_slots * self.req_budget, 1)
-        if n_pages - 1 < self.req_budget:
+            n_pages = 1 + max(n_slots * self._req_pages_hard, 1)
+        if n_pages - 1 < self._req_pages_hard:
             raise ValueError(
                 f"pool of {n_pages} pages cannot hold one full request "
-                f"({self.req_budget} pages); raise n_pages or lower smax")
+                f"({self._req_pages_hard} pages); raise n_pages or lower "
+                "smax")
 
         self.tiered = device_pages is not None
         if self.tiered:
@@ -260,11 +294,16 @@ class PagedServingEngine:
                     "tiered KV pool requires a non-quantized page layout: "
                     "quantized row writes re-derive per-page scales, so "
                     "the miss-repair replay would not be bit-idempotent")
-            if device_pages - 1 < self.req_budget:
+            if self.n_groups > 1:
+                raise ValueError(
+                    "tiered KV pool does not compose with per-layer "
+                    "page-table groups (cfg.window_layers): the frame "
+                    "table and pin ledger are single-table")
+            if device_pages - 1 < self._req_pages_hard:
                 raise ValueError(
                     f"device pool of {device_pages} frames cannot hold "
-                    f"one full request ({self.req_budget} pages); raise "
-                    "device_pages or lower smax")
+                    f"one full request ({self._req_pages_hard} pages); "
+                    "raise device_pages or lower smax")
         self._faults = faults
         self.audit = audit
 
@@ -282,7 +321,20 @@ class PagedServingEngine:
         self.last_tok = np.zeros((n_slots,), np.int32)
         self.live = np.zeros((n_slots,), bool)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
-        self.slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
+        # logical page index -> physical page id, or None once recycled
+        # (window slide): ``len`` is the logical coverage, the non-None
+        # entries what the slot holds
+        self.slot_pages: List[List[Optional[int]]] = [
+            [] for _ in range(n_slots)]
+        # page-table groups 1..n-1: tables and page lists shaped like the
+        # primary ones. Their pages are never prefix-shared (a config with
+        # groups has a window component, which bypasses prefix caching),
+        # so copy-on-write and registration never apply to them
+        self.aux_tables: List[np.ndarray] = [
+            np.zeros((n_slots, self.max_pages), np.int32)
+            for _ in range(self.n_groups - 1)]
+        self.aux_pages: List[List[List[Optional[int]]]] = [
+            [[] for _ in range(n_slots)] for _ in range(self.n_groups - 1)]
         # slot -> logical index of a shared tail page the slot must copy
         # on write before its first write lands there (full-page hits need
         # none: the slot never writes below its first uncached token)
@@ -316,7 +368,8 @@ class PagedServingEngine:
         self.n_packed_ticks = 0
         self.n_masked_ticks = 0
         self.n_packed_rows_saved = 0       # (n_slots - bucket) summed
-        self.peak_slot_pages = 0
+        self.peak_slot_pages = 0           # most pages a slot held at once
+        self.n_recycled_pages = 0          # pages freed by window slides
         self.n_stalled = 0
         self.stalled_rids: List[int] = []
         self.n_backend_fallbacks = 0
@@ -364,6 +417,37 @@ class PagedServingEngine:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.clone()
+
+    # --------------------------------------------------- per-slot state
+
+    def _group_tables(self) -> List[np.ndarray]:
+        """Every group's host page table, the primary (group 0) first."""
+        return [self.page_table] + self.aux_tables
+
+    def _group_pages(self, g: int) -> List[List[Optional[int]]]:
+        """Group ``g``'s per-slot logical page lists."""
+        return self.slot_pages if g == 0 else self.aux_pages[g - 1]
+
+    def _held(self, slot: int) -> List[int]:
+        """The primary table's pages the slot holds (recycled entries
+        left out)."""
+        return [p for p in self.slot_pages[slot] if p is not None]
+
+    def _slot_tables(self, sidx: np.ndarray) -> np.ndarray:
+        """The tables of slots ``sidx``: (n, max_pages), or (n, n_groups,
+        max_pages) with page-table groups."""
+        if self.n_groups == 1:
+            return self.page_table[sidx]
+        return np.stack([t[sidx] for t in self._group_tables()], axis=1)
+
+    def _install_cross(self, slot: int, frames) -> None:
+        """The CrossAttnStatic lifecycle: at admission the encoder runs
+        once over the request's frames and each layer's cross K/V lands
+        in its slot (``lm.install_cross_kv``)."""
+        fr = torch.as_tensor(np.asarray(frames, np.float32)[None],
+                             device=self.device)
+        ck, cv = lm.encode_cross_kv(self.params, self.cfg, fr)
+        lm.install_cross_kv(self.cfg, self.cache, slot, ck, cv)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -425,6 +509,9 @@ class PagedServingEngine:
     # ---------------------------------------------------------------- admin
 
     def submit(self, req: Request) -> None:
+        if self.is_encdec and req.frames is None:
+            raise ValueError("encoder-decoder serving needs Request.frames "
+                             "(enc_seq, d_model)")
         req.t_submit = self._clock()
         if self.admission == "strict":
             why = oversized_reason(len(req.prompt), req.max_new, self.smax)
@@ -456,9 +543,14 @@ class PagedServingEngine:
         req.prompt = toks
         self.slot_req[slot] = req
         self.slot_pages[slot] = []
+        for g in range(1, self.n_groups):
+            self.aux_pages[g - 1][slot] = []
+            self.aux_tables[g - 1][slot] = 0
         self._cow_pending.pop(slot, None)
         self._admit_order.append(slot)
         self.pos[slot] = 0
+        if self.is_encdec:
+            self._install_cross(slot, req.frames)
         n_pre = len(toks) - 1              # the last token goes to decode
         start = 0
         self._reg_next[slot] = 0
@@ -490,10 +582,11 @@ class PagedServingEngine:
         self.pos[slot] = len(req.prompt) - 1
         self.last_tok[slot] = int(req.prompt[-1])
         self.live[slot] = True
-        if self.tiered and self.slot_pages[slot]:
+        held = self._held(slot)
+        if self.tiered and held:
             # pin the decode write target now if a frame allows it; the
             # decode phase makes it resident again before every step
-            if self._ensure_resident([self.slot_pages[slot][-1]]):
+            if self._ensure_resident([held[-1]]):
                 self._repin_tail(slot)
 
     def _release_slot(self, slot: int) -> None:
@@ -506,7 +599,14 @@ class PagedServingEngine:
             old = self._pinned_tail.pop(slot, None)
             if old is not None:
                 self.pool.unpin(old)
-        self.pool.release(self.slot_pages[slot])
+        # recycled (None) entries were released when they slid out of the
+        # window; the rest drop one reference each
+        self.pool.release(self._held(slot))
+        for g in range(1, self.n_groups):
+            self.pool.release([p for p in self.aux_pages[g - 1][slot]
+                               if p is not None])
+            self.aux_pages[g - 1][slot] = []
+            self.aux_tables[g - 1][slot] = 0
         if self.tiered:
             self._prune_host()
         self.slot_pages[slot] = []
@@ -565,7 +665,7 @@ class PagedServingEngine:
             # prefer victims whose release frees pages (sole holders)
             gainful = [s for s in candidates
                        if any(self.pool.refcount(p) == 1
-                              for p in self.slot_pages[s])]
+                              for p in self._held(s))]
             self._preempt(max(
                 gainful or candidates,
                 key=lambda s: self.policy.shed_key(
@@ -574,11 +674,15 @@ class PagedServingEngine:
         return True
 
     def _grow_to(self, slot: int, n_tokens: int) -> bool:
-        """Ensure the slot's table covers logical positions
+        """Ensure every group's table covers logical positions
         [0, n_tokens), preempting less urgent requests if the pool is
-        short. False when it cannot."""
+        short. False when it cannot. The groups grow in lockstep (their
+        layers write the same token rows); only recycling, at each
+        group's own window, makes them differ."""
         want = PagePool.pages_for(n_tokens, self.page_size)
-        need = want - len(self.slot_pages[slot])
+        needs = [max(want - len(self._group_pages(g)[slot]), 0)
+                 for g in range(self.n_groups)]
+        need = sum(needs)
         if need <= 0:
             return True
         if not self._make_room(need, protect=slot):
@@ -587,14 +691,20 @@ class PagedServingEngine:
         # by demotion, never by preemption (``_make_room`` above answers a
         # shortage of logical pages, which frames cannot)
         if self.tiered and not self._demote_for_frames(
-                need, protect=frozenset(self.slot_pages[slot])):
+                need, protect=frozenset(self._held(slot))):
             return False
-        pages = self.pool.alloc(need)
-        if pages is None:
-            return False               # injected alloc_fail: contended
-        base = len(self.slot_pages[slot])
-        self.page_table[slot, base:base + need] = pages
-        self.slot_pages[slot].extend(pages)
+        for g, (n_g, table) in enumerate(zip(needs, self._group_tables())):
+            if not n_g:
+                continue
+            pages = self.pool.alloc(n_g)
+            if pages is None:
+                # injected alloc_fail: contended. Groups grown so far keep
+                # their pages; a retry asks only for what is missing
+                return False
+            plist = self._group_pages(g)[slot]
+            base = len(plist)
+            table[slot, base:base + n_g] = pages
+            plist.extend(pages)
         if self.tiered and slot in self._pinned_tail:
             # the tail moved to a fresh (RESIDENT) page: the pin follows at
             # once, so a caller that defers after growing (a prefill chunk
@@ -603,7 +713,7 @@ class PagedServingEngine:
             # once the caller goes on
             self._repin_tail(slot)
         self.peak_slot_pages = max(self.peak_slot_pages,
-                                   len(self.slot_pages[slot]))
+                                   len(self._held(slot)))
         return True
 
     def _resolve_cow(self, slot: int) -> bool:
@@ -629,7 +739,7 @@ class PagedServingEngine:
             # the copy reads the source frame and writes a fresh one: the
             # source is promoted first (it may take a free frame), the
             # destination's frame is claimed after
-            prot = frozenset(self.slot_pages[slot])
+            prot = frozenset(self._held(slot))
             if not (self._ensure_resident([old], prot)
                     and self._demote_for_frames(1, prot | {old})):
                 return False
@@ -673,6 +783,34 @@ class PagedServingEngine:
                 toks[i * ps:(i + 1) * ps])
             i += 1
         self._reg_next[slot] = i
+
+    def _recycle_window(self, slot: int, next_q: int) -> None:
+        """The WindowPagedAttn lifecycle: pages every future query's
+        window has passed are dead. Each is released once, its entry set
+        to None and its table entry pointed at the trash page (whose rows
+        the window mask hides, as the dense cache's dead rows are).
+        ``next_q``: the earliest position a future query of this slot can
+        have; it attends positions >= next_q - window + 1."""
+        for g, w in enumerate(self.group_windows):
+            if not w:
+                continue            # a full-attention group pins its pages
+            first_live = max(0, next_q - w + 1) // self.page_size
+            pages = self._group_pages(g)[slot]
+            freed = [p for p in pages[:first_live] if p is not None]
+            if not freed:
+                continue
+            pages[:first_live] = [None] * min(first_live, len(pages))
+            self.pool.release(freed)
+            if self.tiered:
+                self._prune_host()
+            self.n_recycled_pages += len(freed)
+            self._group_tables()[g][slot, :first_live] = 0
+            live = sum(p is not None for p in pages)
+            if live > self._group_pages_hard[g]:
+                raise RuntimeError(
+                    f"slot {slot} group {g} holds {live} pages after "
+                    "recycling, above the spec-table bound "
+                    f"{self._group_pages_hard[g]}")
 
     # --------------------------------------------------------------- phases
 
@@ -729,6 +867,10 @@ class PagedServingEngine:
         start = self._prefill_at[slot]
         c = self.prefill_chunk
         n_valid = min(c, n_pre - start)
+        # recycle before growing: the chunk's earliest query is at
+        # ``start``, so the pages its window has passed go first and the
+        # slot's bound holds at every instant
+        self._recycle_window(slot, start)
         # a shared tail page is copied before this chunk's first write
         # lands in it (start is the first uncached token)
         if not (self._resolve_cow(slot)
@@ -736,19 +878,21 @@ class PagedServingEngine:
             return -1
         chunk = np.zeros((c,), np.int32)
         chunk[:n_valid] = toks[start:start + n_valid]
-        rows = [chunk, self.page_table[slot]]
+        table = self._slot_tables(np.array([slot]))[0]
+        rows = [chunk, table.ravel()]
         if self.tiered:
             # prefill is exact attention over the whole prefix and writes
             # the chunk's pages: every page the slot holds must be resident
-            if not self._ensure_resident(self.slot_pages[slot]):
+            if not self._ensure_resident(self._held(slot)):
                 return -1              # frame-starved this tick
             self._repin_tail(slot)
             rows.append(self._frame_table(self.page_table[slot]))
         dev = self._upload(np.concatenate(rows))
-        mp = self.max_pages
+        o = c + table.size
         lm.prefill_chunk(self.params, self.cfg, self.cache, dev[:c][None],
-                         start, n_valid, dev[c:c + mp], self.page_size,
-                         frame_row=dev[c + mp:] if self.tiered else None)
+                         start, n_valid, dev[c:o].view(table.shape),
+                         self.page_size, slot=slot,
+                         frame_row=dev[o:] if self.tiered else None)
         self.n_prefill_chunks += 1
         self._prefill_at[slot] = start + n_valid
         self.n_prefill_computed_tokens += n_valid
@@ -777,6 +921,9 @@ class PagedServingEngine:
         for slot in chosen:
             if not self.live[slot]:
                 continue                   # preempted by an earlier grow
+            # window slots first free the pages this step's query no
+            # longer sees, so they stay within their spec-table bound
+            self._recycle_window(slot, int(self.pos[slot]))
             if not (self._resolve_cow(slot)
                     and self._grow_to(slot, int(self.pos[slot]) + 1)):
                 if self.tiered and self._frame_starved(slot):
@@ -797,7 +944,7 @@ class PagedServingEngine:
                 # promote it if demoted and pin it, so no demotion in the
                 # repair loop diverts the write to the trash frame; frame-
                 # starved, the slot defers (nothing of its stream moves)
-                held = self.slot_pages[slot]
+                held = self._held(slot)
                 if held:
                     if not self._ensure_resident([held[-1]],
                                                  frozenset(held)):
@@ -857,15 +1004,18 @@ class PagedServingEngine:
         # rows not selected this step (idle, mid-prefill or over budget
         # slots, the packed batch's pad rows) get all-zero table rows, so
         # they read and write only the trash page
-        rows, mp = len(sidx), self.max_pages
-        pt = self.page_table[sidx] * sel[sidx, None].astype(np.int32)
-        # the step's one upload: table, tokens, positions (and slot ids)
+        rows = len(sidx)
+        pt = self._slot_tables(sidx)
+        pt = pt * sel[sidx].astype(np.int32).reshape(
+            (rows,) + (1,) * (pt.ndim - 1))
+        # the step's one upload: table (rank 3 with page-table groups),
+        # tokens, positions (and slot ids)
         dev = self._upload(np.concatenate(
             [pt.ravel(), self.last_tok[sidx], self.pos[sidx]]
             + ([sidx] if packed else [])))
-        o = rows * mp
+        o = pt.size
         logits, self.cache = self._run_decode(
-            dev[:o].view(rows, mp), dev[o:o + rows],
+            dev[:o].view(pt.shape), dev[o:o + rows],
             dev[o + rows:o + 2 * rows], dev[o + 2 * rows:] if packed else None)
         # nan_logits poisons the row that carries the slot (a packed row
         # on a packed step)
@@ -1219,7 +1369,7 @@ class PagedServingEngine:
                 self.n_prefetch_hits += len(uniq) - n_miss
                 for s, pages in winners.items():
                     self.n_winner_pages += len(pages)
-                    self.n_live_pages += len(self.slot_pages[s])
+                    self.n_live_pages += len(self._held(s))
                     self.n_winner_slots += 1
             # commit every fully resident slot: its token is exact and its
             # K/V row write is input-only (valid even beside trash reads)
@@ -1269,7 +1419,8 @@ class PagedServingEngine:
                 continue
             mine = set(pages)
             foreign = sorted({p for s in range(self.n_slots) if s != slot
-                              for p in self.slot_pages[s] if p not in mine})
+                              for p in self.slot_pages[s]
+                              if p is not None and p not in mine})
             pages[-1] = foreign[0] if foreign else 0
 
     # ----------------------------------------------------------------- tick
@@ -1355,6 +1506,7 @@ class PagedServingEngine:
                 "n_shed": self.n_shed,
                 "n_backend_fallbacks": self.n_backend_fallbacks,
                 "n_host_syncs": self.n_host_syncs,
+                "n_recycled_pages": self.n_recycled_pages,
                 "peak_slot_pages": self.peak_slot_pages,
                 "lifecycle": dict(self.lifecycle_counts),
                 "n_stalled": self.n_stalled,
@@ -1367,6 +1519,11 @@ class PagedServingEngine:
                            "n_masked_ticks": self.n_masked_ticks,
                            "n_rows_saved": self.n_packed_rows_saved,
                            "n_sealed_fallbacks": 0}}
+        if self.n_groups > 1:
+            out["table_groups"] = {
+                "n_groups": self.n_groups,
+                "group_windows": list(self.group_windows),
+                "group_pages_hard": list(self._group_pages_hard)}
         if self.tiered:
             looked = self.n_prefetch_hits + self.n_prefetch_misses
             out["tiered"] = {

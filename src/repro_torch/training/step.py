@@ -30,9 +30,13 @@ class TrainState(NamedTuple):
 def loss_fn(params, batch, cfg: ModelConfig, tcfg: TrainConfig):
     """(loss + 1e-2 * aux, (loss, aux)): the cross entropy with z-loss
     over ``batch["labels"]`` (masked by ``batch["mask"]`` if given) and
-    the MoE layers' aux loss (0 for the dense family)."""
+    the MoE layers' aux loss (0 for the dense family). The batch's
+    ``frames`` (encoder-decoder) and ``patches`` (vlm) go to the forward
+    when present."""
     logits, aux = lm.forward(lm.cast_params(params, cfg), batch["tokens"],
-                             cfg, remat=tcfg.remat)
+                             cfg, frames=batch.get("frames"),
+                             patches=batch.get("patches"),
+                             remat=tcfg.remat)
     loss = L.softmax_xent(logits, batch["labels"], z_loss=tcfg.z_loss,
                           mask=batch.get("mask"))
     return loss + 1e-2 * aux, (loss, aux)
@@ -110,11 +114,11 @@ def make_eval_step(cfg: ModelConfig, tcfg: Optional[TrainConfig] = None):
 
 
 def make_serve_steps(cfg: ModelConfig, smax: int):
-    """(prefill_fn, decode_fn) over the port's contiguous cache. The
-    reference's ``frames``/``patches`` inputs belong to families the port
-    does not serve yet."""
-    def prefill_fn(params, tokens):
-        return lm.prefill(params, cfg, tokens, smax)
+    """(prefill_fn, decode_fn) over the port's contiguous cache; the
+    prefill takes the reference's ``frames``/``patches``."""
+    def prefill_fn(params, tokens, frames=None, patches=None):
+        return lm.prefill(params, cfg, tokens, smax, frames=frames,
+                          patches=patches)
 
     def decode_fn(params, cache, token, pos_len):
         return lm.decode_step(params, cfg, cache, token, pos_len)

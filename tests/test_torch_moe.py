@@ -206,7 +206,8 @@ def test_granite_paged_prefill_chunk_and_decode_match_jax():
 def test_mixtral_smoke_dense_path_matches_jax():
     """Mixtral's smoke model (sliding window 64, capacity = n_experts, so
     no drops) on the dense path: a 90-token prompt past the window, then
-    four decode steps; the paged engine still refuses the window."""
+    four decode steps; the paged engine serves the window now, recycling
+    its pages (tests/test_torch_families.py)."""
     jcfg, cfg, params, tparams = _model("mixtral-8x22b", "full")
     toks = np.random.RandomState(8).randint(0, cfg.vocab, size=(1, 90))
     jl, jcache, jpos = _jit(jlm.prefill, cfg=jcfg, smax=128,
@@ -224,8 +225,9 @@ def test_mixtral_smoke_dense_path_matches_jax():
                                     torch.as_tensor(tok), tpos)
         jpos, tpos = jpos + 1, tpos + 1
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PagedServingEngine(tparams, cfg, device="cpu")
+    eng = PagedServingEngine(tparams, cfg, page_size=16, device="cpu")
+    assert eng.window == cfg.sliding_window == 64
+    assert eng.req_budget == -(-64 // 16) + 1
 
 
 @pytest.mark.parametrize("policy", ["loki_block", "exact_topk"])

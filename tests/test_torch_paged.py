@@ -208,13 +208,18 @@ def test_prefill_chunk_and_paged_decode_match_jax(arch, policy, backend):
 
 
 def test_paged_entry_points_refuse_what_is_not_ported():
-    """What the paged entry points still refuse: sliding windows and
-    StateSlot ``live`` masks (other families), rank-3 tables (page-table
-    groups), and a tiered pool over a quantized layout or outside
-    [2, n_pages] frames, as the reference refuses them."""
+    """What the paged entry points still refuse: the StateSlot families'
+    caches and ``live`` masks (ROADMAP item 8), a tiered pool with
+    page-table groups (the reference refuses it too) or with per-layer
+    ranks, a rank-3 table of the wrong group count, and a tiered pool
+    over a quantized layout or outside [2, n_pages] frames, as the
+    reference refuses them."""
     cfg = get_smoke_config("llama2-7b")
+    for arch in ("hymba-1.5b", "xlstm-125m"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            lm.init_paged_cache(get_smoke_config(arch), 4, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
-        lm.init_paged_cache(cfg.replace(sliding_window=64), 4, 8,
+        lm.init_paged_cache(cfg.with_ranks((16, 8)), 4, 8, device_pages=2,
                             device="cpu")
     for bad in (1, 5):
         with pytest.raises(ValueError, match="device_pages"):
@@ -230,9 +235,18 @@ def test_paged_entry_points_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.decode_step(params, cfg, cache, tok, pos, page_table=table,
                        page_size=8, live=torch.ones(1, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="groups"):
-        lm.decode_step(params, cfg, cache, tok, pos,
+    # page-table groups: two for mixtral's (16, 0) windows; never on a
+    # tiered pool
+    mcfg = get_smoke_config("mixtral-8x22b").with_window_layers((16, 0))
+    mparams = lm.init(mcfg, device="cpu")
+    mcache = lm.init_paged_cache(mcfg, 4, 8, device_pages=3, device="cpu")
+    with pytest.raises(ValueError, match="2 groups"):
+        lm.decode_step(mparams, mcfg, mcache, tok, pos,
                        page_table=table[:, None], page_size=8)
+    with pytest.raises(ValueError, match="window groups"):
+        lm.decode_step(mparams, mcfg, mcache, tok, pos,
+                       page_table=table[:, None].expand(1, 2, 3),
+                       page_size=8, frame_table=table)
 
 
 # ------------------------------------------ engine vs sequential dense
@@ -320,14 +334,20 @@ def test_paged_preemption_reproduces_greedy_outputs():
 
 def test_engine_refuses_unported_features_and_small_pools():
     """What the engine still refuses: the trace guard (it comes with the
-    captured decode step), sliding windows (other families), a tiered
-    pool under a policy other than Loki's; and pools too small."""
+    captured decode step), the StateSlot families (hymba, xlstm), a
+    tiered pool with page-table groups or under a policy other than
+    Loki's; and pools too small."""
     params, cfg = _engine_model()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PagedServingEngine(params, cfg, trace_guard=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PagedServingEngine(params, cfg.replace(sliding_window=16),
-                           device="cpu")
+    for arch in ("hymba-1.5b", "xlstm-125m"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            PagedServingEngine(params, get_smoke_config(arch), device="cpu")
+    mcfg = get_smoke_config("mixtral-8x22b").with_window_layers(
+        (16, 0)).with_policy("loki_block")
+    with pytest.raises(ValueError, match="page-table groups"):
+        PagedServingEngine(lm.init(mcfg, device="cpu"), mcfg, smax=64,
+                           page_size=8, device_pages=40, device="cpu")
     with pytest.raises(ValueError, match="Loki policy"):
         PagedServingEngine(params, cfg, device_pages=4, device="cpu")
     with pytest.raises(ValueError, match="unknown scheduler policy"):
