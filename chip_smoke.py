@@ -6,6 +6,8 @@
                                          # no kernels line)
     python3 chip_smoke.py --only families  # build, the families' kernel
                                            # cases and the families phase
+    python3 chip_smoke.py --only recurrent # build, hymba's kernel cases
+                                           # and the recurrent phase
 
 Phases, each of which fails the run on any error:
   1. build   the CUDA sources in src/repro_torch/csrc with nvcc (sm_90a),
@@ -44,9 +46,11 @@ Phases, each of which fails the run on any error:
              the five kernels at granite-moe-3b's decode shape (G 3, D
              64, d 16; bf16 q over fp32 K/V) and at whisper-small's (G 1,
              D 64, S 448, 32-token blocks), mixtral-8x22b's sliding
-             window (G 6, window 4096, S 8192) and llava-next-mistral-
-             7b's (G 4), checked, paged == contiguous (pages of 128, 64,
-             512 and 128) and timed as the main case is;
+             window (G 6, window 4096, S 8192), llava-next-mistral-
+             7b's (G 4) and hymba-1.5b's (Hkv 5, G 5, D 64, d 16: 20
+             rows) at S 4096 (kb 8) and at its short runs' S 1024 (kb
+             2), checked, paged == contiguous (pages of 128, 64, 512,
+             128, 128 and 128) and timed as the main case is;
              the per-head pipeline's three (block_max_scores,
              block_max_scores_fm, block_sparse_attention) at llama2-7b's
              decode step flattened per head (bf16 q over fp32 K/V, fp32,
@@ -179,6 +183,25 @@ Phases, each of which fails the run on any error:
              layers) under loki_block with the paged phase's prompts,
              then one prefill with 576 seeded patch embeddings (logits
              finite and moved from the prefill without them, asserted).
+  7c. recurrent the recurrent-state families at published width
+             (seeded weights): hymba-1.5b (32 layers, attention beside
+             mamba; PCA calibrated) under loki_block, full and exact_topk
+             with bf16 weights (paged against dense reported) and float32
+             weights (paged == dense, 64 of 64, asserted; the planned
+             kernel on every attention layer of every decode step and one
+             host sync a decode tick asserted, every page back and no
+             private entry left), then in float32 packed == masked, the
+             tight pool (one preemption under page pressure; the growth
+             that preempted evicts a retained page, so the restore falls
+             back to recompute, asserted; tokens equal),
+             the priority run (restore_run: the snapshot and the retained
+             private pages restored, tokens equal, the prompt computed
+             once) and ms per prefill chunk; the tier at
+             HYMBA_TIERED_LAYERS layers and HYMBA_SHORT_SMAX at the
+             fewest legal frames == the single tier, 64 of 64; then
+             xlstm-125m (12 layers, no KV cache, policy full, no kernel)
+             in bf16 and float32 (paged == dense asserted) and its
+             priority run (the snapshot alone restored).
   8. train   the serving phases' models freed first; (a) qwen2.5-3b at
              published width (36 layers, 3.09 B parameters), float32
              masters from the port's seeded init, bf16 compute, 6 steps
@@ -205,6 +228,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -329,10 +353,23 @@ MIXTRAL_SHAPE = dict(B=4, Hkv=8, G=6, D=128, S=8192, bs=128, d=32, kb=16,
 LLAVA_CASE = "llava-next-mistral-7b G=4 q:bf16 kv:fp32"
 LLAVA_SHAPE = dict(B=4, Hkv=8, G=4, D=128, S=4096, bs=128, d=32, kb=8,
                    lw=16, sw=0, cur=[1530, 2040, 2550, 3060])
+#: hymba-1.5b's decode step (the recurrent phase's engines): Hkv 5, the
+#: first odd KV-head count the planners meet (B * Hkv = 20 rows), G 5, D
+#: 64, d 16 at its prompts' first decode positions
+HYMBA_CASE = "hymba-1.5b Hkv=5 G=5 D=64 q:bf16 kv:fp32"
+HYMBA_SHAPE = dict(B=4, Hkv=5, G=5, D=64, S=4096, bs=128, d=16, kb=8,
+                   lw=16, sw=0, cur=[120, 248, 376, 632])
+#: the same at the short runs' context (HYMBA_SHORT_SMAX: the tight pool,
+#: the priority restore and the tier), where the planner keeps 2 blocks of
+#: 8 (max(int(0.25 * 1024 / 128), 1))
+HYMBA_SHORT_CASE = "hymba-1.5b smax=1024 kb=2 Hkv=5 G=5 D=64 q:bf16 kv:fp32"
+HYMBA_SHORT_SHAPE = dict(HYMBA_SHAPE, S=1024, kb=2)
 #: result keys of the cases timed on their own (beside the main case), and
 #: the page size each is paged at
 CASE_KEYS = {GRANITE_CASE: ("granite", 128), WHISPER_CASE: ("whisper", 64),
-             MIXTRAL_CASE: ("mixtral", 512), LLAVA_CASE: ("llava", 128)}
+             MIXTRAL_CASE: ("mixtral", 512), LLAVA_CASE: ("llava", 128),
+             HYMBA_CASE: ("hymba", 128),
+             HYMBA_SHORT_CASE: ("hymba_short", 128)}
 
 
 def kernel_cases():
@@ -369,6 +406,10 @@ def kernel_cases():
                   q_dtype=bf16, seed=11),
         make_case(LLAVA_CASE, **LLAVA_SHAPE, kv_dtype=f32, q_dtype=bf16,
                   seed=12),
+        make_case(HYMBA_CASE, **HYMBA_SHAPE, kv_dtype=f32, q_dtype=bf16,
+                  seed=13),
+        make_case(HYMBA_SHORT_CASE, **HYMBA_SHORT_SHAPE, kv_dtype=f32,
+                  q_dtype=bf16, seed=14),
     ]
 
 
@@ -2354,6 +2395,14 @@ def sync_count(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def idle_share(busy_ms, total_ms):
+    """1 - busy/total, at least 0; nan where either was not measured (a
+    run that profiled no such tick)."""
+    if math.isnan(busy_ms) or math.isnan(total_ms):
+        return float("nan")
+    return max(0.0, 1 - busy_ms / total_ms)
+
+
 def device_busy_ms(fn, steps: int, copies=None) -> float:
     """Device time per call of ``fn`` over ``steps`` calls, by
     torch.profiler (kernels and copies only). ``copies``: a dict that
@@ -2431,14 +2480,15 @@ def packed_rows(n_live: int, n_slots: int) -> int:
     return bucket if bucket < n_slots else n_slots
 
 
-def drive_paged(path, eng, reqs, *, hold_first=False, max_ticks=400):
+def drive_paged(path, eng, reqs, *, hold_first=False, max_ticks=400,
+                profiled=2):
     """Serve ``reqs`` through a paged engine as one path, counted on its
     own. ``hold_first``: request 0 is submitted alone and the others once
     it reaches DECODE (its prompt pages registered). Decode-only ticks are
     timed by their step's rows (host clock around tick() and a
-    synchronise), but up to two of each width are profiled (device busy;
-    on a tiered engine also the copies each way and the bytes the tick
-    moved), the first full-width one before anything else (a tight pool
+    synchronise), but up to ``profiled`` of each width are profiled
+    (device busy; on a tiered engine also the copies each way and the
+    bytes the tick moved), the first full-width one first (a tight pool
     leaves few); host syncs are counted in the first decode-only tick
     after it, the first decode-only packed tick and the first prefill
     tick, beside the syncs the engine counted there (its decode runs'
@@ -2493,7 +2543,7 @@ def drive_paged(path, eng, reqs, *, hold_first=False, max_ticks=400):
             sync_tick("packed")
         elif chunks and not decode_only and "prefill" not in syncs:
             sync_tick("prefill")
-        elif decode_only and len(busy.get(rows, ())) < 2:
+        elif decode_only and len(busy.get(rows, ())) < profiled:
             busy_tick(rows)
         else:
             t_tick = time.perf_counter()
@@ -2546,7 +2596,7 @@ def paged_report(path, reqs, run, ref, ref_name, n_slots, **extra):
     by_rows = {r: statistics.median(v) for r, v in sorted(ms.items())}
     busy_rows = {r: statistics.median(v)
                  for r, v in sorted(run["busy"].items())}
-    idle_rows = {r: max(0.0, 1 - b / by_rows[r])
+    idle_rows = {r: idle_share(b, by_rows[r])
                  for r, b in busy_rows.items() if r in by_rows}
     tick = by_rows.get(n_slots, float("nan"))
     busy = busy_rows.get(n_slots, float("nan"))
@@ -2563,7 +2613,7 @@ def paged_report(path, reqs, run, ref, ref_name, n_slots, **extra):
         n_cow_copies=st["n_cow_copies"], n_preempted=st["n_preempted"],
         wall_s=wall, tok_per_s=toks_out / wall, decode_tick_ms=tick,
         decode_tok_per_s=1e3 * n_slots / tick, device_busy_ms=busy,
-        idle_share=max(0.0, 1 - busy / tick),
+        idle_share=idle_share(busy, tick),
         decode_tick_ms_by_rows=by_rows, device_busy_ms_by_rows=busy_rows,
         idle_share_by_rows=idle_rows,
         host_syncs_per_tick=run["syncs"], launches=run["counts"],
@@ -2817,12 +2867,13 @@ def family_requests(toks, frames=None):
             for i, t in enumerate(toks)]
 
 
-def dense_greedy(path, params, cfg, toks, smax, frames=None):
+def dense_greedy(path, params, cfg, toks, smax, frames=None, n_slots=None):
     """The dense engine's greedy tokens for ``toks`` (the paged runs'
-    reference), every request MAX_NEW tokens long."""
+    reference), every request MAX_NEW tokens long, in ``n_slots`` slots
+    (default one a prompt: the row count the paged runs plan for)."""
     from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(params, cfg, n_slots=len(toks), smax=smax,
-                        device=DEV)
+    eng = ServingEngine(params, cfg, n_slots=n_slots or len(toks),
+                        smax=smax, device=DEV)
     reqs = family_requests(toks, frames)
     for r in reqs:
         eng.submit(r)
@@ -2854,13 +2905,16 @@ def window_checked(eng):
 
 
 def paged_run(results, path, params, cfg, policy, toks, *, smax, page_size,
-              chunk, frames=None, tick_check=None, **kw):
+              chunk, frames=None, tick_check=None, profiled=2, **kw):
     """The paged engine at its defaults over ``toks`` as one counted path
     (``drive_paged``), ``tick_check(engine)`` after every tick, checked by
-    ``paged_checked`` and for every page back in the pool. Returns
-    (requests, run, info)."""
+    ``paged_checked`` and for every page back in the pool, with no
+    private entry or state snapshot left. A model without attention (the
+    ssm family) plans no kernel. Returns (requests, run, info)."""
+    from repro_torch.serving import cache_spec as CS
     from repro_torch.serving.scheduler import PagedServingEngine
-    plan, planned = planned_kernels(cfg, smax, policy)
+    plan, planned = (planned_kernels(cfg, smax, policy)
+                     if CS.has_paged_attn(cfg) else (None, ()))
     eng = PagedServingEngine(params, cfg, n_slots=len(toks), smax=smax,
                              page_size=page_size, prefill_chunk=chunk,
                              backend="auto", device=DEV, **kw)
@@ -2876,9 +2930,14 @@ def paged_run(results, path, params, cfg, policy, toks, *, smax, page_size,
             tick_check(eng)
         eng.tick = checked_tick
     reqs = family_requests(toks, frames)
-    run = drive_paged(path, eng, reqs)
+    run = drive_paged(path, eng, reqs, profiled=profiled)
     back = eng.pool.free_pages + eng.pool.cached_pages
     n_pages = eng.pool.n_pages
+    kept = (eng._state_snap, eng._page_snap,
+            [p for p in eng.pool.lru_page_ids() if eng.pool.is_private(p)])
+    if any(kept):
+        raise AssertionError(f"{path}: snapshots or private entries left "
+                             f"after the run: {kept}")
     del eng
     if DEV == "cuda":
         torch.cuda.empty_cache()
@@ -2890,12 +2949,12 @@ def paged_run(results, path, params, cfg, policy, toks, *, smax, page_size,
     return reqs, run, info
 
 
-def equal_checked(path, reqs, dense, report):
+def equal_checked(path, reqs, dense, report, phase="families"):
     if [r.out for r in reqs] != dense:
         raise AssertionError(f"{path}: paged tokens differ from the dense "
                              f"engine's ({report['greedy_equal_reference']}"
                              f"/{report['tokens']} equal)")
-    log(f"families: {path}: paged == dense, {report['tokens']} of "
+    log(f"{phase}: {path}: paged == dense, {report['tokens']} of "
         f"{report['tokens']} greedy tokens")
 
 
@@ -3207,10 +3266,440 @@ def serve_families(results, *, smoke=False, whisper=None, mixtral=None,
     results["families_serve"] = out
 
 
+# ------------------------------------------------ recurrent-state families
+
+#: hymba's prompts: each request's decode crosses a 128-token page at its
+#: 9th token, after the youngest took its first chunk's pages (in the
+#: tight pool the oldest then preempt the youngest, mid-prefill: its
+#: recompute folds in no generated token, whose K/V prefill would compute
+#: with exact attention where decode took Loki's blocks); short beside the
+#: llama prompts because the mamba prefill runs its recurrence token by
+#: token (a kernel a token and layer): 2272 prompt tokens (377-761) took
+#: the phase 241 s of its 200 on a slow host, so 1376
+HYMBA_LENGTHS = (121, 249, 377, 633)
+#: the priority run's urgent request
+HYMBA_URGENT = 257
+#: the tight-pool and tiered runs' context cap: 8 pages a request, so the
+#: tight pool (11 pages) may hold one whole request and 9 frames, the
+#: fewest legal, hold 9 of the 15 pages the four requests reach
+HYMBA_SHORT_SMAX = 1024
+#: the tiered run's depth cut (of 32 layers)
+HYMBA_TIERED_LAYERS = 8
+XLSTM_LENGTHS = HYMBA_LENGTHS
+
+
+def pool_pages(lengths, page_size: int) -> int:
+    """Pages (with the trash page) that hold every request at its full
+    length, prompt and MAX_NEW tokens: a pool with no page to spare."""
+    return 1 + sum(-(-(n + MAX_NEW) // page_size) for n in lengths)
+
+
+def restore_run(results, path, params, cfg, toks, urgent, refs, *, smax,
+                page_size, chunk, decoded=2):
+    """The snapshot restore, counted as ``path``: the requests of ``toks``
+    run under the priority policy until each has ``decoded`` tokens out,
+    then an urgent request (priority 1, prompt ``urgent``) preempts the
+    least urgent running one for its slot: its state goes to the host and,
+    with pages, its pages become private pool entries, in a pool of
+    ``pool_pages`` (none to spare; the urgent request's pages come from the
+    free list, so no retained page is evicted). Asserted: one preemption
+    and one restore, every request's tokens equal to ``refs`` (the dense
+    engine's, the urgent request's last), the preempted prompt computed
+    once, every page back and no private entry or snapshot left. Returns
+    the report."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import cache_spec as CS
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.lifecycle import is_terminal
+    from repro_torch.serving.scheduler import PagedServingEngine
+    n_pages = pool_pages([len(t) for t in toks] + [len(urgent)], page_size)
+    eng = PagedServingEngine(params, cfg, n_slots=len(toks), smax=smax,
+                             page_size=page_size, prefill_chunk=chunk,
+                             policy="priority", n_pages=n_pages,
+                             backend="auto", device=DEV)
+    reqs = family_requests(toks) + [Request(
+        rid=len(toks), prompt=urgent, max_new=MAX_NEW, priority=1)]
+    # ---- the path: counts set to 0 just before, read just after
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs[:-1]:
+        eng.submit(r)
+    while min(len(r.out) for r in reqs[:-1]) < decoded:
+        eng.tick()
+    eng.submit(reqs[-1])
+    while not all(is_terminal(r) for r in reqs):
+        if eng.ticks > 400:
+            raise AssertionError(f"{path} did not finish in 400 ticks")
+        eng.tick()
+    sync()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    # ---- end of the path
+    st = eng.stats()
+    back = eng.pool.free_pages == eng.pool.n_pages - 1
+    left = bool(eng._state_snap or eng._page_snap)
+    del eng
+    outs = [r.out for r in reqs]
+    same = sum(a == b for o, w in zip(outs, refs) for a, b in zip(o, w))
+    computed = sum(len(t) - 1 for t in toks) + len(urgent) - 1
+    ok = (st["n_preempted"] == 1 and st["n_state_restores"] == 1
+          and outs == refs and back and not left
+          and st["n_prefill_computed_tokens"] == computed)
+    report = dict(n_pages=n_pages, n_preempted=st["n_preempted"],
+                  n_state_restores=st["n_state_restores"],
+                  prefill_computed_tokens=st["n_prefill_computed_tokens"],
+                  tokens=len(refs) * MAX_NEW, equal_reference=same,
+                  pool_back=back, wall_s=wall, launches=counts,
+                  pages=CS.has_paged_attn(cfg))
+    if not ok:
+        raise AssertionError(f"{path}: {report}, left {left}")
+    results.setdefault("launches", {})[path] = counts
+    log(f"recurrent: {path}: the urgent request preempted a request "
+        f"{decoded} tokens into its decode; its state snapshot"
+        + (" and its pages, kept private," if report["pages"] else "")
+        + f" restored at re-admission (prompt computed once: "
+        f"{computed} prompt tokens in all); {same}/{same} tokens equal to "
+        f"the dense engine's"
+        + (f", in a pool of {n_pages} pages with none to spare, every page "
+           "back" if report["pages"] else "")
+        + f"; {wall:.2f} s; launches {counts}")
+    return report
+
+
+def prefill_chunk_ms(path, params, cfg, tok, *, smax, page_size, chunk):
+    """One prompt ``tok`` prefilled chunk by chunk into a fresh one-slot
+    paged cache: each chunk's host time around a synchronise, then the
+    first chunk again under the profiler (device busy, so the host's
+    share shows). Returns the numbers and logs them."""
+    from repro_torch.models import lm
+    mp = smax // page_size
+    cache = lm.init_paged_cache(cfg, mp + 1, page_size, n_slots=1,
+                                device=DEV)
+    table = torch.arange(1, mp + 1, dtype=torch.int32, device=DEV)[None]
+    n_pre = len(tok) - 1
+    bufs = []
+    for c0 in range(0, n_pre, chunk):
+        nv = min(chunk, n_pre - c0)
+        buf = torch.zeros((1, chunk), dtype=torch.int32)
+        buf[0, :nv] = torch.as_tensor(tok[c0:c0 + nv])
+        bufs.append((buf.to(DEV), c0, nv))
+
+    def run(buf, c0, nv):
+        lm.prefill_chunk(params, cfg, cache, buf, c0, nv, table, page_size,
+                         slot=0)
+    sync()
+    ms = []
+    for b in bufs:
+        t0 = time.perf_counter()
+        run(*b)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    busy = device_busy_ms(lambda: run(*bufs[0]), 1)
+    del cache
+    out = dict(chunk=chunk, tokens=[b[2] for b in bufs], ms=ms,
+               ms_per_token=sum(ms) / n_pre, first_chunk_busy_ms=busy,
+               first_chunk_idle_share=idle_share(busy, ms[0]))
+    scan, n_rec = recurrence_ms(params, cfg, chunk)
+    if scan is not None:
+        out.update(recurrence_ms_per_layer=scan, recurrent_layers=n_rec)
+    log(f"recurrent: {path}: a {len(tok)}-token prompt in chunks of "
+        f"{chunk}: " + ", ".join(f"{n} tokens {m:.1f} ms"
+                                 for n, m in zip(out["tokens"], ms))
+        + f" ({out['ms_per_token']:.3f} ms a token); the first chunk's "
+        f"device busy {busy:.1f} ms -> idle share "
+        f"{out['first_chunk_idle_share']:.3f}"
+        + (f"; one layer's token-by-token recurrence over {chunk} tokens "
+           f"alone {scan:.1f} ms ({n_rec} such layers: "
+           f"{scan * n_rec:.1f} ms)" if scan is not None else ""))
+    return out
+
+
+def recurrence_ms(params, cfg, n_tok):
+    """Host ms around a synchronise of one layer's token-by-token
+    recurrence over ``n_tok`` tokens, alone: mamba's ``_mamba_scan``
+    (hybrid) or the sLSTM loop (ssm, its first sLSTM layer), and the
+    number of layers that run one; (None, 0) for a family without."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import lm
+    from repro_torch.serving import cache_spec as CS
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    kinds = [CS.layer_kind(cfg, i) for i in range(cfg.n_layers)]
+    if "hybrid" in kinds:
+        p = lm.layer_params(params, 0)["ssm"]
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        xz = torch.randn((1, n_tok, 2 * d_in), generator=gen,
+                         device=DEV).to(p["in_proj"].dtype)
+        st = B.init_mamba_cache(cfg, 1, torch.float32, DEV)
+
+        def one():
+            B._mamba_scan(p, xz, st["conv"], st["ssm"], cfg)
+    elif "slstm" in kinds:
+        p = lm.layer_params(params, kinds.index("slstm"))["ssm"]
+        x = torch.randn((1, n_tok, cfg.d_model), generator=gen,
+                        device=DEV).to(p["w_out"].dtype)
+
+        def one():
+            B.slstm_train(p, x, cfg)
+    else:
+        return None, 0
+    one()
+    sync()
+    t0 = time.perf_counter()
+    one()
+    sync()
+    return (1e3 * (time.perf_counter() - t0),
+            kinds.count("hybrid") + kinds.count("slstm"))
+
+
+def serve_hymba(results, out, *, smoke=False, smax=4096, page_size=128,
+                chunk=512, lengths=HYMBA_LENGTHS, urgent=HYMBA_URGENT,
+                tiered_layers=HYMBA_TIERED_LAYERS,
+                short_smax=HYMBA_SHORT_SMAX):
+    """hymba-1.5b at published width (32 layers, d_model 1600, 25 heads
+    over 5 KV heads, head_dim 64, mamba d_inner 3200 with a 16-wide state;
+    seeded weights, PCA calibrated): with bf16 and then float32 weights,
+    per policy (loki_block, full, exact_topk) the dense engine's greedy
+    tokens, then the paged engine at its defaults (prefix caching
+    bypassed for the StateSlot; ``paged_hymba_[fp32_]<policy>``: planned
+    launches on every attention layer of every decode step and one host
+    sync a decode tick asserted, every page back and no private entry
+    left); paged == dense asserted in float32, reported in bf16. Then, in
+    float32 under loki_block: packed decode off (``..._masked``: the same
+    tokens as the packed run, asserted), the tight pool at context
+    ``short_smax`` (the oldest preempt the youngest when their decode
+    grows a page; tokens equal to the dense engine's at that context, the
+    restore or its recompute fallback reported), the priority run
+    (``restore_run`` at ``short_smax``: a snapshot and retained pages
+    restored, asserted), and ms per prefill chunk. Last the tier:
+    ``tiered_layers`` layers at bf16, context ``short_smax``, the single
+    tier unpacked, then the fewest legal frames (tokens equal,
+    asserted)."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch import serve as S
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.scheduler import PagedServingEngine
+
+    sc = S.ServeConfig(engine=S.EngineSection(
+        arch="hymba-1.5b", smoke=smoke, kind="paged", policy="loki_block",
+        backend="auto", n_slots=4, smax=smax), device=DEV)
+    cfg = sc.resolve_model()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=96,
+                                  global_batch=8, seed=7, n_states=32,
+                                  temperature=0.22))
+    toks = prompts(cfg.vocab, lengths, seed=23)
+    hot = prompts(cfg.vocab, (urgent,), seed=24)[0]
+    kw = dict(smax=smax, page_size=page_size, chunk=chunk)
+    # one profiled tick a width: a hymba tick takes the profiler far
+    # longer to record than to run
+    pkw = dict(kw, profiled=1)
+    for dtype in ("bfloat16", "float32"):
+        dcfg = cfg.replace(dtype=dtype)
+        tag = "" if dtype == "bfloat16" else "fp32_"
+        t0 = time.perf_counter()
+        params = S.calibrated_params(dcfg, data, seed=0, device=DEV)
+        sync()
+        n_params = sum(t.numel() for t in tensors_of(params))
+        log(f"recurrent: {cfg.arch}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+            f"heads, head_dim {cfg.resolved_head_dim}, mamba d_inner "
+            f"{cfg.ssm.expand * cfg.d_model} state {cfg.ssm.state_dim} "
+            f"conv {cfg.ssm.conv_width}, vocab {cfg.vocab}: "
+            f"{n_params / 1e9:.3f} B parameters ({n_params}) in {dtype}; "
+            f"init + PCA calibration {time.perf_counter() - t0:.1f} s")
+        runs = {}
+        for policy in GRANITE_POLICIES:
+            pcfg = policy_cfg(dcfg, policy)
+            path = f"paged_hymba_{tag}{policy}"
+            dense = dense_greedy(path, params, pcfg, toks, smax)
+            reqs, run, info = paged_run(results, path, params, pcfg, policy,
+                                        toks, **pkw)
+            out[path] = paged_report(path, reqs, run, dense,
+                                     "the dense engine", 4, **info)
+            runs[policy] = (dense, [r.out for r in reqs])
+            if dtype == "float32":
+                equal_checked(path, reqs, dense, out[path], "recurrent")
+        if dtype == "float32":
+            dense, packed = runs["loki_block"]
+            path = "paged_hymba_fp32_loki_block_masked"
+            reqs, run, info = paged_run(results, path, params, dcfg,
+                                        "loki_block", toks, packed=False,
+                                        **pkw)
+            out[path] = paged_report(path, reqs, run, packed,
+                                     "the packed run", 4, **info)
+            if [r.out for r in reqs] != packed:
+                raise AssertionError(f"{path}: masked tokens differ from "
+                                     "the packed run's")
+            log(f"recurrent: {path}: packed == masked, {len(toks) * MAX_NEW}"
+                f" of {len(toks) * MAX_NEW} greedy tokens")
+            path = "paged_hymba_fp32_tight"
+            short = dense_greedy(path, params, dcfg, toks, short_smax)
+            reqs, run, info = paged_run(
+                results, path, params, dcfg, "loki_block", toks,
+                n_pages=tight_pool(lengths, page_size, chunk),
+                smax=short_smax, page_size=page_size, chunk=chunk,
+                profiled=1)
+            st = run["stats"]
+            out[path] = paged_report(path, reqs, run, short,
+                                     "the dense engine", 4, **info,
+                                     n_state_restores=st["n_state_restores"])
+            # here the older requests' growth preempts the youngest
+            # mid-prefill, so its recompute folds in no token decoded
+            # under Loki's selection and reproduces the dense engine's
+            # tokens (asserted below). Its pages are retained only as
+            # unreferenced private entries, and that growth takes its page
+            # by evicting the least recently released of them: the
+            # retained set is never whole again, and the restore (all or
+            # nothing, as in the reference) falls back to recomputing.
+            # (A request that preempts itself, nothing less urgent holding
+            # pages, keeps its set whole and restores.)
+            prompt = sum(len(t) - 1 for t in toks)
+            fallback = (st["n_preempted"] == 1
+                        and st["n_state_restores"] == 0
+                        and st["n_prefill_computed_tokens"] > prompt)
+            if not fallback:
+                raise AssertionError(
+                    f"{path}: expected one preemption recomputed (no "
+                    f"restore): preempted {st['n_preempted']}, restored "
+                    f"{st['n_state_restores']}, prefill computed "
+                    f"{st['n_prefill_computed_tokens']} of {prompt} prompt "
+                    "tokens")
+            equal_checked(path, reqs, short, out[path], "recurrent")
+            log(f"recurrent: {path}: {st['n_preempted']} preemption, "
+                f"{st['n_state_restores']} restored from the snapshot: the "
+                "growth that preempted evicted a retained page, so the "
+                "folded prompt was recomputed ("
+                f"{st['n_prefill_computed_tokens']} prefill tokens computed "
+                f"for {prompt} prompt tokens), tokens equal to the dense "
+                "engine's")
+            ref = dense_greedy("hymba_urgent", params, dcfg, [hot],
+                               short_smax, n_slots=len(toks))
+            out["paged_hymba_fp32_restore"] = restore_run(
+                results, "paged_hymba_fp32_restore", params, dcfg, toks,
+                hot, short + ref, smax=short_smax, page_size=page_size,
+                chunk=chunk)
+            out["hymba_prefill_chunks"] = prefill_chunk_ms(
+                "hymba_prefill_chunks", params, dcfg, toks[-1], **kw)
+        del params
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    # the tier at a reduced depth and context
+    tcfg = cfg.replace(n_layers=min(tiered_layers, cfg.n_layers))
+    params = S.calibrated_params(tcfg, data, seed=0, device=DEV)
+    tkw = dict(n_slots=len(toks), smax=short_smax, page_size=page_size,
+               prefill_chunk=chunk, backend="auto", device=DEV)
+
+    def requests():
+        return [Request(rid=i, prompt=t, max_new=MAX_NEW)
+                for i, t in enumerate(toks)]
+    path = "paged_hymba_tiered_single"
+    plan, planned = planned_kernels(tcfg, short_smax, "loki_block")
+    eng = PagedServingEngine(params, tcfg, packed=False, **tkw)
+    single = eng.pool_bytes
+    reqs = requests()
+    run = drive_paged(path, eng, reqs, profiled=1)
+    del eng
+    paged_checked(path, reqs, run, planned, tcfg.n_layers)
+    results.setdefault("launches", {})[path] = run["counts"]
+    out[path] = paged_report(path, reqs, run, None, None, 4, plan=str(plan),
+                             n_layers=tcfg.n_layers)
+    ref = [r.out for r in reqs]
+    path = "paged_hymba_tiered_min"
+    frames = 1 + short_smax // page_size
+    eng = PagedServingEngine(params, tcfg, device_pages=frames,
+                             max_inflight=2, audit=True, **tkw)
+    info = dict(policy="loki_block", n_layers=tcfg.n_layers,
+                n_pages=eng.pool.n_pages, device_pages=frames,
+                device_bytes=eng.pool_bytes, single_tier_bytes=single)
+    reqs = requests()
+    run = drive_paged(path, eng, reqs, profiled=1)
+    del eng
+    tiered_checked(path, reqs, run, tcfg.n_layers)
+    results.setdefault("launches", {})[path] = run["counts"]
+    out[path] = tiered_report(path, reqs, run, ref, 4, **info)
+    if [r.out for r in reqs] != ref:
+        raise AssertionError(f"{path}: tiered tokens differ from the single"
+                             " tier's")
+    log(f"recurrent: {path}: tiered == single tier, {len(toks) * MAX_NEW} "
+        f"of {len(toks) * MAX_NEW} greedy tokens at {frames} frames, "
+        f"{tcfg.n_layers} of {cfg.n_layers} layers, smax {short_smax}")
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_xlstm(results, out, *, smoke=False, smax=4096, page_size=128,
+                chunk=512, lengths=XLSTM_LENGTHS, urgent=HYMBA_URGENT):
+    """xlstm-125m at published width (12 layers of d_model 768, 4 heads,
+    an sLSTM block every 6th, the rest mLSTM; vocab 50304): no KV cache,
+    so the launcher forces its policy to full and no kernel runs. With
+    bf16 and float32 weights the dense engine's greedy tokens, then the
+    paged engine (``paged_xlstm_[fp32_]full``: no kernel launched and one
+    host sync a decode tick asserted); paged == dense asserted in float32.
+    Then the float32 priority run (``restore_run``: the snapshot restored,
+    no pages to retain)."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch import serve as S
+
+    sc = S.ServeConfig(engine=S.EngineSection(
+        arch="xlstm-125m", smoke=smoke, kind="paged", policy="loki_block",
+        backend="auto", n_slots=4, smax=smax), device=DEV)
+    cfg = sc.resolve_model()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=96,
+                                  global_batch=8, seed=7, n_states=32,
+                                  temperature=0.22))
+    toks = prompts(cfg.vocab, lengths, seed=29)
+    hot = prompts(cfg.vocab, (urgent,), seed=30)[0]
+    kw = dict(smax=smax, page_size=page_size, chunk=chunk)
+    for dtype in ("bfloat16", "float32"):
+        dcfg = cfg.replace(dtype=dtype)
+        tag = "" if dtype == "bfloat16" else "fp32_"
+        params = S.calibrated_params(dcfg, data, seed=0, device=DEV)
+        n_params = sum(t.numel() for t in tensors_of(params))
+        log(f"recurrent: {cfg.arch}, {cfg.n_layers} layers (one in "
+            f"{cfg.slstm_every} an sLSTM block), d_model {cfg.d_model}, "
+            f"{cfg.ssm.n_heads} heads, vocab {cfg.vocab}: "
+            f"{n_params / 1e6:.1f} M parameters in {dtype}, policy "
+            f"{dcfg.attn_policy()}")
+        path = f"paged_xlstm_{tag}full"
+        dense = dense_greedy(path, params, dcfg, toks, smax)
+        reqs, run, info = paged_run(results, path, params, dcfg, "full",
+                                    toks, profiled=1, **kw)
+        out[path] = paged_report(path, reqs, run, dense, "the dense engine",
+                                 4, **info)
+        if dtype == "float32":
+            equal_checked(path, reqs, dense, out[path], "recurrent")
+            ref = dense_greedy("xlstm_urgent", params, dcfg, [hot], smax,
+                               n_slots=len(toks))
+            out["paged_xlstm_fp32_restore"] = restore_run(
+                results, "paged_xlstm_fp32_restore", params, dcfg, toks,
+                hot, dense + ref, **kw)
+            out["xlstm_prefill_chunks"] = prefill_chunk_ms(
+                "xlstm_prefill_chunks", params, dcfg, toks[-1], **kw)
+        del params
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+
+def serve_recurrent(results, *, smoke=False, hymba=None, xlstm=None):
+    """The recurrent-state families at published width: ``serve_hymba``
+    and ``serve_xlstm`` (each keyword a dict of sizes for a CPU
+    rehearsal), the phase's seconds logged."""
+    out = {}
+    t0 = time.perf_counter()
+    for name, fn, sizes in (("hymba", serve_hymba, hymba),
+                            ("xlstm", serve_xlstm, xlstm)):
+        fn(results, out, smoke=smoke, **(sizes or {}))
+        log(f"recurrent: {name} done at {time.perf_counter() - t0:.1f} s "
+            "into the phase")
+    out["phase_s"] = time.perf_counter() - t0
+    results["recurrent_serve"] = out
+
+
 def tensors_of(tree):
-    """The tensors of a parameter tree (nested dicts)."""
-    if isinstance(tree, dict):
-        for v in tree.values():
+    """The tensors of a parameter tree (nested dicts and lists)."""
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from tensors_of(v)
     else:
         yield tree
@@ -3715,7 +4204,7 @@ def profile_decode(params, cfg, toks, smax, steps=3):
     busy = sum(r[0] for r in rows)
     log(f"profile: decode step (4 slots) wall {wall_ms:.2f} ms under the "
         f"profiler, device busy {busy:.2f} ms -> idle share "
-        f"{max(0.0, 1 - busy / wall_ms):.3f}")
+        f"{idle_share(busy, wall_ms):.3f}")
     for ms, n, key in rows[:12]:
         log(f"profile:   {ms:8.3f} ms  {n:5d}x  {key[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy,
@@ -4184,7 +4673,7 @@ def profile_train_step(step_fn, state, batch):
     busy = sum(r[0] for r in rows)
     log(f"train profile: one step wall {wall_ms:.2f} ms under the "
         f"profiler, device busy {busy:.2f} ms -> idle share "
-        f"{max(0.0, 1 - busy / wall_ms):.3f}; {sum(r[1] for r in rows)} "
+        f"{idle_share(busy, wall_ms):.3f}; {sum(r[1] for r in rows)} "
         f"device ops")
     for ms, n, key in rows[:15]:
         log(f"train profile:   {ms:8.3f} ms  {n:5d}x  {key[:90]}")
@@ -4435,6 +4924,13 @@ MIXTRAL_RUN_PATHS = ("paged_mixtral_loki_block", "paged_mixtral_full",
                      "paged_mixtral_groups_loki_block",
                      "mixtral_recycled_step", "mixtral_groups_recycled_step")
 LLAVA_RUN_PATHS = ("paged_llava_loki_block",)
+HYMBA_RUN_PATHS = tuple(f"paged_hymba_{d}{p}" for d in ("", "fp32_")
+                        for p in GRANITE_POLICIES) + (
+    "paged_hymba_fp32_loki_block_masked",)
+#: the runs at HYMBA_SHORT_SMAX (the short case's shape)
+HYMBA_SHORT_RUN_PATHS = ("paged_hymba_fp32_tight", "paged_hymba_fp32_restore",
+                         "paged_hymba_tiered_single",
+                         "paged_hymba_tiered_min")
 #: per timed case of CASE_KEYS: its label in the kernels line, the paths
 #: run at its shape, and per kernel the path that runs it (absent: the
 #: planner picks another kernel at that shape)
@@ -4449,6 +4945,14 @@ CASE_PATHS = {
         "paged_full_decode": "paged_mixtral_full"}),
     "llava": ("llava-next-mistral-7b", LLAVA_RUN_PATHS, {
         "fused_loki_decode": "paged_llava_loki_block"}),
+    "hymba": ("hymba-1.5b", HYMBA_RUN_PATHS, {
+        "fused_loki_decode": "paged_hymba_loki_block",
+        "paged_full_decode": "paged_hymba_full",
+        "fused_exact_topk_decode": "paged_hymba_exact_topk"}),
+    "hymba_short": ("hymba-1.5b smax=1024", HYMBA_SHORT_RUN_PATHS, {
+        "fused_loki_decode": "paged_hymba_tiered_single",
+        "select_blocks": "paged_hymba_tiered_min",
+        "block_sparse_attention_grouped": "paged_hymba_tiered_min"}),
 }
 
 
@@ -4482,8 +4986,9 @@ LAYOUT_RUNS = set(LAYOUT_PATHS.values()) | {
 
 def case_entries(results, launches, keys=tuple(CASE_PATHS)):
     """The kernels line's entries of kernels 1-5 at granite-moe-3b's
-    decode shape (G 3, D 64, d 16) and at the window and encoder
-    families' (whisper, mixtral, llava): one per (kernel, case)."""
+    decode shape (G 3, D 64, d 16), at the window and encoder families'
+    (whisper, mixtral, llava) and at hymba's two contexts: one per
+    (kernel, case)."""
     out = []
     for key in keys:
         label, run_paths, by_kernel = CASE_PATHS[key]
@@ -4539,8 +5044,8 @@ def ptxas_summary(text):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels", "train", "families"],
-                    default=None)
+    ap.add_argument("--only", choices=["kernels", "train", "families",
+                                       "recurrent"], default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4612,6 +5117,31 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.only == "recurrent":
+        # hymba's kernel case, then the recurrent-state families' paths
+        hymba = {k: CASE_KEYS[k] for k in (HYMBA_CASE, HYMBA_SHORT_CASE)}
+        check_kernels(results, only=hymba)
+        check_paged(results, only=hymba)
+        time_cases(results, only=hymba)
+        log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
+        serve_recurrent(results)
+        log(f"recurrent done at {time.perf_counter() - t_start:.1f} s")
+        kernels = case_entries(results, results.get("launches", {}),
+                               keys=("hymba", "hymba_short"))
+        with open(os.path.join(out_dir, "chip_smoke_recurrent.json"),
+                  "w") as fh:
+            json.dump({"card": card, "build_s": secs,
+                       "script_s": time.perf_counter() - t_start,
+                       "kernels": kernels,
+                       "launches": results.get("launches"),
+                       "recurrent_serve": results.get("recurrent_serve")},
+                      fh, indent=1)
+        log(card)
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     check_kernels(results)
     check_layouts(results)
     check_packed_widths(results)
@@ -4642,6 +5172,8 @@ def main() -> int:
         log(f"granite paths done at {time.perf_counter() - t_start:.1f} s")
         serve_families(results)
         log(f"families paths done at {time.perf_counter() - t_start:.1f} s")
+        serve_recurrent(results)
+        log(f"recurrent paths done at {time.perf_counter() - t_start:.1f} s")
         # the serving phases' models and pools go before training
         del cfg, toks, greedy
         gc.collect()
@@ -4706,6 +5238,7 @@ def main() -> int:
                    "fault2": results.get("fault2"),
                    "granite_serve": results.get("granite_serve"),
                    "families_serve": results.get("families_serve"),
+                   "recurrent_serve": results.get("recurrent_serve"),
                    "prefill_flash": results.get("prefill_flash"),
                    "train": results.get("train"),
                    "profile": results.get("profile"),

@@ -20,6 +20,10 @@
         --policy loki_block --arch whisper-small --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
         --policy full --arch mixtral-8x22b --page-size 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --policy loki_block --arch hymba-1.5b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --arch xlstm-125m --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine dense \
         --warm-steps 10 --device cpu
 
@@ -51,13 +55,16 @@ tier) with ``--max-inflight`` fetches in flight (2); ``--faults`` takes a
 ``FaultPlan.parse`` spec (empty: off) and ``--audit`` runs the invariant
 auditor after every tick. The run ends with the tiered pool's counters.
 
-The served families are those of ``cache_spec.servable_archs``: dense,
-MoE (mixtral's sliding window recycles its pages on the paged engine),
-the encoder-decoder (whisper: each request carries deterministic stand-in
-encoder frames, ``_frames``, as in the JAX launcher) and the vlm (llava,
-served as its dense backbone). ``--warm-steps N`` trains the random
-weights N steps first (the JAX launcher's warm-up: AdamW at lr 3e-3, 5
-warmup steps, through ``training.step.make_train_step``).
+The served families are those of ``cache_spec.servable_archs``, every
+one of the JAX package's: dense, MoE (mixtral's sliding window recycles
+its pages on the paged engine), the encoder-decoder (whisper: each
+request carries deterministic stand-in encoder frames, ``_frames``, as in
+the JAX launcher), the vlm (llava, served as its dense backbone), the
+hybrid (hymba: attention beside mamba, its state snapshotted on
+preemption) and the ssm family (xlstm: no KV cache, so its policy is
+forced to full with the JAX launcher's note). ``--warm-steps N`` trains
+the random weights N steps first (the JAX launcher's warm-up: AdamW at lr
+3e-3, 5 warmup steps, through ``training.step.make_train_step``).
 
 Every knob lives in :class:`ServeConfig`; the flags are thin aliases.
 ``--full`` selects the published width (the JAX launcher's ``--smoke``
@@ -169,8 +176,13 @@ class ServeConfig:
     def resolve_model(self) -> ModelConfig:
         cfg = (get_smoke_config if self.engine.smoke
                else get_config)(self.engine.arch)
-        if self.engine.policy != "full":
-            cfg = cfg.with_policy(self.engine.policy, k_f=self.engine.k_f,
+        policy = self.engine.policy
+        if cfg.family == "ssm" and policy != "full":
+            print(f"note: {self.engine.arch} has no KV cache; policy "
+                  "forced to full")
+            policy = "full"
+        if policy != "full":
+            cfg = cfg.with_policy(policy, k_f=self.engine.k_f,
                                   d_f=self.engine.d_f)
         lay = self.paged.page_layout()
         if lay != PageLayout():
@@ -190,9 +202,8 @@ class ServeConfig:
                              "paged")
         archs = CS.servable_archs()
         if self.engine.arch not in archs:
-            raise NotImplementedError(
-                f"{self.engine.arch}: its family is not ported yet (ROADMAP "
-                f"queue 1 item 8); the port serves {', '.join(archs)}")
+            raise ValueError(f"unknown arch {self.engine.arch!r}; the port "
+                             f"serves {', '.join(archs)}")
 
     def serves_paged(self, cfg: ModelConfig) -> bool:
         """Whether ``build_engine`` builds the paged engine: asked for, and
@@ -384,9 +395,10 @@ def main(argv=None):
                   f"(0 = full attention), budget {eng.req_budget} "
                   "pages/request, pages recycled as they leave a window")
         lay = cfg.page_layout
-        print(f"layout: {lay.describe()} — {eng.bytes_per_page} B/page/layer"
-              + (" (per-page f32 scales beside the table)"
-                 if lay.quantized else ""))
+        if eng.has_pages:
+            print(f"layout: {lay.describe()} — {eng.bytes_per_page} "
+                  "B/page/layer" + (" (per-page f32 scales beside the "
+                                    "table)" if lay.quantized else ""))
         share = ("on" if eng.prefix_caching else
                  f"bypassed ({eng.prefix_cache_reason})"
                  if sc.scheduler.prefix_cache else "off")

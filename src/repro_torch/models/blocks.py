@@ -1,8 +1,11 @@
-"""Attention and MoE blocks: params, train forward, prefill and one-token
-decode.
+"""Attention, MoE and recurrent blocks: params, train forward, prefill and
+one-token decode.
 
-Counterpart of the attention and MoE parts of ``repro.models.blocks``
-(the encoder's non-causal self-attention included), over the contiguous
+Counterpart of ``repro.models.blocks``: attention (the encoder's
+non-causal self-attention included) and MoE, and the recurrent blocks of
+the hybrid and ssm families (hymba's mamba, xlstm's mLSTM and sLSTM,
+whose ``lax.scan`` recurrences run as torch loops over tokens, with their
+state in float32 where JAX keeps it). Attention works over the contiguous
 cache of the slot engine or the paged pool of the paged engine. ``pos_len``
 is the number of tokens already cached (B,): the new token lands at that
 index and RoPE uses it as its position. Every attention entry takes the
@@ -596,3 +599,396 @@ def moe_decode(p, x, cfg: ModelConfig):
     h = _expert_act(h, cfg, m.d_ff_expert)
     y = torch.einsum("bkf,bkfd->bkd", h, w_out)
     return torch.einsum("bk,bkd->bd", gate_w.to(dt), y)
+
+
+# =====================================================================
+# Mamba (S6) block: hymba's SSM heads, in parallel with its attention
+# =====================================================================
+
+#: tokens whose decay and input terms one pass of ``_mamba_scan`` forms at
+#: once; the recurrence itself runs token by token, one kernel a token
+MAMBA_SCAN_BLOCK = 256
+
+
+def init_mamba(gen, cfg: ModelConfig, *, dtype, device, n_layers=None):
+    """The S6 block's leaves: in/out projections, the depthwise conv, the
+    x and dt projections, ``a_log = log(1..N)`` per channel (float32, as
+    JAX reads it), zero dt bias and unit skip (at ``dtype``, as JAX casts
+    them at use)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    dt_rank = max(d // 16, 1)
+    kw = dict(dtype=dtype, device=device, n_layers=n_layers)
+    lead = () if n_layers is None else (n_layers,)
+    f32 = dict(dtype=torch.float32, device=device)
+    a = torch.arange(1, s.state_dim + 1, **f32).expand(d_in, s.state_dim)
+    return {"in_proj": L._init(gen, (d, 2 * d_in), **kw),
+            "conv_w": L._init(gen, (s.conv_width, d_in), scale=0.5, **kw),
+            "x_proj": L._init(gen, (d_in, dt_rank + 2 * s.state_dim), **kw),
+            "dt_proj": L._init(gen, (dt_rank, d_in), **kw),
+            "dt_bias": torch.zeros(lead + (d_in,), dtype=dtype,
+                                   device=device),
+            "a_log": torch.log(a).expand(lead + a.shape).contiguous(),
+            "d_skip": torch.ones(lead + (d_in,), dtype=dtype, device=device),
+            "out_proj": L._init(gen, (d_in, d), **kw)}
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log1p(exp(-|x|)) + max(x, 0) (torch's own
+    switches to x above a threshold)."""
+    return torch.log1p(torch.exp(-x.abs())) + torch.clamp(x, min=0)
+
+
+def _mamba_scan(p, xz, conv_state, ssm_state, cfg: ModelConfig,
+                n_valid=None):
+    """The shared S6 recurrence. xz (B,S,2*d_in) from in_proj; conv_state
+    (B,cw-1,d_in), ssm_state (B,d_in,N) float32. Returns (y (B,S,d_in),
+    the new conv window, the new float32 state); the inputs are not
+    written.
+
+    ``n_valid`` (an int): positions at or past it are padding (a prefill
+    chunk's tail). Their dt is 0, so the state passes through them (exp(0)
+    = 1, zero input), and the carried conv window ends at the last valid
+    token: chunks run back to back give the unchunked recurrence.
+
+    JAX's ``lax.scan`` over tokens becomes a loop: per block of
+    ``MAMBA_SCAN_BLOCK`` tokens the decays exp(dt·A) and inputs dt·x·B are
+    formed at once, then each token's state is one fused multiply-add
+    (h = dA·h + dBx), and the outputs contract the block's states with C
+    at once. The state and its terms are float32, as in JAX."""
+    s = cfg.ssm
+    d_in = xz.shape[-1] // 2
+    x, z = xz[..., :d_in], xz[..., d_in:]
+    cw = s.conv_width
+    n_tok = x.shape[1]
+    xpad = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    if cw <= 1:
+        new_conv = conv_state
+    elif n_valid is None:
+        new_conv = xpad[:, -(cw - 1):]
+    else:
+        # the last cw-1 inputs ending at the n_valid-th real token (rows
+        # [n_valid, n_valid + cw - 1) of xpad; back into the old window
+        # when the chunk holds fewer than cw-1 real tokens)
+        new_conv = xpad[:, n_valid:n_valid + cw - 1]
+    conv = sum(xpad[:, i:i + n_tok] * p["conv_w"][i] for i in range(cw))
+    x = F.silu(conv)
+
+    dt_rank = p["dt_proj"].shape[0]
+    n = s.state_dim
+    proj = L.dot(x, p["x_proj"])
+    dt = _softplus(L.dot(proj[..., :dt_rank], p["dt_proj"]) + p["dt_bias"])
+    if n_valid is not None:
+        dt = dt * (torch.arange(n_tok, device=x.device)
+                   < n_valid)[None, :, None]
+    a = -torch.exp(p["a_log"].float())                        # (d_in,N)
+    xf, dtf = x.float(), dt.float()
+    bf = proj[..., dt_rank:dt_rank + n].float()               # (B,S,N)
+    cf = proj[..., dt_rank + n:].float()
+    h = ssm_state.float()
+    ys = []
+    for t0 in range(0, n_tok, MAMBA_SCAN_BLOCK):
+        t1 = min(n_tok, t0 + MAMBA_SCAN_BLOCK)
+        da = torch.exp(dtf[:, t0:t1, :, None] * a)            # (B,T,d_in,N)
+        dbx = (dtf[:, t0:t1] * xf[:, t0:t1])[..., None] \
+            * bf[:, t0:t1, None, :]
+        hs = []
+        for t in range(t1 - t0):
+            h = torch.addcmul(dbx[:, t], da[:, t], h)
+            hs.append(h)
+        ys.append(torch.einsum("btdn,btn->btd", torch.stack(hs, 1),
+                               cf[:, t0:t1]))
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    y = y + x * p["d_skip"]
+    y = y * F.silu(z)
+    return y, new_conv, h
+
+
+def mamba_train(p, x, cfg: ModelConfig):
+    """The S6 block over (B,S,E) from a zero state."""
+    y, _ = mamba_prefill(p, x, cfg)
+    return y
+
+
+def mamba_prefill(p, x, cfg: ModelConfig):
+    """The S6 block over a whole prompt (B,S,E) from a zero state ->
+    (y (B,S,E), the final {conv, ssm}: the conv window in x's dtype, as
+    JAX's ``_mamba_prefill`` leaves it)."""
+    s = cfg.ssm
+    b = x.shape[0]
+    d_in = s.expand * cfg.d_model
+    xz = L.dot(x, p["in_proj"])
+    conv0 = torch.zeros((b, s.conv_width - 1, d_in), dtype=x.dtype,
+                        device=x.device)
+    ssm0 = torch.zeros((b, d_in, s.state_dim), dtype=torch.float32,
+                       device=x.device)
+    y, conv, ssm = _mamba_scan(p, xz, conv0, ssm0, cfg)
+    return L.dot(y, p["out_proj"]), {"conv": conv, "ssm": ssm}
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device,
+                     n_layers=None):
+    """Zero {conv (B,cw-1,d_in) in ``dtype``, ssm (B,d_in,N) float32},
+    stacked on ``n_layers`` when given."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    lead = () if n_layers is None else (n_layers,)
+    return {"conv": torch.zeros(lead + (batch, s.conv_width - 1, d_in),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros(lead + (batch, d_in, s.state_dim),
+                               dtype=torch.float32, device=device)}
+
+
+def mamba_decode(p, state, x, cfg: ModelConfig):
+    """One token x (B,E) from ``state`` {conv, ssm} -> (y (B,E), the new
+    state, conv in the state's dtype)."""
+    xz = L.dot(x[:, None, :], p["in_proj"])
+    y, conv, ssm = _mamba_scan(p, xz, state["conv"], state["ssm"], cfg)
+    return (L.dot(y[:, 0], p["out_proj"]),
+            {"conv": conv.to(state["conv"].dtype), "ssm": ssm})
+
+
+def mamba_prefill_chunk(p, state, x, n_valid: int, cfg: ModelConfig):
+    """One chunk of a chunked prefill: x (1,C,E), the first ``n_valid``
+    real, from the slot's carried ``state``. Pad tokens leave the state as
+    it was, so consecutive chunks give the one-shot prefill's state.
+    Returns (y (1,C,E), the new state)."""
+    xz = L.dot(x, p["in_proj"])
+    y, conv, ssm = _mamba_scan(p, xz, state["conv"], state["ssm"], cfg,
+                               n_valid=n_valid)
+    return (L.dot(y, p["out_proj"]),
+            {"conv": conv.to(state["conv"].dtype), "ssm": ssm})
+
+
+# =====================================================================
+# xLSTM blocks: mLSTM (chunkwise parallel) and sLSTM (recurrent)
+# =====================================================================
+
+#: tokens per chunk of the chunkwise-parallel mLSTM
+MLSTM_CHUNK = 256
+
+
+def init_mlstm(gen, cfg: ModelConfig, *, dtype, device):
+    """One mLSTM layer's leaves: q/k/v, the output gate and projection,
+    and the input/forget gate pre-activations (``w_if`` and ``b_if``, the
+    forget bias 3, float32: JAX's decode reads them at float32)."""
+    d = cfg.d_model
+    nh = cfg.ssm.n_heads
+    kw = dict(dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"wq": L._init(gen, (d, d), **kw),
+            "wk": L._init(gen, (d, d), **kw),
+            "wv": L._init(gen, (d, d), **kw),
+            "w_if": L._init(gen, (d, 2 * nh), scale=0.01, **f32),
+            "b_if": torch.cat([torch.zeros(nh, **f32),
+                               3.0 * torch.ones(nh, **f32)]),
+            "wo_gate": L._init(gen, (d, d), **kw),
+            "w_out": L._init(gen, (d, d), **kw)}
+
+
+def mlstm_train(p, x, cfg: ModelConfig, *, return_state: bool = False,
+                initial_state=None, n_valid=None):
+    """Chunkwise-parallel mLSTM (exponentially gated linear attention with
+    a matrix memory) over x (B,S,E), chunks of ``MLSTM_CHUNK`` (the whole
+    sequence when S is not a multiple). ``return_state``: also return the
+    final {C, n, m}, the chunk loop's own carry. ``initial_state``: resume
+    from a carried {C, n, m} (the paged engine's chunked prefill).
+    ``n_valid`` (an int): positions at or past it are padding, their input
+    gate -1e30 and forget gate 1, so they add nothing to the carry."""
+    b, s, d = x.shape
+    nh = cfg.ssm.n_heads
+    dh = d // nh
+    dt = x.dtype
+    q = L.dot(x, p["wq"]).reshape(b, s, nh, dh) * dh ** -0.5
+    k = L.dot(x, p["wk"]).reshape(b, s, nh, dh) * dh ** -0.5
+    v = L.dot(x, p["wv"]).reshape(b, s, nh, dh)
+    # gate pre-activations: the activation-dtype matmul accumulated in
+    # float32 (products of two bf16 values are exact in float32)
+    if_g = torch.matmul(x.float(), p["w_if"].to(dt).float()) + p["b_if"]
+    ig, logf = if_g[..., :nh], F.logsigmoid(if_g[..., nh:])   # (B,S,H)
+    if n_valid is not None:
+        vm = (torch.arange(s, device=x.device) < n_valid)[None, :, None]
+        ig = torch.where(vm, ig, -1e30)                       # i -> 0
+        logf = torch.where(vm, logf, 0.0)                     # f -> 1
+
+    c = min(MLSTM_CHUNK, s)
+    if s % c:
+        c = s
+    if initial_state is not None:
+        C = initial_state["C"].float()
+        n = initial_state["n"].float()
+        m = initial_state["m"].float()
+    else:
+        C = torch.zeros((b, nh, dh, dh), dtype=torch.float32,
+                        device=x.device)
+        n = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
+        m = torch.full((b, nh), -1e30, dtype=torch.float32, device=x.device)
+    tmask = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    hs = []
+    for c0 in range(0, s, c):
+        qq, kk, vv = q[:, c0:c0 + c], k[:, c0:c0 + c], v[:, c0:c0 + c]
+        ii, ff = ig[:, c0:c0 + c], logf[:, c0:c0 + c]        # (B,c,H)
+        csum = torch.cumsum(ff, dim=1)                       # sum_{j<=t}
+        total = csum[:, -1]                                  # (B,H)
+        # intra-chunk log weights a[t,s] = csum_t - csum_s + i_s (s <= t)
+        log_a = csum[:, :, None, :] - csum[:, None, :, :] + ii[:, None]
+        log_a = torch.where(tmask[None, :, :, None], log_a, -math.inf)
+        # inter-chunk: the carried state decayed to position t
+        log_b = csum + m[:, None, :]                         # (B,t,H)
+        m_new = torch.maximum(log_a.amax(dim=2), log_b)
+        a = torch.exp(log_a - m_new[:, :, None, :])
+        bw = torch.exp(log_b - m_new)
+        scores = torch.einsum("bthd,bshd->bhts", qq.float(), kk.float())
+        scores = scores * a.permute(0, 3, 1, 2)              # (B,H,t,s)
+        num_intra = torch.einsum("bhts,bshd->bthd", scores.to(dt), vv)
+        num_inter = torch.einsum("bthd,bhde->bthe", qq, C.to(dt)) \
+            * bw[..., None].to(dt)
+        den = (torch.einsum("bthd,bhd->bth", qq.float(), n) * bw
+               + scores.sum(dim=3).transpose(1, 2))
+        h = (num_intra + num_inter).float() / torch.maximum(
+            den.abs(), torch.exp(-m_new))[..., None]
+        hs.append(h.to(dt))
+        # the carry: C' = exp(total + m - m') C
+        #                 + sum_s exp(total - csum_s + i_s - m') k v^T
+        m_next = torch.maximum(total + m,
+                               (total[:, None] - csum + ii).amax(dim=1))
+        decay_c = torch.exp(total + m - m_next)              # (B,H)
+        w_s = torch.exp(total[:, None] - csum + ii - m_next[:, None])
+        C = (C * decay_c[..., None, None]
+             + torch.einsum("bsh,bshd,bshe->bhde", w_s, kk.float(),
+                            vv.float()))
+        n = (n * decay_c[..., None]
+             + torch.einsum("bsh,bshd->bhd", w_s, kk.float()))
+        m = m_next
+    h = torch.cat(hs, dim=1).reshape(b, s, d)
+    o = torch.sigmoid(L.dot(x, p["wo_gate"]))
+    y = L.dot(h * o, p["w_out"])
+    if return_state:
+        return y, {"C": C, "n": n, "m": m}
+    return y
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device):
+    """Zero {C (B,H,dh,dh), n (B,H,dh)} and m (B,H) at -1e30, float32."""
+    nh = cfg.ssm.n_heads
+    dh = cfg.d_model // nh
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, nh, dh, dh), **f32),
+            "n": torch.zeros((batch, nh, dh), **f32),
+            "m": torch.full((batch, nh), -1e30, **f32)}
+
+
+def mlstm_decode(p, state, x, cfg: ModelConfig):
+    """One token x (B,E) from ``state`` {C, n, m} -> (y (B,E), the new
+    state); the gates in float32."""
+    b, d = x.shape
+    nh = cfg.ssm.n_heads
+    dh = d // nh
+    dt = x.dtype
+    q = L.dot(x, p["wq"]).reshape(b, nh, dh) * dh ** -0.5
+    k = L.dot(x, p["wk"]).reshape(b, nh, dh) * dh ** -0.5
+    v = L.dot(x, p["wv"]).reshape(b, nh, dh)
+    if_g = L.dot(x.float(), p["w_if"].float()) + p["b_if"]
+    ii, ff = if_g[..., :nh], F.logsigmoid(if_g[..., nh:])
+    C, n, m = state["C"], state["n"], state["m"]
+    m_new = torch.maximum(ff + m, ii)
+    fw = torch.exp(ff + m - m_new)[..., None]
+    iw = torch.exp(ii - m_new)[..., None]
+    kf, vf = k.float(), v.float()
+    C = C * fw[..., None] + iw[..., None] * kf[..., None] * vf[:, :, None, :]
+    n = n * fw + iw * kf
+    qf = q.float()
+    num = torch.einsum("bhd,bhde->bhe", qf, C)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, n).abs(),
+                        torch.exp(-m_new))
+    h = (num / den[..., None]).to(dt).reshape(b, d)
+    o = torch.sigmoid(L.dot(x, p["wo_gate"]))
+    return L.dot(h * o, p["w_out"]), {"C": C, "n": n, "m": m_new}
+
+
+def init_slstm(gen, cfg: ModelConfig, *, dtype, device):
+    """One sLSTM layer's leaves: the input part of the z, i, f, o gates,
+    the per-head recurrent matrices (float32, as the cell reads them), a
+    zero gate bias and the output projection."""
+    d = cfg.d_model
+    nh = cfg.ssm.n_heads
+    dh = d // nh
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"w_gates": L._init(gen, (d, 4 * d), dtype=dtype, device=device),
+            "r_gates": L._init(gen, (nh, dh, 4 * dh), scale=0.1, **f32),
+            "b_gates": torch.zeros((4 * d,), **f32),
+            "w_out": L._init(gen, (d, d), dtype=dtype, device=device)}
+
+
+def _slstm_cell(p, wx_t, state, nh: int, dh: int):
+    """One sLSTM step; ``wx_t`` (B,4d) is the input part, float32. The
+    recurrent part (B,H,4dh) is laid out head by head and added to the
+    gate-major input part as JAX's reshape lays it."""
+    c, n, h, m = state
+    b = wx_t.shape[0]
+    rh = torch.einsum("bhd,hde->bhe", h.reshape(b, nh, dh),
+                      p["r_gates"]).reshape(b, 4 * nh * dh)
+    pre = (wx_t + rh + p["b_gates"]).float()
+    d = nh * dh
+    z = torch.tanh(pre[:, :d])
+    i_p, f_p = pre[:, d:2 * d], pre[:, 2 * d:3 * d]
+    o = torch.sigmoid(pre[:, 3 * d:])
+    logf = F.logsigmoid(f_p)
+    m_new = torch.maximum(logf + m, i_p)
+    i_w = torch.exp(i_p - m_new)
+    f_w = torch.exp(logf + m - m_new)
+    c = f_w * c + i_w * z
+    n = f_w * n + i_w
+    h = o * (c / torch.clamp(n, min=1.0))
+    return c, n, h, m_new
+
+
+def slstm_train(p, x, cfg: ModelConfig, *, return_state: bool = False,
+                initial_state=None, n_valid=None):
+    """The sLSTM recurrence over x (B,S,E), token by token (JAX's scan).
+    ``initial_state``/``n_valid``: resume from a carried {c, n, h, m} and
+    leave the state alone at pad positions (the paged engine's chunked
+    prefill); a pad position's output is the last valid one's h."""
+    b, s, d = x.shape
+    nh = cfg.ssm.n_heads
+    dh = d // nh
+    wx = torch.matmul(x.float(), p["w_gates"].float())      # (B,S,4d)
+    if initial_state is not None:
+        st = tuple(initial_state[k].float() for k in ("c", "n", "h", "m"))
+    else:
+        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        st = (zeros, zeros, zeros, torch.full((b, d), -1e30,
+                                              dtype=torch.float32,
+                                              device=x.device))
+    n_run = s if n_valid is None else min(int(n_valid), s)
+    hs = []
+    for t in range(n_run):
+        st = _slstm_cell(p, wx[:, t], st, nh, dh)
+        hs.append(st[2])
+    hs += [st[2]] * (s - n_run)
+    h = torch.stack(hs, dim=1).to(x.dtype)
+    y = L.dot(h, p["w_out"])
+    if return_state:
+        c, n, hst, m = st
+        return y, {"c": c, "n": n, "h": hst, "m": m}
+    return y
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device):
+    """Zero {c, n, h} (B,d) and m (B,d) at -1e30, float32."""
+    f32 = dict(dtype=torch.float32, device=device)
+    z = torch.zeros((batch, cfg.d_model), **f32)
+    return {"c": z, "n": z.clone(), "h": z.clone(),
+            "m": torch.full((batch, cfg.d_model), -1e30, **f32)}
+
+
+def slstm_decode(p, state, x, cfg: ModelConfig):
+    """One token x (B,E) from ``state`` {c, n, h, m} -> (y, new state)."""
+    nh = cfg.ssm.n_heads
+    dh = cfg.d_model // nh
+    wx = torch.matmul(x.float(), p["w_gates"].float())
+    c, n, h, m = _slstm_cell(p, wx, tuple(state[k] for k in
+                                          ("c", "n", "h", "m")), nh, dh)
+    y = L.dot(h.to(x.dtype), p["w_out"])
+    return y, {"c": c, "n": n, "h": h, "m": m}

@@ -74,9 +74,10 @@ def norm_apply(p, x, eps=1e-6):
 
 # ---------------------------------------------------------------- MLPs
 
-def init_mlp(gen, cfg: ModelConfig, *, dtype, device, n_layers):
-    """Gated (swiglu/geglu) or plain (sq_relu/gelu) MLP params."""
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg: ModelConfig, *, dtype, device, n_layers, d_ff=None):
+    """Gated (swiglu/geglu) or plain (sq_relu/gelu) MLP params, hidden
+    width ``d_ff`` (default ``cfg.d_ff``; xlstm's blocks use 2 d_model)."""
+    d, f = cfg.d_model, (d_ff or cfg.d_ff)
     gated = cfg.mlp in ("swiglu", "geglu")
     kw = dict(dtype=dtype, device=device, n_layers=n_layers)
     return {"w_in": _init(gen, (d, 2 * f if gated else f), **kw),

@@ -1,8 +1,9 @@
-"""Language-model assembly (counterpart of ``repro.models.lm``): the
-dense, MoE, encoder-decoder and vlm families.
+"""Language-model assembly (counterpart of ``repro.models.lm``) for every
+family of the JAX package.
 
 One parameter tree, the JAX package's layout (per-layer leaves stacked on a
-leading L axis), and its entry points:
+leading L axis; the ssm family's heterogeneous layers a list of per-layer
+trees), and its entry points:
 
   init(cfg, ...)                                   -> params
   forward(params, tokens, cfg, frames=, patches=, remat=) -> (logits, aux)
@@ -14,6 +15,7 @@ leading L axis), and its entry points:
                 page_table, page_size, slot=)      -> (logits, cache)
   decode_step(..., page_table=, page_size=)        -> (logits, cache)
   decode_step(..., slot_idx=)                       packed rows
+  decode_step(..., live=)                           dead slots keep state
   encode_cross_kv(params, cfg, frames)             -> (k, v) per layer
   copy_cache_page(cfg, cache, src, dst, page_size)  -> cache (COW)
   init_paged_cache(..., device_pages=)              tiered pool
@@ -27,6 +29,9 @@ composition:
   moe     [attn, moe] (the MoE layer's leaves under ``p["moe"]`` in place
           of ``p["mlp"]``; ``forward`` returns its aux loss summed over
           layers)
+  hybrid  [attn ∥ mamba, mlp] (hymba: the two heads' outputs each
+          normalised by ``ln_ssm`` and averaged)
+  ssm     [mlstm, mlp] or [slstm, mlp] (xlstm; no attention, no pages)
   encdec  encoder [attn, mlp] over stand-in frame embeddings + decoder
           [attn, cross-attn, mlp] (whisper; sinusoidal positions)
   vlm     the dense backbone, projected patch embeddings prepended in
@@ -35,8 +40,8 @@ Each layer attends within its own window (``cfg.layer_window``); with
 ``cfg.window_layers`` the paged entry points take a rank-3 table
 ``(B, n_groups, max_pages)`` and each layer reads its page-table group's
 row (``cache_spec.layer_group_ids``). ``cfg.page_ranks`` gives each layer
-its own latent-K rank. The hybrid and ssm families (recurrent state) are
-not ported yet and raise NotImplementedError.
+its own latent-K rank. The recurrent state (the StateSlot leaves, under
+``"ssm"`` in a cache's layers) is float32 but for mamba's conv window.
 """
 from __future__ import annotations
 
@@ -57,20 +62,6 @@ from repro_torch.serving import cache_spec as CS
 from repro_torch.serving import paged_cache as PC
 
 
-#: the families the port serves
-PORTED_FAMILIES = ("dense", "moe", "encdec", "vlm")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """The port serves the dense, MoE, encoder-decoder and vlm families;
-    the recurrent-state ones (hybrid, ssm) come later."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch}: family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1 item 8: the recurrent-state families, StateSlot); the "
-            f"port serves {', '.join(PORTED_FAMILIES)}")
-
-
 def _ffn(p, h, cfg: ModelConfig):
     """A layer's feed-forward half over (B,S,E) -> (y, aux): the MLP, or
     the capacity-routed MoE (``blocks.moe_apply``) with its aux loss."""
@@ -88,8 +79,11 @@ def _ffn_decode(p, h, cfg: ModelConfig):
 
 
 def tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -132,16 +126,22 @@ def tree_rebuild(tree, fn, prefix: str = ""):
 
 
 def layer_params(params, i: int):
-    """Layer i's parameters: views into the stacked (L, ...) leaves."""
+    """Layer i's parameters: views into the stacked (L, ...) leaves, or
+    the ssm family's own tree of layer i."""
+    if isinstance(params["layers"], list):
+        return params["layers"][i]
     return tree_map(lambda a: a[i], params["layers"])
 
 
 def unbind_layers(params, n_layers: int, key: str = "layers"):
     """Every layer's parameters of ``params[key]`` (the decoder's, or the
     encoder's ``enc_layers``), each stacked leaf split once with
-    ``unbind``. Under autograd the backward of ``unbind`` stacks the L
-    gradients once, where L ``a[i]`` selects would each write a
-    zero-filled gradient the size of the whole stack."""
+    ``unbind`` (the ssm family's list as it is). Under autograd the
+    backward of ``unbind`` stacks the L gradients once, where L ``a[i]``
+    selects would each write a zero-filled gradient the size of the whole
+    stack."""
+    if isinstance(params[key], list):
+        return list(params[key])
     split = tree_map(lambda a: a.unbind(0), params[key])
     return [tree_map(lambda t: t[i], split) for i in range(n_layers)]
 
@@ -149,20 +149,25 @@ def unbind_layers(params, n_layers: int, key: str = "layers"):
 # --------------------------------------------------------------- init
 
 #: leaves the JAX code casts to the activation dtype at every use; the
-#: port casts them once (same values). The MoE router stays float32: the
-#: JAX code routes in float32
+#: port casts them once (same values). The MoE router, mamba's ``a_log``,
+#: the mLSTM's gate leaves ``w_if``/``b_if`` and the sLSTM's recurrent
+#: ``r_gates``/``b_gates`` stay float32: the JAX code reads them so
 CAST_LEAVES = {"table", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_in",
-               "w_out", "vision_adapter"}
+               "w_out", "vision_adapter", "in_proj", "conv_w", "x_proj",
+               "dt_proj", "dt_bias", "d_skip", "out_proj", "wo_gate",
+               "w_gates"}
 
 
 def cast_params(params, cfg: ModelConfig):
     """Cast the matrices and biases to ``cfg.dtype`` once. Norm scales and
-    biases and the ``pca`` projections stay float32, as the JAX code uses
-    them."""
+    biases, the ``pca`` projections and the leaves CAST_LEAVES leaves out
+    stay float32, as the JAX code uses them."""
     dt = L.torch_dtype(cfg.dtype)
 
     def walk(tree):
-        return {k: (walk(v) if isinstance(v, dict)
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return {k: (walk(v) if isinstance(v, (dict, list))
                     else v.to(dt) if k in CAST_LEAVES else v)
                 for k, v in tree.items()}
     return walk(params)
@@ -171,6 +176,17 @@ def cast_params(params, cfg: ModelConfig):
 def _init_ffn(gen, cfg: ModelConfig, n: int, kind: str, kw):
     return (B.init_moe if kind == "moe" else L.init_mlp)(
         gen, cfg, n_layers=n, **kw)
+
+
+def _init_recurrent(gen, cfg: ModelConfig, kind: str, *, device, kw):
+    """One xlstm layer's tree (unstacked): ln1, its mLSTM or sLSTM block
+    under ``ssm``, ln2 and an MLP of hidden width 2 d_model."""
+    blk = B.init_mlstm if kind == "mlstm" else B.init_slstm
+    return {"ln1": L.init_norm(cfg, device=device),
+            "ssm": blk(gen, cfg, **kw),
+            "ln2": L.init_norm(cfg, device=device),
+            "mlp": L.init_mlp(gen, cfg, n_layers=None,
+                              d_ff=2 * cfg.d_model, **kw)}
 
 
 def _init_stack(gen, cfg: ModelConfig, n: int, kind: str, *, device, kw,
@@ -188,6 +204,9 @@ def _init_stack(gen, cfg: ModelConfig, n: int, kind: str, *, device, kw,
     if kind == "dec":
         p["ln_x"] = L.init_norm(cfg, device=device, n_layers=n)
         p["xattn"] = B.init_attention(gen, cfg, n_layers=n, **kw)
+    if kind == "hybrid":
+        p["ssm"] = B.init_mamba(gen, cfg, n_layers=n, **kw)
+        p["ln_ssm"] = L.init_norm(cfg, device=device, n_layers=n)
     return p
 
 
@@ -200,12 +219,18 @@ def init(cfg: ModelConfig, *, seed: int = 0,
     ``seed``) on ``device``; they differ from ``jax.random``'s. The
     matrices are drawn in float32 and stored at ``dtype`` (default
     ``cfg.dtype``, what serving runs; the trainer keeps float32 masters,
-    ``cfg.param_dtype``)."""
-    check_family(cfg)
+    ``cfg.param_dtype``). The ssm family's layers are a list of per-layer
+    trees (mLSTM or sLSTM, ``cache_spec.layer_kind``)."""
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
     kw = dict(dtype=L.torch_dtype(dtype or cfg.dtype), device=dev)
     kind = CS.layer_kind(cfg, 0)
+    if not CS.uses_scan(cfg):
+        return {"embed": L.init_embed(gen, cfg, **kw),
+                "layers": [_init_recurrent(gen, cfg, CS.layer_kind(cfg, i),
+                                           device=dev, kw=kw)
+                           for i in range(cfg.n_layers)],
+                "final_norm": L.init_norm(cfg, device=dev)}
     # draw order: the feed-forward leaves, the embedding, the rest
     ffn = _init_ffn(gen, cfg, cfg.n_layers, kind, kw)
     params = {"embed": L.init_embed(gen, cfg, **kw)}
@@ -252,8 +277,9 @@ def _sinusoidal_at(pos, d: int) -> torch.Tensor:
 
 def _adds_sinusoids(cfg: ModelConfig) -> bool:
     """Decoders without rotary positions, and the encoder-decoder's
-    decoder, add sinusoids to the token embeddings."""
-    return not cfg.rope or cfg.is_encoder_decoder
+    decoder, add sinusoids to the token embeddings; the ssm family, whose
+    recurrence orders its tokens, adds none."""
+    return (not cfg.rope or cfg.is_encoder_decoder) and cfg.family != "ssm"
 
 
 def _embed_inputs(params, tokens, cfg: ModelConfig, patches=None):
@@ -308,7 +334,6 @@ def encode_cross_kv(params, cfg: ModelConfig, frames):
     component): the encoder runs once over ``frames (B, enc_seq,
     d_model)`` and each decoder layer's cross-attention projects it.
     Returns (k, v), each (L, B, enc_seq, Hkv, D)."""
-    check_family(cfg)
     enc_x = _encode(params, frames, cfg)
     kv = [_enc_kv(layer_params(params, i), enc_x, cfg)
           for i in range(cfg.n_layers)]
@@ -318,14 +343,34 @@ def encode_cross_kv(params, cfg: ModelConfig, frames):
 
 # --------------------------------------------------------------- forward
 
+def _hybrid_mix(p, a, s):
+    """hymba's fusion of its parallel heads: the attention and SSM outputs
+    each normalised by ``ln_ssm``, then averaged."""
+    return 0.5 * (L.norm_apply(p["ln_ssm"], a)
+                  + L.norm_apply(p["ln_ssm"], s))
+
+
+def _recurrent_train(p, x, cfg: ModelConfig, kind: str):
+    """One xlstm layer of the teacher-forced forward -> (x, None)."""
+    h = L.norm_apply(p["ln1"], x)
+    fn = B.mlstm_train if kind == "mlstm" else B.slstm_train
+    x = x + fn(p["ssm"], h, cfg)
+    h = L.norm_apply(p["ln2"], x)
+    return x + L.mlp_apply(p["mlp"], h, cfg), None
+
+
 def _block_train(p, x, positions, cfg: ModelConfig, window: int,
                  enc_x=None, capture=None):
     """One layer of the teacher-forced forward -> (x, aux or None):
-    self-attention within ``window``, the cross-attention over the encoder
-    output ``enc_x`` (encoder-decoder), the feed-forward half."""
+    self-attention within ``window`` (beside mamba for the hybrid), the
+    cross-attention over the encoder output ``enc_x`` (encoder-decoder),
+    the feed-forward half."""
     h = L.norm_apply(p["ln1"], x)
-    x = x + B.attn_train(p["attn"], h, positions, cfg, capture=capture,
-                         sliding_window=window)
+    a = B.attn_train(p["attn"], h, positions, cfg, capture=capture,
+                     sliding_window=window)
+    if "ssm" in p:
+        a = _hybrid_mix(p, a, B.mamba_train(p["ssm"], h, cfg))
+    x = x + a
     if enc_x is not None:
         x = x + _cross_train(p, x, *_enc_kv(p, enc_x, cfg), cfg)
     h = L.norm_apply(p["ln2"], x)
@@ -380,16 +425,22 @@ def forward(params, tokens, cfg: ModelConfig, *, frames=None,
     attends within ``cfg.layer_window(i)``; the JAX code's forward and
     prefill use ``cfg.sliding_window`` for every layer, which differs only
     under ``window_layers``, where its decode uses the per-layer windows
-    and so disagrees with its own prefill."""
-    check_family(cfg)
+    and so disagrees with its own prefill. The ssm family has no keys to
+    capture: (None, None, None)."""
     x = _embed_inputs(params, tokens, cfg, patches)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
     enc_x = _encode(params, frames, cfg) if cfg.is_encoder_decoder else None
     captures = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _remat(_block_train, "none" if capture_keys else remat)
+    mode = "none" if capture_keys else remat
+    block = _remat(_block_train, mode)
+    recurrent = _remat(_recurrent_train, mode)
     for i, p in enumerate(unbind_layers(params, cfg.n_layers)):
+        kind = CS.layer_kind(cfg, i)
+        if kind in ("mlstm", "slstm"):
+            x, _ = recurrent(p, x, cfg, kind)
+            continue
         cap = {} if capture_keys else None
         x, a = block(p, x, positions, cfg, cfg.layer_window(i), enc_x, cap)
         if a is not None:
@@ -399,8 +450,9 @@ def forward(params, tokens, cfg: ModelConfig, *, frames=None,
     x = L.norm_apply(params["final_norm"], x)
     logits = L.unembed_apply(params["embed"], x, cfg)
     if capture_keys:
-        return logits, aux, tuple(torch.stack([c[n] for c in captures])
-                                  for n in ("pre", "post", "q"))
+        return logits, aux, tuple(
+            torch.stack([c[n] for c in captures]) if captures else None
+            for n in ("pre", "post", "q"))
     return logits, aux
 
 
@@ -411,11 +463,20 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int,
     """Stacked (L, B, Smax, Hkv, D) decode cache for the whole model
     (``h2o``: its budgeted state, ``blocks.init_attn_cache``); the
     encoder-decoder also keeps each slot's cross K/V, ``cross_k`` and
-    ``cross_v`` (L, B, enc_seq, Hkv, D)."""
-    check_family(cfg)
+    ``cross_v`` (L, B, enc_seq, Hkv, D), the hybrid each slot's mamba
+    state under ``ssm`` (L, B, ...). The ssm family's cache is a list of
+    per-layer ``{"ssm": ...}`` (its mLSTM or sLSTM state, (B, ...))."""
     dev = resolve_device(device)
+    specs = CS.layer_specs(cfg)
+    if not CS.uses_scan(cfg):
+        return {"layers": [{"ssm": CS.state_slot_init(cfg, s.state, batch,
+                                                      dtype, dev)}
+                           for s in specs]}
     layers = {"attn": B.init_attn_cache(cfg, batch, smax, dtype, dev,
                                         n_layers=cfg.n_layers)}
+    if specs[0].state is not None:
+        layers["ssm"] = CS.state_slot_init(cfg, specs[0].state, batch,
+                                           dtype, dev, n_layers=cfg.n_layers)
     if cfg.is_encoder_decoder:
         for name in ("cross_k", "cross_v"):
             layers[name] = torch.zeros(
@@ -430,11 +491,30 @@ def layer_cache(cache, i: int):
     return tree_map(lambda a: a[i], cache["layers"]["attn"])
 
 
+def state_cache(cache, i: int):
+    """Layer i's StateSlot leaves, slot axis first (views), or None."""
+    layers = cache["layers"]
+    if isinstance(layers, list):
+        return layers[i].get("ssm")
+    if "ssm" not in layers:
+        return None
+    return tree_map(lambda a: a[i], layers["ssm"])
+
+
 def slot_view(cache, lo: int, hi: int):
     """The cache of slots [lo, hi): every leaf but the pooled attention of
     a paged cache is sliced on its slot axis (views, so writes land in
     the cache)."""
-    return {"layers": tree_map(lambda a: a[:, lo:hi], cache["layers"])}
+    layers = cache["layers"]
+    if isinstance(layers, list):
+        return {"layers": tree_map(lambda a: a[lo:hi], layers)}
+    return {"layers": tree_map(lambda a: a[:, lo:hi], layers)}
+
+
+def _put_state(dst, new) -> None:
+    """Copy a block's new state into the cache's state views ``dst``."""
+    for k, t in new.items():
+        dst[k].copy_(t.to(dst[k].dtype))
 
 
 @torch.no_grad()
@@ -502,8 +582,10 @@ def prefill(params, cfg: ModelConfig, tokens, smax: int, *, frames=None,
     ``cache``: an existing (L, B, Smax, ...) cache (or a view of some of
     its slots, ``slot_view``) to fill in place instead of allocating a new
     one. ``frames``/``patches`` as ``forward`` takes them; the
-    encoder-decoder writes each layer's cross K/V into the cache."""
-    check_family(cfg)
+    encoder-decoder writes each layer's cross K/V into the cache, the
+    hybrid and ssm families each layer's final recurrent state (the ssm
+    family's layers keep the carry of their train-path recurrences, as
+    JAX's prefill does)."""
     b, s = tokens.shape
     if cache is None:
         cache = init_cache(cfg, b, smax, cache_dtype, device=tokens.device)
@@ -513,9 +595,21 @@ def prefill(params, cfg: ModelConfig, tokens, smax: int, *, frames=None,
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         h = L.norm_apply(p["ln1"], x)
-        x = x + B.attn_prefill(p["attn"], layer_cache(cache, i), h,
-                               positions, cfg,
-                               sliding_window=cfg.layer_window(i))
+        kind = CS.layer_kind(cfg, i)
+        if kind in ("mlstm", "slstm"):
+            fn = B.mlstm_train if kind == "mlstm" else B.slstm_train
+            y, st = fn(p["ssm"], h, cfg, return_state=True)
+            _put_state(state_cache(cache, i), st)
+            x = x + y
+            x = x + L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], x), cfg)
+            continue
+        a = B.attn_prefill(p["attn"], layer_cache(cache, i), h, positions,
+                           cfg, sliding_window=cfg.layer_window(i))
+        if kind == "hybrid":
+            sy, st = B.mamba_prefill(p["ssm"], h, cfg)
+            _put_state(state_cache(cache, i), st)
+            a = _hybrid_mix(p, a, sy)
+        x = x + a
         if enc_x is not None:
             ek, ev = _enc_kv(p, enc_x, cfg)
             for name, t in (("cross_k", ek), ("cross_v", ev)):
@@ -530,11 +624,53 @@ def prefill(params, cfg: ModelConfig, tokens, smax: int, *, frames=None,
     return logits, cache, pos_len
 
 
+class _StepState:
+    """One decode step's view of a layer's StateSlot leaves: the rows the
+    step computes (every slot, or the packed slots ``slots`` gathered with
+    zero rows appended up to the step's row count) and the write back of
+    the rows' new state. ``live`` (the step's B rows, bool): a dead row's
+    state is written back as it was (mid-prefill and idle slots, a packed
+    step's pad slots); the appended rows are never written back (they
+    stand for no slot)."""
+
+    def __init__(self, leaves, slots, live, n_rows: int, rows: int):
+        self.leaves, self.slots, self.live = leaves, slots, live
+        self.n_rows = n_rows
+        self.old = (leaves if slots is None else
+                    {k: v.index_select(0, slots) for k, v in leaves.items()})
+        self.rows = self.old if rows == n_rows else {
+            k: F.pad(v, (0, 0) * (v.ndim - 1) + (0, rows - n_rows))
+            for k, v in self.old.items()}
+
+    def commit(self, new) -> None:
+        for k, full in self.leaves.items():
+            nw = new[k][:self.n_rows].to(full.dtype)
+            if self.live is not None:
+                m = self.live.reshape((-1,) + (1,) * (nw.ndim - 1))
+                nw = torch.where(m, nw, self.old[k])
+            if self.slots is None:
+                full.copy_(nw)
+            else:
+                full.index_copy_(0, self.slots, nw)
+
+
+def _recurrent_decode(p, x, cfg: ModelConfig, kind: str, state: _StepState):
+    """One xlstm layer's decode step over x (rows,E)."""
+    h = L.norm_apply(p["ln1"], x)
+    fn = B.mlstm_decode if kind == "mlstm" else B.slstm_decode
+    y, new = fn(p["ssm"], state.rows, h, cfg)
+    state.commit(new)
+    x = x + y
+    return x + L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], x), cfg)
+
+
 def _layer_decode(p, c, x, pos_len, cfg: ModelConfig, *, page_table=None,
                   page_size: int = 0, frame_table=None, plan_rows=None,
-                  n_rows=None, window=None, rank=None, cross=None):
+                  n_rows=None, window=None, rank=None, cross=None,
+                  state=None):
     """One layer's decode step -> (x, winners or None). ``cross``: the
-    step rows' cross (k, v) of an encoder-decoder layer."""
+    step rows' cross (k, v) of an encoder-decoder layer; ``state``: the
+    hybrid's ``_StepState``, whose mamba heads run beside attention."""
     h = L.norm_apply(p["ln1"], x)
     y = B.attn_decode(p["attn"], c, h, pos_len, cfg, page_table=page_table,
                       page_size=page_size, frame_table=frame_table,
@@ -543,6 +679,10 @@ def _layer_decode(p, c, x, pos_len, cfg: ModelConfig, *, page_table=None,
     win = None
     if frame_table is not None:
         y, win = y
+    if state is not None:
+        s, new = B.mamba_decode(p["ssm"], state.rows, h, cfg)
+        state.commit(new)
+        y = _hybrid_mix(p, y, s)
     x = x + y
     if cross is not None:
         x = x + _cross_decode(p, x, *cross, cfg,
@@ -584,16 +724,26 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
     table alone. Distinctness is checked on a host tensor only (on the
     card the check would cost a host sync).
 
+    The StateSlot families gather their packed slots' recurrent state
+    before the layers and scatter the advanced state back after, as the
+    reference does (``_StepState``).
+
+    ``live (B,)`` bool: rows whose slots are dead this step (idle,
+    mid-prefill, over the decode budget, a packed step's pad rows) keep
+    their recurrent state: their K/V writes land on the trash page, but
+    state has no trash row. Ignored by the families without state.
+
     ``plan_slots`` (an int): the engine's slot count. A packed step of B <
     plan_slots rows computes each slot as the engine's full-width (masked)
     step does, so the two agree bit for bit: the decode kernels plan
     their split count and cluster size for ``plan_slots x Hkv`` rows, and
-    the row-wise ops (norms, projections, MLP or MoE, unembedding) run
-    over plan_slots rows, zero rows appended, only the attention over the
-    B rows. On the card those ops' kernels, and so their rounding, follow
-    the row count (an RMSNorm's mean over 2 rows and over 4 can round
-    apart); their cost at decode is the weights' bytes, which the rows do
-    not change. None: the step's own B.
+    the row-wise ops (norms, projections, MLP or MoE, the recurrent
+    blocks, unembedding) run over plan_slots rows, zero rows (and zero
+    states) appended, only the attention over the B rows. On the card
+    those ops' kernels, and so their rounding, follow the row count (an
+    RMSNorm's mean over 2 rows and over 4 can round apart); their cost at
+    decode is the weights' bytes, which the rows do not change. None: the
+    step's own B.
 
     ``frame_table (B, max_pages)`` (tiered pools): each table entry's
     device frame (0, the trash frame, for HOST pages). The return becomes
@@ -604,15 +754,8 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
     With ``cfg.window_layers`` the table is rank 3, ``(B, n_groups,
     max_pages)``: each layer reads its page-table group's row and attends
     within its own window. The encoder-decoder reads each row's cross K/V
-    from its slot (``slot_idx``, or the row's own index). The reference's
-    ``live`` (StateSlot families) is not ported yet (ROADMAP queue 1 item
-    8) and raises, as do tiered pools with page-table groups (the JAX
-    code refuses them too)."""
-    check_family(cfg)
-    if live is not None:
-        raise NotImplementedError(
-            "decode_step: live (StateSlot families) is not ported yet "
-            "(ROADMAP queue 1 item 8)")
+    from its slot (``slot_idx``, or the row's own index). Tiered pools
+    with page-table groups raise (the JAX code refuses them too)."""
     if slot_idx is not None:
         _check_slot_idx(slot_idx, token.shape[0])
     tables = _layer_tables(cfg, page_table)
@@ -630,6 +773,14 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
     slots = None if slot_idx is None else slot_idx.long()
     winners = None
     for i in range(cfg.n_layers):
+        leaves = state_cache(cache, i)
+        state = (None if leaves is None
+                 else _StepState(leaves, slots, live, b, rows))
+        kind = CS.layer_kind(cfg, i)
+        if kind in ("mlstm", "slstm"):
+            x = _recurrent_decode(layer_params(params, i), x, cfg, kind,
+                                  state)
+            continue
         cross = (_cross_rows(cache, i, slots) if cfg.is_encoder_decoder
                  else None)
         x, win = _layer_decode(layer_params(params, i),
@@ -638,7 +789,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos_len, *,
                                frame_table=frame_table, plan_rows=plan_rows,
                                n_rows=b, window=cfg.layer_window(i),
                                rank=None if ranks is None else ranks[i],
-                               cross=cross)
+                               cross=cross, state=state)
         if win is not None:
             winners = win if winners is None else winners | win
     x = L.norm_apply(params["final_norm"], x)
@@ -697,11 +848,18 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     slot's cross K/V (the CrossAttnStatic component), ``cross_k`` and
     ``cross_v`` (L, n_slots, enc_seq, Hkv, D), written at admission, with
     (L, n_slots) float32 ``cross_k_scale``/``cross_v_scale`` under a
-    quantized layout."""
-    check_family(cfg)
+    quantized layout. The StateSlot families add each slot's recurrent
+    state under ``ssm`` (``cache_spec.state_slot_init``: the hybrid's
+    stacked (L, n_slots, ...), the ssm family's per layer in a list of
+    ``{"ssm": ...}``, which holds no pages at all)."""
     CS.assert_pageable(cfg)
     B.check_policy(cfg)
     specs = CS.layer_specs(cfg)
+    dev = resolve_device(device)
+    if not CS.uses_scan(cfg):
+        return {"layers": [{"ssm": CS.state_slot_init(cfg, s.state, n_slots,
+                                                      dtype, dev)}
+                           for s in specs]}
     spec = specs[0].attn
     lay = spec.layout
     if device_pages is not None:
@@ -720,7 +878,6 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     def pool_dtype(lay):
         return dtype if lay == PageLayout() else PC.STORAGE_DTYPE[lay.dtype]
     pdt = pool_dtype(lay)
-    dev = resolve_device(device)
     rows = (n_pages if device_pages is None else device_pages) * page_size
     lead = (cfg.n_layers, rows, spec.n_kv_heads)
     attn = {"k": torch.zeros(lead + (CS.max_k_width(cfg),), dtype=pdt,
@@ -736,6 +893,9 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
             attn[name] = torch.zeros((cfg.n_layers, n_pages),
                                      dtype=torch.float32, device=dev)
     layers = {"attn": attn}
+    if specs[0].state is not None:
+        layers["ssm"] = CS.state_slot_init(cfg, specs[0].state, n_slots,
+                                           dtype, dev, n_layers=cfg.n_layers)
     cross = specs[0].cross
     if cross is not None:
         for name in ("cross_k", "cross_v"):
@@ -765,10 +925,13 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, pos_start: int,
     the cached prefix plus the chunk. Returns (logits (1, V) of chunk
     token ``n_valid - 1``, cache). ``slot`` (an int): the request's slot,
     whose cross K/V (written at admission) the encoder-decoder's chunk
-    attends. ``frame_row (max_pages,)`` or (1, max_pages) (tiered pools):
-    each table entry's device frame; K/V go through it, the latent
-    sidecar through the table."""
-    check_family(cfg)
+    attends, and whose recurrent state (the hybrid's mamba, the ssm
+    family's mLSTM and sLSTM) the chunk carries on: pad tokens leave it
+    as it was, so chunked prefill gives the one-shot recurrence. The ssm
+    family has no pages: its chunk runs the recurrences alone.
+    ``frame_row (max_pages,)`` or (1, max_pages) (tiered pools): each
+    table entry's device frame; K/V go through it, the latent sidecar
+    through the table."""
     CS.assert_pageable(cfg)
     if frame_row is not None and frame_row.ndim == 2:
         frame_row = frame_row[0]
@@ -791,13 +954,29 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, pos_start: int,
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         h = L.norm_apply(p["ln1"], x)
-        x = x + B.attn_prefill_chunk(p["attn"], layer_cache(cache, i), h,
-                                     pos_start, n_valid, cfg,
-                                     table_row=rows[i],
-                                     page_size=page_size,
-                                     frame_row=frame_row,
-                                     rank=None if ranks is None else ranks[i],
-                                     sliding_window=cfg.layer_window(i))
+        kind = CS.layer_kind(cfg, i)
+        st = state_cache(cache, i)
+        if st is not None:
+            st = {k: v[slot:slot + 1] for k, v in st.items()}
+        if kind in ("mlstm", "slstm"):
+            fn = B.mlstm_train if kind == "mlstm" else B.slstm_train
+            y, new = fn(p["ssm"], h, cfg, return_state=True,
+                        initial_state=st, n_valid=n_valid)
+            _put_state(st, new)
+            x = x + y
+            x = x + L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], x), cfg)
+            continue
+        a = B.attn_prefill_chunk(p["attn"], layer_cache(cache, i), h,
+                                 pos_start, n_valid, cfg,
+                                 table_row=rows[i], page_size=page_size,
+                                 frame_row=frame_row,
+                                 rank=None if ranks is None else ranks[i],
+                                 sliding_window=cfg.layer_window(i))
+        if kind == "hybrid":
+            sy, new = B.mamba_prefill_chunk(p["ssm"], st, h, n_valid, cfg)
+            _put_state(st, new)
+            a = _hybrid_mix(p, a, sy)
+        x = x + a
         if cfg.is_encoder_decoder:
             ek, ev = _cross_rows(cache, i, slice(slot, slot + 1))
             x = x + _cross_train(p, x, ek, ev, cfg)

@@ -18,6 +18,13 @@ Component kinds:
                    their table entries pointed at the trash page, whose
                    rows the window mask hides). A request holds at most
                    ceil(window / page_size) + 1 pages.
+  StateSlot        fixed-size recurrent state (mamba conv/ssm, mLSTM
+                   C/n/m, sLSTM c/n/h/m) carried per slot across prefill
+                   chunks and decode steps, O(1) in the request's length.
+                   It is reset at admission; on preemption the paged
+                   engine snapshots it to the host (and parks a hybrid's
+                   own K/V pages as private pool entries) so re-admission
+                   restores it instead of recomputing the folded prompt.
   CrossAttnStatic  whisper's encoder K/V, written once at admission
                    (``lm.encode_cross_kv``) into the request's slot and
                    read-only afterwards; quantized layouts keep one scale
@@ -27,14 +34,18 @@ Layers whose windows differ read separate page tables (page-table groups,
 ``group_windows``): a full-attention layer pins its pages while a window
 group recycles at its own window. ``page_ranks`` gives each layer its own
 latent-K rank. MoE layers ([attn, moe]) page their attention exactly as
-dense layers do; the vlm family is a dense backbone. The reference's
-StateSlot (the recurrent state of the hybrid and ssm families, hymba and
-xlstm) is not ported yet (ROADMAP queue 1 item 8): their configs raise.
+dense layers do; the vlm family is a dense backbone; the hybrid family
+(hymba) holds both PagedAttn and a StateSlot in each layer, the ssm family
+(xlstm: mLSTM and sLSTM layers, a list rather than a stack) StateSlots
+only. The state helpers at the end build, snapshot and reset the
+StateSlot leaves of both engines' caches.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Any, Dict, Tuple, Union
+
+import torch
 
 from repro_torch.configs.base import ModelConfig, PageLayout
 
@@ -45,19 +56,31 @@ UNPAGEABLE_POLICIES = ("h2o", "pcaattn")
 
 # ------------------------------------------------------------ layer kinds
 
+def is_slstm(cfg: ModelConfig, i: int) -> bool:
+    """xlstm: one block in ``slstm_every`` (the last of each run) is an
+    sLSTM block, the rest mLSTM."""
+    return bool(cfg.slstm_every) and (i % cfg.slstm_every
+                                      == cfg.slstm_every - 1)
+
+
 def layer_kind(cfg: ModelConfig, i: int) -> str:
-    """dense|moe|dec — what block layer ``i`` is. The hybrid and ssm
-    families' kinds (StateSlot) raise: not ported yet."""
-    del i
-    if cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.arch}: the {cfg.family} family keeps recurrent state "
-            "(StateSlot), which is not ported yet (ROADMAP queue 1 item 8)")
+    """dense|moe|hybrid|mlstm|slstm|dec — what block layer ``i`` is."""
+    if cfg.family == "ssm":
+        return "slstm" if is_slstm(cfg, i) else "mlstm"
     if cfg.family == "moe":
         return "moe"
+    if cfg.family == "hybrid":
+        return "hybrid"
     if cfg.is_encoder_decoder:
         return "dec"
     return "dense"
+
+
+def uses_scan(cfg: ModelConfig) -> bool:
+    """Whether the layers stack on a leading L axis (JAX scans them). The
+    ssm family's layers differ in kind, so its parameters and caches are
+    a list of per-layer trees."""
+    return cfg.family != "ssm"
 
 
 # ------------------------------------------------------------- components
@@ -107,13 +130,25 @@ class CrossAttnStatic:
     shareable = False
 
 
-Component = Union[PagedAttn, WindowPagedAttn, CrossAttnStatic]
+@dataclasses.dataclass(frozen=True)
+class StateSlot:
+    """Fixed-size per-slot recurrent state; ``state`` names the block
+    (mamba|mlstm|slstm) whose cache builder defines its leaves. Not
+    shareable: the state sums up the whole prefix, so a request cannot
+    skip prefill over cached pages (the skipped tokens would be missing
+    from its state). Families with a StateSlot bypass prefix caching."""
+    state: str
+    shareable = False
+
+
+Component = Union[PagedAttn, WindowPagedAttn, StateSlot, CrossAttnStatic]
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One layer's decode-state declaration: named components ('attn' ->
-    pooled K/V, 'cross' -> cross_k/cross_v)."""
+    pooled K/V, 'ssm' -> the StateSlot leaves, 'cross' ->
+    cross_k/cross_v)."""
     kind: str
     components: Tuple[Tuple[str, Component], ...]
 
@@ -124,6 +159,11 @@ class LayerSpec:
     def attn(self):
         c = self.component("attn")
         return c if isinstance(c, PagedAttn) else None
+
+    @property
+    def state(self):
+        c = self.component("ssm")
+        return c if isinstance(c, StateSlot) else None
 
     @property
     def cross(self):
@@ -162,7 +202,13 @@ def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
 
     def one(i: int) -> LayerSpec:
         kind = layer_kind(cfg, i)
-        comps = [("attn", attn_for(i))]
+        comps = []
+        if kind in ("dense", "moe", "hybrid", "dec"):
+            comps.append(("attn", attn_for(i)))
+        if kind == "hybrid":
+            comps.append(("ssm", StateSlot("mamba")))
+        if kind in ("mlstm", "slstm"):
+            comps.append(("ssm", StateSlot(kind)))
         if kind == "dec":
             comps.append(("cross", CrossAttnStatic(
                 cfg.enc_seq, cfg.n_kv_heads, hd, cross_lay)))
@@ -199,6 +245,10 @@ def latent_score_width(cfg: ModelConfig) -> int:
     return min(d, max_k_width(cfg))
 
 
+def has_state_slots(cfg: ModelConfig) -> bool:
+    return any(s.state is not None for s in layer_specs(cfg))
+
+
 def pageable(cfg: ModelConfig) -> Tuple[bool, str]:
     """Can this config serve from the paged engine? (ok, reason)."""
     if has_paged_attn(cfg) and cfg.attn_policy() in UNPAGEABLE_POLICIES:
@@ -211,8 +261,8 @@ def pageable(cfg: ModelConfig) -> Tuple[bool, str]:
 def prefix_shareable(cfg: ModelConfig) -> Tuple[bool, str]:
     """Can prompt-prefix pages be shared across this config's requests?
     (ok, reason). The engine bypasses prefix caching with the reason
-    instead of raising: window and cross components pin pages to one
-    request."""
+    instead of raising: window, state and cross components pin pages to
+    one request."""
     if not has_paged_attn(cfg):
         return False, "no paged-attention layers to share"
     for s in layer_specs(cfg):
@@ -230,14 +280,10 @@ def assert_pageable(cfg: ModelConfig) -> None:
 
 
 def servable_archs() -> Tuple[str, ...]:
-    """Archs whose (default-policy) smoke config the port's paged engine
-    serves: the reference's set less the families not ported yet."""
+    """Archs whose (default-policy) smoke config the paged engine serves:
+    the set launch/serve.py allows, derived rather than hard-coded."""
     from repro_torch.configs import ARCHS, get_smoke_config
-
-    def ok(arch):
-        cfg = get_smoke_config(arch)
-        return cfg.family not in ("hybrid", "ssm") and pageable(cfg)[0]
-    return tuple(a for a in ARCHS if ok(a))
+    return tuple(a for a in ARCHS if pageable(get_smoke_config(a))[0])
 
 
 # ---------------------------------------------------------------- budgets
@@ -311,6 +357,93 @@ def request_page_budget(cfg: ModelConfig, smax: int, page_size: int) -> int:
                for g in range(len(group_windows(cfg))))
 
 
+# ------------------------------------------------------------ state slots
+# A cache's ``layers`` holds the StateSlot leaves under "ssm": stacked
+# (L, n_slots, ...) in a dict for the scan families (slot axis 1), and per
+# layer (n_slots, ...) in a list for the ssm family (slot axis 0). The
+# helpers below take and give trees of that layout.
+
+def state_slot_init(cfg: ModelConfig, comp: StateSlot, batch: int, dtype,
+                    device, n_layers=None) -> Dict[str, Any]:
+    """Fresh state leaves of ``batch`` slots of a StateSlot component
+    (mamba's conv window in ``dtype``, everything else float32); mamba's
+    stacked on ``n_layers`` when given (the hybrid's scanned layers; the
+    ssm family's layers are a list)."""
+    from repro_torch.models import blocks as B
+    if comp.state == "mamba":
+        return B.init_mamba_cache(cfg, batch, dtype, device,
+                                  n_layers=n_layers)
+    if comp.state == "mlstm":
+        return B.init_mlstm_cache(cfg, batch, device)
+    if comp.state == "slstm":
+        return B.init_slstm_cache(cfg, batch, device)
+    raise ValueError(f"unknown StateSlot kind {comp.state!r}")
+
+
+def fresh_state_tree(cfg: ModelConfig, dtype, device):
+    """Batch-1 fresh values of every StateSlot leaf, shaped to copy into
+    one slot of either engine's cache (``reset_slot_state``); None when
+    the model keeps no recurrent state (rows past an attention slot's
+    position are never read, so it needs no reset). Cross K/V needs none
+    either: it is installed at every admission."""
+    specs = layer_specs(cfg)
+    if uses_scan(cfg):
+        st = specs[0].state
+        if st is None:
+            return None
+        return {"ssm": state_slot_init(cfg, st, 1, dtype, device,
+                                       n_layers=cfg.n_layers)}
+    layers = [{"ssm": state_slot_init(cfg, s.state, 1, dtype, device)}
+              if s.state is not None else {} for s in specs]
+    return layers if any(layers) else None
+
+
+def _slot_leaves(layers, fresh, scan: bool):
+    """(cache leaf, matching fresh leaf, slot axis) of every state leaf."""
+    def pairs(full, one):
+        if isinstance(one, dict):
+            for k in one:
+                yield from pairs(full[k], one[k])
+        else:
+            yield full, one
+    if scan:
+        return [(f, o, 1) for f, o in pairs(layers, fresh)]
+    return [(f, o, 0) for lc, fr in zip(layers, fresh)
+            for f, o in pairs(lc, fr)]
+
+
+def snapshot_slot_state(layers, fresh, slot: int, scan: bool):
+    """One slot's state leaves of a cache's ``layers``, shaped as
+    ``fresh_state_tree`` gives them, so that ``reset_slot_state(layers,
+    snapshot, slot, scan)`` restores them verbatim: the paged engine's
+    snapshot at preemption. On a card the leaves go to pinned host memory
+    without waiting for it: the copy back at re-admission is issued on the
+    same stream, after this one. On the CPU they are copies."""
+    def take(full, axis):
+        one = full.narrow(axis, slot, 1)
+        if one.device.type != "cuda":
+            return one.clone()
+        host = torch.empty(one.shape, dtype=one.dtype, pin_memory=True)
+        return host.copy_(one, non_blocking=True)
+
+    def walk(full, one, axis):
+        if isinstance(one, dict):
+            return {k: walk(full[k], one[k], axis) for k in one}
+        return take(full, axis)
+    if scan:
+        return walk(layers, fresh, 1)
+    return [walk(lc, fr, 0) for lc, fr in zip(layers, fresh)]
+
+
+def reset_slot_state(layers, fresh, slot: int, scan: bool):
+    """Overwrite one slot's state leaves of a cache's ``layers`` with
+    ``fresh`` (``fresh_state_tree`` values or a ``snapshot_slot_state``),
+    in place, without waiting for the card. Returns ``layers``."""
+    for full, one, axis in _slot_leaves(layers, fresh, scan):
+        full.narrow(axis, slot, 1).copy_(one, non_blocking=True)
+    return layers
+
+
 # ------------------------------------------------------------ spec table
 
 def _fmt_layout(comp: Component) -> str:
@@ -329,6 +462,8 @@ def _fmt_component(name: str, comp: Component, smax: int,
     if isinstance(comp, PagedAttn):
         return (f"{name}=PagedAttn(<= {-(-smax // page_size)} pages"
                 f"{_fmt_layout(comp)})")
+    if isinstance(comp, StateSlot):
+        return f"{name}=StateSlot({comp.state})"
     return (f"{name}=CrossAttnStatic(enc_seq={comp.enc_seq}, "
             f"written at admission{_fmt_layout(comp)})")
 

@@ -4,7 +4,9 @@
 The cache is preallocated (L, n_slots, Smax, ...) storage and decode writes
 in place, so no step re-allocates it. Requests join free slots; every tick
 runs one batched decode step over all slots; finished requests free their
-slot. Per-slot positions make ragged batches exact.
+slot. Per-slot positions make ragged batches exact. The recurrent-state
+families (hymba, xlstm) reset a slot's state at admission and pass the
+step the slots' ``live`` mask, so a free slot's state does not move.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.serving import cache_spec as CS
 from repro_torch.serving import lifecycle as LC
 from repro_torch.serving.lifecycle import Deadline, Status
 
@@ -132,6 +135,12 @@ class ServingEngine:
         self.stalled_rids: List[int] = []
         self.cache = lm.init_cache(cfg, n_slots, smax, torch.float32,
                                    device=self.device)
+        # the recurrent-state families' fresh state, copied into a slot at
+        # admission: an earlier occupant's state must not leak into the
+        # new request (attention caches need nothing: rows past a slot's
+        # position are never read)
+        self._fresh_state = CS.fresh_state_tree(cfg, torch.float32,
+                                                self.device)
         # positions / last tokens live on the host: per-slot bookkeeping
         # stays in numpy and crosses to the device once per step, as one
         # private copy (``_upload``), so tick() may update them in place
@@ -224,6 +233,9 @@ class ServingEngine:
                                  "Request.frames (enc_seq, d_model)")
             fr = torch.as_tensor(np.asarray(req.frames, np.float32)[None],
                                  device=self.device)
+        if self._fresh_state is not None:
+            CS.reset_slot_state(self.cache["layers"], self._fresh_state,
+                                slot, CS.uses_scan(self.cfg))
         view = lm.slot_view(self.cache, slot, slot + 1)
         if len(toks) > 1:
             lm.prefill(self.params, self.cfg,
@@ -245,23 +257,28 @@ class ServingEngine:
     # ------------------------------------------------------------- tick
 
     def _upload(self):
-        """The step's tokens and positions on the engine's device in one
-        copy: from pinned memory without blocking on the card (PyTorch's
-        pinned allocator keeps the buffer until the copy has run), a
-        private copy on the CPU. The tick's one host sync is then the
-        sampled tokens' way back."""
-        t = torch.from_numpy(np.concatenate([self.last_tok, self.pos]))
+        """The step's tokens, positions and (state families) live mask on
+        the engine's device in one copy: from pinned memory without
+        blocking on the card (PyTorch's pinned allocator keeps the buffer
+        until the copy has run), a private copy on the CPU. The tick's one
+        host sync is then the sampled tokens' way back."""
+        n = self.n_slots
+        state = self._fresh_state is not None
+        t = torch.from_numpy(np.concatenate(
+            [self.last_tok, self.pos]
+            + ([self.live.astype(np.int32)] if state else [])))
         t = (t.pin_memory().to(self.device, non_blocking=True)
              if self.device.type == "cuda" else t.clone())
-        return t[:self.n_slots], t[self.n_slots:]
+        return t[:n], t[n:2 * n], t[2 * n:].bool() if state else None
 
     def tick(self, rng: Optional[torch.Generator] = None) -> None:
         self._expire_deadlines()
         self._admit()
         if not self.live.any():
             return
+        tok, pos, live = self._upload()
         logits, self.cache = lm.decode_step(self.params, self.cfg,
-                                            self.cache, *self._upload())
+                                            self.cache, tok, pos, live=live)
         self.pos += self.live.astype(np.int32)
         nxt = sample_next(logits, greedy=self.greedy, rng=rng,
                           ticks=self.ticks)

@@ -36,9 +36,12 @@ every tick and checks it against the scheduler's slots and page table:
   A. partition      every non-trash page is in exactly one of {free list,
                     cached LRU, held (refcount >= 1)}
   B. holder balance a held page's refcount equals the slot references
+                    (pages retained private across a preemption sit in
+                    the LRU at refcount 0)
   C. no wild refs   no slot references the trash page, an out-of-range
                     page or a free page
-  D. share safety   a page two slots reference is publicly registered
+  D. share safety   a page two slots reference is publicly registered,
+                    never a private retained entry
   E. table mirror   the host page table rows equal the slot page lists
   F. LRU sanity     every LRU page is registered and unreferenced
 

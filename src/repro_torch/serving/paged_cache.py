@@ -37,9 +37,9 @@ Two layers, as in the reference: torch helpers over the pools (writes are
 in place, where the JAX code returns an updated array), and the host-side
 refcounted ``PagePool`` the scheduler drives, with its prefix-cache index
 over full prompt pages, the LRU of cached pages, the tier state and the
-fault seams (``set_faults``). The reference's private (retained) entries
-belong to the StateSlot families' retention, not ported yet (ROADMAP
-queue 1 item 8).
+fault seams (``set_faults``), and the private entries the StateSlot
+families' preemption retains a hybrid request's own pages under
+(``register_private`` / ``reclaim_private``).
 """
 from __future__ import annotations
 
@@ -313,6 +313,8 @@ class PagePool:
                            registered   -> cached (LRU, evictable)
       cached -> match_prefix() hit -> held again
       cached -> eviction (alloc finds the free list short) -> free
+      held -> register_private() -> released: cached, reachable by its
+              private key only -> reclaim_private() -> held again
 
     ``free_pages`` counts the free list, ``cached_pages`` the registered
     pages no request holds, ``available_pages`` both: what ``alloc`` can
@@ -358,6 +360,7 @@ class PagePool:
         self._index: Dict[bytes, CacheEntry] = {}
         self._children: Dict[bytes, List[CacheEntry]] = {}
         self._by_page: Dict[int, CacheEntry] = {}
+        self._priv_ctr = 0             # private entries' key counter
         # registered pages at refcount 0, least recently released first
         self._lru: "collections.OrderedDict[int, None]" = \
             collections.OrderedDict()
@@ -411,9 +414,9 @@ class PagePool:
         return page in self._by_page
 
     def is_private(self, page: int) -> bool:
-        """Is this page a private (retained) entry? Never here: the
-        reference's ``register_private`` belongs to the StateSlot
-        families' retention, not ported yet (ROADMAP queue 1 item 8)."""
+        """Is this page a ``register_private`` retained entry (never
+        shareable: the auditor's invariant D checks that no two slots
+        reference one)?"""
         e = self._by_page.get(page)
         return e is not None and e.key.startswith(b"priv:")
 
@@ -755,6 +758,57 @@ class PagePool:
         sibs.remove(e)
         if not sibs:
             del self._children[e.parent]
+
+    # ---------------------------------------------------- private entries
+
+    def register_private(self, page: int) -> bytes:
+        """Index a held page under a unique private key and return it.
+
+        A private entry gives a page the cached page's life (release puts
+        it in the LRU, evictable under pressure, reclaimable by key) but
+        is never shared: the key is a counter tag, never a chain hash, so
+        ``match_prefix`` cannot reach it. Preemption retains a hybrid
+        request's own K/V pages this way (their contents depend on the
+        request's recurrent state, not on its tokens alone): a state
+        snapshot and the reclaimed pages resume it without recompute."""
+        if self._ref.get(page, 0) <= 0:
+            raise ValueError(f"register_private of unheld page {page}")
+        if page in self._by_page:
+            raise ValueError(f"page {page} is already registered")
+        self._priv_ctr += 1
+        key = b"priv:%d" % self._priv_ctr
+        e = CacheEntry(page, key, key, np.empty(0, np.int32))
+        self._index[key] = e
+        self._children.setdefault(key, []).append(e)
+        self._by_page[page] = e
+        return key
+
+    def reclaim_private(self, keys) -> Optional[List[int]]:
+        """All-or-nothing reclaim of ``register_private`` entries. When
+        every key survived eviction: each page is held again (refcount 0
+        -> 1, out of the LRU), its private entry dropped (a plain held
+        page again), and the pages come back in key order. When any was
+        evicted the set is useless (the snapshot's state covers exactly
+        the whole prefix): the survivors leave the index and go back to
+        the free list, and the answer is None (the caller recomputes)."""
+        if any(k not in self._index for k in keys):
+            for k in keys:
+                e = self._index.get(k)
+                if e is None:
+                    continue
+                self._drop_entry(e)
+                if e.page in self._lru:
+                    self._lru.pop(e.page)
+                    self._tier_free(e.page)
+                    self._free.append(e.page)
+            return None
+        pages = []
+        for k in keys:
+            e = self._index[k]
+            self._acquire_one(e.page)
+            self._drop_entry(e)
+            pages.append(e.page)
+        return pages
 
     @staticmethod
     def pages_for(n_tokens: int, page_size: int) -> int:

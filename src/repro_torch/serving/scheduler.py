@@ -1,6 +1,6 @@
 """Paged serving engine: continuous batching over a refcounted page pool
-(counterpart of ``repro.serving.scheduler.PagedServingEngine``; the
-dense, MoE, encoder-decoder and vlm families).
+(counterpart of ``repro.serving.scheduler.PagedServingEngine``; every
+family of the JAX package).
 
 The dense engine's ``(n_slots, Smax, ...)`` cache becomes the shared pool
 of serving/paged_cache.py, and a tick runs three policy-driven phases
@@ -99,12 +99,25 @@ The spec table (serving/cache_spec.py) drives the families' lifecycles:
   CrossAttnStatic  at admission the encoder runs once over the request's
                    frames and each layer's cross K/V lands in its slot
                    (quantized layouts: one scale per layer and slot)
+  StateSlot        the slot's recurrent state is reset at admission and
+                   advances only for the slots a decode step selects (the
+                   step's ``live`` mask). Preemption snapshots it to
+                   pinned host memory (``cache_spec.snapshot_slot_state``,
+                   a copy ordered on the stream, so no host sync) and,
+                   for the hybrid (state beside paged K/V, hymba), parks
+                   the slot's own pages as private pool entries; a
+                   re-admission whose whole retained set survived
+                   restores both and resumes where it stopped, anything
+                   less recomputes the folded prompt from a fresh state.
+                   A multi-group hybrid always recomputes; the ssm family
+                   (xlstm) holds no pages and restores from the snapshot
+                   alone. On the tier, a re-run slot's state rewinds to a
+                   snapshot taken before the phase, so each stream's
+                   state advances once a step
 
-Not ported yet, and refused when asked for: the trace guard (it seals
-compiled programs; it comes with the captured decode step, ROADMAP, the
-note after queue 1), tiered pools with page-table groups (the reference
-refuses them too), and the StateSlot families' state snapshots and
-retention (ROADMAP queue 1 item 8).
+Refused when asked for: the trace guard (it seals compiled programs; it
+comes with the captured decode step, ROADMAP, the note after queue 1) and
+tiered pools with page-table groups (the reference refuses them too).
 """
 from __future__ import annotations
 
@@ -217,9 +230,10 @@ class PagedServingEngine:
         if backend is not None:
             cfg = cfg.replace(
                 loki=dataclasses.replace(cfg.loki, backend=backend))
-        lm.check_family(cfg)
         CS.assert_pageable(cfg)
-        if cfg.attn_policy() not in PAGED_POLICIES:
+        self.has_pages = CS.has_paged_attn(cfg)
+        self.has_state = CS.has_state_slots(cfg)
+        if self.has_pages and cfg.attn_policy() not in PAGED_POLICIES:
             raise ValueError(
                 f"policy {cfg.attn_policy()!r} cannot serve from a paged "
                 f"cache (supported: {PAGED_POLICIES}); use ServingEngine")
@@ -284,6 +298,9 @@ class PagedServingEngine:
 
         self.tiered = device_pages is not None
         if self.tiered:
+            if not self.has_pages:
+                raise ValueError("tiered KV pool needs paged attention "
+                                 "layers")
             if cfg.attn_policy() not in ("loki", "loki_block"):
                 raise ValueError(
                     "tiered KV pool needs a Loki policy (its latent "
@@ -316,6 +333,9 @@ class PagedServingEngine:
                                          torch.float32, n_slots=n_slots,
                                          device_pages=device_pages,
                                          device=self.device)
+        self._scan = CS.uses_scan(cfg)
+        self._fresh_state = CS.fresh_state_tree(cfg, torch.float32,
+                                                self.device)
         self.page_table = np.zeros((n_slots, self.max_pages), np.int32)
         self.pos = np.zeros((n_slots,), np.int32)
         self.last_tok = np.zeros((n_slots,), np.int32)
@@ -354,6 +374,14 @@ class PagedServingEngine:
         # a policy class
         self._arrival: Dict[int, int] = {}
         self._arrival_seq = 0
+        # preempted StateSlot requests: id(req) -> (prompt tokens the
+        # state has folded in, its host snapshot); a hybrid's retained
+        # pages: id(req) -> (its page list, their private keys). A restore
+        # needs both whole; anything less recomputes
+        self._state_snap: Dict[int, Tuple[int, Any]] = {}
+        self._page_snap: Dict[int, Tuple[List[Optional[int]],
+                                         List[bytes]]] = {}
+        self.n_state_restores = 0
         self._last_decoded = np.zeros((n_slots,), np.int64)
         self.lifecycle_counts: Dict[str, int] = {}
         self.ticks = 0
@@ -382,10 +410,12 @@ class PagedServingEngine:
         self._n_host_buffers = 0
         self._pinned_tail: Dict[int, int] = {}
         self._page_last_use: Dict[int, int] = {}
-        attn = self.cache["layers"]["attn"]
-        self._page_bytes = self.page_size * sum(
-            attn[n][0, 0].numel() * attn[n].element_size()
-            for n in ("k", "v")) * cfg.n_layers
+        self._page_bytes = 0
+        if self.has_pages:
+            attn = self.cache["layers"]["attn"]
+            self._page_bytes = self.page_size * sum(
+                attn[n][0, 0].numel() * attn[n].element_size()
+                for n in ("k", "v")) * cfg.n_layers
         self.n_prefetch_hits = 0
         self.n_prefetch_misses = 0
         self.n_sync_fetches = 0
@@ -440,6 +470,61 @@ class PagedServingEngine:
             return self.page_table[sidx]
         return np.stack([t[sidx] for t in self._group_tables()], axis=1)
 
+    def _reset_slot_state(self, slot: int) -> None:
+        """(Re-)admission: the slot's recurrent state back to its fresh
+        values, so no earlier occupant leaks into this request (and a
+        recompute starts from the fresh state)."""
+        if self.has_state:
+            CS.reset_slot_state(self.cache["layers"], self._fresh_state,
+                                slot, self._scan)
+
+    def _drop_page_snap(self, psnap) -> None:
+        """Discard a retained page set: reclaim the private entries that
+        still exist and return their pages to the free list."""
+        if psnap is None:
+            return
+        pages = self.pool.reclaim_private(psnap[1])
+        if pages:
+            self.pool.release(pages)
+            if self.tiered:
+                self._prune_host()
+
+    def _try_restore_state(self, slot: int, req: Request,
+                           n_pre: int) -> Optional[int]:
+        """Snapshot restore at re-admission: the host snapshot back into
+        the slot, and the number of prompt tokens it folded in; None when
+        the prompt must be recomputed. The ssm family needs the snapshot
+        only; a hybrid also reclaims its retained K/V pages, all or
+        nothing, since a state over a partial K/V prefix would attend
+        garbage."""
+        snap = self._state_snap.get(id(req))
+        psnap = self._page_snap.pop(id(req), None)
+        if snap is None:
+            self._drop_page_snap(psnap)
+            return None
+        consumed, tree = snap
+        if not 1 <= consumed <= n_pre:
+            self._drop_page_snap(psnap)
+            return None
+        if self.has_pages:
+            if psnap is None:
+                return None
+            pages, keys = psnap
+            if self.pool.reclaim_private(keys) is None:
+                # pressure evicted part of the retained set while the
+                # request was queued: recompute instead
+                return None
+            self.slot_pages[slot] = list(pages)
+            self.page_table[slot] = 0
+            for i, pg in enumerate(pages):
+                if pg is not None:
+                    self.page_table[slot, i] = pg
+            self.peak_slot_pages = max(self.peak_slot_pages,
+                                       len(self._held(slot)))
+        CS.reset_slot_state(self.cache["layers"], tree, slot, self._scan)
+        self.n_state_restores += 1
+        return consumed
+
     def _install_cross(self, slot: int, frames) -> None:
         """The CrossAttnStatic lifecycle: at admission the encoder runs
         once over the request's frames and each layer's cross K/V lands
@@ -461,8 +546,12 @@ class PagedServingEngine:
         req.retry_after = retry_after
         self.lifecycle_counts[str(status)] = \
             self.lifecycle_counts.get(str(status), 0) + 1
+        # nothing keyed to the request outlives it: fold bookkeeping,
+        # arrival order, its state snapshot and retained pages
         self._folded.pop(id(req), None)
         self._arrival.pop(id(req), None)
+        self._state_snap.pop(id(req), None)
+        self._drop_page_snap(self._page_snap.pop(id(req), None))
 
     def _retry_after_hint(self) -> float:
         """SHED hint: ticks to drain the current backlog at the decode
@@ -549,13 +638,18 @@ class PagedServingEngine:
         self._cow_pending.pop(slot, None)
         self._admit_order.append(slot)
         self.pos[slot] = 0
+        n_pre = len(toks) - 1              # the last token goes to decode
+        restored = self._try_restore_state(slot, req, n_pre)
+        if restored is None:
+            self._reset_slot_state(slot)
         if self.is_encdec:
             self._install_cross(slot, req.frames)
-        n_pre = len(toks) - 1              # the last token goes to decode
         start = 0
         self._reg_next[slot] = 0
         self._reg_parent[slot] = PC.ROOT_KEY
-        if self.prefix_caching and n_pre > 0:
+        if restored is not None:
+            start = restored
+        elif self.prefix_caching and n_pre > 0:
             pages, cov, tail, parent = self.pool.match_prefix(toks, n_pre)
             if pages:
                 self.page_table[slot, :len(pages)] = pages
@@ -620,14 +714,35 @@ class PagedServingEngine:
         self._prefill_at.pop(slot, None)
         self._admit_order.remove(slot)
 
+    def _retain_slot_pages(self, slot: int, req: Request) -> None:
+        """Hybrid preemption: park the slot's own K/V pages as private
+        pool entries, so re-admission can apply the state snapshot instead
+        of recomputing the folded prompt. Once the slot releases them they
+        sit unreferenced in the LRU, and pressure evicts them like any
+        cached page; the restore then recomputes (it is all or nothing).
+        A page already published (shared) cannot be made private: then
+        nothing is retained."""
+        keys = []
+        for p in self._held(slot):
+            try:
+                keys.append(self.pool.register_private(p))
+            except ValueError:
+                self._drop_page_snap(([], keys))
+                return
+        if keys:
+            self._page_snap[id(req)] = (list(self.slot_pages[slot]), keys)
+
     def _preempt(self, slot: int) -> None:
-        """Recompute preemption: fold the tokens generated since the last
-        fold into the prompt, release the slot's references and requeue
-        the request at the front; greedy decoding reproduces the rest.
-        With ``shed_after``, a request preempted that many times is shed
-        instead: terminal SHED with a retry-after hint, its references
-        released, so sustained pressure ends in an answer to the client
-        rather than in recompute churn."""
+        """Preemption: fold the tokens generated since the last fold into
+        the prompt, release the slot's references and requeue the request
+        at the front; greedy decoding reproduces the rest. A StateSlot
+        family also snapshots the slot's state to the host, and a hybrid
+        parks its pages beside it, so re-admission can skip what the
+        state has folded in; the others recompute. With ``shed_after``, a
+        request preempted that many times is shed instead: terminal SHED
+        with a retry-after hint, its references released, so sustained
+        pressure ends in an answer to the client rather than in recompute
+        churn."""
         req = self.slot_req[slot]
         req.n_preempts += 1
         if (self.shed_after is not None
@@ -639,12 +754,26 @@ class PagedServingEngine:
                            retry_after=self._retry_after_hint())
             self._release_slot(slot)
             return
+        consumed = self._prefill_at.get(slot)
         folded = self._folded.get(id(req), 0)
         fresh = req.out[folded:]
         if fresh:
             req.prompt = np.concatenate(
                 [req.prompt, np.asarray(fresh, np.int32)])
             self._folded[id(req)] = len(req.out)
+        if consumed is None:
+            # live mid-decode: the state has folded in every token of the
+            # (just folded) prompt but the last, which re-admission feeds
+            # through its first decode step
+            consumed = len(req.prompt) - 1 if self.live[slot] else 0
+        if self.has_state and consumed >= 1:
+            self._state_snap[id(req)] = (consumed, CS.snapshot_slot_state(
+                self.cache["layers"], self._fresh_state, slot, self._scan))
+            if self.has_pages and self.n_groups == 1:
+                # a multi-group hybrid recomputes: retention parks the
+                # primary table's pages only, and a restore over missing
+                # aux pages would attend garbage
+                self._retain_slot_pages(slot, req)
         LC.transition(req, Status.QUEUED, "preempted")
         self._release_slot(slot)
         self._queue.appendleft(req)
@@ -678,7 +807,10 @@ class PagedServingEngine:
         [0, n_tokens), preempting less urgent requests if the pool is
         short. False when it cannot. The groups grow in lockstep (their
         layers write the same token rows); only recycling, at each
-        group's own window, makes them differ."""
+        group's own window, makes them differ. A model without pages (the
+        ssm family) has nothing to grow."""
+        if not self.has_pages:
+            return True
         want = PagePool.pages_for(n_tokens, self.page_size)
         needs = [max(want - len(self._group_pages(g)[slot]), 0)
                  for g in range(self.n_groups)]
@@ -1005,18 +1137,26 @@ class PagedServingEngine:
         # slots, the packed batch's pad rows) get all-zero table rows, so
         # they read and write only the trash page
         rows = len(sidx)
+        keep = sel[sidx].astype(np.int32)
         pt = self._slot_tables(sidx)
-        pt = pt * sel[sidx].astype(np.int32).reshape(
-            (rows,) + (1,) * (pt.ndim - 1))
+        pt = pt * keep.reshape((rows,) + (1,) * (pt.ndim - 1))
         # the step's one upload: table (rank 3 with page-table groups),
-        # tokens, positions (and slot ids)
+        # tokens, positions, the rows' live mask (state families) and the
+        # slot ids (packed)
         dev = self._upload(np.concatenate(
             [pt.ravel(), self.last_tok[sidx], self.pos[sidx]]
+            + ([keep] if self.has_state else [])
             + ([sidx] if packed else [])))
         o = pt.size
+        tok, pos = dev[o:o + rows], dev[o + rows:o + 2 * rows]
+        o += 2 * rows
+        live = None
+        if self.has_state:
+            live = dev[o:o + rows].bool()
+            o += rows
         logits, self.cache = self._run_decode(
-            dev[:o].view(pt.shape), dev[o:o + rows],
-            dev[o + rows:o + 2 * rows], dev[o + 2 * rows:] if packed else None)
+            dev[:pt.size].view(pt.shape), tok, pos,
+            dev[o:] if packed else None, live)
         # nan_logits poisons the row that carries the slot (a packed row
         # on a packed step)
         self._poison(logits, [i for i in range(rows) if sel[sidx[i]]],
@@ -1092,13 +1232,15 @@ class PagedServingEngine:
             self.n_backend_fallbacks += 1
             return step()
 
-    def _run_decode(self, pt, tok, pos, sidx):
+    def _run_decode(self, pt, tok, pos, sidx, live):
         """One batched decode step over the masked or packed table. The
         kernels are planned for the engine's full width (``plan_slots``),
-        so a packed step rounds each slot as the masked step does."""
+        so a packed step rounds each slot as the masked step does.
+        ``live``: the rows whose recurrent state may advance (state
+        families; None otherwise)."""
         return self._ladder(lambda: lm.decode_step(
             self.params, self.cfg, self.cache, tok, pos, page_table=pt,
-            page_size=self.page_size, slot_idx=sidx,
+            page_size=self.page_size, slot_idx=sidx, live=live,
             plan_slots=self.n_slots))
 
     # ------------------------------------------------------- tiered pool
@@ -1325,23 +1467,36 @@ class PagedServingEngine:
         depends only on its token and position, and positions advance
         after the phase. A slot whose misses cannot be promoted this tick
         defers whole. Returns (tokens, finite mask or None, committed)
-        over the full slot axis, ``committed`` within ``sel``."""
+        over the full slot axis, ``committed`` within ``sel``.
+
+        State families: a run advances the state of its own slots only
+        (``live``), and every slot that ran without committing (re-run or
+        deferred: its state advanced on trash rows) rewinds to a snapshot
+        of the state taken before the phase, in one masked copy, so each
+        stream's state advances once a step however many runs it took."""
         n, mp = self.n_slots, self.max_pages
         todo = sel.copy()
         done = np.zeros_like(sel)
         nxt_out = np.zeros((n,), np.int64)
         fin_out = np.ones((n,), bool) if self.nan_guard else None
+        snap = None
+        if self.has_state:
+            snap = lm.tree_map(torch.clone, self.cache["layers"]["ssm"])
         for attempt in range(_TIERED_MAX_RUNS):
-            pt = self.page_table * todo.astype(np.int32)[:, None]
+            ran = todo.copy()
+            keep = todo.astype(np.int32)
+            pt = self.page_table * keep[:, None]
             ft = self._frame_table(pt)
-            # the run's one upload: page table, frame table, tokens and
-            # positions
+            # the run's one upload: page table, frame table, tokens,
+            # positions and (state families) the live mask
             dev = self._upload(np.concatenate(
-                [pt.ravel(), ft.ravel(), self.last_tok, self.pos]))
+                [pt.ravel(), ft.ravel(), self.last_tok, self.pos]
+                + ([keep] if self.has_state else [])))
             o = n * mp
             logits, win = self._run_decode_t(
                 dev[:o].view(n, mp), dev[o:2 * o].view(n, mp),
-                dev[2 * o:2 * o + n], dev[2 * o + n:])
+                dev[2 * o:2 * o + n], dev[2 * o + n:2 * o + 2 * n],
+                dev[2 * o + 2 * n:].bool() if self.has_state else None)
             self._poison(logits, np.flatnonzero(todo), np.arange(n))
             parts = [sample_next(logits, greedy=self.greedy, rng=rng,
                                  ticks=self.ticks)]
@@ -1388,6 +1543,9 @@ class PagedServingEngine:
                 self._repair_misses(miss, winners, todo)
                 self._fetch.drain()
                 self._prune_host()
+            stale = ran & ~done
+            if snap is not None and stale.any():
+                self._rewind(snap, stale)
             if not todo.any():
                 self.n_deferred += int((sel & ~done).sum())
                 return nxt_out, fin_out, done
@@ -1395,15 +1553,32 @@ class PagedServingEngine:
             f"tiered decode did not converge in {_TIERED_MAX_RUNS} runs "
             "(promotion/selection ping-pong; raise device_pages)")
 
-    def _run_decode_t(self, pt, ft, tok, pos):
+    def _run_decode_t(self, pt, ft, tok, pos, live):
         """The tiered twin of ``_run_decode``: the same ladder around the
         frame-table decode step -> (logits, winners)."""
         def step():
             logits, win, self.cache = lm.decode_step(
                 self.params, self.cfg, self.cache, tok, pos, page_table=pt,
-                page_size=self.page_size, frame_table=ft)
+                page_size=self.page_size, frame_table=ft, live=live)
             return logits, win
         return self._ladder(step)
+
+    def _rewind(self, snap, stale: np.ndarray) -> None:
+        """One masked copy of the pre-phase state ``snap`` over every
+        ``stale`` slot (slot axis 1 of the stacked state leaves)."""
+        mask = self._upload(stale.astype(np.int32)).bool()
+
+        def one(cur, old):
+            m = mask.reshape((1, -1) + (1,) * (cur.ndim - 2))
+            cur.copy_(torch.where(m, old, cur))
+
+        def walk(cur, old):
+            for k in cur:
+                if isinstance(cur[k], dict):
+                    walk(cur[k], old[k])
+                else:
+                    one(cur[k], old[k])
+        walk(self.cache["layers"]["ssm"], snap)
 
     def _inject_corruption(self) -> None:
         """The ``slot_corrupt`` site: silently repoint one live slot's tail
@@ -1481,13 +1656,15 @@ class PagedServingEngine:
     @property
     def bytes_per_page(self) -> int:
         """K and V bytes of one page of one layer under the layout (the
-        per-page scales of a quantized layout aside)."""
-        return CS.layer_specs(self.cfg)[0].attn.bytes_per_page(
-            self.page_size)
+        per-page scales of a quantized layout aside); 0 without pages."""
+        attn = CS.layer_specs(self.cfg)[0].attn
+        return attn.bytes_per_page(self.page_size) if attn else 0
 
     @property
     def pool_bytes(self) -> int:
         """Device bytes of every layer's pools and scale sidecars."""
+        if not self.has_pages:
+            return 0
         return sum(t.numel() * t.element_size()
                    for t in self.cache["layers"]["attn"].values())
 
@@ -1500,6 +1677,7 @@ class PagedServingEngine:
                 "n_prefill_computed_tokens": self.n_prefill_computed_tokens,
                 "n_preempted": self.n_preempted,
                 "n_cow_copies": self.n_cow_copies,
+                "n_state_restores": self.n_state_restores,
                 "n_prefix_hit_tokens": self.n_prefix_hit_tokens,
                 "prefix_hit_rate": self.prefix_hit_rate(),
                 "n_quarantined": self.n_quarantined,

@@ -126,16 +126,23 @@ def test_sampling_is_seeded():
 
 
 def test_serve_refuses_what_the_slice_lacks():
-    """What the launcher still refuses: an unknown engine kind and the
-    families not ported yet (hymba, xlstm); warm-up steps are served now
-    (``warm_steps``, tests/test_torch_families.py)."""
+    """What the launcher still refuses: an unknown engine kind and an
+    arch it does not know. Warm-up steps are served
+    (tests/test_torch_families.py), and so are the recurrent-state
+    families (hymba, xlstm; tests/test_torch_recurrent.py): xlstm, which
+    keeps no KV cache, has its policy forced to full."""
     ServeConfig(engine=EngineSection(kind="paged")).check()
     ServeConfig(warm_steps=10).check()
     with pytest.raises(ValueError, match="engine kind"):
         ServeConfig(engine=EngineSection(kind="tiered")).check()
+    with pytest.raises(ValueError, match="unknown arch"):
+        ServeConfig(engine=EngineSection(arch="gpt-0")).check()
     for arch in ("hymba-1.5b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ServeConfig(engine=EngineSection(arch=arch)).check()
+        sc = ServeConfig(engine=EngineSection(arch=arch,
+                                              policy="loki_block"))
+        sc.check()
+        want = "full" if arch == "xlstm-125m" else "loki_block"
+        assert sc.resolve_model().attn_policy() == want
 
 
 def test_serve_runs_on_cpu_when_asked():

@@ -385,8 +385,7 @@ def test_page_ranks_paged_decode_matches_jax():
 
 # ------------------------------------------------ the cache-spec registry
 
-PORTED = [a for a in JARCHS
-          if jget_smoke(a).family not in ("hybrid", "ssm")]
+PORTED = list(JARCHS)
 
 
 def _variants(arch):
@@ -435,9 +434,10 @@ def test_cache_spec_registry_matches_jax(arch):
 
 
 def test_servable_archs_are_the_references_less_stateslot_families():
-    assert CS.servable_archs() == tuple(
-        a for a in JCS.servable_archs()
-        if jget_smoke(a).family not in ("hybrid", "ssm"))
+    """Every family is served now, the StateSlot ones (hymba, xlstm)
+    included: the port's servable archs are the reference's."""
+    assert CS.servable_archs() == JCS.servable_archs()
+    assert {"hymba-1.5b", "xlstm-125m"} <= set(CS.servable_archs())
 
 
 # ------------------------------------- the paged engine vs the dense one

@@ -93,19 +93,19 @@ def test_prefill_and_decode_steps(model, backend):
 
 
 def test_unported_families_and_policies_raise():
-    """What is still refused: the hybrid (hymba) and recurrent (xlstm)
-    families, and a policy the reference does not have. The MoE family
-    (mixtral, granite), the encoder-decoder (whisper), the vlm (llava)
-    and the pcaattn and h2o policies are served now
-    (tests/test_torch_moe.py, tests/test_torch_families.py,
+    """What is still refused: a policy the reference does not have. Every
+    family is served now: the MoE family (mixtral, granite), the
+    encoder-decoder (whisper), the vlm (llava), the hybrid (hymba) and the
+    recurrent ssm family (xlstm, its heterogeneous layers a list), and the
+    pcaattn and h2o policies (tests/test_torch_moe.py,
+    tests/test_torch_families.py, tests/test_torch_recurrent.py,
     tests/test_torch_policies.py)."""
-    for arch in ("hymba-1.5b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init(get_smoke_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            lm.check_family(get_smoke_config(arch))
-    for arch in ("whisper-small", "llava-next-mistral-7b"):
-        lm.check_family(get_smoke_config(arch))
+    for arch in ("hymba-1.5b", "xlstm-125m", "whisper-small",
+                 "llava-next-mistral-7b"):
+        c = get_smoke_config(arch)
+        params = lm.init(c, device="cpu")
+        assert isinstance(params["layers"], list) == (c.family == "ssm")
+        lm.init_cache(c, 1, 32, device="cpu")
     cfg = get_smoke_config("llama2-7b")
     for policy in ("pcaattn", "h2o"):
         lm.init_cache(cfg.with_policy(policy), 1, 32, device="cpu")

@@ -208,16 +208,20 @@ def test_prefill_chunk_and_paged_decode_match_jax(arch, policy, backend):
 
 
 def test_paged_entry_points_refuse_what_is_not_ported():
-    """What the paged entry points still refuse: the StateSlot families'
-    caches and ``live`` masks (ROADMAP item 8), a tiered pool with
+    """What the paged entry points still refuse: a tiered pool with
     page-table groups (the reference refuses it too) or with per-layer
-    ranks, a rank-3 table of the wrong group count, and a tiered pool
-    over a quantized layout or outside [2, n_pages] frames, as the
-    reference refuses them."""
+    ranks (ROADMAP item 8), a rank-3 table of the wrong group count, and a
+    tiered pool over a quantized layout or outside [2, n_pages] frames,
+    as the reference refuses them. The StateSlot families' caches are
+    built now, their state per slot under ``ssm``
+    (tests/test_torch_recurrent.py)."""
     cfg = get_smoke_config("llama2-7b")
-    for arch in ("hymba-1.5b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            lm.init_paged_cache(get_smoke_config(arch), 4, 8, device="cpu")
+    hymba = lm.init_paged_cache(get_smoke_config("hymba-1.5b"), 4, 8,
+                                n_slots=3, device="cpu")["layers"]
+    assert hymba["ssm"]["ssm"].shape[1] == 3 and "attn" in hymba
+    xlstm = lm.init_paged_cache(get_smoke_config("xlstm-125m"), 4, 8,
+                                n_slots=3, device="cpu")["layers"]
+    assert [sorted(lc) for lc in xlstm] == [["ssm"]] * len(xlstm)
     with pytest.raises(NotImplementedError, match="item 8"):
         lm.init_paged_cache(cfg.with_ranks((16, 8)), 4, 8, device_pages=2,
                             device="cpu")
@@ -232,9 +236,11 @@ def test_paged_entry_points_refuse_what_is_not_ported():
     tok, pos = torch.zeros(1, dtype=torch.int32), torch.zeros(
         1, dtype=torch.int32)
     table = torch.zeros((1, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.decode_step(params, cfg, cache, tok, pos, page_table=table,
-                       page_size=8, live=torch.ones(1, dtype=torch.bool))
+    # ``live`` is served now; a family without state ignores it
+    logits = [lm.decode_step(params, cfg, cache, tok, pos, page_table=table,
+                             page_size=8, live=live)[0]
+              for live in (None, torch.zeros(1, dtype=torch.bool))]
+    assert torch.equal(*logits)
     # page-table groups: two for mixtral's (16, 0) windows; never on a
     # tiered pool
     mcfg = get_smoke_config("mixtral-8x22b").with_window_layers((16, 0))
@@ -334,15 +340,22 @@ def test_paged_preemption_reproduces_greedy_outputs():
 
 def test_engine_refuses_unported_features_and_small_pools():
     """What the engine still refuses: the trace guard (it comes with the
-    captured decode step), the StateSlot families (hymba, xlstm), a
-    tiered pool with page-table groups or under a policy other than
-    Loki's; and pools too small."""
+    captured decode step), a tiered pool with page-table groups, with no
+    paged attention to tier (xlstm) or under a policy other than Loki's;
+    and pools too small. The StateSlot families (hymba, xlstm) are served
+    (tests/test_torch_recurrent.py)."""
     params, cfg = _engine_model()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PagedServingEngine(params, cfg, trace_guard=object(), device="cpu")
     for arch in ("hymba-1.5b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            PagedServingEngine(params, get_smoke_config(arch), device="cpu")
+        scfg = get_smoke_config(arch)
+        eng = PagedServingEngine(lm.init(scfg, device="cpu"), scfg,
+                                 device="cpu")
+        assert eng.has_state and eng.has_pages == (arch == "hymba-1.5b")
+    xcfg = get_smoke_config("xlstm-125m")
+    with pytest.raises(ValueError, match="paged attention"):
+        PagedServingEngine(lm.init(xcfg, device="cpu"), xcfg,
+                           device_pages=4, device="cpu")
     mcfg = get_smoke_config("mixtral-8x22b").with_window_layers(
         (16, 0)).with_policy("loki_block")
     with pytest.raises(ValueError, match="page-table groups"):
